@@ -1,0 +1,65 @@
+"""JAX parameter trees -> the port's state_dicts (the inverse direction of
+the JAX package's convert/torch_to_jax.py).
+
+The port's modules carry the JAX package's names (layers_0, resblocks_3,
+convs1_2, ...), so a leaf's key is its tree path joined by dots. Only the
+layouts move:
+
+  Linear      (in, out)                    -> (out, in)
+  Conv1d      (K, I, O)                    -> (O, I, K)
+  Conv2d      (kh, kw, I, O)               -> (O, I, kh, kw)
+  Conv3d      (kt, kh, kw, I, O)           -> (O, I, kt, kh, kw)
+  WN conv     weight_v (K, I, O), g (O,)   -> (O, I, K), g (O, 1, 1)
+  WN convT    weight_v (K, O, I), g (I,)   -> (I, O, K), g (I, 1, 1)
+  nn.Embed    embedding                    -> nn.Embedding weight
+
+BatchNorm running statistics and pos_bias_u/v carry over as they are.
+Inputs are nested dicts of numpy arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+_WEIGHT_PERM = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+
+
+def _leaves(tree: dict[str, Any], prefix: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(value)
+
+
+def _convert_leaf(path: tuple[str, ...], x: np.ndarray) -> tuple[str, torch.Tensor]:
+    name = path[-1]
+    if name == "embedding":
+        return ".".join(path[:-1] + ("weight",)), torch.tensor(x)
+    if name == "weight" and x.ndim >= 2:
+        x = x.transpose(_WEIGHT_PERM[x.ndim])
+    elif name == "weight_v":
+        x = x.transpose(2, 1, 0)
+    elif name == "weight_g":
+        x = x.reshape(-1, 1, 1)
+    return ".".join(path), torch.tensor(np.ascontiguousarray(x))
+
+
+def jax_tree_to_state_dict(tree: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """Flat port state_dict from one JAX tree (a params or a batch_stats tree)."""
+    return dict(_convert_leaf(path, x) for path, x in _leaves(tree))
+
+
+def stage1_state_dict(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """{"params": ..., "batch_stats": ...} of MultiTargetModel -> state_dict."""
+    sd = jax_tree_to_state_dict(variables["params"])
+    sd.update(jax_tree_to_state_dict(variables.get("batch_stats", {})))
+    return sd
+
+
+def vocoder_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """MelCodeGenerator params -> state_dict."""
+    return jax_tree_to_state_dict(params)

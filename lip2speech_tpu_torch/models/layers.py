@@ -1,0 +1,143 @@
+"""Layers with torch-layout weights (JAX reference: models/layers.py).
+
+Parameters are allocated empty; `init_weights(module, generator)` fills them
+from one explicit torch.Generator with the JAX package's initialisers (torch
+defaults: uniform(+-1/sqrt(fan_in)) for conv and linear). Converted weights
+(convert/from_jax.py) overwrite them anyway.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from lip2speech_tpu_torch.ops import nn as ops
+
+
+def uniform_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=gen)
+
+
+def init_weights(root: nn.Module, gen: torch.Generator) -> None:
+    """Random init of every layer under `root` that defines init_random."""
+    for m in root.modules():
+        init = getattr(m, "init_random", None)
+        if init is not None:
+            init(gen)
+
+
+class Linear(nn.Module):
+    """y = x W^T + b, weight (out, in). init="kaiming_fan_out" is the MLP
+    head's kaiming_normal(mode='fan_out')."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 init: str = "uniform"):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self.init = init
+
+    def init_random(self, gen: torch.Generator) -> None:
+        out_f, in_f = self.weight.shape
+        with torch.no_grad():
+            if self.init == "kaiming_fan_out":
+                self.weight.normal_(0.0, math.sqrt(2.0 / out_f), generator=gen)
+            else:
+                uniform_(self.weight, in_f, gen)
+        if self.bias is not None:
+            uniform_(self.bias, in_f, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.linear(x, self.weight, self.bias)
+
+
+class _ConvNd(nn.Module):
+    """Weight (out, in/groups, *kernel); input channel-first."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, ...],
+                 stride, padding, groups: int = 1, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, *kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+        self.stride, self.padding, self.groups = stride, padding, groups
+
+    def init_random(self, gen: torch.Generator) -> None:
+        fan_in = self.weight[0].numel()
+        uniform_(self.weight, fan_in, gen)
+        if self.bias is not None:
+            uniform_(self.bias, fan_in, gen)
+
+
+class Conv1d(_ConvNd):
+    def __init__(self, in_ch, out_ch, kernel: int, padding: int = 0, groups: int = 1):
+        super().__init__(in_ch, out_ch, (kernel,), 1, padding, groups)
+
+    def forward(self, x):
+        return ops.conv1d(x, self.weight, self.bias, padding=self.padding,
+                          groups=self.groups)
+
+
+class Conv2d(_ConvNd):
+    def __init__(self, in_ch, out_ch, kernel, stride=(1, 1), padding=(0, 0),
+                 bias: bool = True):
+        super().__init__(in_ch, out_ch, tuple(kernel), tuple(stride),
+                         tuple(padding), bias=bias)
+
+    def forward(self, x):
+        return ops.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class Conv3d(_ConvNd):
+    def __init__(self, in_ch, out_ch, kernel, stride=(1, 1, 1),
+                 padding=(0, 0, 0), bias: bool = False):
+        super().__init__(in_ch, out_ch, tuple(kernel), tuple(stride),
+                         tuple(padding), bias=bias)
+
+    def forward(self, x):
+        return ops.conv3d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class BatchNorm(nn.Module):
+    """Inference batch norm over channel dim 1 (eps 1e-5), with only the
+    running statistics as buffers, as in the JAX tree."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.register_buffer("running_mean", torch.empty(features))
+        self.register_buffer("running_var", torch.empty(features))
+        self.eps = eps
+
+    def init_random(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        return ops.batch_norm(x, self.running_mean, self.running_var,
+                              self.weight, self.bias, self.eps)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim; eps 1e-12 (ESPnet)."""
+
+    def __init__(self, features: int, eps: float = 1e-12):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.eps = eps
+
+    def init_random(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return ops.layer_norm(x, self.weight, self.bias, self.eps)

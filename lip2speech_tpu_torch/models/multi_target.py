@@ -1,0 +1,85 @@
+"""Stage-1 multi-target model: video -> unit logits + mel (JAX reference:
+models/multi_target.py), with the `resnet3d` frontend only.
+
+Frontend features (25 Hz) are repeated 2x in time (50 Hz) and encoded by
+the conformer; then
+  unit head: 3-layer GELU MLP -> vocab logits                 (50 Hz)
+  mel head : concat(spk, x) -> 3x [conv1d k3 + GELU] -> Linear(d, 160)
+             -> 160 = 2 x 80 interleaved in time              (100 Hz)
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from lip2speech_tpu_torch.core.config import MultiTargetConfig
+from lip2speech_tpu_torch.models.conformer import ConformerEncoder
+from lip2speech_tpu_torch.models.layers import Conv1d, Linear
+from lip2speech_tpu_torch.models.resnet3d import ResNet3DFrontend
+from lip2speech_tpu_torch.ops import nn as ops
+
+
+def interleave_time(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(B, T, ...) -> (B, factor*T, ...), each step repeated `factor` times."""
+    return torch.repeat_interleave(x, factor, dim=1)
+
+
+class MLPHead(nn.Module):
+    def __init__(self, dim: int, out_dim: int):
+        super().__init__()
+        self.fc0 = Linear(dim, dim, init="kaiming_fan_out")
+        self.fc1 = Linear(dim, dim, init="kaiming_fan_out")
+        self.last = Linear(dim, out_dim, init="kaiming_fan_out")
+
+    def forward(self, x):
+        x = ops.gelu(self.fc0(x))
+        x = ops.gelu(self.fc1(x))
+        return self.last(x)
+
+
+class MelHead(nn.Module):
+    def __init__(self, dim: int, spk_dim: int = 256, mel_dim: int = 80):
+        super().__init__()
+        self.mel_dim = mel_dim
+        self.conv0 = Conv1d(spk_dim + dim, dim, 3, padding=1)
+        self.conv1 = Conv1d(dim, dim, 3, padding=1)
+        self.conv2 = Conv1d(dim, dim, 3, padding=1)
+        self.proj = Linear(dim, 2 * mel_dim)
+
+    def forward(self, x, spk_emb):
+        """x (B, T, D) at 50 Hz; spk_emb (B, S) -> (B, 2T, mel_dim) at 100 Hz."""
+        b, t, _ = x.shape
+        spk = spk_emb[:, :, None].expand(b, spk_emb.shape[1], t)
+        y = torch.cat([spk, x.transpose(1, 2)], dim=1)
+        for conv in (self.conv0, self.conv1, self.conv2):
+            y = ops.gelu(conv(y))
+        y = self.proj(y.transpose(1, 2))                       # (B, T, 160)
+        # channel c*2+j of step t is mel bin c of frame 2t+j
+        y = y.reshape(b, t, self.mel_dim, 2).transpose(2, 3)
+        return y.reshape(b, 2 * t, self.mel_dim)
+
+
+class MultiTargetModel(nn.Module):
+    def __init__(self, cfg: MultiTargetConfig):
+        super().__init__()
+        cf = cfg.conformer
+        self.cfg = cfg
+        self.frontend = ResNet3DFrontend()
+        self.conformer = ConformerEncoder(cf.input_dim, cf.dim, cf.ffn_dim, cf.heads,
+                                          cf.layers, cf.conv_kernel)
+        self.unit_head = MLPHead(cf.dim, cfg.units.vocab_size)
+        self.mel_head = MelHead(cf.dim, cfg.spk_emb_dim, cfg.mel_dim)
+
+    def forward(self, video, frames_mask, spk_emb) -> dict[str, torch.Tensor]:
+        """video (B, T, H, W, 1); frames_mask (B, T) bool; spk_emb (B, 256).
+
+        Returns unit_logits (B, 2T, vocab), mel (B, 4T, 80), mask (B, 2T)."""
+        feats = self.frontend(video)
+        factor = self.cfg.units.units_per_frame
+        x = interleave_time(feats, factor)
+        mask = interleave_time(frames_mask, factor)
+        x = self.conformer(x, mask)
+        return {"unit_logits": self.unit_head(x),
+                "mel": self.mel_head(x, spk_emb),
+                "mask": mask}

@@ -1,0 +1,151 @@
+"""Fused HiFi-GAN resblock trio (JAX reference: ops/pallas_fused_tail.py,
+`_fused_forward`'s `kernel`, entry `fused_resblock_trio`).
+
+One vocoder stage runs several ResBlock1 modules (kernels 3/7/11, each with
+dilation branches 1/3/5 of lrelu -> dilated conv -> lrelu -> conv ->
+residual add) over the same input and averages them: 18 convs at the default
+config. The CUDA kernel (csrc/fused_tail.cu) runs the whole trio for one row
+tile plus its halo out of shared memory; `trio_plain` is its plain version.
+Unlike the TPU kernel the port does not fold channels into 128 lanes:
+activations stay in PyTorch's (B, C, M) conv layout.
+
+Semantics both versions hold: every conv output outside the true sequence
+[0, M) is zero (each conv zero-pads its own input), the bias is added after
+the cast to the activation dtype, and the sum is divided by the number of
+resblocks.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from lip2speech_tpu_torch.ops import nn as ops
+
+LRELU_SLOPE = 0.1
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_BUDGET = 220 * 1024     # of the 227 KB a block may use on Hopper
+MAX_RES, MAX_DIL = 4, 4      # geometry table size of csrc/fused_tail.cu
+
+
+def resblock1_plain(x: torch.Tensor, branches, kernel: int,
+                    dilations: Sequence[int]) -> torch.Tensor:
+    """One ResBlock1. branches: per dilation ((w1, b1), (w2, b2)), w in
+    torch layout (C, C, K)."""
+    for ((w1, b1), (w2, b2)), d in zip(branches, dilations):
+        pad1, pad2 = ops.branch_paddings(kernel, d)
+        xt = ops.conv1d(ops.leaky_relu(x, LRELU_SLOPE), w1, b1, padding=pad1, dilation=d)
+        xt = ops.conv1d(ops.leaky_relu(xt, LRELU_SLOPE), w2, b2, padding=pad2)
+        x = x + xt
+    return x
+
+
+def trio_plain(x: torch.Tensor, weights, kernel_sizes: Sequence[int],
+               dilation_sizes: Sequence[Sequence[int]]) -> torch.Tensor:
+    """Plain version: the mean of the ResBlock1 outputs. x (B, C, M);
+    weights: per resblock, per dilation branch, ((w1, b1), (w2, b2))."""
+    acc = None
+    for rb, k, dils in zip(weights, kernel_sizes, dilation_sizes):
+        y = resblock1_plain(x, rb, k, dils)
+        acc = y if acc is None else acc + y
+    return acc / len(weights)
+
+
+def _geometry(kernel_sizes, dilation_sizes) -> tuple[list[int], int]:
+    """Flat int table for the kernel and the chain halo H (rows each side
+    a tile needs: the largest sum of a resblock's conv paddings)."""
+    n_res, n_dil = len(kernel_sizes), len(dilation_sizes[0])
+    if n_res > MAX_RES or n_dil > MAX_DIL or any(len(d) != n_dil for d in dilation_sizes):
+        raise ValueError(f"fused trio supports up to {MAX_RES} resblocks of "
+                         f"{MAX_DIL} equal-length dilation lists")
+    ks = [0] * MAX_RES
+    dil, pad1, pad2 = ([0] * (MAX_RES * MAX_DIL) for _ in range(3))
+    halo = 0
+    for r, (k, dils) in enumerate(zip(kernel_sizes, dilation_sizes)):
+        ks[r] = k
+        chain = 0
+        for i, d in enumerate(dils):
+            p1, p2 = ops.branch_paddings(k, d)
+            dil[r * MAX_DIL + i], pad1[r * MAX_DIL + i], pad2[r * MAX_DIL + i] = d, p1, p2
+            chain += p1 + p2
+        halo = max(halo, chain)
+    return [n_res, n_dil, halo] + ks + dil + pad1 + pad2, halo
+
+
+def smem_bytes(channels: int, dtype: torch.dtype, tile: int, halo: int) -> int:
+    """Shared memory of one block as csrc/fused_tail.cu lays it out: two
+    activation buffers of tile + 2*halo rows; f32 channel-major [C][rows],
+    bf16 row-major [rows + 16][C + 16] plus 8 warps' 16x16 f32 staging."""
+    rows = tile + 2 * halo
+    if dtype == torch.float32:
+        return 2 * channels * rows * 4
+    return 2 * (rows + 16) * (channels + 16) * 2 + 8 * 256 * 4
+
+
+def tile_rows(channels: int, dtype: torch.dtype, halo: int, m: int) -> int:
+    """Output rows per block: the largest multiple of 32, at most 1024 and
+    no more than the sequence needs, whose buffers fit SMEM_BUDGET."""
+    tile = min(1024, -(-m // 32) * 32)
+    while tile >= 32 and smem_bytes(channels, dtype, tile, halo) > SMEM_BUDGET:
+        tile -= 32
+    if tile < 32:
+        raise ValueError(f"fused trio: halo {halo} leaves no room for a tile "
+                         f"at {channels} channels")
+    return tile
+
+
+def fused_resblock_trio_kernel(x, weights, kernel_sizes, dilation_sizes):
+    """Launch csrc/fused_tail.cu on x (B, C, M) with C in {16, 32, 64, 128}."""
+    from lip2speech_tpu_torch.kernels import build
+
+    b, c, m = x.shape
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_resblock_trio_kernel needs CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fused trio: dtype {x.dtype} not supported (f32, bf16)")
+    if c not in (16, 32, 64, 128):
+        raise ValueError(f"fused trio kernel supports 16/32/64/128 channels, got {c}")
+    if not x.is_contiguous():
+        raise ValueError("fused trio: x must be contiguous")
+    geom, halo = _geometry(kernel_sizes, dilation_sizes)
+    w_parts, b_parts = [], []
+    for rb, k, dils in zip(weights, kernel_sizes, dilation_sizes):
+        if len(rb) != len(dils):
+            raise ValueError("fused trio: one ((w1, b1), (w2, b2)) per dilation")
+        for pair in rb:
+            for w, bias in pair:
+                if w.shape != (c, c, k) or bias.shape != (c,):
+                    raise ValueError(f"fused trio: weight {tuple(w.shape)} / bias "
+                                     f"{tuple(bias.shape)}, expected {(c, c, k)} / {(c,)}")
+                if w.device != x.device or bias.device != x.device:
+                    raise ValueError("fused trio: weights must be on x's device")
+                w_parts.append(w.permute(2, 1, 0).reshape(-1))   # (K, Cin, Cout)
+                b_parts.append(bias)
+    w_all = torch.cat(w_parts).to(x.dtype)
+    b_all = torch.stack(b_parts).to(x.dtype).contiguous()
+    tile = tile_rows(c, x.dtype, halo, m)
+    out = torch.empty_like(x)
+    geom_arr = (ctypes.c_int * len(geom))(*geom)
+    fn = build.load("fused_tail").l2s_resblock_trio
+    fn.restype = ctypes.c_int
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr] * 4 + [ctypes.c_int] * 5 + [ptr, ptr]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), w_all.data_ptr(), b_all.data_ptr(), out.data_ptr(),
+             b, c, m, _DTYPES[x.dtype], tile, ctypes.cast(geom_arr, ptr), stream)
+    build.check(err, "l2s_resblock_trio")
+    fused_resblock_trio_kernel.launches += 1
+    return out
+
+
+fused_resblock_trio_kernel.launches = 0   # kernel launches since the last reset
+
+
+def fused_resblock_trio(x, weights, kernel_sizes, dilation_sizes) -> torch.Tensor:
+    """Mean of the stage's ResBlock1 outputs: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. x (B, C, M)."""
+    if x.device.type == "cpu":
+        return trio_plain(x, weights, kernel_sizes, dilation_sizes)
+    return fused_resblock_trio_kernel(x, weights, kernel_sizes, dilation_sizes)

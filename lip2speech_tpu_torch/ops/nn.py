@@ -1,0 +1,98 @@
+"""Neural-net primitives of the port (JAX reference: lip2speech_tpu/ops/nn.py).
+
+Convolutions take PyTorch's channel-first layout, (B, C, T) / (B, C, H, W) /
+(B, C, T, H, W), with weights (Cout, Cin/groups, *kernel). The bias is added
+after the convolution, in the activation dtype, as the JAX ops do. The JAX
+package's matrix-unit reshapes (conv3d_timestack, conv1d_group_packed and
+ops/fold_conv.py) have no counterpart here: they only suit the TPU.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _add_bias(y: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    if b is None:
+        return y
+    return y + b.reshape((1, -1) + (1,) * (y.ndim - 2))
+
+
+def conv1d(x, w, b=None, stride: int = 1, padding: int = 0,
+           dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """(B, Cin, T) x (Cout, Cin/groups, K) -> (B, Cout, T'); torch.nn.Conv1d."""
+    return _add_bias(F.conv1d(x, w, None, stride, padding, dilation, groups), b)
+
+
+def conv_transpose1d(x, w, b=None, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """(B, Cin, T) x (Cin, Cout, K) -> (B, Cout, (T-1)*stride - 2*padding + K)."""
+    return _add_bias(F.conv_transpose1d(x, w, None, stride, padding), b)
+
+
+def conv2d(x, w, b=None, stride=1, padding=0) -> torch.Tensor:
+    return _add_bias(F.conv2d(x, w, None, stride, padding), b)
+
+
+def conv3d(x, w, b=None, stride=(1, 1, 1), padding=(0, 0, 0)) -> torch.Tensor:
+    return _add_bias(F.conv3d(x, w, None, stride, padding), b)
+
+
+def batch_norm(x, mean, var, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
+    """Inference-mode batch norm over channel dim 1."""
+    return F.batch_norm(x, mean, var, gamma, beta, False, 0.0, eps)
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-12) -> torch.Tensor:
+    """LayerNorm over the last dim; eps is ESPnet's 1e-12."""
+    return F.layer_norm(x, (x.shape[-1],), gamma, beta, eps)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    a, b = x.chunk(2, dim=dim)
+    return a * torch.sigmoid(b)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
+    return F.leaky_relu(x, slope)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x)
+
+
+def max_pool3d(x, kernel=(1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1)):
+    """(B, C, T, H, W) max pool; torch pads with -inf."""
+    return F.max_pool3d(x, kernel, stride, padding)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_rel_pos_encoding(length: int, d_model: int) -> np.ndarray:
+    """Transformer-XL symmetric relative positions, (2L-1, d): row 0 is
+    relative position +(L-1), the last row -(L-1) (ESPnet
+    RelPositionalEncoding). Cached per (length, d_model); do not modify."""
+    pos = np.arange(length, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float32) * -(np.log(10000.0) / d_model))
+    pe_pos = np.zeros((length, d_model), dtype=np.float32)
+    pe_pos[:, 0::2] = np.sin(pos * div)
+    pe_pos[:, 1::2] = np.cos(pos * div)
+    pe_neg = np.zeros((length, d_model), dtype=np.float32)
+    pe_neg[:, 0::2] = np.sin(-pos * div)
+    pe_neg[:, 1::2] = np.cos(-pos * div)
+    out = np.concatenate([pe_pos[::-1], pe_neg[1:]], axis=0)
+    out.setflags(write=False)
+    return out
+
+
+def branch_paddings(kernel: int, dilation: int) -> tuple[int, int]:
+    """torch get_padding of the (dilated, plain) conv pair of one HiFi-GAN
+    ResBlock1 branch (JAX reference: ops/fold_conv.py:152)."""
+    return (kernel * dilation - dilation) // 2, (kernel - 1) // 2

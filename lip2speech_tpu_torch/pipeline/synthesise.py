@@ -1,0 +1,140 @@
+"""End-to-end synthesis on the card: mouth video + speaker embedding ->
+16 kHz waveform (JAX reference: pipeline/synthesise.py).
+
+    video (B,T,88,88,1) --frontend+conformer--> unit logits (B,2T,204)
+                                            +--> mel (B,4T,80)
+    units = masked argmax ------------------+
+    vocoder(units, mel, spk) ------------------> wav (B, 640*T)
+
+The pipeline runs on CUDA unless the caller passes device="cpu"; with no card
+and no explicit device it raises. On the card the conformer's attention and
+the vocoder's <=128-channel resblock trios run the hand-written kernels;
+on the CPU the same modules run their plain versions.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from lip2speech_tpu_torch.convert import from_jax
+from lip2speech_tpu_torch.core.config import PipelineConfig
+from lip2speech_tpu_torch.decode.units import argmax_units
+from lip2speech_tpu_torch.models.layers import init_weights
+from lip2speech_tpu_torch.models.multi_target import MultiTargetModel
+from lip2speech_tpu_torch.models.vocoder import MelCodeGenerator
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The caller's device, or CUDA when none is given; never falls back."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass device='cpu' to run "
+                               "the plain versions on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+@dataclass
+class SynthesisResult:
+    wav: np.ndarray          # (n_samples,) float32 in [-1, 1], or int16 PCM
+    units: np.ndarray        # (2 * n_frames,)
+    mel: np.ndarray          # (4 * n_frames, 80) float32, or float16 with PCM
+    sample_rate: int = 16_000
+
+
+class Lip2SpeechPipeline:
+    """Stage-1 model + vocoder behind one batched call."""
+
+    def __init__(self, cfg: PipelineConfig, stage1_state: dict[str, torch.Tensor],
+                 vocoder_state: dict[str, torch.Tensor], compute_dtype: Any = None,
+                 emit_int16: bool = False, device: str | torch.device | None = None):
+        """stage1_state / vocoder_state: the port's state_dicts (loaded with
+        strict=True). compute_dtype=torch.bfloat16 casts every float32 weight
+        and buffer (BatchNorm statistics too) and the inputs, as the JAX
+        pipeline casts every float32 leaf. emit_int16 returns PCM16 waveforms
+        and float16 mels, converted on the device."""
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        self.emit_int16 = emit_int16
+        self.model = MultiTargetModel(cfg.model)
+        self.model.load_state_dict(stage1_state, strict=True)
+        self.vocoder = MelCodeGenerator(cfg.vocoder)
+        self.vocoder.load_state_dict(vocoder_state, strict=True)
+        for m in (self.model, self.vocoder):
+            m.eval().requires_grad_(False)
+            m.to(device=self.device, dtype=compute_dtype)
+
+    @classmethod
+    def from_jax_variables(cls, cfg: PipelineConfig, s1_variables: dict,
+                           vocoder_params: dict, **kwargs) -> "Lip2SpeechPipeline":
+        """From the JAX package's trees as nested dicts of numpy arrays:
+        stage 1 {"params", "batch_stats"} and the vocoder's params."""
+        return cls(cfg, from_jax.stage1_state_dict(s1_variables),
+                   from_jax.vocoder_state_dict(vocoder_params), **kwargs)
+
+    @classmethod
+    def initialize_random(cls, cfg: PipelineConfig, seed: int = 0,
+                          **kwargs) -> "Lip2SpeechPipeline":
+        """Random weights from one seeded torch.Generator (made on the CPU,
+        so a seed gives the same weights on every machine)."""
+        gen = torch.Generator().manual_seed(seed)
+        model, vocoder = MultiTargetModel(cfg.model), MelCodeGenerator(cfg.vocoder)
+        init_weights(model, gen)
+        init_weights(vocoder, gen)
+        return cls(cfg, model.state_dict(), vocoder.state_dict(), **kwargs)
+
+    @torch.inference_mode()
+    def forward(self, video: torch.Tensor, frames_mask: torch.Tensor,
+                spk_emb: torch.Tensor):
+        """Device tensors in, device tensors out: (wav, units, mel, mask)."""
+        if self.compute_dtype is not None:
+            video, spk_emb = video.to(self.compute_dtype), spk_emb.to(self.compute_dtype)
+        out = self.model(video, frames_mask, spk_emb)
+        num_special = self.cfg.model.units.num_special
+        units = argmax_units(out["unit_logits"], out["mask"], num_special)
+        units = torch.where(out["mask"], units, 0)              # pad-safe codes
+        wav = self.vocoder(units, out["mel"], spk_emb)
+        if self.emit_int16:
+            # float -> int16 truncates toward zero, as JAX's astype does
+            wav = torch.clamp(wav.float() * 32767.0, -32768, 32767).to(torch.int16)
+            mel = out["mel"].to(torch.float16)
+        else:
+            wav, mel = wav.float(), out["mel"].float()
+        return wav, units, mel, out["mask"]
+
+    def synthesise_batch(self, video: np.ndarray, frames_mask: np.ndarray,
+                         spk_emb: np.ndarray) -> list[SynthesisResult]:
+        """video (B, T, 88, 88, 1) normalised; frames_mask (B, T) bool;
+        spk_emb (B, 256). Returns one result per request, cut to its length."""
+        dev = self.device
+        frames_mask = np.asarray(frames_mask, bool)
+        wav, units, mel, _ = self.forward(
+            torch.as_tensor(np.asarray(video, np.float32), device=dev),
+            torch.as_tensor(frames_mask, device=dev),
+            torch.as_tensor(np.asarray(spk_emb, np.float32), device=dev))
+        wav, units, mel = (t.cpu().numpy() for t in (wav, units, mel))
+        spf = self.cfg.model.units.mel_per_frame * self.cfg.audio.hop_length
+        results = []
+        for i in range(frames_mask.shape[0]):
+            n = int(frames_mask[i].sum())
+            results.append(SynthesisResult(
+                wav=wav[i, : n * spf], units=units[i, : 2 * n].astype(np.int32),
+                mel=mel[i, : 4 * n], sample_rate=self.cfg.audio.sample_rate))
+        return results
+
+    def warmup(self, buckets=(48, 96, 160, 240, 360, 480, 600),
+               batch_sizes=(1,)) -> None:
+        """One call per (batch, bucket): builds the kernels and lets cuDNN
+        pick its algorithms before the first request."""
+        size = self.cfg.video.mouth_size
+        for b in batch_sizes:
+            for t in buckets:
+                mask = np.zeros((b, t), bool)
+                mask[:, 0] = True
+                self.synthesise_batch(np.zeros((b, t, size, size, 1), np.float32),
+                                      mask, np.zeros((b, self.cfg.model.spk_emb_dim), np.float32))

@@ -1,0 +1,73 @@
+"""The port stands alone: lip2speech_tpu_torch and chip_smoke.py import
+neither JAX/flax nor the JAX package, the kernels build only at first CUDA
+use, and entry points never drop to the CPU on their own."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "lip2speech_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lip2speech_tpu")
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_nothing_of_jax(path):
+    for name in _imported_modules(path):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.relative_to(REPO)} imports {name}"
+
+
+def test_port_has_the_slice_modules():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("core/config", "ops/nn", "ops/rel_attention", "ops/fused_tail",
+                "models/layers", "models/resnet3d", "models/conformer",
+                "models/multi_target", "models/vocoder", "decode/units",
+                "convert/from_jax", "pipeline/synthesise", "kernels/build"):
+        assert f"lip2speech_tpu_torch/{mod}.py" in names
+
+
+def test_pipeline_without_cuda_raises_unless_cpu_requested(monkeypatch):
+    from lip2speech_tpu_torch.pipeline import synthesise
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthesise.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthesise.Lip2SpeechPipeline(None, {}, {})
+    assert synthesise.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_import_and_cpu_path_need_no_nvcc(tmp_path):
+    """Importing the kernel modules and running their CPU paths builds and
+    loads nothing (nvcc is unreachable in the child process)."""
+    code = (
+        "import torch\n"
+        "from lip2speech_tpu_torch.kernels import build\n"
+        "from lip2speech_tpu_torch.ops import fused_tail, rel_attention\n"
+        "x = torch.randn(1, 2, 5, 4)\n"
+        "p = torch.randn(2, 9, 4)\n"
+        "rel_attention.rel_attention(x, x, x, x, p, torch.ones(1, 5, dtype=torch.bool))\n"
+        "w = [[((torch.randn(16, 16, 3), torch.zeros(16)),) * 2]]\n"
+        "fused_tail.fused_resblock_trio(torch.randn(1, 16, 9), w, (3,), ((1,),))\n"
+        "assert not build._libs\n"
+        "assert rel_attention.rel_attention_kernel.launches == 0\n"
+        "assert fused_tail.fused_resblock_trio_kernel.launches == 0\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": str(tmp_path / "no-cuda"),
+           "PYTHONPATH": str(REPO), "HOME": str(tmp_path)}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
