@@ -10,15 +10,28 @@ Phases, in order; any failure exits non-zero before the last line:
   4. fused resblock-trio kernel against its plain version, per stage width;
   5. the full-width multi_target pipeline: bf16 + PCM16 requests at batch
      4 x 240 frames (ragged) and 1 x 96, launch counts per forward, p50; then
-     the f32 kernel path against the same weights' plain path on the CPU.
+     the f32 kernel path against the same weights' plain path on the CPU;
+  6. masked flash attention kernel against its plain version (the AV-HuBERT
+     and HuBERT shapes), f32 and bf16;
+  7. bias-flash rel-position attention kernel against its plain version, and
+     its time plus the bias construction beside the shear kernel of phase 3;
+  8. the full-width multi_target_avhubert pipeline as in 5, with both
+     rel-attention implementations (LIP2SPEECH_FLASH_IMPL shear | bias), and
+     multi_target's batch-4 p50 under both;
+  9. HuBERT unit extraction at full width: a 10 s waveform -> layer-6
+     features -> 200 k-means units, against the CPU plain path;
+ 10. one request each through the multi_target_auto_avsr and
+     multi_target_raven presets: shapes and launch counts.
 Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -62,6 +75,17 @@ def set_tf32(on: bool) -> None:
     torch.backends.cudnn.allow_tf32 = on
 
 
+def ragged_mask(t, dev, b=4):
+    lens = [round(n * t / 240) for n in MAIN_LENS][:b]
+    return lens, torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+
+
+def valid_rows_err(out, ref, lens) -> float:
+    if lens is None:
+        return float((out.float() - ref).abs().max())
+    return max(float((out.float() - ref)[i, :, :n].abs().max()) for i, n in enumerate(lens))
+
+
 def phase_attention(ra, dev) -> dict:
     """Kernel 1 at the main-path shape (B4 H8 T480 dk64) and at T=470."""
     set_tf32(False)
@@ -74,13 +98,12 @@ def phase_attention(ra, dev) -> dict:
         mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
         q_u, q_v, k, v = (mk(b, h, t, dk) for _ in range(4))
         p = mk(h, 2 * t - 1, dk)
-        lens = [round(n * t / 240) for n in MAIN_LENS]
-        mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        lens, mask = ragged_mask(t, dev)
         out, lse = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask)
         f32 = [x.float() for x in (q_u, q_v, k, v, p)]
         ref = ra.dense_rel_attention(*f32, mask)            # same inputs, f32 math
         torch.cuda.synchronize()
-        err = max(float((out.float() - ref)[i, :, :lens[i]].abs().max()) for i in range(b))
+        err = valid_rows_err(out, ref, lens)
         finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all())
         tol = 1e-4 if dtype == torch.float32 else 2e-2      # bf16: output rounding
         ok = err <= tol and finite
@@ -107,6 +130,104 @@ def phase_attention(ra, dev) -> dict:
             failures.append(line)
     if failures:
         fail("rel_attention kernel disagrees with its plain version")
+    return result
+
+
+def phase_plain_attention(att, dev) -> dict:
+    """The masked attention kernel at the AV-HuBERT trunk's shape (B4 H16 T240 dk64, ragged), at a
+    T that is not a tile multiple, and at HuBERT's (B1 H12, no mask, up to the
+    4999 frames of a full extraction chunk)."""
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dk = 64
+    result, failures = None, []
+    cases = [(4, 16, 240, True, torch.bfloat16, True), (4, 16, 240, True, torch.float32, False),
+             (4, 16, 235, True, torch.bfloat16, False), (4, 16, 235, True, torch.float32, False),
+             (1, 12, 1499, False, torch.bfloat16, False), (1, 12, 1499, False, torch.float32, False),
+             (1, 12, 4999, False, torch.float32, False),    # one 1.6 M-sample chunk
+             (1, 12, 500, False, torch.float32, True)]
+    for b, h, t, masked, dtype, timed in cases:
+        q, k, v = (torch.randn(b, h, t, dk, generator=gen).to(dev, dtype) for _ in range(3))
+        lens, mask = ragged_mask(t, dev, b) if masked else (None, None)
+        out = att.attention_kernel(q, k, v, mask)
+        ref = att.reference_attention(q.float(), k.float(), v.float(), mask)   # f32 math
+        torch.cuda.synchronize()
+        err = valid_rows_err(out, ref, lens)
+        finite = bool(torch.isfinite(out.float()).all())
+        tol = 1e-4 if dtype == torch.float32 else 2e-2      # bf16: output rounding
+        name = str(dtype).replace("torch.", "")
+        line = (f"attention B{b} H{h} T{t} {'ragged' if masked else 'no mask'} {name}: "
+                f"max_abs_err {err:.3e} (tol {tol:g}) finite {finite}")
+        if timed:
+            k_ms = time_ms(lambda: att.attention_kernel(q, k, v, mask))
+            plain_ms = time_ms(lambda: att.reference_attention(q, k, v, mask))
+            lib_mask = None if mask is None else mask[:, None, None, :]
+            lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=lib_mask))
+            n_bytes = 4 * b * h * t * dk * q.element_size() + (b * t if masked else 0)
+            bms, by = bound_ms(n_bytes, 4 * b * h * t * t * dk, dtype)
+            line += (f" kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f}"
+                     f" bound_ms {bms:.4f} ({by})")
+            if dtype == torch.bfloat16:
+                result = {"max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+                          "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+        print(line, flush=True)
+        if not (err <= tol and finite):
+            failures.append(line)
+    if failures:
+        fail("attention kernel disagrees with its plain version")
+    return result
+
+
+def phase_bias_attention(ra, dev, shear_ms: float) -> dict:
+    """The bias-flash kernel at the conformer's shape (B4 H8 T480 dk64, ragged) and at
+    T=470; its time and the bias construction's beside the shear kernel's."""
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(4)
+    b, h, dk = 4, 8, 64
+    result, failures = None, []
+    for t, dtype in ((480, torch.bfloat16), (480, torch.float32),
+                     (470, torch.bfloat16), (470, torch.float32)):
+        mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
+        q_u, q_v, k, v = (mk(b, h, t, dk) for _ in range(4))
+        p = mk(h, 2 * t - 1, dk)
+        lens, mask = ragged_mask(t, dev)
+        bias = ra.rel_position_bias(q_v, p)                  # f32 whatever the input type
+        out, lse = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask)
+        ref = ra.dense_bias_attention(q_u.float(), k.float(), v.float(), bias, mask)
+        s = torch.einsum("bhqd,bhkd->bhqk", q_u.float(), k.float()) / math.sqrt(dk) + bias
+        lse_ref = torch.logsumexp(s.masked_fill(~mask[:, None, None, :], ra.NEG_INF), dim=-1)
+        torch.cuda.synchronize()
+        err = valid_rows_err(out, ref, lens)
+        lse_err = valid_rows_err(lse[..., None], lse_ref[..., None], lens)
+        finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all())
+        tol = 1e-4 if dtype == torch.float32 else 2e-2      # bf16: output rounding
+        ok = err <= tol and lse_err <= 1e-3 and finite      # the LSE is f32 for both types
+        name = str(dtype).replace("torch.", "")
+        line = (f"rel_attention_bias B{b} H{h} T{t} {name}: max_abs_err {err:.3e} (tol {tol:g}) "
+                f"lse_err {lse_err:.3e} (tol 0.001) finite {finite}")
+        if t == 480:
+            k_ms = time_ms(lambda: ra.rel_attention_bias_kernel(q_u, k, v, bias, mask))
+            build_ms = time_ms(lambda: ra.rel_position_bias(q_v, p))
+            plain_ms = time_ms(lambda: ra.dense_bias_attention(q_u, k, v, bias, mask))
+            lib_bias = bias.masked_fill(~mask[:, None, None, :], ra.NEG_INF).to(dtype)
+            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q_u, k, v, attn_mask=lib_bias))
+            sz = q_u.element_size()
+            n_bytes = 4 * b * h * t * dk * sz + 4 * b * h * t * t + b * t + b * h * t * 4
+            bms, by = bound_ms(n_bytes, 2 * 2 * b * h * t * t * dk, dtype)
+            line += (f" kernel_ms {k_ms:.4f} bias_build_ms {build_ms:.4f} plain_ms {plain_ms:.4f}"
+                     f" library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})")
+            if dtype == torch.bfloat16:
+                result = {"max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms,
+                          "bound_by": by, "library_ms": lib_ms, "bias_build_ms": build_ms}
+        print(line, flush=True)
+        if not ok:
+            failures.append(line)
+    if failures:
+        fail("rel_attention_bias kernel disagrees with its plain version")
+    print(f"rel-position attention B{b} H{h} T480 bf16: shear kernel_ms {shear_ms:.4f} | bias "
+          f"build+kernel_ms {result['bias_build_ms'] + result['ms']:.4f}", flush=True)
     return result
 
 
@@ -200,9 +321,10 @@ def check_results(results, lens, what):
                  f"mel {r.mel.shape} {r.mel.dtype}")
 
 
-def profile_request(pipe, video, mask, spk, what: str, top: int = 12) -> None:
+def profile_request(pipe, video, mask, spk, what: str, top: int = 12) -> float:
     """Device time by kernel over one request, and the device's busy share
-    of the request's wall time (torch.profiler, CUPTI)."""
+    of the request's wall time (torch.profiler, CUPTI). Returns the device's
+    busy milliseconds."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -224,47 +346,57 @@ def profile_request(pipe, video, mask, spk, what: str, top: int = 12) -> None:
     for e in rows[:top]:
         print(f"profile {what}:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}",
               flush=True)
+    return busy_ms
 
 
-def phase_pipeline(ra, ft, syn, cfg) -> dict:
-    counters = (ra.rel_attention_kernel, ft.fused_resblock_trio_kernel)
-    n_layers = cfg.model.conformer.layers
-    n_trio = sum(1 for i in range(len(cfg.vocoder.upsample_rates))
-                 if cfg.vocoder.upsample_initial_channel // 2 ** (i + 1) <= 128)
-    t0 = time.perf_counter()
-    pipe = syn.Lip2SpeechPipeline.initialize_random(cfg, seed=0, compute_dtype=torch.bfloat16,
-                                                    emit_int16=True)
-    pipe.warmup(buckets=(240,), batch_sizes=(4,))
-    pipe.warmup(buckets=(96,), batch_sizes=(1,))
-    print(f"pipeline bf16 init+warmup s {time.perf_counter() - t0:.1f}", flush=True)
-    launches = None
-    for b, frames, lens in ((4, 240, MAIN_LENS), (1, 96, (96,))):
-        video, mask, spk = request(cfg, b, frames, lens, seed=b)
-        for c in counters:
-            c.launches = 0
-        res = pipe.synthesise_batch(video, mask, spk)
-        counts = [c.launches for c in counters]
-        print(f"pipeline B{b}x{frames}: launches rel_attention {counts[0]} "
-              f"fused_trio {counts[1]} per forward", flush=True)
-        if counts != [n_layers, n_trio]:
-            fail(f"expected {n_layers} and {n_trio} launches per forward, got {counts}")
-        if launches is None:
-            launches = counts
-        check_results(res, lens, f"B{b}x{frames}")
-        times = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            pipe.synthesise_batch(video, mask, spk)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        print(f"pipeline B{b}x{frames} bf16 pcm16: p50_ms {float(np.median(times)):.3f} "
-              f"min_ms {min(times):.3f} max_ms {max(times):.3f} (10 calls)", flush=True)
-        profile_request(pipe, video, mask, spk, f"B{b}x{frames}")
-    del pipe
-    torch.cuda.empty_cache()
+@contextlib.contextmanager
+def flash_impl(impl: str):
+    """Select the rel-position attention implementation, as a user would."""
+    before = os.environ.get("LIP2SPEECH_FLASH_IMPL")
+    os.environ["LIP2SPEECH_FLASH_IMPL"] = impl
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["LIP2SPEECH_FLASH_IMPL"]
+        else:
+            os.environ["LIP2SPEECH_FLASH_IMPL"] = before
 
-    # f32, TF32 off: kernel path on the card vs the plain path on the CPU
+
+def counted_request(counters: dict, pipe, req, expected: dict, what: str):
+    """One request with every launch count set to 0 just before and read just
+    after; the counts must be exactly `expected` (kernels not named: 0).
+    counters: kernel name -> wrapper with a .launches count."""
+    for c in counters.values():
+        c.launches = 0
+    res = pipe.synthesise_batch(*req)
+    counts = {name: c.launches for name, c in counters.items()}
+    print(f"{what}: launches per forward {counts}", flush=True)
+    want = {name: expected.get(name, 0) for name in counters}
+    if counts != want:
+        fail(f"{what}: expected launches {want}, got {counts}")
+    return res
+
+
+def p50_ms(pipe, req, calls: int = 10) -> tuple[float, float, float]:
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipe.synthesise_batch(*req)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times)), min(times), max(times)
+
+
+def n_trio_stages(vcfg) -> int:
+    return sum(1 for i in range(len(vcfg.upsample_rates))
+               if vcfg.upsample_initial_channel // 2 ** (i + 1) <= 128)
+
+
+def f32_check(syn, cfg, what: str) -> None:
+    """f32, TF32 off: the kernel path on the card against the same weights'
+    plain path on the CPU at a small request; tolerance 1e-3."""
     set_tf32(False)
     cpu = syn.Lip2SpeechPipeline.initialize_random(cfg, seed=0, device="cpu")
     gpu = syn.Lip2SpeechPipeline(cfg, cpu.model.state_dict(), cpu.vocoder.state_dict())
@@ -279,12 +411,122 @@ def phase_pipeline(ra, ft, syn, cfg) -> dict:
         wav_ref = cpu.vocoder(units, ref["mel"], args[2])
         wav = gpu.vocoder(units.cuda(), ref["mel"].cuda(), args[2].cuda())
         errs["wav"] = float((wav.cpu() - wav_ref).abs().max())
-    print(f"f32 kernel path vs plain path: max_abs_err {errs} (tol 1e-3); "
+    print(f"{what} f32 kernel path vs plain path on the CPU (2 x 48 frames, no depth cut): "
+          f"max_abs_err {errs} (tol 1e-3); "
           f"|logits| max {float(ref['unit_logits'].abs().max()):.3f} "
           f"|wav| max {float(wav_ref.abs().max()):.4f}", flush=True)
     if not all(e <= 1e-3 for e in errs.values()):
-        fail("f32 kernel path disagrees with the plain path")
-    return dict(zip(("rel_attention", "fused_resblock_trio"), launches))
+        fail(f"{what}: f32 kernel path disagrees with the plain path")
+
+
+def phase_pipeline(syn, counters: dict, name: str, cfg, expected: dict) -> dict:
+    """The full-width preset `name` in bf16 + PCM16 at both request shapes:
+    exact launch counts per forward, results checked, p50 of 10 calls, one
+    profiled request each. Then the bias implementation of rel-position
+    attention: its launch counts, and the batch-4 p50 and device time of both
+    implementations side by side. Then the f32 check. Returns the launch
+    counts of the batch-4 run, with those of the bias run."""
+    t0 = time.perf_counter()
+    pipe = syn.Lip2SpeechPipeline.initialize_random(cfg, seed=0, compute_dtype=torch.bfloat16,
+                                                    emit_int16=True)
+    pipe.warmup(buckets=(240,), batch_sizes=(4,))
+    pipe.warmup(buckets=(96,), batch_sizes=(1,))
+    n_params = sum(p.numel() for m in (pipe.model, pipe.vocoder) for p in m.parameters())
+    print(f"{name} bf16 init+warmup s {time.perf_counter() - t0:.1f} parameters "
+          f"{n_params / 1e6:.1f} M", flush=True)
+    launches = {}
+    for b, frames, lens in ((4, 240, MAIN_LENS), (1, 96, (96,))):
+        req = request(cfg, b, frames, lens, seed=b)
+        res = counted_request(counters, pipe, req, expected, f"{name} B{b}x{frames}")
+        if not launches:
+            launches = {k: counters[k].launches for k in expected}
+        check_results(res, lens, f"{name} B{b}x{frames}")
+        p50, lo, hi = p50_ms(pipe, req)
+        print(f"{name} B{b}x{frames} bf16 pcm16: p50_ms {p50:.3f} min_ms {lo:.3f} "
+              f"max_ms {hi:.3f} (10 calls)", flush=True)
+        profile_request(pipe, *req, f"{name} B{b}x{frames}")
+    swapped = {("rel_attention_bias" if k == "rel_attention" else k): n
+               for k, n in expected.items()}
+    req = request(cfg, 4, 240, MAIN_LENS, seed=4)
+    with flash_impl("bias"):
+        res = counted_request(counters, pipe, req, swapped, f"{name} B4x240 impl=bias")
+        launches["rel_attention_bias"] = counters["rel_attention_bias"].launches
+        check_results(res, MAIN_LENS, f"{name} B4x240 impl=bias")
+    p50s = {"shear": [], "bias": []}
+    for impl in ("shear", "bias", "bias", "shear"):     # in turns, on one card
+        with flash_impl(impl):
+            p50s[impl].append(p50_ms(pipe, req)[0])
+    busy = {}
+    for impl in ("shear", "bias"):                      # device time is the stable reading
+        with flash_impl(impl):
+            busy[impl] = profile_request(pipe, *req, f"{name} B4x240 impl={impl}", top=0)
+    print(f"{name} B4x240 bf16 pcm16 by rel-attention impl: p50_ms (2 x 10 calls each) "
+          f"shear {p50s['shear']} bias {p50s['bias']}; device_busy_ms (one request each) "
+          f"shear {busy['shear']:.3f} bias {busy['bias']:.3f}", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    f32_check(syn, cfg, name)
+    return launches
+
+
+def phase_units(ue, km, counters: dict) -> None:
+    """HuBERT unit extraction at full width (12 heads, d 768, layer 6), f32:
+    a 10 s waveform and 200 random centroids, against the CPU plain path."""
+    set_tf32(False)
+    rng = np.random.default_rng(0)
+    wav = (0.1 * rng.standard_normal(160_000)).astype(np.float32)
+    centroids = rng.standard_normal((200, 768)).astype(np.float32)
+    gpu = ue.HubertFeatureExtractor.initialize_random(seed=0)
+    cpu = ue.HubertFeatureExtractor(gpu.model.state_dict(), device="cpu")
+    gpu.features(wav[:16_000])                              # builds, cuDNN picks algorithms
+    for c in counters.values():
+        c.launches = 0
+    feats = gpu.features(wav)
+    counts = {name: c.launches for name, c in counters.items()}
+    print(f"unit extraction 160000 samples: features {feats.shape} launches per chunk {counts}",
+          flush=True)
+    if counts != {name: (6 if name == "attention" else 0) for name in counters}:
+        fail(f"unit extraction: expected 6 attention launches per chunk, got {counts}")
+    ref = cpu.features(wav)
+    if feats.shape != (499, 768) or ref.shape != feats.shape or not np.isfinite(feats).all():
+        fail(f"unit extraction: bad features {feats.shape} vs {ref.shape}")
+    err = float(np.abs(feats - ref).max())
+    labels = km.kmeans_apply(feats, centroids)
+    labels_ref = km.kmeans_apply(ref, centroids, device="cpu")
+    d = np.sort(((ref[:, None, :].astype(np.float64) - centroids[None]) ** 2).sum(-1), axis=1)
+    clear = (d[:, 1] - d[:, 0]) > 1e-3 * d[:, 0]            # the two nearest centroids differ
+    same = bool((labels == labels_ref)[clear].all())
+    in_range = labels.dtype == np.int32 and labels.min() >= 0 and labels.max() < 200
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        km.kmeans_apply(gpu.features(wav), centroids)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    print(f"unit extraction f32: features max_abs_err vs CPU {err:.3e} (tol 1e-3); labels "
+          f"{len(set(labels.tolist()))} distinct, equal on {int(clear.sum())}/{len(clear)} "
+          f"clear frames: {same}; 10 s waveform p50_ms {float(np.median(times)):.3f} "
+          f"min_ms {min(times):.3f} (5 calls)", flush=True)
+    if not (err <= 1e-3 and same and in_range):
+        fail("unit extraction disagrees with the CPU plain path")
+
+
+def phase_other_frontends(syn, counters: dict, preset) -> None:
+    """One batch 1 x 96 request through each of the two conformer-based
+    frontends at full width: shapes and launch counts, no timing."""
+    for name in ("multi_target_auto_avsr", "multi_target_raven"):
+        cfg = preset(name)
+        pipe = syn.Lip2SpeechPipeline.initialize_random(cfg, seed=0, compute_dtype=torch.bfloat16,
+                                                        emit_int16=True)
+        n_rel = cfg.model.frontend.encoder_layers + cfg.model.conformer.layers
+        res = counted_request(counters, pipe, request(cfg, 1, 96, (96,), seed=1),
+                              {"rel_attention": n_rel,
+                               "fused_resblock_trio": n_trio_stages(cfg.vocoder)},
+                              f"{name} B1x96")
+        check_results(res, (96,), f"{name} B1x96")
+        del pipe
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -297,9 +539,12 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from lip2speech_tpu_torch.core.config import preset
     from lip2speech_tpu_torch.kernels import build
+    from lip2speech_tpu_torch.ops import attention as att
     from lip2speech_tpu_torch.ops import fused_tail as ft
+    from lip2speech_tpu_torch.ops import kmeans as km
     from lip2speech_tpu_torch.ops import rel_attention as ra
     from lip2speech_tpu_torch.pipeline import synthesise as syn
+    from lip2speech_tpu_torch.pipeline import units_extract as ue
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -314,18 +559,35 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {log.stem}: {line.strip()}", flush=True)
 
+    counters = {"rel_attention": ra.rel_attention_kernel,
+                "rel_attention_bias": ra.rel_attention_bias_kernel,
+                "attention": att.attention_kernel,
+                "fused_resblock_trio": ft.fused_resblock_trio_kernel}
     cfg = preset("multi_target")
-    attn = phase_attention(ra, dev)
+    n_trio = n_trio_stages(cfg.vocoder)
+    rel = phase_attention(ra, dev)
     trio = phase_trio(ft, dev, cfg.vocoder)
-    launches = phase_pipeline(ra, ft, syn, cfg)
+    plain = phase_plain_attention(att, dev)
+    bias = phase_bias_attention(ra, dev, rel["ms"])
+    phase_pipeline(syn, counters, "multi_target", cfg,
+                   {"rel_attention": cfg.model.conformer.layers, "fused_resblock_trio": n_trio})
+    flagship = preset("multi_target_avhubert")
+    launches = phase_pipeline(
+        syn, counters, "multi_target_avhubert", flagship,
+        {"attention": flagship.model.frontend.encoder_layers,
+         "rel_attention": flagship.model.conformer.layers, "fused_resblock_trio": n_trio})
+    phase_units(ue, km, counters)
+    phase_other_frontends(syn, counters, preset)
     pkg = "lip2speech_tpu_torch"
+    jax_ops = "lip2speech_tpu/ops"
     kernels = [
-        {"name": "rel_attention", "route": "cuda", "source": f"{pkg}/csrc/rel_attention.cu",
-         "replaces": "lip2speech_tpu/ops/pallas_rel_attention.py:127",
-         "launches": launches["rel_attention"], **attn},
-        {"name": "fused_resblock_trio", "route": "cuda", "source": f"{pkg}/csrc/fused_tail.cu",
-         "replaces": "lip2speech_tpu/ops/pallas_fused_tail.py:160",
-         "launches": launches["fused_resblock_trio"], **trio},
+        {"name": name, "route": "cuda", "source": f"{pkg}/csrc/{source}",
+         "replaces": f"{jax_ops}/{replaces}", "launches": launches[name], **numbers}
+        for name, source, replaces, numbers in (
+            ("rel_attention", "rel_attention.cu", "pallas_rel_attention.py:127", rel),
+            ("fused_resblock_trio", "fused_tail.cu", "pallas_fused_tail.py:160", trio),
+            ("rel_attention_bias", "rel_attention_bias.cu", "pallas_rel_attention.py:521", bias),
+            ("attention", "attention.cu", "pallas_attention.py:30", plain))
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)

@@ -12,13 +12,18 @@ layouts move:
   WN conv     weight_v (K, I, O), g (O,)   -> (O, I, K), g (O, 1, 1)
   WN convT    weight_v (K, O, I), g (I,)   -> (I, O, K), g (I, 1, 1)
   nn.Embed    embedding                    -> nn.Embedding weight
+  HuBERT feature-extractor convs, bare parameters conv{i}_weight
+              (K, I, O)                    -> (O, I, K)
 
-BatchNorm running statistics and pos_bias_u/v carry over as they are.
+Vectors carry over as they are: biases, norm scales, BatchNorm running
+statistics, pos_bias_u/v, PReLU alphas, layerscale gammas, GroupNorm
+weight and bias.
 Inputs are nested dicts of numpy arrays.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Iterator
 
 import numpy as np
@@ -41,7 +46,7 @@ def _convert_leaf(path: tuple[str, ...], x: np.ndarray) -> tuple[str, torch.Tens
         return ".".join(path[:-1] + ("weight",)), torch.tensor(x)
     if name == "weight" and x.ndim >= 2:
         x = x.transpose(_WEIGHT_PERM[x.ndim])
-    elif name == "weight_v":
+    elif name == "weight_v" or re.fullmatch(r"conv\d+_weight", name):
         x = x.transpose(2, 1, 0)
     elif name == "weight_g":
         x = x.reshape(-1, 1, 1)
@@ -62,4 +67,9 @@ def stage1_state_dict(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
 
 def vocoder_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:
     """MelCodeGenerator params -> state_dict."""
+    return jax_tree_to_state_dict(params)
+
+
+def hubert_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """HubertBase params -> state_dict."""
     return jax_tree_to_state_dict(params)

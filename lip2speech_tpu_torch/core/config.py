@@ -1,9 +1,10 @@
 """Typed configuration tree of the port (its own copy; the JAX package's
 core/config.py is the reference). Holds only the dataclasses the serving
-slice reads; the training and decode configs join as their slices land."""
+slices read; the training and decode configs join as their slices land."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -41,14 +42,34 @@ class ConformerConfig:
     heads: int = 8
     layers: int = 12
     conv_kernel: int = 31
-    input_dim: int = 512
+    macaron: bool = True
+    layer_norm_first: bool = True              # normalize_before
+    layerscale: bool = False                   # RAVEn extension
+    init_values: float = 0.1
+    input_dim: int = 512                       # feature dim entering the embed Linear
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Visual frontend: "resnet3d" (Conv3d + ResNet-18, the conformer-only
+    model), "avhubert" (AV-HuBERT large transformer), "auto_avsr" (frozen
+    conformer encoder) or "raven" (frozen rel-MHA transformer); the encoder_*
+    fields size the last three."""
+
+    kind: str = "resnet3d"
+    relu_type: str = "swish"
+    frozen: bool = False
+    encoder_dim: int = 512
+    encoder_heads: int = 8
+    encoder_ffn_dim: int = 2048
+    encoder_layers: int = 12
 
 
 @dataclass(frozen=True)
 class MultiTargetConfig:
-    """Stage 1 with the conformer-only `resnet3d` frontend (the only one
-    ported so far)."""
+    """Stage 1: a frontend, the conformer and the two heads."""
 
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
     conformer: ConformerConfig = field(default_factory=ConformerConfig)
     units: UnitConfig = field(default_factory=UnitConfig)
     spk_emb_dim: int = 256
@@ -76,8 +97,24 @@ class PipelineConfig:
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
 
 
+def _frozen_frontend(kind: str, dim: int, heads: int, ffn_dim: int, layers: int) -> dict:
+    return {"frontend": FrontendConfig(kind=kind, frozen=True, encoder_dim=dim,
+                                       encoder_heads=heads, encoder_ffn_dim=ffn_dim,
+                                       encoder_layers=layers),
+            "conformer": ConformerConfig(input_dim=dim)}
+
+
+_PRESETS = {
+    "multi_target": {},
+    "multi_target_avhubert": _frozen_frontend("avhubert", 1024, 16, 4096, 24),
+    "multi_target_auto_avsr": _frozen_frontend("auto_avsr", 768, 12, 3072, 12),
+    "multi_target_raven": _frozen_frontend("raven", 1024, 16, 4096, 24),
+}
+
+
 def preset(name: str) -> PipelineConfig:
-    """Named presets; the port serves the conformer-only `multi_target`."""
-    if name != "multi_target":
-        raise ValueError(f"unknown preset {name!r}; available: ['multi_target']")
-    return PipelineConfig()
+    """The four stage-1 variants of the JAX package's presets."""
+    if name not in _PRESETS:
+        raise ValueError(f"unknown preset {name!r}; available: {sorted(_PRESETS)}")
+    base = PipelineConfig()
+    return dataclasses.replace(base, model=dataclasses.replace(base.model, **_PRESETS[name]))

@@ -1,0 +1,171 @@
+// Building blocks shared by the flash-attention kernels whose score tile is
+// one product plus a per-element term (attention.cu, rel_attention_bias.cu).
+// Not compiled on its own.
+//
+// A block of 256 threads owns 64 query rows of one (batch, head) and walks
+// over key tiles of 64. Thread (ty, tx) = (tid / 16, tid % 16) owns the 4x4
+// score tile of rows 4ty.. and keys 4tx.., and the 4x4 output tile of rows
+// 4ty.. and channels 4tx... The 16 threads that share a row group are half a
+// warp, so row maxima and row sums are four xor-shuffles. Shared tiles are
+// f32 with a padded stride (65); inputs may be f32 or bf16, all arithmetic is
+// f32.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr int kB = 64;        // query rows per block = keys per tile
+constexpr int kD = 64;        // head dim
+constexpr int kS = kD + 1;    // padded shared-memory row stride
+constexpr int kThreads = 256;
+constexpr float kMasked = -1e30f;
+// Q, K (then the probabilities), V tiles and the key tile's mask flags
+constexpr size_t kSmemBytes = ((size_t)3 * kB * kS + kB) * sizeof(float);
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Running softmax state of a thread's four rows and its 4x4 output tile.
+struct State {
+  float m[4], l[4], acc[4][4];
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      m[a] = -INFINITY;
+      l[a] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+    }
+  }
+};
+
+// Rows row0 .. row0+63 of a (n_rows, 64) matrix into a shared tile, as f32;
+// rows past n_rows are zero.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+                                          int n_rows) {
+  for (int e = threadIdx.x; e < kB * kD; e += kThreads) {
+    const int r = e / kD, c = e % kD, g = row0 + r;
+    dst[r * kS + c] = g < n_rows ? to_f(src[(size_t)g * kD + c]) : 0.f;
+  }
+}
+
+// Mask flags of keys j0 .. j0+63: 1 valid, 0 masked, -1 past the sequence.
+// mask_row is the batch row's (T,) uint8 key mask, or nullptr for all valid.
+__device__ __forceinline__ void load_mask(float* sM, const uint8_t* __restrict__ mask_row,
+                                          int j0, int T_len) {
+  if (threadIdx.x < kB) {
+    const int j = j0 + threadIdx.x;
+    sM[threadIdx.x] =
+        j < T_len ? ((mask_row == nullptr || mask_row[j]) ? 1.f : 0.f) : -1.f;
+  }
+}
+
+// s[a][j] = sQ[4ty+a] . sK[4tx+j]
+__device__ __forceinline__ void qk_product(const float* sQ, const float* sK, int ty, int tx,
+                                           float s[4][4]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[a][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < kD; ++d) {
+    float qq[4], kk[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) qq[a] = sQ[(4 * ty + a) * kS + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kk[j] = sK[(4 * tx + j) * kS + d];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[a][j] = fmaf(qq[a], kk[j], s[a][j]);
+  }
+}
+
+// Masked keys score -1e30 (finite: a row with no valid key becomes a uniform
+// average of V), keys past the sequence -inf (weight exactly 0).
+__device__ __forceinline__ float mask_score(float score, float flag) {
+  return flag > 0.f ? score : (flag == 0.f ? kMasked : -INFINITY);
+}
+
+// One online-softmax step over a key tile: s holds the tile's masked scores
+// on entry and its unnormalised probabilities exp(s - m_new) on exit; the
+// running maximum, sum and accumulator are rescaled. Every key tile holds at
+// least one key inside the sequence, so m_new is finite.
+__device__ __forceinline__ void softmax_step(float s[4][4], State& st) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    float mx = fmaxf(fmaxf(s[a][0], s[a][1]), fmaxf(s[a][2], s[a][3]));
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(st.m[a], mx);
+    const float alpha = expf(st.m[a] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[a][j] = expf(s[a][j] - m_new);
+      rs += s[a][j];
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+    st.l[a] = st.l[a] * alpha + rs;
+    st.m[a] = m_new;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) st.acc[a][c] *= alpha;
+  }
+}
+
+// acc += P V for one key tile. The probabilities go through the key tile's
+// shared buffer (sK), so every thread must have finished reading the keys:
+// the function synchronises the block before and after writing them.
+__device__ __forceinline__ void pv_product(float* sK, const float* sV, int ty, int tx,
+                                           const float s[4][4], State& st) {
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sK[(4 * ty + a) * kS + 4 * tx + j] = s[a][j];
+  __syncthreads();
+#pragma unroll 4
+  for (int j = 0; j < kB; ++j) {
+    float pa[4], vv[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) pa[a] = sK[(4 * ty + a) * kS + j];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) vv[c] = sV[j * kS + 4 * tx + c];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st.acc[a][c] = fmaf(pa[a], vv[c], st.acc[a][c]);
+  }
+}
+
+// O = acc / max(l, 1e-20) for the thread's rows inside the sequence; with
+// lse != nullptr also the row's log-sum-exp m + log(max(l, 1e-20)).
+template <typename T>
+__device__ __forceinline__ void write_out(T* __restrict__ out, float* __restrict__ lse,
+                                          int i0, int T_len, int ty, int tx, const State& st) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = i0 + 4 * ty + a;
+    if (i >= T_len) continue;
+    const float l = fmaxf(st.l[a], 1e-20f);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      out[(size_t)i * kD + 4 * tx + c] = from_f<T>(st.acc[a][c] / l);
+    if (lse != nullptr && tx == 0) lse[i] = st.m[a] + logf(l);
+  }
+}
+
+}  // namespace flash

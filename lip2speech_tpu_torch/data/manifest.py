@@ -1,0 +1,51 @@
+"""Manifest and label file IO (the port's own copy of what unit extraction
+reads from the JAX package's data/manifest.py).
+
+  * TSV manifest: first line = dataset root; then per-utterance rows
+      id \\t video_rel_path \\t audio_rel_path \\t n_video_frames \\t n_audio_samples
+  * .unt: one line per utterance, space-separated unit ids (0..199), parallel
+    to the TSV rows
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+
+
+@dataclass
+class Utterance:
+    uid: str
+    video_path: Path
+    audio_path: Path
+    n_frames: int
+    n_samples: int
+    units: np.ndarray | None = None          # raw unit ids 0..199
+
+
+def read_manifest(tsv_path: str | Path, unt_path: str | Path | None = None,
+                  root_override: str | Path | None = None) -> list[Utterance]:
+    tsv_path = Path(tsv_path)
+    lines = tsv_path.read_text().strip().split("\n")
+    root = Path(root_override) if root_override is not None else Path(lines[0].strip())
+    utts = []
+    for line in lines[1:]:
+        uid, video, audio, n_frames, n_samples = line.rstrip("\n").split("\t")[:5]
+        utts.append(Utterance(uid=uid, video_path=root / video, audio_path=root / audio,
+                              n_frames=int(n_frames), n_samples=int(n_samples)))
+    if unt_path is not None:
+        unit_lines = Path(unt_path).read_text().strip().split("\n")
+        if len(unit_lines) != len(utts):
+            raise ValueError(
+                f"{unt_path}: {len(unit_lines)} label rows vs {len(utts)} manifest rows")
+        for utt, ul in zip(utts, unit_lines):
+            utt.units = np.array([int(u) for u in ul.split()], dtype=np.int32)
+    return utts
+
+
+def write_units(unt_path: str | Path, unit_rows: list[np.ndarray]) -> None:
+    Path(unt_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(unt_path).write_text(
+        "\n".join(" ".join(str(int(u)) for u in row) for row in unit_rows) + "\n")

@@ -2,8 +2,9 @@
 
 Each csrc/*.cu file has a plain C interface and is compiled by nvcc on its
 own into a shared library for sm_90a (no PyTorch headers, so a build takes
-seconds). All sources are compiled together, one nvcc process each, into
-kernels/_build/<hash of the sources and flags>/ (git-ignored), so a fresh
+seconds); csrc/*.cuh headers are shared by the sources and never compiled on
+their own. All sources are compiled together, one nvcc process each, into
+kernels/_build/<hash of the sources, headers and flags>/ (git-ignored), so a fresh
 checkout builds everything on its first CUDA call and an unchanged tree
 reuses the libraries. Nothing here runs at import time.
 """

@@ -1,6 +1,8 @@
-"""Macaron conformer encoder with Transformer-XL relative-position attention
-(JAX reference: models/conformer.py), inference only: no dropout, no
-layerscale, no drop-path. Activations are (B, T, D); masks (B, T), True =
+"""Conformer encoder with Transformer-XL relative-position attention (JAX
+reference: models/conformer.py), inference only: no dropout, no drop-path.
+The flags cover the stage-1 trunk and the Auto-AVSR frontend (macaron, conv
+module) and the RAVEn transformer (neither, with layerscale and BatchNorm
+FFN pre-norms). Activations are (B, T, D); masks (B, T), True =
 valid. Attention goes through ops/rel_attention.py, which launches the CUDA
 kernel on the card and runs the plain version on the CPU.
 """
@@ -82,48 +84,103 @@ class ConvModule(nn.Module):
 
 
 class ConformerLayer(nn.Module):
-    """Macaron FFN x0.5 + rel-MHA + conv module + FFN x0.5, pre-norm, final LN."""
+    """[macaron FFN x0.5] + rel-MHA + [conv module] + FFN (x0.5 with macaron),
+    each a residual branch normed before (normalize_before) or after; a final
+    LN when the conv module is on. layerscale multiplies each branch by a
+    learned per-channel gamma; ff_bn_pre makes the FFN and conv norms
+    BatchNorm instead of LayerNorm (RAVEn)."""
 
-    def __init__(self, dim: int, ffn_dim: int, heads: int, conv_kernel: int = 31):
+    def __init__(self, dim: int, ffn_dim: int, heads: int, conv_kernel: int = 31,
+                 macaron: bool = True, use_conv: bool = True, normalize_before: bool = True,
+                 layerscale: bool = False, init_values: float = 0.1, ff_bn_pre: bool = False):
         super().__init__()
-        self.norm_ff_macaron = LayerNorm(dim)
-        self.feed_forward_macaron = FeedForward(dim, ffn_dim)
+        self.normalize_before = normalize_before
+        self.ff_scale = 0.5 if macaron else 1.0
+        self.init_values = init_values
+        ff_norm = BatchNorm if ff_bn_pre else LayerNorm
+        branches = [("ff_macaron", macaron), ("mha", True), ("conv", use_conv), ("ff", True)]
+        self.branches = [name for name, on in branches if on]
+        if macaron:
+            self.norm_ff_macaron = ff_norm(dim)
+            self.feed_forward_macaron = FeedForward(dim, ffn_dim)
         self.norm_mha = LayerNorm(dim)
         self.self_attn = RelPositionMultiHeadAttention(dim, heads)
-        self.norm_conv = LayerNorm(dim)
-        self.conv_module = ConvModule(dim, conv_kernel)
-        self.norm_ff = LayerNorm(dim)
+        if use_conv:
+            self.norm_conv = ff_norm(dim)
+            self.conv_module = ConvModule(dim, conv_kernel)
+            self.norm_final = LayerNorm(dim)
+        self.norm_ff = ff_norm(dim)
         self.feed_forward = FeedForward(dim, ffn_dim)
-        self.norm_final = LayerNorm(dim)
+        if layerscale:
+            for name in self.branches:
+                setattr(self, f"gamma_{name}", nn.Parameter(torch.empty(dim)))
+        self.layerscale = layerscale
+
+    def init_random(self, gen: torch.Generator) -> None:
+        if self.layerscale:
+            with torch.no_grad():
+                for name in self.branches:
+                    getattr(self, f"gamma_{name}").fill_(self.init_values)
+
+    def _norm(self, name: str, x):
+        norm = getattr(self, f"norm_{name}")
+        if isinstance(norm, BatchNorm):                     # over channels, (B, T, D) input
+            return norm(x.transpose(1, 2)).transpose(1, 2)
+        return norm(x)
+
+    def _branch(self, name: str, fn, scale: float, x):
+        y = fn(self._norm(name, x) if self.normalize_before else x)
+        if self.layerscale:
+            y = getattr(self, f"gamma_{name}") * y
+        x = x + (y if scale == 1.0 else scale * y)
+        return x if self.normalize_before else self._norm(name, x)
 
     def forward(self, x, pos_emb, mask):
-        x = x + 0.5 * self.feed_forward_macaron(self.norm_ff_macaron(x))
-        x = x + self.self_attn(self.norm_mha(x), pos_emb, mask)
-        x = x + self.conv_module(self.norm_conv(x))
-        x = x + 0.5 * self.feed_forward(self.norm_ff(x))
-        return self.norm_final(x)
+        if "ff_macaron" in self.branches:
+            x = self._branch("ff_macaron", self.feed_forward_macaron, 0.5, x)
+        x = self._branch("mha", lambda y: self.self_attn(y, pos_emb, mask), 1.0, x)
+        if "conv" in self.branches:
+            x = self._branch("conv", self.conv_module, 1.0, x)
+        x = self._branch("ff", self.feed_forward, self.ff_scale, x)
+        return self.norm_final(x) if "conv" in self.branches else x
 
 
 class ConformerEncoder(nn.Module):
-    """embed Linear, x sqrt(d), rel-pos table, N layers, after-norm."""
+    """embed Linear, x sqrt(d), rel-pos table, N layers, after-norm (with
+    normalize_before)."""
 
     def __init__(self, input_dim: int = 512, dim: int = 512, ffn_dim: int = 2048,
-                 heads: int = 8, layers: int = 12, conv_kernel: int = 31):
+                 heads: int = 8, layers: int = 12, conv_kernel: int = 31,
+                 macaron: bool = True, use_conv: bool = True, normalize_before: bool = True,
+                 layerscale: bool = False, init_values: float = 0.1, ff_bn_pre: bool = False):
         super().__init__()
         self.dim = dim
         self.embed = Linear(input_dim, dim)
         for i in range(layers):
-            self.add_module(f"layers_{i}", ConformerLayer(dim, ffn_dim, heads, conv_kernel))
+            self.add_module(f"layers_{i}", ConformerLayer(
+                dim, ffn_dim, heads, conv_kernel, macaron, use_conv, normalize_before,
+                layerscale, init_values, ff_bn_pre))
         self.n_layers = layers
-        self.after_norm = LayerNorm(dim)
+        self.after_norm = LayerNorm(dim) if normalize_before else None
+        self._pos_tables: dict = {}        # (T, dtype, device) -> (2T-1, dim) table
+
+    def _pos_table(self, t: int, dtype, device) -> torch.Tensor:
+        key = (t, dtype, device)
+        pe = self._pos_tables.get(key)
+        if pe is None:
+            if len(self._pos_tables) >= 16:                 # a few buckets in practice
+                self._pos_tables.clear()
+            with torch.inference_mode(False):               # usable in any later mode
+                pe = torch.tensor(ops.sinusoidal_rel_pos_encoding(t, self.dim),
+                                  dtype=dtype, device=device)
+            self._pos_tables[key] = pe
+        return pe
 
     def forward(self, x, mask):
         """x (B, T, F) frontend features; mask (B, T) -> (B, T, dim)."""
         x = self.embed(x)
-        t = x.shape[1]
-        pe = torch.tensor(ops.sinusoidal_rel_pos_encoding(t, self.dim),
-                          dtype=x.dtype, device=x.device)
+        pe = self._pos_table(x.shape[1], x.dtype, x.device)
         x = x * float(math.sqrt(self.dim))
         for i in range(self.n_layers):
             x = getattr(self, f"layers_{i}")(x, pe, mask)
-        return self.after_norm(x)
+        return x if self.after_norm is None else self.after_norm(x)

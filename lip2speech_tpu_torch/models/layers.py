@@ -126,7 +126,8 @@ class BatchNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last dim; eps 1e-12 (ESPnet)."""
+    """LayerNorm over the last dim; eps 1e-12 (ESPnet) unless given (the
+    wav2vec2-style modules pass fairseq's 1e-5)."""
 
     def __init__(self, features: int, eps: float = 1e-12):
         super().__init__()
@@ -141,3 +142,32 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return ops.layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU over channel dim 1, alpha 0.25 at init."""
+
+    def __init__(self, features: int = 1):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features))
+
+    def init_random(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(0.25)
+
+    def forward(self, x):
+        return ops.prelu(x, self.weight)
+
+
+def activation(name: str, features: int | None = None):
+    """Activation factory over the relu_type choices; "prelu" is a module
+    with parameters, the others are plain functions."""
+    if name == "swish":
+        return ops.swish
+    if name == "relu":
+        return torch.relu
+    if name == "gelu":
+        return ops.gelu
+    if name == "prelu":
+        return PReLU(features or 1)
+    raise ValueError(f"unknown activation {name!r}")

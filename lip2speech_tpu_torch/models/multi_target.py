@@ -1,5 +1,7 @@
 """Stage-1 multi-target model: video -> unit logits + mel (JAX reference:
-models/multi_target.py), with the `resnet3d` frontend only.
+models/multi_target.py), with one of four frontends: `resnet3d`, `avhubert`
+(AV-HuBERT encoder), `auto_avsr` (ResNet3D + conformer encoder) or `raven`
+(ResNet3D + rel-MHA transformer with layerscale and BatchNorm pre-norms).
 
 Frontend features (25 Hz) are repeated 2x in time (50 Hz) and encoded by
 the conformer; then
@@ -14,6 +16,7 @@ import torch
 from torch import nn
 
 from lip2speech_tpu_torch.core.config import MultiTargetConfig
+from lip2speech_tpu_torch.models.avhubert import AVHubertEncoder
 from lip2speech_tpu_torch.models.conformer import ConformerEncoder
 from lip2speech_tpu_torch.models.layers import Conv1d, Linear
 from lip2speech_tpu_torch.models.resnet3d import ResNet3DFrontend
@@ -65,17 +68,40 @@ class MultiTargetModel(nn.Module):
         super().__init__()
         cf = cfg.conformer
         self.cfg = cfg
-        self.frontend = ResNet3DFrontend()
+        fe = cfg.frontend
+        if fe.kind == "resnet3d":
+            self.frontend = ResNet3DFrontend(fe.relu_type)
+        elif fe.kind == "avhubert":
+            self.frontend = AVHubertEncoder(fe.encoder_dim, fe.encoder_heads,
+                                            fe.encoder_ffn_dim, fe.encoder_layers)
+        elif fe.kind in ("auto_avsr", "raven"):
+            raven = fe.kind == "raven"
+            self.frontend_resnet = ResNet3DFrontend("swish")
+            self.frontend_encoder = ConformerEncoder(
+                512, fe.encoder_dim, fe.encoder_ffn_dim, fe.encoder_heads, fe.encoder_layers,
+                macaron=not raven, use_conv=not raven, layerscale=raven, ff_bn_pre=raven)
+        else:
+            raise ValueError(f"unknown frontend {fe.kind!r}")
         self.conformer = ConformerEncoder(cf.input_dim, cf.dim, cf.ffn_dim, cf.heads,
-                                          cf.layers, cf.conv_kernel)
+                                          cf.layers, cf.conv_kernel, macaron=cf.macaron,
+                                          normalize_before=cf.layer_norm_first)
         self.unit_head = MLPHead(cf.dim, cfg.units.vocab_size)
         self.mel_head = MelHead(cf.dim, cfg.spk_emb_dim, cfg.mel_dim)
+
+    def extract_frontend(self, video, frames_mask) -> torch.Tensor:
+        """(B, T, H, W, 1) -> (B, T, F) frontend features at 25 Hz."""
+        kind = self.cfg.frontend.kind
+        if kind == "resnet3d":
+            return self.frontend(video)
+        if kind == "avhubert":
+            return self.frontend(video, frames_mask)
+        return self.frontend_encoder(self.frontend_resnet(video), frames_mask)
 
     def forward(self, video, frames_mask, spk_emb) -> dict[str, torch.Tensor]:
         """video (B, T, H, W, 1); frames_mask (B, T) bool; spk_emb (B, 256).
 
         Returns unit_logits (B, 2T, vocab), mel (B, 4T, 80), mask (B, 2T)."""
-        feats = self.frontend(video)
+        feats = self.extract_frontend(video, frames_mask)
         factor = self.cfg.units.units_per_frame
         x = interleave_time(feats, factor)
         mask = interleave_time(frames_mask, factor)

@@ -55,6 +55,11 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """x where x >= 0, else alpha * x, with one alpha per channel (dim 1)."""
+    return torch.where(x >= 0, x, alpha.reshape((1, -1) + (1,) * (x.ndim - 2)) * x)
+
+
 def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     a, b = x.chunk(2, dim=dim)
     return a * torch.sigmoid(b)

@@ -6,10 +6,13 @@
     units = masked argmax ------------------+
     vocoder(units, mel, spk) ------------------> wav (B, 640*T)
 
-The pipeline runs on CUDA unless the caller passes device="cpu"; with no card
-and no explicit device it raises. On the card the conformer's attention and
-the vocoder's <=128-channel resblock trios run the hand-written kernels;
-on the CPU the same modules run their plain versions.
+Any of the four stage-1 presets (core/config.py: `multi_target` and its
+`_avhubert`, `_auto_avsr`, `_raven` variants) builds from its config. The
+pipeline runs on CUDA unless the caller passes device="cpu"; with no card
+and no explicit device it raises. On the card the conformer's attention, the
+AV-HuBERT trunk's attention and the vocoder's <=128-channel resblock trios
+run the hand-written kernels; on the CPU the same modules run their plain
+versions.
 """
 
 from __future__ import annotations

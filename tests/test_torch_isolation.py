@@ -35,8 +35,13 @@ def test_port_has_the_slice_modules():
     for mod in ("core/config", "ops/nn", "ops/rel_attention", "ops/fused_tail",
                 "models/layers", "models/resnet3d", "models/conformer",
                 "models/multi_target", "models/vocoder", "decode/units",
-                "convert/from_jax", "pipeline/synthesise", "kernels/build"):
+                "convert/from_jax", "pipeline/synthesise", "kernels/build",
+                "ops/attention", "ops/kmeans", "models/avhubert", "models/hubert",
+                "data/manifest", "utils/audio_io", "pipeline/units_extract"):
         assert f"lip2speech_tpu_torch/{mod}.py" in names
+    csrc = {p.name for p in (REPO / "lip2speech_tpu_torch" / "csrc").iterdir()}
+    assert {"rel_attention.cu", "fused_tail.cu", "attention.cu", "rel_attention_bias.cu",
+            "flash_tile.cuh"} <= csrc
 
 
 def test_pipeline_without_cuda_raises_unless_cpu_requested(monkeypatch):
@@ -50,21 +55,44 @@ def test_pipeline_without_cuda_raises_unless_cpu_requested(monkeypatch):
     assert synthesise.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_unit_extraction_without_cuda_raises_unless_cpu_requested(monkeypatch):
+    from lip2speech_tpu_torch.ops import kmeans
+    from lip2speech_tpu_torch.pipeline import units_extract
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        units_extract.HubertFeatureExtractor({})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        units_extract.HubertFeatureExtractor.initialize_random()
+    x = torch.zeros(3, 4).numpy()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kmeans.kmeans_apply(x, x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kmeans.kmeans_fit(x, n_clusters=2)
+    assert kmeans.kmeans_apply(x, x, device="cpu").shape == (3,)
+
+
 def test_import_and_cpu_path_need_no_nvcc(tmp_path):
     """Importing the kernel modules and running their CPU paths builds and
     loads nothing (nvcc is unreachable in the child process)."""
     code = (
         "import torch\n"
         "from lip2speech_tpu_torch.kernels import build\n"
-        "from lip2speech_tpu_torch.ops import fused_tail, rel_attention\n"
+        "from lip2speech_tpu_torch.ops import attention, fused_tail, rel_attention\n"
         "x = torch.randn(1, 2, 5, 4)\n"
         "p = torch.randn(2, 9, 4)\n"
-        "rel_attention.rel_attention(x, x, x, x, p, torch.ones(1, 5, dtype=torch.bool))\n"
+        "m = torch.ones(1, 5, dtype=torch.bool)\n"
+        "rel_attention.rel_attention(x, x, x, x, p, m)\n"
+        "rel_attention.rel_attention(x, x, x, x, p, m, impl='bias')\n"
+        "attention.attention(x, x, x, m)\n"
+        "attention.attention(x, x, x, None)\n"
         "w = [[((torch.randn(16, 16, 3), torch.zeros(16)),) * 2]]\n"
         "fused_tail.fused_resblock_trio(torch.randn(1, 16, 9), w, (3,), ((1,),))\n"
         "assert not build._libs\n"
         "assert rel_attention.rel_attention_kernel.launches == 0\n"
         "assert fused_tail.fused_resblock_trio_kernel.launches == 0\n"
+        "assert rel_attention.rel_attention_bias_kernel.launches == 0\n"
+        "assert attention.attention_kernel.launches == 0\n"
     )
     env = {"PATH": "/usr/bin:/bin", "CUDA_HOME": str(tmp_path / "no-cuda"),
            "PYTHONPATH": str(REPO), "HOME": str(tmp_path)}

@@ -30,14 +30,17 @@ def _np_tree(tree):
 
 
 def _perturb(variables, seed=0):
-    """Non-trivial BN running statistics and weight-norm gains of order 1."""
+    """Non-trivial BN running statistics, weight-norm gains of order 1, PReLU
+    alphas (the weight of a module named act*) and layerscale gammas."""
     rng = np.random.default_rng(seed)
 
-    def walk(node):
+    def walk(node, name=""):
         out = {}
         for k, v in node.items():
             if isinstance(v, dict):
-                out[k] = walk(v)
+                out[k] = walk(v, k)
+            elif k.startswith("gamma_") or (k == "weight" and name.startswith("act")):
+                out[k] = rng.uniform(0.05, 0.5, v.shape).astype(np.float32)
             elif k == "running_mean":
                 out[k] = rng.normal(0, 0.1, v.shape).astype(np.float32)
             elif k == "running_var":

@@ -1,6 +1,10 @@
-"""The port's multi_target slice as a whole against the JAX pipeline (plain
-path) at tiny width on the CPU: one set of weights made by flax and carried
-across, a ragged batch of 2."""
+"""The port's serving slices as a whole against the JAX pipeline (plain
+path) at tiny width on the CPU, for each of the four stage-1 presets: one set
+of weights made by flax, perturbed and carried across, a ragged batch of 2.
+The frontend encoders are 2 layers of dim 64 (head dim 16: the plain
+versions take any head dim)."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -17,16 +21,24 @@ from test_torch_modules import _perturb
 EMB = 8
 
 
-def _cfg(c):
+def _cfg(c, kind="resnet3d"):
     voc = c.VocoderConfig(model_in_dim=80 + 2 * EMB, embedding_dim=EMB,
                           upsample_initial_channel=32)
-    conformer = c.ConformerConfig(dim=64, ffn_dim=128, heads=4, layers=2, conv_kernel=7)
-    return c.PipelineConfig(model=c.MultiTargetConfig(conformer=conformer), vocoder=voc)
+    if kind == "resnet3d":
+        frontend, input_dim = c.FrontendConfig(), 512
+    else:
+        frontend, input_dim = c.FrontendConfig(
+            kind=kind, frozen=True, encoder_dim=64, encoder_heads=4, encoder_ffn_dim=128,
+            encoder_layers=2), 64
+    conformer = c.ConformerConfig(dim=64, ffn_dim=128, heads=4, layers=2, conv_kernel=7,
+                                  input_dim=input_dim)
+    return c.PipelineConfig(model=c.MultiTargetConfig(frontend=frontend, conformer=conformer),
+                            vocoder=voc)
 
 
-@pytest.fixture(scope="module")
-def weights():
-    jp = JaxPipeline.initialize_random(_cfg(jcfg), seed=0, frames=4)
+@functools.lru_cache(maxsize=None)
+def _weights(kind):
+    jp = JaxPipeline.initialize_random(_cfg(jcfg, kind), seed=0, frames=4)
     s1 = _perturb(jp.stage1_variables, seed=1)
     voc = _perturb({"params": jp.vocoder_params}, seed=2)["params"]
     return s1, voc
@@ -41,13 +53,19 @@ def request_batch():
     return video, mask, spk
 
 
-@pytest.mark.parametrize("emit_int16", [False, True])
-def test_pipeline_matches_jax(weights, request_batch, emit_int16):
-    s1, voc = weights
+@pytest.mark.parametrize("kind,emit_int16", [
+    pytest.param("resnet3d", False, id="False"), pytest.param("resnet3d", True, id="True"),
+    pytest.param("avhubert", False, id="avhubert-False"),
+    pytest.param("avhubert", True, id="avhubert-True"),
+    pytest.param("auto_avsr", False, id="auto_avsr-False"),
+    pytest.param("raven", False, id="raven-False"),
+])
+def test_pipeline_matches_jax(request_batch, kind, emit_int16):
+    s1, voc = _weights(kind)
     jax_s1 = jax.tree_util.tree_map(np.asarray, s1)
-    ref = JaxPipeline(_cfg(jcfg), jax_s1, voc, emit_int16=emit_int16).synthesise_batch(
+    ref = JaxPipeline(_cfg(jcfg, kind), jax_s1, voc, emit_int16=emit_int16).synthesise_batch(
         *request_batch)
-    got = TorchPipeline.from_jax_variables(_cfg(tcfg), s1, voc, emit_int16=emit_int16,
+    got = TorchPipeline.from_jax_variables(_cfg(tcfg, kind), s1, voc, emit_int16=emit_int16,
                                            device="cpu").synthesise_batch(*request_batch)
     assert len(got) == len(ref) == 2
     for g, r, n in zip(got, ref, (6, 4)):
@@ -62,3 +80,16 @@ def test_pipeline_matches_jax(weights, request_batch, emit_int16):
         else:
             np.testing.assert_allclose(g.wav, r.wav, atol=2e-4, rtol=0)
             np.testing.assert_allclose(g.mel, r.mel, atol=5e-4, rtol=0)
+
+
+def test_presets_match_the_jax_presets():
+    import dataclasses
+
+    for name in ("multi_target", "multi_target_avhubert", "multi_target_auto_avsr",
+                 "multi_target_raven"):
+        ours, theirs = tcfg.preset(name).model, jcfg.preset(name).model
+        for part in ("frontend", "conformer", "units"):
+            for f in dataclasses.fields(getattr(ours, part)):
+                assert getattr(getattr(ours, part), f.name) == getattr(getattr(theirs, part), f.name)
+    with pytest.raises(ValueError, match="unknown preset"):
+        tcfg.preset("tiny")
