@@ -21,7 +21,20 @@ Phases, in order; any failure exits non-zero before the last line:
   9. HuBERT unit extraction at full width: a 10 s waveform -> layer-6
      features -> 200 k-means units, against the CPU plain path;
  10. one request each through the multi_target_auto_avsr and
-     multi_target_raven presets: shapes and launch counts.
+     multi_target_raven presets: shapes and launch counts;
+ 11. the backward kernels of both rel-position attention routes against
+     their plain versions and against autograd through the dense forward,
+     f32 and bf16, T 235 / 470 / 1200, ragged with one fully masked batch
+     row; times at the training shape B8 H8 T1200;
+ 12. in-kernel attention dropout, both routes, forward and backward, against
+     the plain versions under the identical keep mask; the kernel's mask
+     against ops/dropout_mask.py; determinism, keep rate, unbiasedness;
+ 13. stage-1 training of multi_target at full width (no depth cut): bf16
+     compute, dropout 0.1, micro-batch 8 x 600 frames, accumulation 2, three
+     optimizer steps with exact launch counts, one profiled step, one step
+     with the bias route; then two f32 steps on the card against the CPU
+     plain path; then one step of the flagship multi_target_avhubert
+     (frozen frontend: no gradient, no update).
 Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
 """
@@ -29,6 +42,7 @@ Prints one JSON line of per-kernel numbers, then, last,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -83,7 +97,7 @@ def ragged_mask(t, dev, b=4):
 def valid_rows_err(out, ref, lens) -> float:
     if lens is None:
         return float((out.float() - ref).abs().max())
-    return max(float((out.float() - ref)[i, :, :n].abs().max()) for i, n in enumerate(lens))
+    return max(float((out.float() - ref)[i, :, :n].abs().max()) for i, n in enumerate(lens) if n)
 
 
 def phase_attention(ra, dev) -> dict:
@@ -321,9 +335,9 @@ def check_results(results, lens, what):
                  f"mel {r.mel.shape} {r.mel.dtype}")
 
 
-def profile_request(pipe, video, mask, spk, what: str, top: int = 12) -> float:
-    """Device time by kernel over one request, and the device's busy share
-    of the request's wall time (torch.profiler, CUPTI). Returns the device's
+def profile_call(fn, what: str, top: int = 12) -> float:
+    """Device time by kernel over one call of fn, and the device's busy share
+    of the call's wall time (torch.profiler, CUPTI). Returns the device's
     busy milliseconds."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -331,7 +345,7 @@ def profile_request(pipe, video, mask, spk, what: str, top: int = 12) -> float:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t = time.perf_counter()
-        pipe.synthesise_batch(video, mask, spk)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     dev_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
@@ -347,6 +361,10 @@ def profile_request(pipe, video, mask, spk, what: str, top: int = 12) -> float:
         print(f"profile {what}:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}",
               flush=True)
     return busy_ms
+
+
+def profile_request(pipe, video, mask, spk, what: str, top: int = 12) -> float:
+    return profile_call(lambda: pipe.synthesise_batch(video, mask, spk), what, top)
 
 
 @contextlib.contextmanager
@@ -529,6 +547,430 @@ def phase_other_frontends(syn, counters: dict, preset) -> None:
         torch.cuda.empty_cache()
 
 
+TRAIN_SHAPE = (8, 8, 1200)        # B, H, T of the recipe: 8 x 600 frames, 2 tokens a frame
+
+
+def bwd_inputs(gen, b, h, t, dtype, dev):
+    """Random inputs of the backward kernels: ragged lengths, batch row 2
+    fully masked, the upstream gradient zero on padded query rows."""
+    mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
+    q_u, q_v, k, v = (mk(b, h, t, 64) for _ in range(4))
+    p = mk(h, 2 * t - 1, 64)
+    lens = ([t, round(0.83 * t), 0, round(0.4 * t)] * ((b + 3) // 4))[:b]
+    mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+    g = (mk(b, h, t, 64) * mask[:, None, :, None]).contiguous()
+    return (q_u, q_v, k, v, p), mask, g
+
+
+def grad_errs(got, ref):
+    """Max abs error of each gradient over max(1, max |ref|)."""
+    return [float((a.float() - r.float()).abs().max()) / max(1.0, float(r.float().abs().max()))
+            for a, r in zip(got, ref)]
+
+
+def autograd_ref(fn, inputs, g):
+    """Gradients of fn(*inputs) by PyTorch's autograd, in f32."""
+    leaves = [x.float().detach().requires_grad_() for x in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, g.float())
+
+
+def bwd_tolerance(dtype) -> float:
+    # f32: summation order (and atomics for dp); bf16: the gradients are
+    # rounded to bf16 on output (2^-9 of their magnitude) and the saved
+    # forward output that enters D = rowsum(dO o O) is bf16 too
+    return 1e-4 if dtype == torch.float32 else 1e-2
+
+
+def sdpa_bwd_ms(q, k, v, bias, g) -> float:
+    """The backward of one scaled_dot_product_attention call with the
+    position bias as a float mask (the library yardstick)."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    return time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), iters=5)
+
+
+def phase_attention_bwd(ra, dev) -> tuple[dict, dict]:
+    """Both backward kernels against their plain versions and autograd
+    through the dense forward; times at the training shape."""
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(5)
+    names = {"shear": ("dq_u", "dq_v", "dk", "dv", "dp"), "bias": ("dq_u", "dk", "dv", "dbias")}
+    worst = {"shear": 0.0, "bias": 0.0}
+    failures = []
+    for t, b, h in ((235, 4, 8), (470, 4, 8), (1200, 4, 4)):
+        for dtype in (torch.float32, torch.bfloat16):
+            (q_u, q_v, k, v, p), mask, g = bwd_inputs(gen, b, h, t, dtype, dev)
+            tol = bwd_tolerance(dtype)
+            dname = str(dtype).replace("torch.", "")
+            # shear route
+            out, lse = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask)
+            got = ra.rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g)
+            f32 = [x.float() for x in (q_u, q_v, k, v, p)]
+            plain = ra.rel_attention_bwd_plain(*f32, mask, lse, out.float(), g.float())
+            auto = autograd_ref(lambda *a: ra.dense_rel_attention(*a, mask), f32, g)
+            # bias route on the same inputs
+            bias = ra.rel_position_bias(q_v, p)
+            out_b, lse_b = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask)
+            got_b = ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse_b, out_b, g)
+            qkv = [f32[0], f32[2], f32[3]]
+            plain_b = ra.bias_attention_bwd_plain(*qkv, bias, mask, lse_b, out_b.float(), g.float())
+            auto_b = autograd_ref(lambda a, b_, c, d: ra.dense_bias_attention(a, b_, c, d, mask),
+                                  qkv + [bias], g)
+            torch.cuda.synchronize()
+            for route, grads, refs in (("shear", got, (plain, auto)), ("bias", got_b, (plain_b, auto_b))):
+                e_plain, e_auto = grad_errs(grads, refs[0]), grad_errs(grads, refs[1])
+                masked_row = max(float(x[2].float().abs().max()) for x in grads[:4])
+                finite = all(bool(torch.isfinite(x.float()).all()) for x in grads)
+                ok = max(e_plain + e_auto) <= tol and masked_row == 0.0 and finite
+                worst[route] = max(worst[route], *e_plain) if dtype == torch.bfloat16 else worst[route]
+                line = (f"rel_attention{'_bias' if route == 'bias' else ''}_bwd B{b} H{h} T{t} {dname}: "
+                        f"max err / max(1,|ref|) vs plain {dict(zip(names[route], (f'{e:.2e}' for e in e_plain)))} "
+                        f"vs autograd {max(e_auto):.2e} (tol {tol:g}); fully masked batch row max |grad| "
+                        f"{masked_row:g}; |dv| max {float(grads[-2 if route == 'bias' else 3].float().abs().max()):.3f} "
+                        f"finite {finite}")
+                print(line, flush=True)
+                if not ok:
+                    failures.append(line)
+            del plain, auto, plain_b, auto_b, got, got_b, bias
+            torch.cuda.empty_cache()
+    if failures:
+        fail("a backward kernel disagrees with its plain version")
+
+    # times at the training shape, bf16, all keys valid
+    b, h, t = TRAIN_SHAPE
+    dtype, dk, sz = torch.bfloat16, 64, 2
+    (q_u, q_v, k, v, p), _, g = bwd_inputs(gen, b, h, t, dtype, dev)
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    bhtd = b * h * t * dk
+    out, lse = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask)
+    k_ms = time_ms(lambda: ra.rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g), iters=5)
+    plain_ms = time_ms(lambda: ra.rel_attention_bwd_plain(q_u, q_v, k, v, p, mask, lse, out, g), iters=3)
+    bias = ra.rel_position_bias(q_v, p)
+    lib_ms = sdpa_bwd_ms(q_u, k, v, bias.to(dtype), g)
+    # inputs q_u q_v k v out dO and p, mask, lse once; outputs dq_u dq_v dk dv and dp once
+    n_bytes = 10 * bhtd * sz + 2 * h * (2 * t - 1) * dk * sz + b * t + b * h * t * 4
+    bms, by = bound_ms(n_bytes, 8 * 2 * b * h * t * t * dk, dtype)
+    shear = {"max_abs_err": worst["shear"], "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms,
+             "bound_by": by, "library_ms": lib_ms}
+    print(f"rel_attention_bwd B{b} H{h} T{t} bf16: kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {lib_ms:.4f} (SDPA backward, float bias mask) bound_ms {bms:.4f} ({by})",
+          flush=True)
+    out_b, lse_b = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask)
+    kb_ms = time_ms(lambda: ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse_b, out_b, g),
+                    iters=5)
+    plain_b_ms = time_ms(lambda: ra.bias_attention_bwd_plain(q_u, k, v, bias, mask, lse_b, out_b, g),
+                         iters=3)
+    dbias = ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse_b, out_b, g)[3]
+    qv_leaf, p_leaf = q_v.detach().requires_grad_(), p.detach().requires_grad_()
+    bias_leaf = ra.rel_position_bias(qv_leaf, p_leaf)
+    bias_bwd_ms = time_ms(lambda: torch.autograd.grad(bias_leaf, (qv_leaf, p_leaf), dbias,
+                                                      retain_graph=True), iters=5)
+    # inputs q_u k v out dO, bias, mask, lse once; outputs dq_u dk dv and dbias once
+    n_bytes = 8 * bhtd * sz + 2 * 4 * b * h * t * t + b * t + b * h * t * 4
+    bms_b, by_b = bound_ms(n_bytes, 5 * 2 * b * h * t * t * dk, dtype)
+    bias_res = {"max_abs_err": worst["bias"], "ms": kb_ms, "plain_ms": plain_b_ms, "bound_ms": bms_b,
+                "bound_by": by_b, "library_ms": lib_ms, "bias_autograd_ms": bias_bwd_ms}
+    print(f"rel_attention_bias_bwd B{b} H{h} T{t} bf16: kernel_ms {kb_ms:.4f} plain_ms {plain_b_ms:.4f} "
+          f"library_ms {lib_ms:.4f} bound_ms {bms_b:.4f} ({by_b}); autograd of rel_position_bias "
+          f"{bias_bwd_ms:.4f} ms: bias route backward {kb_ms + bias_bwd_ms:.4f} ms | shear route "
+          f"backward {k_ms:.4f} ms", flush=True)
+    return shear, bias_res
+
+
+def phase_dropout(ra, dm, dev) -> dict:
+    """In-kernel dropout of the four rel-attention kernels. Returns the
+    forward kernels' times at the training shape with dropout 0.1."""
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(6)
+    failures = []
+    b, h, t = 4, 8, 235
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd_tol = 1e-4 if dtype == torch.float32 else 2e-2
+        tol = bwd_tolerance(dtype)
+        dname = str(dtype).replace("torch.", "")
+        (q_u, q_v, k, v, p), mask, g = bwd_inputs(gen, b, h, t, dtype, dev)
+        lens = [int(n) for n in mask.sum(1)]
+        f32 = [x.float() for x in (q_u, q_v, k, v, p)]
+        bias = ra.rel_position_bias(q_v, p)
+        for rate in (0.1, 0.3):
+            seed = 1000 + int(rate * 10)
+            keep = dm.attention_keep_mask(seed, rate, b, h, t, dev)
+            out, lse = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask, rate, seed)
+            ref = ra.dense_rel_attention(*f32, mask, keep, rate)
+            got = ra.rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g, rate, seed)
+            plain = ra.rel_attention_bwd_plain(*f32, mask, lse, out.float(), g.float(), keep, rate)
+            out_b, lse_b = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask, rate, seed)
+            ref_b = ra.dense_bias_attention(f32[0], f32[2], f32[3], bias, mask, keep, rate)
+            got_b = ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse_b, out_b, g, rate, seed)
+            plain_b = ra.bias_attention_bwd_plain(f32[0], f32[2], f32[3], bias, mask, lse_b,
+                                                  out_b.float(), g.float(), keep, rate)
+            torch.cuda.synchronize()
+            for route, o, r, gr, pl in (("shear", out, ref, got, plain), ("bias", out_b, ref_b, got_b, plain_b)):
+                e_out, e_grad = valid_rows_err(o, r, lens), max(grad_errs(gr, pl))
+                line = (f"dropout {route} B{b} H{h} T{t} {dname} rate {rate}: forward max_abs_err "
+                        f"{e_out:.3e} (tol {fwd_tol:g}) backward max err / max(1,|ref|) {e_grad:.3e} "
+                        f"(tol {tol:g}), identical keep mask")
+                print(line, flush=True)
+                if not (e_out <= fwd_tol and e_grad <= tol):
+                    failures.append(line)
+    # the kernel's own mask: with T = 64 and V = I the output is P~ itself
+    b, h, t = 2, 8, 64
+    mk = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    q_u, q_v, k = (0.3 * mk(b, h, t, 64) for _ in range(3))
+    v = torch.eye(64, device=dev).expand(b, h, 64, 64).contiguous()
+    p = 0.3 * mk(h, 2 * t - 1, 64)
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    for rate in (0.1, 0.3):
+        n = b * h * t * t
+        sigma = math.sqrt(rate * (1 - rate) / n)
+        for route in ("shear", "bias"):
+            if route == "shear":
+                out = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask, rate, 77)[0]
+            else:
+                out = ra.rel_attention_bias_kernel(q_u, k, v, ra.rel_position_bias(q_v, p), mask,
+                                                   rate, 77)[0]
+            kept = out != 0
+            same = bool((kept == dm.attention_keep_mask(77, rate, b, h, t, dev)).all())
+            frac = float(kept.float().mean())
+            line = (f"dropout {route} mask, rate {rate}: equals ops/dropout_mask.py {same}; keep rate "
+                    f"{frac:.5f} vs {1 - rate} (3 sigma {3 * sigma:.5f}, {n} elements)")
+            print(line, flush=True)
+            if not (same and abs(frac - (1 - rate)) <= 3 * sigma):
+                failures.append(line)
+    # determinism and unbiasedness (f32, B1 H2 T128, rate 0.3, 48 seeds)
+    b, h, t = 1, 2, 128
+    q_u, q_v, k, v = (mk(b, h, t, 64) for _ in range(4))
+    p = mk(h, 2 * t - 1, 64)
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    for route in ("shear", "bias"):
+        if route == "shear":
+            f = lambda seed, rate: ra.rel_attention_kernel(q_u, q_v, k, v, p, mask, rate, seed)[0]  # noqa: E731
+        else:
+            bias = ra.rel_position_bias(q_v, p)
+            f = lambda seed, rate: ra.rel_attention_bias_kernel(q_u, k, v, bias, mask, rate, seed)[0]  # noqa: E731
+        base, a1, a1b, a2 = f(0, 0.0), f(1, 0.3), f(1, 0.3), f(2, 0.3)
+        mean = sum(f(100 + s, 0.3) for s in range(48)) / 48
+        rel = float((mean - base).abs().mean() / base.abs().mean())
+        ok = (torch.equal(a1, a1b) and not torch.allclose(a1, a2)
+              and not torch.allclose(a1, base, atol=1e-3) and rel < 0.2)
+        line = (f"dropout {route} rate 0.3: same seed equal {torch.equal(a1, a1b)}, other seed differs "
+                f"{not torch.allclose(a1, a2)}, mean of 48 seeds vs no dropout rel err {rel:.4f} (< 0.2)")
+        print(line, flush=True)
+        if not ok:
+            failures.append(line)
+    if failures:
+        fail("in-kernel dropout disagrees with its plain version")
+    # forward times with dropout on, at the training shape
+    b, h, t = TRAIN_SHAPE
+    (q_u, q_v, k, v, p), _, g = bwd_inputs(gen, b, h, t, torch.bfloat16, dev)
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    bias = ra.rel_position_bias(q_v, p)
+    times = {}
+    for rate in (0.0, 0.1):
+        out, lse = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask, rate, 5)
+        out_b, lse_b = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask, rate, 5)
+        times[rate] = {
+            "rel_attention": time_ms(lambda: ra.rel_attention_kernel(q_u, q_v, k, v, p, mask, rate, 5), iters=5),
+            "rel_attention_bwd": time_ms(lambda: ra.rel_attention_bwd_kernel(
+                q_u, q_v, k, v, p, mask, lse, out, g, rate, 5), iters=5),
+            "rel_attention_bias": time_ms(lambda: ra.rel_attention_bias_kernel(
+                q_u, k, v, bias, mask, rate, 5), iters=5),
+            "rel_attention_bias_bwd": time_ms(lambda: ra.rel_attention_bias_bwd_kernel(
+                q_u, k, v, bias, mask, lse_b, out_b, g, rate, 5), iters=5)}
+    build_ms = time_ms(lambda: ra.rel_position_bias(q_v, p), iters=5)
+    print(f"B{b} H{h} T{t} bf16 kernel_ms without dropout {times[0.0]} | with dropout 0.1 "
+          f"{times[0.1]}; rel_position_bias forward {build_ms:.4f} ms", flush=True)
+    return times[0.1]
+
+
+def train_batch(cfg, accum: int, b: int, frames: int, seed: int) -> dict:
+    """A ragged synthetic stage-1 batch in the (accum, B, ...) layout: uint8
+    video, unit tokens with eos then pad, random mel targets."""
+    rng = np.random.default_rng(seed)
+    size, units = cfg.video.mouth_size, cfg.model.units
+    lens = np.maximum(1, (frames * np.linspace(1.0, 0.5, b)).astype(int))
+    lens = np.stack([np.roll(lens, i) for i in range(accum)])            # (accum, B)
+    tok = rng.integers(units.num_special, units.vocab_size, (accum, b, 2 * frames + 1))
+    pos = np.arange(2 * frames + 1)[None, None, :]
+    tok = np.where(pos < 2 * lens[..., None], tok, units.pad)
+    tok = np.where(pos == 2 * lens[..., None], units.eos, tok)
+    return {"video": rng.integers(0, 256, (accum, b, frames, size, size, 1), dtype=np.uint8),
+            "frames_mask": np.arange(frames)[None, None, :] < lens[..., None],
+            "spk_emb": rng.standard_normal((accum, b, cfg.model.spk_emb_dim)).astype(np.float32),
+            "unit_tokens": tok,
+            "mel": rng.standard_normal((accum, b, 4 * frames, cfg.model.mel_dim)).astype(np.float32)}
+
+
+def counted_step(counters: dict, step, state, batch, expected: dict, what: str):
+    """One optimizer step with every launch count set to 0 just before and
+    read just after; returns (logs as floats, wall ms, counts)."""
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, logs = step(state, batch)
+    logs = {k: float(v) for k, v in logs.items()}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {name: c.launches for name, c in counters.items()}
+    want = {name: expected.get(name, 0) for name in counters}
+    print(f"{what}: step_ms {ms:.1f} launches {counts} loss/sample "
+          f"{logs['loss'] / max(logs['sample_size'], 1):.4f} nll/token "
+          f"{logs['nll_loss'] / max(logs['total'], 1):.4f} mel_loss {logs['mel_loss']:.4f} "
+          f"sample_size {logs['sample_size']:.0f} grad_norm {logs['grad_norm']:.4f}", flush=True)
+    if counts != want:
+        fail(f"{what}: expected launches {want}, got {counts}")
+    if not all(math.isfinite(v) for v in logs.values()):
+        fail(f"{what}: non-finite logs {logs}")
+    return logs, ms, counts
+
+
+def profile_step(step, state, batch, what: str, top: int = 14) -> float:
+    return profile_call(lambda: step(state, batch), what, top)
+
+
+def phase_train(s1, counters: dict, preset) -> dict:
+    """Stage-1 training of multi_target at full width on the card. Returns
+    the launch counts of one optimizer step (both routes)."""
+    set_tf32(True)                                  # bf16 compute; TF32 only touches f32 leftovers
+    base = preset("multi_target")
+    accum = 2
+    cfg = dataclasses.replace(base, stage1=dataclasses.replace(
+        base.stage1, warmup_updates=2, max_updates=10, update_freq=accum, bf16_compute=True))
+    layers = cfg.model.conformer.layers
+    t0 = time.perf_counter()
+    state = s1.create_train_state(cfg, seed=0)
+    step = s1.make_train_step(cfg)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    before = [p.detach().clone() for p in s1.trained_parameters(state.model)]
+    print(f"train multi_target: init s {time.perf_counter() - t0:.1f} parameters {n_params / 1e6:.1f} M "
+          f"(dropout {cfg.model.conformer.dropout}, attention dropout "
+          f"{cfg.model.conformer.attention_dropout}, bf16 compute, accumulation {accum})", flush=True)
+    expected = {"rel_attention": layers * accum, "rel_attention_bwd": layers * accum}
+    frames = None
+    for cand in (cfg.stage1.max_sample_size, 480, 360, 240):
+        batch = train_batch(cfg, accum, cfg.stage1.batch_size, cand, seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            logs1, ms1, counts = counted_step(counters, step, state, batch, expected,
+                                              f"train multi_target 8x{cand} step 1")
+        except torch.cuda.OutOfMemoryError:
+            print(f"train multi_target: micro-batch 8 x {cand} frames does not fit", flush=True)
+            state.optimizer.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            if state.step != 0:
+                fail("out of memory after the update began")
+            continue
+        frames = cand
+        break
+    if frames is None:
+        fail("no micro-batch size fits the card")
+    what = f"train multi_target 8x{frames}"
+    logs, times = [logs1], [ms1]
+    for i in (2, 3):
+        lg, ms, _ = counted_step(counters, step, state, batch, expected, f"{what} step {i}")
+        logs.append(lg)
+        times.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = max(float((p.detach() - b_).abs().max()) for p, b_ in zip(s1.trained_parameters(state.model), before))
+    per_sample = [lg["loss"] / lg["sample_size"] for lg in logs]
+    print(f"{what}: step_ms {[round(t, 1) for t in times]} p50 {float(np.median(times)):.1f}; "
+          f"peak memory {peak:.2f} GiB; parameters moved by up to {moved:.3e}; loss/sample "
+          f"{[round(x, 4) for x in per_sample]} (same batch)", flush=True)
+    if not (moved > 0 and per_sample[2] < per_sample[0] and state.step == 3):
+        fail(f"{what}: parameters did not move or the loss did not fall")
+    profile_step(step, state, batch, f"{what} shear")
+    bias_expected = {"rel_attention_bias": layers * accum, "rel_attention_bias_bwd": layers * accum}
+    with flash_impl("bias"):
+        torch.cuda.reset_peak_memory_stats()
+        _, _, bias_counts = counted_step(counters, step, state, batch, bias_expected,
+                                         f"{what} impl=bias step 5")
+        print(f"{what} impl=bias: peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+        profile_step(step, state, batch, f"{what} bias", top=6)
+    del state, step, before
+    torch.cuda.empty_cache()
+    return {**{k: counts[k] for k in expected}, **{k: bias_counts[k] for k in bias_expected}}
+
+
+def phase_train_f32_check(s1, preset) -> None:
+    """f32, TF32 off, dropout 0: two optimizer steps of the full-width
+    multi_target on the card (kernel path) against the same weights on the
+    CPU (plain path), batch 2 x 32 frames, accumulation 2. Adam's eps is
+    1e-2 here, not the recipe's 1e-8. With random weights at full width
+    single gradient elements are sensitive to rounding (a ReLU gate that
+    flips; gradients that are zero in exact arithmetic, such as a bias in
+    front of a BatchNorm, are pure noise), and Adam at eps 1e-8 turns a
+    sign flip of a tiny element into a full-rate step on either device; a
+    large eps keeps the update proportional to the gradient, so the
+    comparison is about the training function and not about its
+    conditioning. Tolerances: loss and grad_norm 1e-4 relative (sums in
+    another order), parameters and running statistics 5e-5 of max(1, a
+    tensor's largest magnitude) after the two updates (rate 0, then 1e-3)."""
+    set_tf32(False)
+    base = preset("multi_target")
+    conf = dataclasses.replace(base.model.conformer, dropout=0.0, attention_dropout=0.0)
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, conformer=conf, final_dropout=0.0),
+        stage1=dataclasses.replace(base.stage1, warmup_updates=1, max_updates=10, update_freq=2,
+                                   adam_eps=1e-2))
+    cpu = s1.create_train_state(cfg, seed=0, device="cpu")
+    gpu = s1.create_train_state(cfg, device="cuda", state_dict=cpu.model.state_dict())
+    step = s1.make_train_step(cfg)
+    batch = train_batch(cfg, 2, 2, 32, seed=3)
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for _ in range(2):
+        _, ref = step(cpu, batch)
+        _, got = step(gpu, batch)
+        for k in worst:
+            worst[k] = max(worst[k], abs(float(got[k]) - float(ref[k])) / abs(float(ref[k])))
+    sd_ref, sd_got = cpu.model.state_dict(), gpu.model.state_dict()
+    errs = {k: float((sd_got[k].cpu() - sd_ref[k]).abs().max()) / max(1.0, float(sd_ref[k].abs().max()))
+            for k in sd_ref}
+    key = max(errs, key=errs.get)
+    print(f"train multi_target f32 kernel path vs plain path on the CPU (2 steps, 2 x 32 frames, "
+          f"accumulation 2, dropout 0): relative err {worst} (tol 1e-4); parameters and running "
+          f"statistics max err / max(1,|ref|) {errs[key]:.3e} at {key} (tol 5e-5); loss "
+          f"{float(ref['loss']):.3f} grad_norm {float(ref['grad_norm']):.3f}", flush=True)
+    if not (max(worst.values()) <= 1e-4 and errs[key] <= 5e-5):
+        fail("f32 training on the kernel path disagrees with the CPU plain path")
+
+
+def phase_train_flagship(s1, counters: dict, preset) -> dict:
+    """One optimizer step of multi_target_avhubert at full width: the frozen
+    frontend takes no gradient and no update."""
+    set_tf32(True)
+    base = preset("multi_target_avhubert")
+    accum = 2
+    cfg = dataclasses.replace(base, stage1=dataclasses.replace(
+        base.stage1, warmup_updates=1, max_updates=10, update_freq=accum, bf16_compute=True))
+    state = s1.create_train_state(cfg, seed=0)
+    step = s1.make_train_step(cfg)
+    frontend = {k: v.detach().clone() for k, v in state.model.state_dict().items()
+                if k.startswith("frontend")}
+    batch = train_batch(cfg, accum, cfg.stage1.batch_size, cfg.stage1.max_sample_size, seed=1)
+    layers = cfg.model.conformer.layers
+    expected = {"attention": cfg.model.frontend.encoder_layers * accum,
+                "rel_attention": layers * accum, "rel_attention_bwd": layers * accum}
+    torch.cuda.reset_peak_memory_stats()
+    counted_step(counters, step, state, batch, expected, "train multi_target_avhubert 8x600 step 1")
+    _, _, counts = counted_step(counters, step, state, batch, expected,
+                                "train multi_target_avhubert 8x600 step 2")
+    sd = state.model.state_dict()
+    unchanged = all(torch.equal(sd[k], v) for k, v in frontend.items())
+    no_grad = all(not p.requires_grad and p.grad is None
+                  for m in state.model.frontend_modules() for p in m.parameters())
+    n_frozen = sum(p.numel() for m in state.model.frontend_modules() for p in m.parameters())
+    print(f"train multi_target_avhubert: frozen frontend ({n_frozen / 1e6:.1f} M parameters) unchanged "
+          f"{unchanged}, without gradient {no_grad}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    if not (unchanged and no_grad):
+        fail("the frozen frontend was updated")
+    del state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -540,11 +982,13 @@ def main() -> int:
     from lip2speech_tpu_torch.core.config import preset
     from lip2speech_tpu_torch.kernels import build
     from lip2speech_tpu_torch.ops import attention as att
+    from lip2speech_tpu_torch.ops import dropout_mask as dm
     from lip2speech_tpu_torch.ops import fused_tail as ft
     from lip2speech_tpu_torch.ops import kmeans as km
     from lip2speech_tpu_torch.ops import rel_attention as ra
     from lip2speech_tpu_torch.pipeline import synthesise as syn
     from lip2speech_tpu_torch.pipeline import units_extract as ue
+    from lip2speech_tpu_torch.train import stage1 as s1
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -560,7 +1004,9 @@ def main() -> int:
                 print(f"ptxas {log.stem}: {line.strip()}", flush=True)
 
     counters = {"rel_attention": ra.rel_attention_kernel,
+                "rel_attention_bwd": ra.rel_attention_bwd_kernel,
                 "rel_attention_bias": ra.rel_attention_bias_kernel,
+                "rel_attention_bias_bwd": ra.rel_attention_bias_bwd_kernel,
                 "attention": att.attention_kernel,
                 "fused_resblock_trio": ft.fused_resblock_trio_kernel}
     cfg = preset("multi_target")
@@ -578,6 +1024,17 @@ def main() -> int:
          "rel_attention": flagship.model.conformer.layers, "fused_resblock_trio": n_trio})
     phase_units(ue, km, counters)
     phase_other_frontends(syn, counters, preset)
+    shear_bwd, bias_bwd = phase_attention_bwd(ra, dev)
+    dropout_ms = phase_dropout(ra, dm, dev)
+    train_launches = phase_train(s1, counters, preset)
+    phase_train_f32_check(s1, preset)
+    phase_train_flagship(s1, counters, preset)
+    for name, numbers in (("rel_attention", rel), ("rel_attention_bias", bias),
+                          ("rel_attention_bwd", shear_bwd), ("rel_attention_bias_bwd", bias_bwd)):
+        numbers["dropout"] = "philox.cuh"
+        numbers["train_shape_dropout_ms"] = dropout_ms[name]
+        numbers["train_step_launches"] = train_launches[name]
+    launches.update({k: train_launches[k] for k in ("rel_attention_bwd", "rel_attention_bias_bwd")})
     pkg = "lip2speech_tpu_torch"
     jax_ops = "lip2speech_tpu/ops"
     kernels = [
@@ -587,7 +1044,10 @@ def main() -> int:
             ("rel_attention", "rel_attention.cu", "pallas_rel_attention.py:127", rel),
             ("fused_resblock_trio", "fused_tail.cu", "pallas_fused_tail.py:160", trio),
             ("rel_attention_bias", "rel_attention_bias.cu", "pallas_rel_attention.py:521", bias),
-            ("attention", "attention.cu", "pallas_attention.py:30", plain))
+            ("attention", "attention.cu", "pallas_attention.py:30", plain),
+            ("rel_attention_bwd", "rel_attention_bwd.cu", "pallas_rel_attention.py:180", shear_bwd),
+            ("rel_attention_bias_bwd", "rel_attention_bias_bwd.cu", "pallas_rel_attention.py:567",
+             bias_bwd))
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)

@@ -1,6 +1,7 @@
 """Typed configuration tree of the port (its own copy; the JAX package's
-core/config.py is the reference). Holds only the dataclasses the serving
-slices read; the training and decode configs join as their slices land."""
+core/config.py is the reference). Holds the dataclasses the ported code
+reads: serving and stage-1 training; the stage-2 and decode configs join when
+those parts are ported."""
 
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ class UnitConfig:
     two units and four mel frames per video frame."""
 
     num_units: int = 200
+    bos: int = 0
+    pad: int = 1
+    eos: int = 2
+    unk: int = 3
     num_special: int = 4
     units_per_frame: int = 2
     mel_per_frame: int = 4
@@ -41,11 +46,14 @@ class ConformerConfig:
     ffn_dim: int = 2048
     heads: int = 8
     layers: int = 12
+    dropout: float = 0.1                       # residual, FFN and positional
+    attention_dropout: float = 0.1
     conv_kernel: int = 31
     macaron: bool = True
     layer_norm_first: bool = True              # normalize_before
     layerscale: bool = False                   # RAVEn extension
     init_values: float = 0.1
+    drop_path: float = 0.0                     # stochastic depth, rising per layer
     input_dim: int = 512                       # feature dim entering the embed Linear
 
 
@@ -74,6 +82,9 @@ class MultiTargetConfig:
     units: UnitConfig = field(default_factory=UnitConfig)
     spk_emb_dim: int = 256
     mel_dim: int = 80
+    final_dropout: float = 0.1
+    text_supervision: bool = False
+    text_vocab_size: int = 0
 
 
 @dataclass(frozen=True)
@@ -90,11 +101,40 @@ class VocoderConfig:
 
 
 @dataclass(frozen=True)
+class Stage1TrainConfig:
+    """Stage-1 optimisation: Adam(0.9, 0.98) with decoupled weight decay,
+    linear warm-up then cosine decay, clip-norm 10, gradients of the summed
+    loss over `update_freq` micro-batches divided by the summed sample size."""
+
+    lr: float = 1e-3
+    adam_b1: float = 0.9
+    adam_b2: float = 0.98
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.01
+    warmup_updates: int = 10_000
+    max_updates: int = 150_000
+    clip_norm: float = 10.0
+    update_freq: int = 8                       # gradient accumulation
+    label_smoothing: float = 0.1
+    mel_weight: float = 10.0
+    text_weight: float = 1.0
+    sentence_avg: bool = True
+    max_sample_size: int = 600
+    batch_size: int = 8
+    seed: int = 1337
+    freeze_finetune_updates: int = 0
+    # forward and backward in bf16 with f32 master weights, f32 optimizer
+    # state, f32 BatchNorm statistics and f32 losses; no loss scaling
+    bf16_compute: bool = False
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     audio: AudioConfig = field(default_factory=AudioConfig)
     video: VideoConfig = field(default_factory=VideoConfig)
     model: MultiTargetConfig = field(default_factory=MultiTargetConfig)
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
+    stage1: Stage1TrainConfig = field(default_factory=Stage1TrainConfig)
 
 
 def _frozen_frontend(kind: str, dim: int, heads: int, ffn_dim: int, layers: int) -> dict:

@@ -1,6 +1,6 @@
-// Building blocks shared by the flash-attention kernels whose score tile is
-// one product plus a per-element term (attention.cu, rel_attention_bias.cu).
-// Not compiled on its own.
+// Building blocks shared by the flash-attention forward kernels
+// (attention.cu, rel_attention.cu, rel_attention_bias.cu) and, through
+// flash_bwd_tile.cuh, by the backward kernels. Not compiled on its own.
 //
 // A block of 256 threads owns 64 query rows of one (batch, head) and walks
 // over key tiles of 64. Thread (ty, tx) = (tid / 16, tid % 16) owns the 4x4
@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace flash {
 
@@ -126,29 +128,68 @@ __device__ __forceinline__ void softmax_step(float s[4][4], State& st) {
   }
 }
 
+// The thread's 4x4 tile into a shared 64x64 tile (rows 4ty.., columns 4tx..).
+__device__ __forceinline__ void store_tile(float* sS, int ty, int tx, const float s[4][4]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sS[(4 * ty + a) * kS + 4 * tx + j] = s[a][j];
+}
+
+// acc[a][c] += sum_j sS[4ty+a][j] * sX[j][4tx+c]
+__device__ __forceinline__ void rows_product(const float* sS, const float* sX, int ty, int tx,
+                                             float acc[4][4]) {
+#pragma unroll 4
+  for (int j = 0; j < kB; ++j) {
+    float pa[4], vv[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) pa[a] = sS[(4 * ty + a) * kS + j];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) vv[c] = sX[j * kS + 4 * tx + c];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(pa[a], vv[c], acc[a][c]);
+  }
+}
+
+// Dropout scale (0 or 1 / (1 - rate); 1 without dropout) of the thread's 4x4
+// tile of query rows i0+4ty.. and keys j0+4tx.. in slice bh; j0 is a
+// multiple of 4.
+__device__ __forceinline__ void keep_tile(const philox::Dropout& drop, int bh, int i0, int j0,
+                                          int ty, int tx, float keep[4][4]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    philox::keep_scale4(drop, (uint32_t)bh, (uint32_t)(i0 + 4 * ty + a),
+                        (uint32_t)((j0 + 4 * tx) >> 2), keep[a]);
+}
+
 // acc += P V for one key tile. The probabilities go through the key tile's
 // shared buffer (sK), so every thread must have finished reading the keys:
 // the function synchronises the block before and after writing them.
 __device__ __forceinline__ void pv_product(float* sK, const float* sV, int ty, int tx,
                                            const float s[4][4], State& st) {
   __syncthreads();
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sK[(4 * ty + a) * kS + 4 * tx + j] = s[a][j];
+  store_tile(sK, ty, tx, s);
   __syncthreads();
-#pragma unroll 4
-  for (int j = 0; j < kB; ++j) {
-    float pa[4], vv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) pa[a] = sK[(4 * ty + a) * kS + j];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) vv[c] = sV[j * kS + 4 * tx + c];
+  rows_product(sK, sV, ty, tx, st.acc);
+}
+
+// The same under dropout: the running sum has seen the undropped
+// probabilities; only the product with V sees keep / (1 - rate).
+__device__ __forceinline__ void pv_product_dropout(float* sK, const float* sV, int ty, int tx,
+                                                   float s[4][4], State& st,
+                                                   const philox::Dropout& drop, int bh, int i0,
+                                                   int j0) {
+  if (drop.thresh != 0u) {
+    float keep[4][4];
+    keep_tile(drop, bh, i0, j0, ty, tx, keep);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) st.acc[a][c] = fmaf(pa[a], vv[c], st.acc[a][c]);
+      for (int j = 0; j < 4; ++j) s[a][j] *= keep[a][j];
   }
+  pv_product(sK, sV, ty, tx, s, st);
 }
 
 // O = acc / max(l, 1e-20) for the thread's rows inside the sequence; with

@@ -2,7 +2,8 @@
 // bias, forward, for Hopper (sm_90a).
 //
 // Replaces: lip2speech_tpu/ops/pallas_rel_attention.py, `_bias_kernel`
-// (entry `_rel_flash_bias` -> `_flash_bias_impl`), forward without dropout.
+// (entry `_rel_flash_bias` -> `_flash_bias_impl`), forward, with its optional
+// probability dropout (philox.cuh's mask, as in rel_attention.cu).
 //
 // Computes, per (batch, head), with q_u, k, v (T, 64) and bias (T, T) f32:
 //     S[i, j] = q_u[i].k[j] / sqrt(64) + bias[i, j]
@@ -35,7 +36,8 @@ __global__ void __launch_bounds__(kThreads)
 rel_attention_bias_kernel(const T* __restrict__ qu, const T* __restrict__ k,
                           const T* __restrict__ v, const float* __restrict__ bias,
                           const uint8_t* __restrict__ mask, T* __restrict__ out,
-                          float* __restrict__ lse, int H, int T_len, float scale) {
+                          float* __restrict__ lse, int H, int T_len, float scale,
+                          philox::Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
   float* sK = sQ + kB * kS;     // key tile, then that tile's probabilities
@@ -79,7 +81,7 @@ rel_attention_bias_kernel(const T* __restrict__ qu, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j)
         s[a][j] = mask_score(fmaf(s[a][j], scale, bt[a][j]), sM[4 * tx + j]);
     softmax_step(s, st);
-    pv_product(sK, sV, ty, tx, s, st);
+    pv_product_dropout(sK, sV, ty, tx, s, st, drop, bh, i0, j0);
   }
   write_out<T>(out + base, lse + (size_t)bh * T_len, i0, T_len, ty, tx, st);
 }
@@ -87,7 +89,7 @@ rel_attention_bias_kernel(const T* __restrict__ qu, const T* __restrict__ k,
 template <typename T>
 cudaError_t launch(const void* qu, const void* k, const void* v, const float* bias,
                    const uint8_t* mask, void* out, float* lse, int B, int H, int T_len,
-                   cudaStream_t stream) {
+                   philox::Dropout drop, cudaStream_t stream) {
   auto kern = rel_attention_bias_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)kSmemBytes);
@@ -95,7 +97,7 @@ cudaError_t launch(const void* qu, const void* k, const void* v, const float* bi
   dim3 grid((T_len + kB - 1) / kB, B * H);
   kern<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(qu), static_cast<const T*>(k), static_cast<const T*>(v), bias, mask,
-      static_cast<T*>(out), lse, H, T_len, 1.0f / sqrtf((float)kD));
+      static_cast<T*>(out), lse, H, T_len, 1.0f / sqrtf((float)kD), drop);
   return cudaGetLastError();
 }
 
@@ -103,21 +105,25 @@ cudaError_t launch(const void* qu, const void* k, const void* v, const float* bi
 
 // All tensors contiguous: q_u, k, v, out (B, H, T, dk); bias (B, H, T, T)
 // float32; mask (B, T) uint8; lse (B, H, T) float32. dtype (of q_u, k, v,
-// out): 0 = float32, 1 = bfloat16. Only dk = 64. Returns cudaGetLastError()
+// out): 0 = float32, 1 = bfloat16. Only dk = 64. rate in [0, 1) and seed
+// select the dropout mask (rate 0: no dropout). Returns cudaGetLastError()
 // after the launch.
 extern "C" int l2s_rel_attention_bias(const void* qu, const void* k, const void* v,
                                       const void* bias, const void* mask, void* out, void* lse,
-                                      int B, int H, int T_len, int dk, int dtype, void* stream) {
-  if (dk != kD || B < 1 || H < 1 || T_len < 1) return (int)cudaErrorInvalidValue;
+                                      int B, int H, int T_len, int dk, int dtype, float rate,
+                                      unsigned long long seed, void* stream) {
+  if (dk != kD || B < 1 || H < 1 || T_len < 1 || rate < 0.f || rate >= 1.f)
+    return (int)cudaErrorInvalidValue;
+  const philox::Dropout drop = philox::make_dropout(rate, seed);
   const float* bi = static_cast<const float*>(bias);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float>(qu, k, v, bi, m, out, l, B, H, T_len, s);
+    e = launch<float>(qu, k, v, bi, m, out, l, B, H, T_len, drop, s);
   else if (dtype == 1)
-    e = launch<__nv_bfloat16>(qu, k, v, bi, m, out, l, B, H, T_len, s);
+    e = launch<__nv_bfloat16>(qu, k, v, bi, m, out, l, B, H, T_len, drop, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -1,10 +1,18 @@
 """Conformer encoder with Transformer-XL relative-position attention (JAX
-reference: models/conformer.py), inference only: no dropout, no drop-path.
-The flags cover the stage-1 trunk and the Auto-AVSR frontend (macaron, conv
-module) and the RAVEn transformer (neither, with layerscale and BatchNorm
-FFN pre-norms). Activations are (B, T, D); masks (B, T), True =
-valid. Attention goes through ops/rel_attention.py, which launches the CUDA
-kernel on the card and runs the plain version on the CPU.
+reference: models/conformer.py). The flags cover the stage-1 trunk and the
+Auto-AVSR frontend (macaron, conv module) and the RAVEn transformer (neither,
+with layerscale and BatchNorm FFN pre-norms). Activations are (B, T, D);
+masks (B, T), True = valid. Attention goes through ops/rel_attention.py,
+which launches the CUDA kernels (forward and backward) on the card and runs
+the plain version on the CPU.
+
+In training mode (`module.train()`) the recipe's noise is on: dropout on the
+attention probabilities (inside the kernel on the card), after the FFN
+activation, on every residual branch, on the scaled input and on the
+position table; drop-path per sample with a rate rising linearly over the
+layers; BatchNorm uses batch statistics. All of it draws from the
+`torch.Generator` given to `forward` (None: the default generator), so a
+seed fixes the masks. In eval mode none of it runs.
 """
 
 from __future__ import annotations
@@ -20,9 +28,10 @@ from lip2speech_tpu_torch.ops.rel_attention import rel_attention
 
 
 class RelPositionMultiHeadAttention(nn.Module):
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads = heads
+        self.dropout = dropout
         self.linear_q = Linear(dim, dim)
         self.linear_k = Linear(dim, dim)
         self.linear_v = Linear(dim, dim)
@@ -39,8 +48,9 @@ class RelPositionMultiHeadAttention(nn.Module):
             self.pos_bias_u.uniform_(-bound, bound, generator=gen)
             self.pos_bias_v.uniform_(-bound, bound, generator=gen)
 
-    def forward(self, x, pos_emb, mask):
-        """x (B, T, D); pos_emb (2T-1, D); mask (B, T)."""
+    def forward(self, x, pos_emb, mask, seed: int = 0):
+        """x (B, T, D); pos_emb (2T-1, D); mask (B, T); seed selects the
+        attention-dropout mask in training mode."""
         b, t, d = x.shape
         h, dk = self.heads, d // self.heads
         q = self.linear_q(x).reshape(b, t, h, dk)
@@ -50,20 +60,25 @@ class RelPositionMultiHeadAttention(nn.Module):
         k = heads_first(self.linear_k(x).reshape(b, t, h, dk))
         v = heads_first(self.linear_v(x).reshape(b, t, h, dk))
         p = heads_first(self.linear_pos(pos_emb).reshape(1, -1, h, dk))[0]
-        out = rel_attention(q_u, q_v, k, v, p, mask)        # (B, H, T, dk)
+        rate = self.dropout if self.training else 0.0
+        out = rel_attention(q_u, q_v, k, v, p, mask, dropout_rate=rate, seed=seed)  # (B, H, T, dk)
         return self.linear_out(out.transpose(1, 2).reshape(b, t, d))
 
 
 class FeedForward(nn.Module):
-    """Linear -> ReLU -> Linear."""
+    """Linear -> ReLU -> dropout (training) -> Linear."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.w_1 = Linear(dim, hidden)
         self.w_2 = Linear(hidden, dim)
 
-    def forward(self, x):
-        return self.w_2(torch.relu(self.w_1(x)))
+    def forward(self, x, gen=None):
+        x = torch.relu(self.w_1(x))
+        if self.training:
+            x = ops.dropout(x, self.dropout, gen)
+        return self.w_2(x)
 
 
 class ConvModule(nn.Module):
@@ -88,12 +103,15 @@ class ConformerLayer(nn.Module):
     each a residual branch normed before (normalize_before) or after; a final
     LN when the conv module is on. layerscale multiplies each branch by a
     learned per-channel gamma; ff_bn_pre makes the FFN and conv norms
-    BatchNorm instead of LayerNorm (RAVEn)."""
+    BatchNorm instead of LayerNorm (RAVEn). In training mode each branch is
+    x + drop_path(scale * gamma * dropout(branch))."""
 
     def __init__(self, dim: int, ffn_dim: int, heads: int, conv_kernel: int = 31,
                  macaron: bool = True, use_conv: bool = True, normalize_before: bool = True,
-                 layerscale: bool = False, init_values: float = 0.1, ff_bn_pre: bool = False):
+                 layerscale: bool = False, init_values: float = 0.1, ff_bn_pre: bool = False,
+                 dropout: float = 0.1, attention_dropout: float = 0.1, drop_path: float = 0.0):
         super().__init__()
+        self.dropout, self.drop_path = dropout, drop_path
         self.normalize_before = normalize_before
         self.ff_scale = 0.5 if macaron else 1.0
         self.init_values = init_values
@@ -102,15 +120,15 @@ class ConformerLayer(nn.Module):
         self.branches = [name for name, on in branches if on]
         if macaron:
             self.norm_ff_macaron = ff_norm(dim)
-            self.feed_forward_macaron = FeedForward(dim, ffn_dim)
+            self.feed_forward_macaron = FeedForward(dim, ffn_dim, dropout)
         self.norm_mha = LayerNorm(dim)
-        self.self_attn = RelPositionMultiHeadAttention(dim, heads)
+        self.self_attn = RelPositionMultiHeadAttention(dim, heads, attention_dropout)
         if use_conv:
             self.norm_conv = ff_norm(dim)
             self.conv_module = ConvModule(dim, conv_kernel)
             self.norm_final = LayerNorm(dim)
         self.norm_ff = ff_norm(dim)
-        self.feed_forward = FeedForward(dim, ffn_dim)
+        self.feed_forward = FeedForward(dim, ffn_dim, dropout)
         if layerscale:
             for name in self.branches:
                 setattr(self, f"gamma_{name}", nn.Parameter(torch.empty(dim)))
@@ -128,20 +146,28 @@ class ConformerLayer(nn.Module):
             return norm(x.transpose(1, 2)).transpose(1, 2)
         return norm(x)
 
-    def _branch(self, name: str, fn, scale: float, x):
+    def _branch(self, name: str, fn, scale: float, x, gen):
         y = fn(self._norm(name, x) if self.normalize_before else x)
+        if self.training:
+            y = ops.dropout(y, self.dropout, gen)
         if self.layerscale:
             y = getattr(self, f"gamma_{name}") * y
-        x = x + (y if scale == 1.0 else scale * y)
+        if scale != 1.0:
+            y = scale * y
+        if self.training:
+            y = ops.drop_path(y, self.drop_path, gen)
+        x = x + y
         return x if self.normalize_before else self._norm(name, x)
 
-    def forward(self, x, pos_emb, mask):
+    def forward(self, x, pos_emb, mask, gen=None, seed: int = 0):
+        """gen: generator of the dropout and drop-path masks; seed: of the
+        attention-dropout mask (both read in training mode only)."""
         if "ff_macaron" in self.branches:
-            x = self._branch("ff_macaron", self.feed_forward_macaron, 0.5, x)
-        x = self._branch("mha", lambda y: self.self_attn(y, pos_emb, mask), 1.0, x)
+            x = self._branch("ff_macaron", lambda y: self.feed_forward_macaron(y, gen), 0.5, x, gen)
+        x = self._branch("mha", lambda y: self.self_attn(y, pos_emb, mask, seed), 1.0, x, gen)
         if "conv" in self.branches:
-            x = self._branch("conv", self.conv_module, 1.0, x)
-        x = self._branch("ff", self.feed_forward, self.ff_scale, x)
+            x = self._branch("conv", self.conv_module, 1.0, x, gen)
+        x = self._branch("ff", lambda y: self.feed_forward(y, gen), self.ff_scale, x, gen)
         return self.norm_final(x) if "conv" in self.branches else x
 
 
@@ -152,14 +178,18 @@ class ConformerEncoder(nn.Module):
     def __init__(self, input_dim: int = 512, dim: int = 512, ffn_dim: int = 2048,
                  heads: int = 8, layers: int = 12, conv_kernel: int = 31,
                  macaron: bool = True, use_conv: bool = True, normalize_before: bool = True,
-                 layerscale: bool = False, init_values: float = 0.1, ff_bn_pre: bool = False):
+                 layerscale: bool = False, init_values: float = 0.1, ff_bn_pre: bool = False,
+                 dropout: float = 0.1, attention_dropout: float = 0.1,
+                 positional_dropout: float = 0.1, drop_path: float = 0.0):
         super().__init__()
         self.dim = dim
+        self.positional_dropout = positional_dropout
         self.embed = Linear(input_dim, dim)
         for i in range(layers):
             self.add_module(f"layers_{i}", ConformerLayer(
                 dim, ffn_dim, heads, conv_kernel, macaron, use_conv, normalize_before,
-                layerscale, init_values, ff_bn_pre))
+                layerscale, init_values, ff_bn_pre, dropout, attention_dropout,
+                drop_path * i / max(layers - 1, 1)))
         self.n_layers = layers
         self.after_norm = LayerNorm(dim) if normalize_before else None
         self._pos_tables: dict = {}        # (T, dtype, device) -> (2T-1, dim) table
@@ -176,11 +206,20 @@ class ConformerEncoder(nn.Module):
             self._pos_tables[key] = pe
         return pe
 
-    def forward(self, x, mask):
-        """x (B, T, F) frontend features; mask (B, T) -> (B, T, dim)."""
+    def forward(self, x, mask, gen=None):
+        """x (B, T, F) frontend features; mask (B, T) -> (B, T, dim). gen:
+        the generator of the training-mode noise (None: the default one)."""
         x = self.embed(x)
         pe = self._pos_table(x.shape[1], x.dtype, x.device)
         x = x * float(math.sqrt(self.dim))
+        seeds = [0] * self.n_layers
+        if self.training:
+            x = ops.dropout(x, self.positional_dropout, gen)
+            pe = ops.dropout(pe, self.positional_dropout, gen)
+            # one attention-dropout seed per layer, drawn in one call
+            dev = None if gen is None else gen.device
+            seeds = torch.randint(0, 2 ** 31 - 1, (self.n_layers,), generator=gen,
+                                  device=dev).tolist()
         for i in range(self.n_layers):
-            x = getattr(self, f"layers_{i}")(x, pe, mask)
+            x = getattr(self, f"layers_{i}")(x, pe, mask, gen, seeds[i])
         return x if self.after_norm is None else self.after_norm(x)

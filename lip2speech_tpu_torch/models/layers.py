@@ -102,16 +102,19 @@ class Conv3d(_ConvNd):
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over channel dim 1 (eps 1e-5), with only the
-    running statistics as buffers, as in the JAX tree."""
+    """Batch norm over channel dim 1 (eps 1e-5, momentum 0.1), with only the
+    running statistics as buffers, as in the JAX tree. In training mode it
+    normalises with the batch statistics and updates the buffers in place
+    (f32 arithmetic, stored in the buffers' type); in eval mode it reads
+    them."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("running_mean", torch.empty(features))
         self.register_buffer("running_var", torch.empty(features))
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
 
     def init_random(self, gen: torch.Generator) -> None:
         with torch.no_grad():
@@ -121,6 +124,13 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x):
+        if self.training:
+            y, mean, var = ops.batch_norm_train(x, self.running_mean, self.running_var,
+                                                self.weight, self.bias, self.eps, self.momentum)
+            with torch.no_grad():
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(var)
+            return y
         return ops.batch_norm(x, self.running_mean, self.running_var,
                               self.weight, self.bias, self.eps)
 

@@ -1,15 +1,16 @@
-"""Key-masked softmax attention of the wav2vec2-style trunks, forward (JAX
-reference: ops/pallas_attention.py, kernel `_attn_kernel`, entry
-`flash_attention` / `attention`).
+"""Key-masked softmax attention of the wav2vec2-style trunks (JAX reference:
+ops/pallas_attention.py, kernel `_attn_kernel`, entry `flash_attention` /
+`attention`).
 
     O = softmax_j(q.k^T / sqrt(dk), keys outside the mask excluded) V
 
 The CUDA kernel (csrc/attention.cu) is an online-softmax flash loop over key
 tiles; `reference_attention` is its plain version. `attention` dispatches on
 the device of its inputs: CPU tensors take the plain version, CUDA tensors
-the kernel. Inference only so far: the kernel wrapper is not differentiable
-(the JAX entry carries a dense-recompute backward; its counterpart here, a
-torch.autograd.Function, comes with the training modules).
+the kernel through `AttentionFn`. The JAX entry's backward is a dense
+recompute outside any kernel (the vjp of its reference attention), so
+`AttentionFn.backward` is the same in plain PyTorch: autograd through
+`reference_attention` on the saved inputs.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ def reference_attention(q, k, v, mask=None) -> torch.Tensor:
 
 def attention_kernel(q, k, v, mask=None) -> torch.Tensor:
     """Launch csrc/attention.cu; returns out (B, H, T, dk). Rows with no valid
-    key stay finite (a uniform average of V). No autograd."""
+    key stay finite (a uniform average of V). Not differentiable by itself:
+    see AttentionFn."""
     from lip2speech_tpu_torch.kernels import build
 
     b, h, t, dk = q.shape
@@ -74,9 +76,26 @@ def attention_kernel(q, k, v, mask=None) -> torch.Tensor:
 attention_kernel.launches = 0   # kernel launches since the last reset
 
 
+class AttentionFn(torch.autograd.Function):
+    """The kernel forward with a dense-recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = mask
+        return attention_kernel(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+            out = reference_attention(q, k, v, ctx.mask)
+        return (*torch.autograd.grad(out, (q, k, v), g), None)
+
+
 def attention(q, k, v, mask=None) -> torch.Tensor:
-    """Masked attention: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Same shapes as reference_attention."""
+    """Masked attention, differentiable: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Same shapes as reference_attention."""
     if q.device.type == "cpu":
         return reference_attention(q, k, v, mask)
-    return attention_kernel(q, k, v, mask)
+    return AttentionFn.apply(q, k, v, mask)

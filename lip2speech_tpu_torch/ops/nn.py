@@ -42,8 +42,62 @@ def conv3d(x, w, b=None, stride=(1, 1, 1), padding=(0, 0, 0)) -> torch.Tensor:
 
 
 def batch_norm(x, mean, var, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
-    """Inference-mode batch norm over channel dim 1."""
+    """Inference-mode batch norm over channel dim 1. Statistics kept in f32
+    beside bf16 weights (bf16 training) are read in the input's type."""
+    if mean.dtype != x.dtype:
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
     return F.batch_norm(x, mean, var, gamma, beta, False, 0.0, eps)
+
+
+def batch_norm_train(x, running_mean, running_var, gamma, beta, eps: float = 1e-5,
+                     momentum: float = 0.1):
+    """Training-mode batch norm over channel dim 1; returns (y, new_mean,
+    new_var). The batch statistics and the running update are f32 whatever
+    the input type (a bf16 momentum update would round small drifts away);
+    the normalisation stays on the input's type. running_var takes the
+    unbiased batch variance, as torch.nn.BatchNorm does."""
+    reduce_dims = [d for d in range(x.ndim) if d != 1]
+    n = x.numel() // x.shape[1]
+    x32 = x.float()
+    mean = x32.mean(dim=reduce_dims)
+    var = x32.square().mean(dim=reduce_dims) - mean.square()
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    scale = (torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+    y = (x - mean.to(x.dtype).reshape(shape)) * scale.reshape(shape) + beta.reshape(shape)
+    unbiased = var * (n / max(n - 1.0, 1.0))
+    new_mean = (1 - momentum) * running_mean.float() + momentum * mean
+    new_var = (1 - momentum) * running_var.float() + momentum * unbiased
+    return y, new_mean.detach(), new_var.detach()
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout whose mask comes from an explicit generator on x's
+    device (F.dropout takes none); gen=None draws from the device's default
+    generator."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, device=x.device, generator=gen) >= rate
+    return torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0)
+
+
+def drop_path(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
+    """Stochastic depth: one keep decision per sample (dim 0)."""
+    if rate == 0.0:
+        return x
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    keep = torch.rand(shape, device=x.device, generator=gen) >= rate
+    return torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0)
+
+
+IMAGE_MEAN, IMAGE_STD = 0.421, 0.165       # grayscale mouth-crop normalisation
+
+
+def dequantize_video(video: torch.Tensor) -> torch.Tensor:
+    """uint8 wire-format video -> normalised float32 on its device,
+    (x / 255 - mean) / std; float input passes through unchanged."""
+    if video.dtype != torch.uint8:
+        return video
+    return (video.float() / 255.0 - IMAGE_MEAN) / IMAGE_STD
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-12) -> torch.Tensor:

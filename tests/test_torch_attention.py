@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from lip2speech_tpu.ops import pallas_attention as jatt
@@ -115,9 +116,12 @@ def test_unknown_impl_and_dropout_raise():
     args = [torch.from_numpy(a) for a in _inputs(12, [12, 7])]
     with pytest.raises(ValueError, match="unknown flash impl"):
         tra.rel_attention(*args, impl="roll")
+    plain = tra.rel_attention(*args)
     for impl in ("shear", "bias"):
-        with pytest.raises(NotImplementedError, match="dropout"):
-            tra.rel_attention(*args, impl=impl, dropout_rate=0.1)
+        with pytest.raises(ValueError, match="dropout rate"):
+            tra.rel_attention(*args, impl=impl, dropout_rate=1.5)
+        dropped = tra.rel_attention(*args, impl=impl, dropout_rate=0.1, seed=3)
+        assert dropped.shape == plain.shape and not torch.allclose(dropped, plain)
 
 
 def test_kernel_launchers_reject_cpu_tensors():
@@ -128,3 +132,37 @@ def test_kernel_launchers_reject_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             kernel(*args)
         assert kernel.launches == 0
+
+
+@pytest.mark.parametrize("t,lens", [(12, [12, 7]), (45, [45, 33])])
+def test_attention_fn_gradient_matches_jax_custom_vjp(monkeypatch, t, lens):
+    """AttentionFn's backward (dense recompute through reference_attention)
+    against the JAX entry's custom VJP around its interpret-mode kernel. The
+    CUDA kernel cannot run here, so its plain version stands in for the
+    forward launch; the backward under test is the real one."""
+    q, k, v, mask = _qkv(t, lens, seed=6)
+    g = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    g = g * mask[:, None, :, None]
+    jmask = jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda a, b, c: jatt._flash_diff(True, a, b, c, jmask),
+                     *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    calls = []
+
+    def fake_kernel(q_, k_, v_, mask_):
+        calls.append(torch.is_grad_enabled())
+        return tatt.reference_attention(q_, k_, v_, mask_)
+
+    monkeypatch.setattr(tatt, "attention_kernel", fake_kernel)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tatt.AttentionFn.apply(tq, tk, tv, torch.from_numpy(mask))
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    assert calls == [False]                  # the forward ran outside autograd's graph
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=ATOL)
+    # without a mask, and through the public entry on the CPU
+    out = tatt.AttentionFn.apply(tq, tk, tv, None)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    ref = torch.autograd.grad(tatt.attention(tq, tk, tv, None), (tq, tk, tv), torch.from_numpy(g))
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), atol=1e-6)

@@ -37,11 +37,38 @@ def test_port_has_the_slice_modules():
                 "models/multi_target", "models/vocoder", "decode/units",
                 "convert/from_jax", "pipeline/synthesise", "kernels/build",
                 "ops/attention", "ops/kmeans", "models/avhubert", "models/hubert",
-                "data/manifest", "utils/audio_io", "pipeline/units_extract"):
+                "data/manifest", "utils/audio_io", "pipeline/units_extract",
+                "ops/dropout_mask", "train/losses", "train/stage1"):
         assert f"lip2speech_tpu_torch/{mod}.py" in names
     csrc = {p.name for p in (REPO / "lip2speech_tpu_torch" / "csrc").iterdir()}
     assert {"rel_attention.cu", "fused_tail.cu", "attention.cu", "rel_attention_bias.cu",
-            "flash_tile.cuh"} <= csrc
+            "flash_tile.cuh", "rel_attention_bwd.cu", "rel_attention_bias_bwd.cu",
+            "flash_bwd_tile.cuh", "rel_tile.cuh", "philox.cuh"} <= csrc
+
+
+def test_every_kernel_source_names_what_it_replaces():
+    """Each compiled source states the TPU kernel it replaces, and the four
+    rel-position attention kernels share one dropout generator."""
+    csrc = REPO / "lip2speech_tpu_torch" / "csrc"
+    sources = sorted(csrc.glob("*.cu"))
+    assert len(sources) == 6
+    for src in sources:
+        assert "Replaces: lip2speech_tpu/ops/pallas_" in src.read_text(), src.name
+    for name in ("rel_attention", "rel_attention_bias", "rel_attention_bwd",
+                 "rel_attention_bias_bwd"):
+        text = (csrc / f"{name}.cu").read_text()
+        assert "philox::Dropout" in text
+        assert "keep_tile" in text or "pv_product_dropout" in text
+    assert '#include "philox.cuh"' in (csrc / "flash_tile.cuh").read_text()
+
+
+def test_training_without_cuda_raises_unless_cpu_requested(monkeypatch):
+    from lip2speech_tpu_torch.core.config import PipelineConfig
+    from lip2speech_tpu_torch.train import stage1
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage1.create_train_state(PipelineConfig())
 
 
 def test_pipeline_without_cuda_raises_unless_cpu_requested(monkeypatch):
@@ -88,7 +115,14 @@ def test_import_and_cpu_path_need_no_nvcc(tmp_path):
         "attention.attention(x, x, x, None)\n"
         "w = [[((torch.randn(16, 16, 3), torch.zeros(16)),) * 2]]\n"
         "fused_tail.fused_resblock_trio(torch.randn(1, 16, 9), w, (3,), ((1,),))\n"
+        "q = x.clone().requires_grad_()\n"
+        "rel_attention.rel_attention(q, x, x, x, p, m, dropout_rate=0.1, seed=1).sum().backward()\n"
+        "rel_attention.rel_attention(q, x, x, x, p, m, impl='bias', dropout_rate=0.1).sum().backward()\n"
+        "attention.attention(q, x, x, m).sum().backward()\n"
+        "from lip2speech_tpu_torch.train import losses, stage1\n"
         "assert not build._libs\n"
+        "assert rel_attention.rel_attention_bwd_kernel.launches == 0\n"
+        "assert rel_attention.rel_attention_bias_bwd_kernel.launches == 0\n"
         "assert rel_attention.rel_attention_kernel.launches == 0\n"
         "assert fused_tail.fused_resblock_trio_kernel.launches == 0\n"
         "assert rel_attention.rel_attention_bias_kernel.launches == 0\n"
