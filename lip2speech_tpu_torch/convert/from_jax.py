@@ -19,8 +19,8 @@ Vectors carry over as they are: biases, norm scales, BatchNorm running
 statistics, pos_bias_u/v, PReLU alphas, layerscale gammas, GroupNorm
 weight and bias.
 Inputs are nested dicts of numpy arrays. A gradient tree has the layout of
-its parameter tree, so the same rules name and lay out gradients
-(`stage1_gradient_dict`).
+its parameter tree, so `jax_tree_to_state_dict` names and lays out
+gradients too.
 """
 
 from __future__ import annotations
@@ -65,20 +65,6 @@ def stage1_state_dict(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
     sd = jax_tree_to_state_dict(variables["params"])
     sd.update(jax_tree_to_state_dict(variables.get("batch_stats", {})))
     return sd
-
-
-def stage1_gradient_dict(grads: dict[str, Any],
-                         model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
-    """A JAX gradient (or updated-parameter) tree of MultiTargetModel ->
-    {parameter name: tensor in the port's layout}. With `model`, the names
-    must be exactly its parameters' names."""
-    out = jax_tree_to_state_dict(grads)
-    if model is not None:
-        names = {name for name, _ in model.named_parameters()}
-        if names != set(out):
-            raise KeyError(f"gradient tree and model differ: missing {sorted(names - set(out))}, "
-                           f"unexpected {sorted(set(out) - names)}")
-    return out
 
 
 def vocoder_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:

@@ -12,7 +12,10 @@ activation, on every residual branch, on the scaled input and on the
 position table; drop-path per sample with a rate rising linearly over the
 layers; BatchNorm uses batch statistics. All of it draws from the
 `torch.Generator` given to `forward` (None: the default generator), so a
-seed fixes the masks. In eval mode none of it runs.
+seed fixes the masks. The attention-dropout mask of each layer is selected by
+a host integer handed to the kernel by value; those come from a generator on
+the CPU (`seed_gen`), so drawing them never waits for the card. In eval mode
+none of it runs.
 """
 
 from __future__ import annotations
@@ -206,9 +209,12 @@ class ConformerEncoder(nn.Module):
             self._pos_tables[key] = pe
         return pe
 
-    def forward(self, x, mask, gen=None):
+    def forward(self, x, mask, gen=None, seed_gen=None):
         """x (B, T, F) frontend features; mask (B, T) -> (B, T, dim). gen:
-        the generator of the training-mode noise (None: the default one)."""
+        the generator of the training-mode noise on x's device (None: the
+        default one). seed_gen: a CPU generator of the per-layer
+        attention-dropout seeds (None: gen when it lives on the CPU, else
+        the CPU's default generator)."""
         x = self.embed(x)
         pe = self._pos_table(x.shape[1], x.dtype, x.device)
         x = x * float(math.sqrt(self.dim))
@@ -216,10 +222,10 @@ class ConformerEncoder(nn.Module):
         if self.training:
             x = ops.dropout(x, self.positional_dropout, gen)
             pe = ops.dropout(pe, self.positional_dropout, gen)
-            # one attention-dropout seed per layer, drawn in one call
-            dev = None if gen is None else gen.device
-            seeds = torch.randint(0, 2 ** 31 - 1, (self.n_layers,), generator=gen,
-                                  device=dev).tolist()
+            # one attention-dropout seed per layer, drawn on the host
+            if seed_gen is None and gen is not None and gen.device.type == "cpu":
+                seed_gen = gen
+            seeds = torch.randint(0, 2 ** 31 - 1, (self.n_layers,), generator=seed_gen).tolist()
         for i in range(self.n_layers):
             x = getattr(self, f"layers_{i}")(x, pe, mask, gen, seeds[i])
         return x if self.after_norm is None else self.after_norm(x)

@@ -124,33 +124,36 @@ class MultiTargetModel(nn.Module):
                 m.eval()
         return self
 
-    def _frontend(self, video, frames_mask, gen) -> torch.Tensor:
+    def _frontend(self, video, frames_mask, gen, seed_gen) -> torch.Tensor:
         kind = self.cfg.frontend.kind
         if kind == "resnet3d":
             return self.frontend(video)
         if kind == "avhubert":
             return self.frontend(video, frames_mask, gen=gen)
-        return self.frontend_encoder(self.frontend_resnet(video), frames_mask, gen)
+        return self.frontend_encoder(self.frontend_resnet(video), frames_mask, gen, seed_gen)
 
-    def extract_frontend(self, video, frames_mask, gen=None) -> torch.Tensor:
+    def extract_frontend(self, video, frames_mask, gen=None, seed_gen=None) -> torch.Tensor:
         """(B, T, H, W, 1) -> (B, T, F) frontend features at 25 Hz; from a
         frozen frontend without gradient."""
         if self.cfg.frontend.frozen:
             with torch.no_grad():
-                return self._frontend(video, frames_mask, gen)
-        return self._frontend(video, frames_mask, gen)
+                return self._frontend(video, frames_mask, gen, seed_gen)
+        return self._frontend(video, frames_mask, gen, seed_gen)
 
-    def forward(self, video, frames_mask, spk_emb, gen=None) -> dict[str, torch.Tensor]:
+    def forward(self, video, frames_mask, spk_emb, gen=None,
+                seed_gen=None) -> dict[str, torch.Tensor]:
         """video (B, T, H, W, 1); frames_mask (B, T) bool; spk_emb (B, 256);
-        gen: generator of the training-mode noise (None: the default one).
+        gen: generator of the training-mode noise (None: the default one);
+        seed_gen: CPU generator of the attention-dropout seeds (see
+        ConformerEncoder.forward).
 
         Returns unit_logits (B, 2T, vocab), mel (B, 4T, 80), mask (B, 2T) and,
         with a text head, text_logits (B, 2T, text vocab)."""
-        feats = self.extract_frontend(video, frames_mask, gen)
+        feats = self.extract_frontend(video, frames_mask, gen, seed_gen)
         factor = self.cfg.units.units_per_frame
         x = interleave_time(feats, factor)
         mask = interleave_time(frames_mask, factor)
-        x = self.conformer(x, mask, gen)
+        x = self.conformer(x, mask, gen, seed_gen)
         mel = self.mel_head(x, spk_emb, gen)
         y = ops.dropout(x, self.cfg.final_dropout, gen) if self.training else x
         out = {"unit_logits": self.unit_head(y, gen), "mel": mel, "mask": mask}

@@ -42,7 +42,8 @@ class TrainState:
     step: int                          # optimizer updates taken
     model: MultiTargetModel            # f32 master weights and running statistics
     optimizer: torch.optim.Optimizer
-    gen: torch.Generator               # source of all training noise, on the model's device
+    gen: torch.Generator               # source of the training noise, on the model's device
+    seed_gen: torch.Generator          # on the CPU: the attention-dropout seeds the kernels take
 
     @property
     def device(self) -> torch.device:
@@ -101,18 +102,19 @@ def create_train_state(cfg: PipelineConfig, seed: int | None = None,
     model.to(dev).train()
     optimizer = make_optimizer(cfg.stage1, model, cfg.model.frontend.frozen)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return TrainState(step=0, model=model, optimizer=optimizer, gen=gen)
+    seed_gen = torch.Generator().manual_seed(seed)
+    return TrainState(step=0, model=model, optimizer=optimizer, gen=gen, seed_gen=seed_gen)
 
 
 def _to_device(micro: dict, dev: torch.device) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in micro.items()}
 
 
-def _forward(model, micro: dict, bf16: bool, gen) -> dict:
+def _forward(model, micro: dict, bf16: bool, gen, seed_gen) -> dict:
     """Model outputs in f32 for one micro-batch on the model's device."""
     video, spk = dequantize_video(micro["video"]), micro["spk_emb"]
     if not bf16:
-        return model(video, micro["frames_mask"], spk, gen=gen)
+        return model(video, micro["frames_mask"], spk, gen=gen, seed_gen=seed_gen)
     # a bf16 copy of the f32 weights inside the graph: the cast's backward
     # returns f32 gradients to the master weights; buffers (BatchNorm
     # statistics) stay f32
@@ -120,7 +122,7 @@ def _forward(model, micro: dict, bf16: bool, gen) -> dict:
             if p.dtype == torch.float32}
     out = torch.func.functional_call(
         model, cast, (video.to(torch.bfloat16), micro["frames_mask"], spk.to(torch.bfloat16)),
-        {"gen": gen})
+        {"gen": gen, "seed_gen": seed_gen})
     return {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in out.items()}
 
 
@@ -146,7 +148,7 @@ def make_train_step(cfg: PipelineConfig):
         log_sums: dict[str, torch.Tensor] = {}
         for i in range(accum):
             micro = _to_device({k: v[i] for k, v in batch.items()}, dev)
-            outputs = _forward(model, micro, s1.bf16_compute, state.gen)
+            outputs = _forward(model, micro, s1.bf16_compute, state.gen, state.seed_gen)
             loss, sample_size, logs = stage1_loss(
                 outputs, micro, pad_id, label_smoothing=s1.label_smoothing,
                 mel_weight=s1.mel_weight, text_weight=s1.text_weight,
