@@ -6,7 +6,12 @@
 Phases, in order; any failure exits non-zero before the last line:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels from lip2speech_tpu_torch/csrc (nvcc, in parallel);
+     print ptxas's registers and spills, and count the tensor-core (HMMA)
+     instructions in each library's SASS: none in rel_attention or
+     rel_attention_bwd (bf16 on mma.sync) fails;
   3. rel-position attention kernel against its plain version, f32 and bf16;
+     times at B4 H8 T480 and at the train step's B8 H8 T1200, each beside
+     SDPA with the position term as a float bias mask;
   4. fused resblock-trio kernel against its plain version, per stage width;
   5. the full-width multi_target pipeline: bf16 + PCM16 requests at batch
      4 x 240 frames (ragged) and 1 x 96, launch counts per forward, p50; then
@@ -25,7 +30,8 @@ Phases, in order; any failure exits non-zero before the last line:
  11. the backward kernels of both rel-position attention routes against
      their plain versions and against autograd through the dense forward,
      f32 and bf16, T 235 / 470 / 1200, ragged with one fully masked batch
-     row; times at the training shape B8 H8 T1200;
+     row; the shear kernel's times at B4 H8 T480 and B8 H8 T1200, the bias
+     kernel's at B8 H8 T1200;
  12. in-kernel attention dropout, both routes, forward and backward, against
      the plain versions under the identical keep mask; the kernel's mask
      against ops/dropout_mask.py; determinism, keep rate, unbiasedness;
@@ -35,7 +41,8 @@ Phases, in order; any failure exits non-zero before the last line:
      with the bias route; then two f32 steps on the card against the CPU
      plain path; then one step of the flagship multi_target_avhubert
      (frozen frontend: no gradient, no update).
-Prints one JSON line of per-kernel numbers, then, last,
+Kernel times are device time (CUDA events, host enqueue hidden behind a
+device sleep). Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
 """
 
@@ -67,10 +74,14 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per call of fn: CUDA events around `iters` calls,
+    queued behind a ~10 ms device sleep so that the host's enqueue time (the
+    wrappers' checks, ~0.05-0.1 ms a call) does not show between kernels."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -98,6 +109,29 @@ def valid_rows_err(out, ref, lens) -> float:
     if lens is None:
         return float((out.float() - ref).abs().max())
     return max(float((out.float() - ref)[i, :, :n].abs().max()) for i, n in enumerate(lens) if n)
+
+
+TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd")   # bf16 on mma.sync
+PREVIOUS_MS = {   # the FP32-FMA versions, bf16: PERF.md §6, chip run of PR 3 (H100, 700 W)
+    "rel_attention": {"previous_ms": 0.187, "previous_train_shape_ms": 2.157},
+    "rel_attention_bwd": {"previous_ms": 9.593},
+}
+
+
+def sass_tensor_core_counts(build) -> dict:
+    """HMMA instructions in each kernel library's SASS (cuobjdump); fails if
+    a library whose bf16 path runs on mma.sync has none."""
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    counts = {}
+    for lib in sorted(build._build_dir().glob("lib*.so")):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+        counts[lib.stem[3:]] = sum(1 for line in sass.splitlines() if "HMMA" in line)
+    print(f"SASS HMMA instructions per library: {counts}", flush=True)
+    missing = [k for k in TENSOR_CORE_KERNELS if not counts.get(k)]
+    if missing:
+        fail(f"no tensor-core instruction in {missing}")
+    return counts
 
 
 def phase_attention(ra, dev) -> dict:
@@ -144,7 +178,35 @@ def phase_attention(ra, dev) -> dict:
             failures.append(line)
     if failures:
         fail("rel_attention kernel disagrees with its plain version")
+    result["train_shape"] = rel_attention_train_shape(ra, dev, gen)
     return result
+
+
+def rel_attention_train_shape(ra, dev, gen) -> dict:
+    """Kernel 1 at the train step's shape (B8 H8 T1200 bf16, all keys
+    valid): its time beside its bound, the plain version and SDPA with the
+    position term as a float bias mask (the library yardstick for kernels 1
+    and 4 there; SDPA is handed the bias, whose construction is timed
+    apart)."""
+    b, h, t = TRAIN_SHAPE
+    dk, dtype = 64, torch.bfloat16
+    mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
+    q_u, q_v, k, v = (mk(b, h, t, dk) for _ in range(4))
+    p = mk(h, 2 * t - 1, dk)
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    k_ms = time_ms(lambda: ra.rel_attention_kernel(q_u, q_v, k, v, p, mask), iters=10)
+    plain_ms = time_ms(lambda: ra.dense_rel_attention(q_u, q_v, k, v, p, mask), iters=3)
+    build_ms = time_ms(lambda: ra.rel_position_bias(q_v, p).to(dtype), iters=5)
+    bias = ra.rel_position_bias(q_v, p).to(dtype)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_u, k, v, attn_mask=bias), iters=10)
+    n_bytes = 5 * b * h * t * dk * 2 + h * (2 * t - 1) * dk * 2 + b * t + b * h * t * 4
+    bms, by = bound_ms(n_bytes, 3 * 2 * b * h * t * t * dk, dtype)
+    print(f"rel_attention B{b} H{h} T{t} bf16: kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {lib_ms:.4f} (SDPA, float bias mask; building the bf16 bias "
+          f"{build_ms:.4f} ms) bound_ms {bms:.4f} ({by})", flush=True)
+    return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bias_build_ms": build_ms,
+            "bound_ms": bms, "bound_by": by}
 
 
 def phase_plain_attention(att, dev) -> dict:
@@ -588,6 +650,25 @@ def sdpa_bwd_ms(q, k, v, bias, g) -> float:
     return time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), iters=5)
 
 
+def shear_bwd_times(ra, gen, dev, b, h, t) -> dict:
+    """Kernel 3 (bf16, all keys valid) beside its bound, its plain version
+    and the backward of SDPA with the position term as a float bias mask."""
+    dtype, dk, sz = torch.bfloat16, 64, 2
+    (q_u, q_v, k, v, p), _, g = bwd_inputs(gen, b, h, t, dtype, dev)
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    out, lse = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask)
+    k_ms = time_ms(lambda: ra.rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g), iters=10)
+    plain_ms = time_ms(lambda: ra.rel_attention_bwd_plain(q_u, q_v, k, v, p, mask, lse, out, g), iters=3)
+    lib_ms = sdpa_bwd_ms(q_u, k, v, ra.rel_position_bias(q_v, p).to(dtype), g)
+    # inputs q_u q_v k v out dO and p, mask, lse once; outputs dq_u dq_v dk dv and dp once
+    n_bytes = 10 * b * h * t * dk * sz + 2 * h * (2 * t - 1) * dk * sz + b * t + b * h * t * 4
+    bms, by = bound_ms(n_bytes, 8 * 2 * b * h * t * t * dk, dtype)
+    print(f"rel_attention_bwd B{b} H{h} T{t} bf16: kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {lib_ms:.4f} (SDPA backward, float bias mask) bound_ms {bms:.4f} ({by})",
+          flush=True)
+    return {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
 def phase_attention_bwd(ra, dev) -> tuple[dict, dict]:
     """Both backward kernels against their plain versions and autograd
     through the dense forward; times at the training shape."""
@@ -635,25 +716,17 @@ def phase_attention_bwd(ra, dev) -> tuple[dict, dict]:
     if failures:
         fail("a backward kernel disagrees with its plain version")
 
-    # times at the training shape, bf16, all keys valid
+    # times at the serving shape and at the training shape, bf16, all keys valid
+    serving = shear_bwd_times(ra, gen, dev, 4, 8, 480)
+    shear = {"max_abs_err": worst["shear"], **shear_bwd_times(ra, gen, dev, *TRAIN_SHAPE),
+             "serving_shape": serving}
     b, h, t = TRAIN_SHAPE
     dtype, dk, sz = torch.bfloat16, 64, 2
     (q_u, q_v, k, v, p), _, g = bwd_inputs(gen, b, h, t, dtype, dev)
     mask = torch.ones(b, t, dtype=torch.bool, device=dev)
     bhtd = b * h * t * dk
-    out, lse = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask)
-    k_ms = time_ms(lambda: ra.rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g), iters=5)
-    plain_ms = time_ms(lambda: ra.rel_attention_bwd_plain(q_u, q_v, k, v, p, mask, lse, out, g), iters=3)
+    k_ms, lib_ms = shear["ms"], shear["library_ms"]
     bias = ra.rel_position_bias(q_v, p)
-    lib_ms = sdpa_bwd_ms(q_u, k, v, bias.to(dtype), g)
-    # inputs q_u q_v k v out dO and p, mask, lse once; outputs dq_u dq_v dk dv and dp once
-    n_bytes = 10 * bhtd * sz + 2 * h * (2 * t - 1) * dk * sz + b * t + b * h * t * 4
-    bms, by = bound_ms(n_bytes, 8 * 2 * b * h * t * t * dk, dtype)
-    shear = {"max_abs_err": worst["shear"], "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms,
-             "bound_by": by, "library_ms": lib_ms}
-    print(f"rel_attention_bwd B{b} H{h} T{t} bf16: kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} "
-          f"library_ms {lib_ms:.4f} (SDPA backward, float bias mask) bound_ms {bms:.4f} ({by})",
-          flush=True)
     out_b, lse_b = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask)
     kb_ms = time_ms(lambda: ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse_b, out_b, g),
                     iters=5)
@@ -722,50 +795,57 @@ def phase_dropout(ra, dm, dev) -> dict:
         del bias, f32
         torch.cuda.empty_cache()
     # the kernel's own mask: with T = 64 and V = I the output is P~ itself
+    # (f32 and bf16: the two types run different shear kernels)
     b, h, t = 2, 8, 64
-    mk = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
-    q_u, q_v, k = (0.3 * mk(b, h, t, 64) for _ in range(3))
-    v = torch.eye(64, device=dev).expand(b, h, 64, 64).contiguous()
-    p = 0.3 * mk(h, 2 * t - 1, 64)
-    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
-    for rate in (0.1, 0.3):
-        n = b * h * t * t
-        sigma = math.sqrt(rate * (1 - rate) / n)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
+        q_u, q_v, k = (0.3 * mk(b, h, t, 64) for _ in range(3))
+        v = torch.eye(64, device=dev, dtype=dtype).expand(b, h, 64, 64).contiguous()
+        p = 0.3 * mk(h, 2 * t - 1, 64)
+        mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+        for rate in (0.1, 0.3):
+            n = b * h * t * t
+            sigma = math.sqrt(rate * (1 - rate) / n)
+            for route in ("shear", "bias"):
+                if route == "shear":
+                    out = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask, rate, 77)[0]
+                else:
+                    out = ra.rel_attention_bias_kernel(q_u, k, v, ra.rel_position_bias(q_v, p), mask,
+                                                       rate, 77)[0]
+                kept = out != 0
+                same = bool((kept == dm.attention_keep_mask(77, rate, b, h, t, dev)).all())
+                frac = float(kept.float().mean())
+                line = (f"dropout {route} mask {dname}, rate {rate}: equals ops/dropout_mask.py {same}; "
+                        f"keep rate {frac:.5f} vs {1 - rate} (3 sigma {3 * sigma:.5f}, {n} elements)")
+                print(line, flush=True)
+                if not (same and abs(frac - (1 - rate)) <= 3 * sigma):
+                    failures.append(line)
+    # determinism and unbiasedness (B1 H2 T128, rate 0.3, 48 seeds)
+    b, h, t = 1, 2, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
+        q_u, q_v, k, v = (mk(b, h, t, 64) for _ in range(4))
+        p = mk(h, 2 * t - 1, 64)
+        mask = torch.ones(b, t, dtype=torch.bool, device=dev)
         for route in ("shear", "bias"):
             if route == "shear":
-                out = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask, rate, 77)[0]
+                f = lambda seed, rate: ra.rel_attention_kernel(q_u, q_v, k, v, p, mask, rate, seed)[0].float()  # noqa: E731
             else:
-                out = ra.rel_attention_bias_kernel(q_u, k, v, ra.rel_position_bias(q_v, p), mask,
-                                                   rate, 77)[0]
-            kept = out != 0
-            same = bool((kept == dm.attention_keep_mask(77, rate, b, h, t, dev)).all())
-            frac = float(kept.float().mean())
-            line = (f"dropout {route} mask, rate {rate}: equals ops/dropout_mask.py {same}; keep rate "
-                    f"{frac:.5f} vs {1 - rate} (3 sigma {3 * sigma:.5f}, {n} elements)")
+                bias = ra.rel_position_bias(q_v, p)
+                f = lambda seed, rate: ra.rel_attention_bias_kernel(q_u, k, v, bias, mask, rate, seed)[0].float()  # noqa: E731
+            base, a1, a1b, a2 = f(0, 0.0), f(1, 0.3), f(1, 0.3), f(2, 0.3)
+            mean = sum(f(100 + s, 0.3) for s in range(48)) / 48
+            rel = float((mean - base).abs().mean() / base.abs().mean())
+            ok = (torch.equal(a1, a1b) and not torch.allclose(a1, a2)
+                  and not torch.allclose(a1, base, atol=1e-3) and rel < 0.2)
+            line = (f"dropout {route} {dname} rate 0.3: same seed equal {torch.equal(a1, a1b)}, other seed "
+                    f"differs {not torch.allclose(a1, a2)}, mean of 48 seeds vs no dropout rel err "
+                    f"{rel:.4f} (< 0.2)")
             print(line, flush=True)
-            if not (same and abs(frac - (1 - rate)) <= 3 * sigma):
+            if not ok:
                 failures.append(line)
-    # determinism and unbiasedness (f32, B1 H2 T128, rate 0.3, 48 seeds)
-    b, h, t = 1, 2, 128
-    q_u, q_v, k, v = (mk(b, h, t, 64) for _ in range(4))
-    p = mk(h, 2 * t - 1, 64)
-    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
-    for route in ("shear", "bias"):
-        if route == "shear":
-            f = lambda seed, rate: ra.rel_attention_kernel(q_u, q_v, k, v, p, mask, rate, seed)[0]  # noqa: E731
-        else:
-            bias = ra.rel_position_bias(q_v, p)
-            f = lambda seed, rate: ra.rel_attention_bias_kernel(q_u, k, v, bias, mask, rate, seed)[0]  # noqa: E731
-        base, a1, a1b, a2 = f(0, 0.0), f(1, 0.3), f(1, 0.3), f(2, 0.3)
-        mean = sum(f(100 + s, 0.3) for s in range(48)) / 48
-        rel = float((mean - base).abs().mean() / base.abs().mean())
-        ok = (torch.equal(a1, a1b) and not torch.allclose(a1, a2)
-              and not torch.allclose(a1, base, atol=1e-3) and rel < 0.2)
-        line = (f"dropout {route} rate 0.3: same seed equal {torch.equal(a1, a1b)}, other seed differs "
-                f"{not torch.allclose(a1, a2)}, mean of 48 seeds vs no dropout rel err {rel:.4f} (< 0.2)")
-        print(line, flush=True)
-        if not ok:
-            failures.append(line)
     if failures:
         fail("in-kernel dropout disagrees with its plain version")
     # forward times with dropout on, at the training shape
@@ -883,7 +963,7 @@ def phase_train(s1, counters: dict, preset) -> dict:
           f"{[round(x, 4) for x in per_sample]} (same batch)", flush=True)
     if not (moved > 0 and per_sample[2] < per_sample[0] and state.step == 3):
         fail(f"{what}: parameters did not move or the loss did not fall")
-    profile_call(lambda: step(state, batch), f"{what} shear", top=14)
+    profile_call(lambda: step(state, batch), f"{what} shear", top=20)
     bias_expected = {"rel_attention_bias": layers * accum, "rel_attention_bias_bwd": layers * accum}
     with flash_impl("bias"):
         torch.cuda.reset_peak_memory_stats()
@@ -1106,6 +1186,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {log.stem}: {line.strip()}", flush=True)
+    hmma = sass_tensor_core_counts(build)
 
     counters = {"rel_attention": ra.rel_attention_kernel,
                 "rel_attention_bwd": ra.rel_attention_bwd_kernel,
@@ -1138,6 +1219,12 @@ def main() -> int:
         numbers["dropout"] = "philox.cuh"
         numbers["train_shape_dropout_ms"] = dropout_ms[name]
         numbers["train_step_launches"] = train_launches[name]
+    for name, numbers in (("rel_attention", rel), ("rel_attention_bwd", shear_bwd)):
+        numbers.update(design="mma.sync m16n8k16 bf16, f32 accumulate; f32: FMA",
+                       hmma_in_sass=hmma[name], **PREVIOUS_MS[name])
+    # kernel 4 at the train step's shape: the same SDPA call and bias as kernel 1's
+    bias["train_shape_library_ms"] = rel["train_shape"]["library_ms"]
+    bias["train_shape_bias_build_ms"] = rel["train_shape"]["bias_build_ms"]
     launches.update({k: train_launches[k] for k in ("rel_attention_bwd", "rel_attention_bias_bwd")})
     pkg = "lip2speech_tpu_torch"
     jax_ops = "lip2speech_tpu/ops"

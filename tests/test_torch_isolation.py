@@ -11,7 +11,8 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "lip2speech_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "lip2speech_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "scripts" / "rel_attention_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lip2speech_tpu")
 
 
@@ -43,7 +44,7 @@ def test_port_has_the_slice_modules():
     csrc = {p.name for p in (REPO / "lip2speech_tpu_torch" / "csrc").iterdir()}
     assert {"rel_attention.cu", "fused_tail.cu", "attention.cu", "rel_attention_bias.cu",
             "flash_tile.cuh", "rel_attention_bwd.cu", "rel_attention_bias_bwd.cu",
-            "flash_bwd_tile.cuh", "rel_tile.cuh", "philox.cuh"} <= csrc
+            "flash_bwd_tile.cuh", "rel_tile.cuh", "philox.cuh", "mma_tile.cuh"} <= csrc
 
 
 def test_every_kernel_source_names_what_it_replaces():
