@@ -112,10 +112,6 @@ def valid_rows_err(out, ref, lens) -> float:
 
 
 TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd")   # bf16 on mma.sync
-PREVIOUS_MS = {   # the FP32-FMA versions, bf16: PERF.md §6, chip run of PR 3 (H100, 700 W)
-    "rel_attention": {"previous_ms": 0.187, "previous_train_shape_ms": 2.157},
-    "rel_attention_bwd": {"previous_ms": 9.593},
-}
 
 
 def sass_tensor_core_counts(build) -> dict:
@@ -1221,7 +1217,7 @@ def main() -> int:
         numbers["train_step_launches"] = train_launches[name]
     for name, numbers in (("rel_attention", rel), ("rel_attention_bwd", shear_bwd)):
         numbers.update(design="mma.sync m16n8k16 bf16, f32 accumulate; f32: FMA",
-                       hmma_in_sass=hmma[name], **PREVIOUS_MS[name])
+                       hmma_in_sass=hmma[name])
     # kernel 4 at the train step's shape: the same SDPA call and bias as kernel 1's
     bias["train_shape_library_ms"] = rel["train_shape"]["library_ms"]
     bias["train_shape_bias_build_ms"] = rel["train_shape"]["bias_build_ms"]

@@ -51,7 +51,12 @@
 //               dS and P~ of their 16 query rows and store them as bf16
 //               tiles; then warp w accumulates dK and dV of keys 16w ..
 //               from their transposes (ldmatrix .trans). 102.3 KB: two
-//               blocks per SM.
+//               blocks per SM. Only the window ring overlaps compute here:
+//               Q_u, Q_v and dO of tile t+1 are single-buffered, issued
+//               after tile t's last barrier and waited for at the top of
+//               tile t+1, so each query tile waits on device memory. A
+//               second stage of the three would add 24 KB (126.3 KB) and
+//               leave one block per SM.
 //
 // f32 (dtype 0), `rel_bwd_{query,key}_pass<float>`: the first version, kept
 // unchanged on the CUDA cores (FP32 FMAs, f32 tiles, rel_tile.cuh; dP by one

@@ -11,8 +11,7 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "lip2speech_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "rel_attention_ab.py"]
+PORT_FILES = sorted((REPO / "lip2speech_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lip2speech_tpu")
 
 

@@ -18,7 +18,6 @@ card: 2e-2 forward, 1e-2 of max(1, |ref|) backward.
 """
 
 import math
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -90,7 +89,7 @@ def _emulate_backward(q_u, q_v, k, v, p, mask, lse, out, g, keep, rate):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("t", [235, 470])
+@pytest.mark.parametrize("t", [192, 235, 470])   # 192: a batch-1 request's 96 frames
 def test_bf16_rounding_points_fit_the_kernel_tolerances(t, rate):
     xs, mask, g, lens = _inputs(t, seed=t + int(rate * 10))
     b, h = xs[0].shape[:2]
@@ -120,16 +119,3 @@ def test_bf16_rounding_points_fit_the_kernel_tolerances(t, rate):
     for a in grads[:4]:
         assert float(a[1].abs().max()) == 0.0
 
-
-def test_bf16_dispatches_to_the_tensor_core_kernels():
-    """dtype 1 reaches the mma.sync kernels, dtype 0 the FP32-FMA ones, in
-    both sources; the products are m16n8k16 bf16 with f32 accumulation."""
-    csrc = Path(tra.__file__).resolve().parent.parent / "csrc"
-    mma = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
-    assert mma in (csrc / "mma_tile.cuh").read_text()
-    for name in ("rel_attention", "rel_attention_bwd"):
-        text = (csrc / f"{name}.cu").read_text()
-        assert '#include "mma_tile.cuh"' in text
-        entry = text[text.index('extern "C"'):]
-        assert "dtype == 0)\n    e = fma_path::launch<float>(" in entry
-        assert "dtype == 1)\n    e = mma_path::launch(" in entry
