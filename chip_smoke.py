@@ -7,17 +7,21 @@ Phases, in order; any failure exits non-zero before the last line:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels from lip2speech_tpu_torch/csrc (nvcc, in parallel);
      print ptxas's registers and spills, and count the tensor-core (HMMA)
-     instructions in each library's SASS: none in rel_attention or
-     rel_attention_bwd (bf16 on mma.sync) fails;
+     instructions in each library's SASS: none in rel_attention,
+     rel_attention_bwd, attention or fused_tail (bf16 on mma.sync) fails;
   3. rel-position attention kernel against its plain version, f32 and bf16;
      times at B4 H8 T480 and at the train step's B8 H8 T1200, each beside
      SDPA with the position term as a float bias mask;
   4. fused resblock-trio kernel against its plain version, per stage width;
+     each stage's time beside its plain version (cuDNN's 18 convs) and its
+     bound at the batch-4 x 240-frame and batch-1 x 96-frame row counts;
   5. the full-width multi_target pipeline: bf16 + PCM16 requests at batch
      4 x 240 frames (ragged) and 1 x 96, launch counts per forward, p50; then
      the f32 kernel path against the same weights' plain path on the CPU;
   6. masked flash attention kernel against its plain version (the AV-HuBERT
-     and HuBERT shapes), f32 and bf16;
+     and HuBERT shapes, a fully masked batch row), f32 and bf16; bf16 times
+     at B4 H16 T240 and at the flagship train step's B8 H16 T600 beside
+     SDPA and the bound;
   7. bias-flash rel-position attention kernel against its plain version, and
      its time plus the bias construction beside the shear kernel of phase 3;
   8. the full-width multi_target_avhubert pipeline as in 5, with both
@@ -111,7 +115,8 @@ def valid_rows_err(out, ref, lens) -> float:
     return max(float((out.float() - ref)[i, :, :n].abs().max()) for i, n in enumerate(lens) if n)
 
 
-TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd")   # bf16 on mma.sync
+# libraries whose bf16 path runs on mma.sync
+TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd", "attention", "fused_tail")
 
 
 def sass_tensor_core_counts(build) -> dict:
@@ -207,44 +212,61 @@ def rel_attention_train_shape(ra, dev, gen) -> dict:
 
 def phase_plain_attention(att, dev) -> dict:
     """The masked attention kernel at the AV-HuBERT trunk's shape (B4 H16 T240 dk64, ragged), at a
-    T that is not a tile multiple, at the shape the flagship's train step
-    gives it (B8 H16 T600), and at HuBERT's (B1 H12, no mask, up to the 4999
-    frames of a full extraction chunk)."""
+    T that is not a tile multiple (also with a fully masked batch row, held
+    whole against the plain version's uniform average), at the shape the
+    flagship's train step gives it (B8 H16 T600), and at HuBERT's (B1 H12,
+    no mask, up to the 4999 frames of a full extraction chunk). bf16 times
+    at B4 H16 T240 and B8 H16 T600."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dk = 64
     result, failures = None, []
-    cases = [(4, 16, 240, True, torch.bfloat16, True), (4, 16, 240, True, torch.float32, False),
-             (4, 16, 235, True, torch.bfloat16, False), (4, 16, 235, True, torch.float32, False),
-             (8, 16, 600, True, torch.bfloat16, False), (8, 16, 600, True, torch.float32, False),
-             (1, 12, 1499, False, torch.bfloat16, False), (1, 12, 1499, False, torch.float32, False),
-             (1, 12, 4999, False, torch.float32, False),    # one 1.6 M-sample chunk
-             (1, 12, 500, False, torch.float32, True)]
-    for b, h, t, masked, dtype, timed in cases:
+    cases = [(4, 16, 240, "ragged", torch.bfloat16, True), (4, 16, 240, "ragged", torch.float32, False),
+             (4, 16, 235, "ragged", torch.bfloat16, False), (4, 16, 235, "ragged", torch.float32, False),
+             (4, 16, 235, "empty row", torch.bfloat16, False),
+             (4, 16, 235, "empty row", torch.float32, False),
+             (8, 16, 600, "ragged", torch.bfloat16, True), (8, 16, 600, "ragged", torch.float32, False),
+             (1, 12, 1499, "no mask", torch.bfloat16, False),
+             (1, 12, 1499, "no mask", torch.float32, False),
+             (1, 12, 4999, "no mask", torch.float32, False),    # one 1.6 M-sample chunk
+             (1, 12, 500, "no mask", torch.float32, True)]
+    for b, h, t, masking, dtype, timed in cases:
         q, k, v = (torch.randn(b, h, t, dk, generator=gen).to(dev, dtype) for _ in range(3))
-        lens, mask = ragged_mask(t, dev, b) if masked else (None, None)
+        if masking == "ragged":
+            lens, mask = ragged_mask(t, dev, b)
+        elif masking == "empty row":     # batch row 2 has no valid key: compared whole
+            mask = torch.arange(t, device=dev)[None, :] < torch.tensor(
+                [t, round(0.83 * t), 0, round(0.4 * t)], device=dev)[:, None]
+            lens = None
+        else:
+            lens, mask = None, None
         out = att.attention_kernel(q, k, v, mask)
         ref = att.reference_attention(q.float(), k.float(), v.float(), mask)   # f32 math
         torch.cuda.synchronize()
         err = valid_rows_err(out, ref, lens)
         finite = bool(torch.isfinite(out.float()).all())
-        tol = 1e-4 if dtype == torch.float32 else 2e-2      # bf16: output rounding
+        tol = 1e-4 if dtype == torch.float32 else 2e-2      # bf16: P and output rounding
         name = str(dtype).replace("torch.", "")
-        line = (f"attention B{b} H{h} T{t} {'ragged' if masked else 'no mask'} {name}: "
+        line = (f"attention B{b} H{h} T{t} {masking} {name}: "
                 f"max_abs_err {err:.3e} (tol {tol:g}) finite {finite}")
         if timed:
             k_ms = time_ms(lambda: att.attention_kernel(q, k, v, mask))
             plain_ms = time_ms(lambda: att.reference_attention(q, k, v, mask))
             lib_mask = None if mask is None else mask[:, None, None, :]
             lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=lib_mask))
-            n_bytes = 4 * b * h * t * dk * q.element_size() + (b * t if masked else 0)
+            n_bytes = 4 * b * h * t * dk * q.element_size() + (b * t if mask is not None else 0)
             bms, by = bound_ms(n_bytes, 4 * b * h * t * t * dk, dtype)
             line += (f" kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f}"
                      f" bound_ms {bms:.4f} ({by})")
-            if dtype == torch.bfloat16:
-                result = {"max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
-                          "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            numbers = {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "library_ms": lib_ms}
+            if dtype == torch.bfloat16 and result is None:
+                result = {"max_abs_err": err, **numbers}
+            elif dtype == torch.bfloat16:
+                result["train_shape"] = numbers
+        if dtype == torch.bfloat16 and result is not None:
+            result["max_abs_err"] = max(result["max_abs_err"], err)
         print(line, flush=True)
         if not (err <= tol and finite):
             failures.append(line)
@@ -318,7 +340,9 @@ def trio_weights(gen, c, ks, dils, dtype, dev):
 
 def phase_trio(ft, dev, vcfg) -> dict:
     """Kernel 2 per stage width at the batch-4 x 240-frame row counts, plus a
-    row count that is not a tile multiple."""
+    row count that is not a tile multiple, and (bf16) at the batch-1 x
+    96-frame row counts. Returns the bf16 totals at batch 4 with each
+    stage's numbers at both request shapes."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(2)
     ks = tuple(vcfg.resblock_kernel_sizes)
@@ -327,6 +351,7 @@ def phase_trio(ft, dev, vcfg) -> dict:
     b, frames = 4, 240
     rows = frames * 4                          # mel rows per item
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    stages = []
     bound_kind = set()
     failures = []
     c = vcfg.upsample_initial_channel
@@ -338,8 +363,12 @@ def phase_trio(ft, dev, vcfg) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             ws = trio_weights(gen, c, ks, dils, dtype, dev)
             name = str(dtype).replace("torch.", "")
-            for m in (rows, 1000 + 37):
-                x = (torch.randn(b if m == rows else 2, c, m, generator=gen) * 0.5).to(dev, dtype)
+            shapes = [(b, rows, "B4x240"), (2, 1000 + 37, None)]
+            if dtype == torch.bfloat16:
+                shapes.append((1, rows * 96 // 240, "B1x96"))
+                stage = {"channels": c}
+            for bsz, m, timed in shapes:
+                x = (torch.randn(bsz, c, m, generator=gen) * 0.5).to(dev, dtype)
                 out = ft.fused_resblock_trio_kernel(x, ws, ks, dils)
                 ref = ft.trio_plain(x, ws, ks, dils)
                 torch.cuda.synchronize()
@@ -349,29 +378,44 @@ def phase_trio(ft, dev, vcfg) -> dict:
                 # so a one-ulp split early in the 18-conv chain can propagate
                 tol = (1e-4 if dtype == torch.float32 else 3e-2) * scale
                 finite = bool(torch.isfinite(out.float()).all())
-                line = (f"fused_trio C{c} B{x.shape[0]} M{m} {name}: max_abs_err {err:.3e} "
+                line = (f"fused_trio C{c} B{bsz} M{m} {name}: max_abs_err {err:.3e} "
                         f"(tol {tol:.3g}) finite {finite}")
-                if m == rows:
+                if timed:
                     k_ms = time_ms(lambda: ft.fused_resblock_trio_kernel(x, ws, ks, dils), iters=5)
                     p_ms = time_ms(lambda: ft.trio_plain(x, ws, ks, dils), iters=5)
                     n_bytes = 2 * x.numel() * x.element_size() + sum(
                         w.numel() * w.element_size() + bb.numel() * bb.element_size()
                         for rb in ws for pair in rb for w, bb in pair)
-                    bms, by = bound_ms(n_bytes, 2 * macs_per_row * c * c * b * m, dtype)
-                    line += f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {bms:.4f} ({by})"
+                    bms, by = bound_ms(n_bytes, 2 * macs_per_row * c * c * bsz * m, dtype)
+                    tile = ft.tile_rows(c, dtype, ft._geometry(ks, dils)[1], m, bsz,
+                                        ft._sm_count(x.device), ks, tuple(dils))
+                    line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {bms:.4f} ({by})"
+                             f" tile {tile} blocks {bsz * -(-m // tile)}")
                     if dtype == torch.bfloat16:
-                        totals["ms"] += k_ms
-                        totals["plain_ms"] += p_ms
-                        totals["bound_ms"] += bms
-                        totals["max_abs_err"] = max(totals["max_abs_err"], err)
-                        bound_kind.add(by)
+                        stage[timed] = {"rows": m, "batch": bsz, "ms": k_ms, "plain_ms": p_ms,
+                                        "bound_ms": bms, "tile": tile}
+                        if timed == "B4x240":
+                            totals["ms"] += k_ms
+                            totals["plain_ms"] += p_ms
+                            totals["bound_ms"] += bms
+                            bound_kind.add(by)
+                if dtype == torch.bfloat16:
+                    totals["max_abs_err"] = max(totals["max_abs_err"], err)
                 print(line, flush=True)
                 if not (err <= tol and finite):
                     failures.append(line)
+            if dtype == torch.bfloat16:
+                stages.append(stage)
     if failures:
         fail("fused trio kernel disagrees with its plain version")
+    slower = [f"C{st['channels']} {shape}" for st in stages for shape in ("B4x240", "B1x96")
+              if st[shape]["ms"] > st[shape]["plain_ms"]]
+    print(f"fused_trio bf16 B4x240 four stages: kernel_ms {totals['ms']:.4f} plain_ms "
+          f"{totals['plain_ms']:.4f} bound_ms {totals['bound_ms']:.4f}; stages slower than "
+          f"their plain version: {slower or 'none'}", flush=True)
     totals["bound_by"] = "/".join(sorted(bound_kind))
     totals["library_ms"] = None                 # no single PyTorch call does a trio
+    totals["stages"] = stages
     return totals
 
 
@@ -1180,7 +1224,7 @@ def main() -> int:
     print(f"build s {time.perf_counter() - t0:.2f} {built}", flush=True)
     for log in sorted(build._build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {log.stem}: {line.strip()}", flush=True)
     hmma = sass_tensor_core_counts(build)
 
@@ -1215,12 +1259,19 @@ def main() -> int:
         numbers["dropout"] = "philox.cuh"
         numbers["train_shape_dropout_ms"] = dropout_ms[name]
         numbers["train_step_launches"] = train_launches[name]
-    for name, numbers in (("rel_attention", rel), ("rel_attention_bwd", shear_bwd)):
+    for name, lib, numbers in (("rel_attention", "rel_attention", rel),
+                               ("rel_attention_bwd", "rel_attention_bwd", shear_bwd),
+                               ("attention", "attention", plain),
+                               ("fused_resblock_trio", "fused_tail", trio)):
         numbers.update(design="mma.sync m16n8k16 bf16, f32 accumulate; f32: FMA",
-                       hmma_in_sass=hmma[name])
+                       hmma_in_sass=hmma[lib])
     # kernel 4 at the train step's shape: the same SDPA call and bias as kernel 1's
     bias["train_shape_library_ms"] = rel["train_shape"]["library_ms"]
     bias["train_shape_bias_build_ms"] = rel["train_shape"]["bias_build_ms"]
+    tb, th, tt = TRAIN_SHAPE      # kernel 4's bound there: phase 7's byte and operation counts
+    bias["train_shape_bound_ms"], bias["train_shape_bound_by"] = bound_ms(
+        4 * tb * th * tt * 64 * 2 + 4 * tb * th * tt * tt + tb * tt + tb * th * tt * 4,
+        2 * 2 * tb * th * tt * tt * 64, torch.bfloat16)
     launches.update({k: train_launches[k] for k in ("rel_attention_bwd", "rel_attention_bias_bwd")})
     pkg = "lip2speech_tpu_torch"
     jax_ops = "lip2speech_tpu/ops"

@@ -1,5 +1,7 @@
-// Tensor-core building blocks of the bf16 rel-position attention kernels
-// (rel_attention.cu, rel_attention_bwd.cu). Not compiled on its own.
+// Tensor-core building blocks of the bf16 attention kernels
+// (rel_attention.cu, rel_attention_bwd.cu, attention.cu); fused_tail.cu
+// uses the primitives (cp.async, ldmatrix, mma, packing). Not compiled on
+// its own.
 //
 // Products run on mma.sync.m16n8k16 (bf16 in, f32 accumulate), written in
 // inline PTX; operands come from shared memory by ldmatrix, or straight from

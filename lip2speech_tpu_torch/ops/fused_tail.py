@@ -18,6 +18,7 @@ resblocks.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -27,6 +28,7 @@ from lip2speech_tpu_torch.ops import nn as ops
 LRELU_SLOPE = 0.1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_BUDGET = 220 * 1024     # of the 227 KB a block may use on Hopper
+RING_STAGES, RING_CHUNK = 3, 16384  # bf16 weight ring of csrc/fused_tail.cu
 MAX_RES, MAX_DIL = 4, 4      # geometry table size of csrc/fused_tail.cu
 
 
@@ -76,24 +78,95 @@ def _geometry(kernel_sizes, dilation_sizes) -> tuple[list[int], int]:
 
 def smem_bytes(channels: int, dtype: torch.dtype, tile: int, halo: int) -> int:
     """Shared memory of one block as csrc/fused_tail.cu lays it out: two
-    activation buffers of tile + 2*halo rows; f32 channel-major [C][rows],
-    bf16 row-major [rows + 16][C + 16] plus 8 warps' 16x16 f32 staging."""
+    activation buffers of tile + 2*halo rows; f32 channel-major [C][rows];
+    bf16 row-major [rows + 16][C] plus the weight ring (RING_STAGES chunks
+    of RING_CHUNK bytes)."""
     rows = tile + 2 * halo
     if dtype == torch.float32:
         return 2 * channels * rows * 4
-    return 2 * (rows + 16) * (channels + 16) * 2 + 8 * 256 * 4
+    return RING_STAGES * RING_CHUNK + 2 * (rows + 16) * channels * 2
 
 
-def tile_rows(channels: int, dtype: torch.dtype, halo: int, m: int) -> int:
-    """Output rows per block: the largest multiple of 32, at most 1024 and
-    no more than the sequence needs, whose buffers fit SMEM_BUDGET."""
-    tile = min(1024, -(-m // 32) * 32)
-    while tile >= 32 and smem_bytes(channels, dtype, tile, halo) > SMEM_BUDGET:
-        tile -= 32
-    if tile < 32:
+# csrc/fused_tail.cu's bf16 warp layout per C (Cfg): warps across the rows,
+# m16 tiles a warp holds per round, weight rows per ring chunk
+MMA_LAYOUT = {128: (8, 2, 64), 64: (16, 2, 128), 32: (16, 4, 128), 16: (16, 8, 128)}
+
+
+def conv_regions(kernel_sizes, dilation_sizes, tile: int) -> list[tuple[int, int]]:
+    """(taps, output rows) of every conv of the trio for one block, in
+    launch order: each conv computes only the rows the rest of its chain
+    needs (csrc/fused_tail.cu: conv_table)."""
+    regions = []
+    for k, dils in zip(kernel_sizes, dilation_sizes):
+        pads = [ops.branch_paddings(k, d) for d in dils]
+        rest = sum(p1 + p2 for p1, p2 in pads)
+        for p1, p2 in pads:
+            regions.append((k, tile + 2 * (rest - p1)))
+            regions.append((k, tile + 2 * (rest - p1 - p2)))
+            rest -= p1 + p2
+    return regions
+
+
+def block_cost(channels: int, regions) -> int:
+    """A bf16 block's work in chunk steps of its busiest warp: per conv, the
+    weight chunks it streams times, per round, the m16 tiles a row warp
+    holds (a round that fills few warps costs as many chunks)."""
+    warps, per_warp, chunk_rows = MMA_LAYOUT[channels]
+    cost = 0
+    for k, rows in regions:
+        tiles = -(-rows // 16)
+        chunks = -(-k * channels // chunk_rows)
+        while tiles > 0:
+            in_round = min(tiles, warps * per_warp)
+            cost += chunks * -(-in_round // warps)
+            tiles -= in_round
+    return cost
+
+
+@functools.lru_cache(maxsize=256)
+def tile_rows(channels: int, dtype: torch.dtype, halo: int, m: int, batch: int = 1,
+              n_sm: int = 132, kernel_sizes: tuple = (3, 7, 11),
+              dilation_sizes: tuple = ((1, 3, 5),) * 3) -> int:
+    """Output rows per block whose buffers fit SMEM_BUDGET.
+
+    f32: the largest multiple of 32, at most 1024 and no more than the
+    sequence needs. bf16 (one block per SM): an even tile from 32 up to what
+    fits or the sequence needs. For each number of waves the smallest such
+    tile does the least work a block (block_cost grows with the tile), so of
+    those the one with the least waves x block_cost wins; ties go to the
+    fewer waves. Small tiles fill the card, large ones recompute less halo,
+    and a tile whose regions fill whole rounds wastes no warps."""
+    if dtype == torch.float32:
+        top = min(1024, -(-m // 32) * 32)
+        fits = [t for t in range(32, max(top, 32) + 1, 32)
+                if smem_bytes(channels, dtype, t, halo) <= SMEM_BUDGET]
+    else:
+        most = (SMEM_BUDGET - smem_bytes(channels, dtype, 0, halo)) // (4 * channels)
+        fits = list(range(32, min(m + m % 2, most - most % 2) + 1, 2))
+    if not fits:
         raise ValueError(f"fused trio: halo {halo} leaves no room for a tile "
                          f"at {channels} channels")
-    return tile
+    if dtype == torch.float32:
+        return fits[-1]
+
+    def cost(t):
+        return block_cost(channels, conv_regions(kernel_sizes, dilation_sizes, t))
+
+    smallest = {}                                   # waves -> smallest tile
+    for t in reversed(fits):
+        smallest[-(-batch * -(-m // t) // n_sm)] = t
+    floor, best = cost(fits[0]), None               # no block costs less than the smallest tile's
+    for waves in sorted(smallest):
+        if best is not None and waves * floor > best[0]:
+            break
+        if best is None or waves * cost(smallest[waves]) < best[0]:
+            best = (waves * cost(smallest[waves]), smallest[waves])
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_resblock_trio_kernel(x, weights, kernel_sizes, dilation_sizes):
@@ -125,7 +198,8 @@ def fused_resblock_trio_kernel(x, weights, kernel_sizes, dilation_sizes):
                 b_parts.append(bias)
     w_all = torch.cat(w_parts).to(x.dtype)
     b_all = torch.stack(b_parts).to(x.dtype).contiguous()
-    tile = tile_rows(c, x.dtype, halo, m)
+    tile = tile_rows(c, x.dtype, halo, m, b, _sm_count(x.device), tuple(kernel_sizes),
+                     tuple(tuple(d) for d in dilation_sizes))
     out = torch.empty_like(x)
     geom_arr = (ctypes.c_int * len(geom))(*geom)
     fn = build.load("fused_tail").l2s_resblock_trio

@@ -62,11 +62,50 @@ def test_geometry_halo_from_branch_paddings():
 @pytest.mark.parametrize("c", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tile_rows_fit_shared_memory(c, dtype):
-    tile = tft.tile_rows(c, dtype, 60, 153_600)
-    assert tile % 32 == 0 and 32 <= tile <= 1024
+    """f32: the largest multiple of 32 up to 1024 whose channel-major buffers
+    fit. bf16: row-major buffers [rows + 16][C] plus the 32 KB weight ring;
+    among the multiples of 16 that fit, the least waves x (tile + halo)."""
+    m, batch = 153_600, 4
+    tile = tft.tile_rows(c, dtype, 60, m, batch)
     assert tft.smem_bytes(c, dtype, tile, 60) <= tft.SMEM_BUDGET
-    assert tile == 1024 or tft.smem_bytes(c, dtype, tile + 32, 60) > tft.SMEM_BUDGET
-    assert tft.tile_rows(c, dtype, 60, 40) == 64      # never past the sequence
+    if dtype == torch.float32:
+        assert tile % 32 == 0 and 32 <= tile <= 1024
+        assert tile == 1024 or tft.smem_bytes(c, dtype, tile + 32, 60) > tft.SMEM_BUDGET
+        assert tft.smem_bytes(c, dtype, tile, 60) == 2 * c * (tile + 120) * 4
+        assert tft.tile_rows(c, dtype, 60, 40) == 64      # never past the sequence
+        return
+    assert tile % 2 == 0 and tile >= 32
+    assert tft.smem_bytes(c, dtype, tile, 60) == (tft.RING_STAGES * tft.RING_CHUNK
+                                                  + 2 * (tile + 136) * c * 2)
+    fits = [t for t in range(32, m + 1, 2) if tft.smem_bytes(c, dtype, t, 60) <= tft.SMEM_BUDGET]
+    assert tile + 2 not in fits or tft.smem_bytes(c, dtype, fits[-1] + 2, 60) > tft.SMEM_BUDGET
+
+    def cost(t):
+        waves = -(-batch * -(-m // t) // 132)
+        return waves * tft.block_cost(c, tft.conv_regions(KS, DILS, t))
+    assert cost(tile) == min(cost(t) for t in fits)
+    assert tft.tile_rows(c, dtype, 60, 40) <= 40        # never past the sequence
+
+
+def test_conv_regions_shrink_by_each_conv_padding():
+    """The rows each conv of the default trio computes for one 100-row tile
+    (csrc/fused_tail.cu: conv_table): the k=11 chain needs 60 halo rows."""
+    regions = tft.conv_regions(KS, DILS, 100)
+    assert len(regions) == 18 and [k for k, _ in regions] == [3] * 6 + [7] * 6 + [11] * 6
+    assert [r for _, r in regions[12:]] == [210, 200, 170, 160, 110, 100]
+    assert [r for _, r in regions[:6]] == [122, 120, 114, 112, 102, 100]
+    # C=128: 8 row warps x 2 m16 tiles a round, 64 weight rows a chunk;
+    # 210 rows = 14 tiles, one round, two tiles on the busiest warp
+    assert tft.block_cost(128, [(11, 210)]) == 22 * 2
+    assert tft.block_cost(128, [(11, 260)]) == 22 * (2 + 1)     # 17 tiles: two rounds
+
+
+@pytest.mark.parametrize("c,m", [(128, 7_680), (64, 15_360), (32, 30_720), (16, 61_440)])
+def test_bf16_tiles_fill_the_card_at_batch_1(c, m):
+    """A batch-1 x 96-frame request's stage gets at least 120 blocks on the
+    H100's 132 SMs, and never more than one wave of them."""
+    tile = tft.tile_rows(c, torch.bfloat16, 60, m, 1, 132)
+    assert 120 <= -(-m // tile) <= 132
 
 
 def test_kernel_launcher_rejects_cpu_tensors():
