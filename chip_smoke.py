@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero before the last line:
   2. build the kernels from lip2speech_tpu_torch/csrc (nvcc, in parallel);
      print ptxas's registers and spills, and count the tensor-core (HMMA)
      instructions in each library's SASS: none in rel_attention,
-     rel_attention_bwd, attention or fused_tail (bf16 on mma.sync) fails;
+     rel_attention_bwd, rel_attention_bias, rel_attention_bias_bwd,
+     attention or fused_tail (bf16 on mma.sync) fails;
   3. rel-position attention kernel against its plain version, f32 and bf16;
      times at B4 H8 T480 and at the train step's B8 H8 T1200, each beside
      SDPA with the position term as a float bias mask;
@@ -22,8 +23,11 @@ Phases, in order; any failure exits non-zero before the last line:
      and HuBERT shapes, a fully masked batch row), f32 and bf16; bf16 times
      at B4 H16 T240 and at the flagship train step's B8 H16 T600 beside
      SDPA and the bound;
-  7. bias-flash rel-position attention kernel against its plain version, and
-     its time plus the bias construction beside the shear kernel of phase 3;
+  7. bias-flash rel-position attention kernel against its plain version
+     (T 480 / 470, f32 and bf16), and its time plus the bias construction
+     beside the shear kernel of phase 3; bf16 times at B4 H8 T480 and at the
+     train step's B8 H8 T1200, each beside its plain version, SDPA with the
+     same bias and the bound (bytes and operations);
   8. the full-width multi_target_avhubert pipeline as in 5, with both
      rel-attention implementations (LIP2SPEECH_FLASH_IMPL shear | bias), and
      multi_target's batch-4 p50 under both;
@@ -34,8 +38,10 @@ Phases, in order; any failure exits non-zero before the last line:
  11. the backward kernels of both rel-position attention routes against
      their plain versions and against autograd through the dense forward,
      f32 and bf16, T 235 / 470 / 1200, ragged with one fully masked batch
-     row; the shear kernel's times at B4 H8 T480 and B8 H8 T1200, the bias
-     kernel's at B8 H8 T1200;
+     row; both kernels' bf16 times at B4 H8 T480 and B8 H8 T1200 beside
+     their plain versions, SDPA's backward and the bound (bytes and
+     operations), the bias route's also beside the autograd of the bias
+     construction;
  12. in-kernel attention dropout, both routes, forward and backward, against
      the plain versions under the identical keep mask; the kernel's mask
      against ops/dropout_mask.py; determinism, keep rate, unbiasedness;
@@ -99,6 +105,13 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def both_bounds_ms(n_bytes: float, flops: float, dtype) -> dict:
+    """The byte and the operation bound apart, and the larger of the two."""
+    bms, by = bound_ms(n_bytes, flops, dtype)
+    return {"bound_ms": bms, "bound_by": by, "bytes_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "operations_bound_ms": flops / PEAK_FLOPS[dtype] * 1e3}
+
+
 def set_tf32(on: bool) -> None:
     torch.backends.cuda.matmul.allow_tf32 = on
     torch.backends.cudnn.allow_tf32 = on
@@ -116,7 +129,8 @@ def valid_rows_err(out, ref, lens) -> float:
 
 
 # libraries whose bf16 path runs on mma.sync
-TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd", "attention", "fused_tail")
+TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd", "rel_attention_bias",
+                       "rel_attention_bias_bwd", "attention", "fused_tail")
 
 
 def sass_tensor_core_counts(build) -> dict:
@@ -275,13 +289,44 @@ def phase_plain_attention(att, dev) -> dict:
     return result
 
 
+def bias_fwd_times(ra, gen, dev, b, h, t, mask=None) -> dict:
+    """Kernel 4 in bf16 beside its plain version, SDPA with the same bias
+    (cast to bf16, masked keys at -1e30) and its bound; the bias
+    construction apart. mask None: all keys valid."""
+    dtype, dk = torch.bfloat16, 64
+    mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
+    q_u, q_v, k, v = (mk(b, h, t, dk) for _ in range(4))
+    p = mk(h, 2 * t - 1, dk)
+    if mask is None:
+        mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    bias = ra.rel_position_bias(q_v, p)
+    iters = 20 if t < 1000 else 10
+    k_ms = time_ms(lambda: ra.rel_attention_bias_kernel(q_u, k, v, bias, mask), iters=iters)
+    build_ms = time_ms(lambda: ra.rel_position_bias(q_v, p), iters=5)
+    plain_ms = time_ms(lambda: ra.dense_bias_attention(q_u, k, v, bias, mask), iters=3)
+    lib_bias = bias.masked_fill(~mask[:, None, None, :], ra.NEG_INF).to(dtype)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_u, k, v, attn_mask=lib_bias), iters=iters)
+    # q_u k v in and out written once, the f32 bias, the mask, the f32 LSE
+    n_bytes = 4 * b * h * t * dk * 2 + 4 * b * h * t * t + b * t + b * h * t * 4
+    bounds = both_bounds_ms(n_bytes, 2 * 2 * b * h * t * t * dk, dtype)
+    print(f"rel_attention_bias B{b} H{h} T{t} bf16: kernel_ms {k_ms:.4f} bias_build_ms {build_ms:.4f} "
+          f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA, the same bias) bound_ms "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']}; bytes {bounds['bytes_bound_ms']:.4f}, "
+          f"operations {bounds['operations_bound_ms']:.4f})", flush=True)
+    return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bias_build_ms": build_ms,
+            **bounds}
+
+
 def phase_bias_attention(ra, dev, shear_ms: float) -> dict:
     """The bias-flash kernel at the conformer's shape (B4 H8 T480 dk64, ragged) and at
-    T=470; its time and the bias construction's beside the shear kernel's."""
+    T=470, f32 and bf16, against its plain version; bf16 times there and at
+    the train step's B8 H8 T1200, with the bias construction's beside the
+    shear kernel's."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(4)
     b, h, dk = 4, 8, 64
-    result, failures = None, []
+    worst, failures = 0.0, []
     for t, dtype in ((480, torch.bfloat16), (480, torch.float32),
                      (470, torch.bfloat16), (470, torch.float32)):
         mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
@@ -297,31 +342,20 @@ def phase_bias_attention(ra, dev, shear_ms: float) -> dict:
         err = valid_rows_err(out, ref, lens)
         lse_err = valid_rows_err(lse[..., None], lse_ref[..., None], lens)
         finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all())
-        tol = 1e-4 if dtype == torch.float32 else 2e-2      # bf16: output rounding
+        tol = 1e-4 if dtype == torch.float32 else 2e-2      # bf16: P and output rounding
         ok = err <= tol and lse_err <= 1e-3 and finite      # the LSE is f32 for both types
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
         name = str(dtype).replace("torch.", "")
         line = (f"rel_attention_bias B{b} H{h} T{t} {name}: max_abs_err {err:.3e} (tol {tol:g}) "
                 f"lse_err {lse_err:.3e} (tol 0.001) finite {finite}")
-        if t == 480:
-            k_ms = time_ms(lambda: ra.rel_attention_bias_kernel(q_u, k, v, bias, mask))
-            build_ms = time_ms(lambda: ra.rel_position_bias(q_v, p))
-            plain_ms = time_ms(lambda: ra.dense_bias_attention(q_u, k, v, bias, mask))
-            lib_bias = bias.masked_fill(~mask[:, None, None, :], ra.NEG_INF).to(dtype)
-            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q_u, k, v, attn_mask=lib_bias))
-            sz = q_u.element_size()
-            n_bytes = 4 * b * h * t * dk * sz + 4 * b * h * t * t + b * t + b * h * t * 4
-            bms, by = bound_ms(n_bytes, 2 * 2 * b * h * t * t * dk, dtype)
-            line += (f" kernel_ms {k_ms:.4f} bias_build_ms {build_ms:.4f} plain_ms {plain_ms:.4f}"
-                     f" library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})")
-            if dtype == torch.bfloat16:
-                result = {"max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms,
-                          "bound_by": by, "library_ms": lib_ms, "bias_build_ms": build_ms}
         print(line, flush=True)
         if not ok:
             failures.append(line)
     if failures:
         fail("rel_attention_bias kernel disagrees with its plain version")
+    result = {"max_abs_err": worst, **bias_fwd_times(ra, gen, dev, b, h, 480, ragged_mask(480, dev)[1]),
+              "train_shape": bias_fwd_times(ra, gen, dev, *TRAIN_SHAPE)}
     print(f"rel-position attention B{b} H{h} T480 bf16: shear kernel_ms {shear_ms:.4f} | bias "
           f"build+kernel_ms {result['bias_build_ms'] + result['ms']:.4f}", flush=True)
     return result
@@ -760,33 +794,43 @@ def phase_attention_bwd(ra, dev) -> tuple[dict, dict]:
     serving = shear_bwd_times(ra, gen, dev, 4, 8, 480)
     shear = {"max_abs_err": worst["shear"], **shear_bwd_times(ra, gen, dev, *TRAIN_SHAPE),
              "serving_shape": serving}
-    b, h, t = TRAIN_SHAPE
+    bias_serving = bias_bwd_times(ra, gen, dev, 4, 8, 480, serving["ms"])
+    bias_res = {"max_abs_err": worst["bias"], **bias_bwd_times(ra, gen, dev, *TRAIN_SHAPE, shear["ms"]),
+                "serving_shape": bias_serving}
+    return shear, bias_res
+
+
+def bias_bwd_times(ra, gen, dev, b, h, t, shear_ms: float) -> dict:
+    """Kernel 5 (bf16, all keys valid) beside its bound, its plain version,
+    the backward of SDPA with the same bias as a float mask, and the autograd
+    of the bias construction that follows it in the route."""
     dtype, dk, sz = torch.bfloat16, 64, 2
     (q_u, q_v, k, v, p), _, g = bwd_inputs(gen, b, h, t, dtype, dev)
     mask = torch.ones(b, t, dtype=torch.bool, device=dev)
-    bhtd = b * h * t * dk
-    k_ms, lib_ms = shear["ms"], shear["library_ms"]
     bias = ra.rel_position_bias(q_v, p)
-    out_b, lse_b = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask)
-    kb_ms = time_ms(lambda: ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse_b, out_b, g),
-                    iters=5)
-    plain_b_ms = time_ms(lambda: ra.bias_attention_bwd_plain(q_u, k, v, bias, mask, lse_b, out_b, g),
-                         iters=3)
-    dbias = ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse_b, out_b, g)[3]
+    out, lse = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask)
+    iters = 20 if t < 1000 else 5
+    k_ms = time_ms(lambda: ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse, out, g),
+                   iters=iters)
+    plain_ms = time_ms(lambda: ra.bias_attention_bwd_plain(q_u, k, v, bias, mask, lse, out, g),
+                       iters=3)
+    lib_ms = sdpa_bwd_ms(q_u, k, v, bias.to(dtype), g)
+    dbias = ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse, out, g)[3]
     qv_leaf, p_leaf = q_v.detach().requires_grad_(), p.detach().requires_grad_()
     bias_leaf = ra.rel_position_bias(qv_leaf, p_leaf)
     bias_bwd_ms = time_ms(lambda: torch.autograd.grad(bias_leaf, (qv_leaf, p_leaf), dbias,
                                                       retain_graph=True), iters=5)
     # inputs q_u k v out dO, bias, mask, lse once; outputs dq_u dk dv and dbias once
-    n_bytes = 8 * bhtd * sz + 2 * 4 * b * h * t * t + b * t + b * h * t * 4
-    bms_b, by_b = bound_ms(n_bytes, 5 * 2 * b * h * t * t * dk, dtype)
-    bias_res = {"max_abs_err": worst["bias"], "ms": kb_ms, "plain_ms": plain_b_ms, "bound_ms": bms_b,
-                "bound_by": by_b, "library_ms": lib_ms, "bias_autograd_ms": bias_bwd_ms}
-    print(f"rel_attention_bias_bwd B{b} H{h} T{t} bf16: kernel_ms {kb_ms:.4f} plain_ms {plain_b_ms:.4f} "
-          f"library_ms {lib_ms:.4f} bound_ms {bms_b:.4f} ({by_b}); autograd of rel_position_bias "
-          f"{bias_bwd_ms:.4f} ms: bias route backward {kb_ms + bias_bwd_ms:.4f} ms | shear route "
-          f"backward {k_ms:.4f} ms", flush=True)
-    return shear, bias_res
+    n_bytes = 8 * b * h * t * dk * sz + 2 * 4 * b * h * t * t + b * t + b * h * t * 4
+    bounds = both_bounds_ms(n_bytes, 5 * 2 * b * h * t * t * dk, dtype)
+    print(f"rel_attention_bias_bwd B{b} H{h} T{t} bf16: kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {lib_ms:.4f} (SDPA backward, the same bias) bound_ms {bounds['bound_ms']:.4f} "
+          f"({bounds['bound_by']}; bytes {bounds['bytes_bound_ms']:.4f}, operations "
+          f"{bounds['operations_bound_ms']:.4f}); autograd of rel_position_bias {bias_bwd_ms:.4f} ms: "
+          f"bias route backward {k_ms + bias_bwd_ms:.4f} ms | shear route backward {shear_ms:.4f} ms",
+          flush=True)
+    return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bounds,
+            "bias_autograd_ms": bias_bwd_ms}
 
 
 def phase_dropout(ra, dm, dev) -> dict:
@@ -1261,17 +1305,12 @@ def main() -> int:
         numbers["train_step_launches"] = train_launches[name]
     for name, lib, numbers in (("rel_attention", "rel_attention", rel),
                                ("rel_attention_bwd", "rel_attention_bwd", shear_bwd),
+                               ("rel_attention_bias", "rel_attention_bias", bias),
+                               ("rel_attention_bias_bwd", "rel_attention_bias_bwd", bias_bwd),
                                ("attention", "attention", plain),
                                ("fused_resblock_trio", "fused_tail", trio)):
         numbers.update(design="mma.sync m16n8k16 bf16, f32 accumulate; f32: FMA",
                        hmma_in_sass=hmma[lib])
-    # kernel 4 at the train step's shape: the same SDPA call and bias as kernel 1's
-    bias["train_shape_library_ms"] = rel["train_shape"]["library_ms"]
-    bias["train_shape_bias_build_ms"] = rel["train_shape"]["bias_build_ms"]
-    tb, th, tt = TRAIN_SHAPE      # kernel 4's bound there: phase 7's byte and operation counts
-    bias["train_shape_bound_ms"], bias["train_shape_bound_by"] = bound_ms(
-        4 * tb * th * tt * 64 * 2 + 4 * tb * th * tt * tt + tb * tt + tb * th * tt * 4,
-        2 * 2 * tb * th * tt * tt * 64, torch.bfloat16)
     launches.update({k: train_launches[k] for k in ("rel_attention_bwd", "rel_attention_bias_bwd")})
     pkg = "lip2speech_tpu_torch"
     jax_ops = "lip2speech_tpu/ops"

@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the bf16 attention kernels
-// (rel_attention.cu, rel_attention_bwd.cu, attention.cu); fused_tail.cu
-// uses the primitives (cp.async, ldmatrix, mma, packing). Not compiled on
-// its own.
+// (rel_attention.cu, rel_attention_bwd.cu, attention.cu,
+// rel_attention_bias.cu, rel_attention_bias_bwd.cu); fused_tail.cu uses the
+// primitives (cp.async, ldmatrix, mma, packing). Not compiled on its own.
 //
 // Products run on mma.sync.m16n8k16 (bf16 in, f32 accumulate), written in
 // inline PTX; operands come from shared memory by ldmatrix, or straight from
@@ -266,6 +266,95 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float a
     for (int n = 0; n < 8; ++n)
       *reinterpret_cast<uint32_t*>(dst + (size_t)r * kD + 8 * n + 2 * q) =
           pack_bf16(acc[n][2 * h] * mul[h], acc[n][2 * h + 1] * mul[h]);
+  }
+}
+
+// An f32 (n_rows, n_cols) matrix of row stride ld (the bias or dbias of one
+// (batch, head)) read or written straight in the m16n8 accumulator layout of
+// a warp's 16 x 64 tile: lane (g, q) holds row i_g (its g) in c[n][0..1] and
+// row i_g + 8 in c[n][2..3], columns j0 + 8n + 2q and + 1. A quad of lanes
+// covers 8 adjacent floats of a row, one 32-byte sector. kVec2: float2
+// accesses, which need an even ld and 8-byte aligned rows; else single
+// floats. Elements outside the matrix read 0 and are not written. The
+// accesses are streaming (evict-first): each element is touched once.
+template <bool kVec2>
+__device__ __forceinline__ void load_frag_f32(float c[8][4], const float* __restrict__ src, int ld,
+                                              int i_g, int j0, int n_rows, int n_cols, int q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = i_g + 8 * h;
+    const float* row = src + (size_t)(r < n_rows ? r : 0) * ld;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int j = j0 + 8 * n + 2 * q;
+      if (kVec2) {
+        float2 x = make_float2(0.f, 0.f);
+        if (r < n_rows && j < n_cols) x = __ldcs(reinterpret_cast<const float2*>(row + j));
+        c[n][2 * h] = x.x;
+        c[n][2 * h + 1] = x.y;
+      } else {
+        c[n][2 * h] = r < n_rows && j < n_cols ? __ldcs(row + j) : 0.f;
+        c[n][2 * h + 1] = r < n_rows && j + 1 < n_cols ? __ldcs(row + j + 1) : 0.f;
+      }
+    }
+  }
+}
+
+template <bool kVec2>
+__device__ __forceinline__ void store_frag_f32(float* __restrict__ dst, const float c[8][4], int ld,
+                                               int i_g, int j0, int n_rows, int n_cols, int q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = i_g + 8 * h;
+    if (r >= n_rows) continue;
+    float* row = dst + (size_t)r * ld;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int j = j0 + 8 * n + 2 * q;
+      if (kVec2) {
+        if (j < n_cols)
+          __stcs(reinterpret_cast<float2*>(row + j), make_float2(c[n][2 * h], c[n][2 * h + 1]));
+      } else {
+        if (j < n_cols) __stcs(row + j, c[n][2 * h]);
+        if (j + 1 < n_cols) __stcs(row + j + 1, c[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Asks L2 for the f32 elements (row0 .. row0+15, j0 .. j0+63) of a matrix
+// of row stride ld, the tile that load_frag_f32 will read for a warp whose
+// first row is row0: lane l takes row row0 + l/2 and the 128-byte lines
+// holding its columns j0 + 32 (l%2) and, for odd l, j0 + 63, so every line
+// of a row's 256-byte segment is asked for, aligned or not. No register
+// receives anything.
+__device__ __forceinline__ void prefetch_tile_l2(const float* src, int ld, int row0, int j0,
+                                                 int n_rows, int n_cols, int lane) {
+  const int r = row0 + (lane >> 1);
+  if (r >= n_rows) return;
+  const float* row = src + (size_t)r * ld;
+  const int j = j0 + 32 * (lane & 1);
+  if (j < n_cols) asm volatile("prefetch.global.L2 [%0];" ::"l"(row + j));
+  if ((lane & 1) && j0 + 63 < n_cols) asm volatile("prefetch.global.L2 [%0];" ::"l"(row + j0 + 63));
+}
+
+// Adds a warp's 16 x 64 f32 accumulator to rows i_g and i_g + 8 (the lane's
+// g) of an (n_rows, 64) f32 matrix, four floats per reduction: lanes q and
+// q^1 swap halves so that the even one holds four consecutive floats of row
+// i_g and the odd one of row i_g + 8. Rows past n_rows are skipped.
+__device__ __forceinline__ void red_add_rows(const float c[8][4], float* __restrict__ dst,
+                                             int i_g, int n_rows, int lane) {
+  const int q = lane & 3;
+  const bool odd = q & 1;
+  const int row = i_g + (odd ? 8 : 0);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[n][0] : c[n][2], 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[n][1] : c[n][3], 1);
+    const float4 val = odd ? make_float4(r0, r1, c[n][2], c[n][3])
+                           : make_float4(c[n][0], c[n][1], r0, r1);
+    if (row < n_rows)
+      atomicAdd(reinterpret_cast<float4*>(dst + (size_t)row * kD + 8 * n + 2 * (q & 2)), val);
   }
 }
 

@@ -15,22 +15,257 @@
 // gradients of q_v and of the position table flow through the caller's
 // construction of the bias, outside the kernel.
 //
-// What bounds it: the f32 bias is read twice (once per pass) and dbias is
-// written once, 12 T^2 bytes per (batch, head), against seven (T x T x 64)
-// products: with tensor cores it would be bound by bytes. This first version
-// runs the products as FP32 FMAs, which are its ceiling for now.
+// What bounds it: the f32 bias read and dbias written, 8 T^2 bytes per
+// (batch, head), against five (T x T x 64) products, 640 T^2 operations:
+// 80 operations a byte, below the bf16 tensor cores' balance of ~295, so
+// bytes, as long as the bias is read once.
 //
-// What the design does about it: the TPU kernel carries dK and dV across
-// query blocks in one sequential program and wants bias and dbias re-tiled
-// to (key block, row, 128 lanes). Here the two passes of flash_bwd_tile.cuh
-// run in parallel blocks, bias and dbias stay (T, T) rows, each half-warp
-// reads and writes 64 consecutive floats of a row, and every (query, key)
-// pair is written exactly once by the query pass, so dbias needs no zeroing
-// and nothing past T is written. Everything is deterministic.
+// Design. The TPU kernel is one sequential program per (batch, head) that
+// carries dK and dV across query blocks and wants bias and dbias re-tiled to
+// (key block, row, 128 lanes). Here bias and dbias stay (T, T) rows, and a
+// row-dot pre-pass (flash_bwd_tile.cuh) writes D from the forward's output.
+//
+// bf16 (dtype 1), `rel_bias_bwd_mma`: one key-major pass, every product on
+// mma.sync m16n8k16 with f32 accumulation (mma_tile.cuh). A block owns 64
+// keys of one (batch, head): K, V and the key mask stay in shared memory, dK
+// and dV in registers. It loops over query tiles of 64, their Q_u and dO
+// double-buffered by 16-byte cp.async. Per tile, warp w takes its 16 query
+// rows against the 64 keys: S = Q_u K^T * scale + bias (f32, the bias
+// streamed one tile ahead straight into the accumulator layout, as in the
+// forward), dPr = dO V^T, P from the LSE, dS = P o (dPr o keep - D). dbias is
+// that f32 dS, written from the fragments (float2, a 32-byte sector per
+// quad) before dS is scaled and rounded to bf16; every (i, j) is written by
+// exactly one block and tile, so dbias needs no zeroing and nothing past T
+// is written. dQ_u = dS K comes from dS's registers and goes to an f32
+// buffer by four-float reductions (`red_add_rows`), one per lane and n-tile
+// per tile pair. P~ and dS go to bf16 tiles; after a barrier warp w adds
+// dV += P~^T dO and dK += dS^T Q_u for keys 16w .. (ldmatrix .trans).
+//   So the bias is read once and dbias written once, the byte floor. The
+// cost: dQ_u's f32 sums arrive in an order that changes from run to run, so
+// its last bits may differ between runs (then rounded to bf16); dK, dV and
+// dbias are deterministic. The alternative, the query pass / key pass split
+// of rel_attention_bwd.cu, is deterministic but reads the bias twice
+// (12 T^2 bytes). 64.3 KB of shared memory and at most 255 registers: two
+// blocks per SM, with 32 KB of bias in flight.
+//   Alignment as in the forward: float2 accesses of bias and dbias for even
+// T, single floats for odd T, chosen by the launcher; Q_u, K, V, dO and the
+// dQ_u buffer must be 16-byte aligned, bias and dbias 4-byte.
+//
+// f32 (dtype 0), `bias_bwd_{query,key}_pass<float>`: the first version,
+// unchanged on the CUDA cores: two passes in parallel blocks (FP32 FMAs,
+// f32 shared tiles, flash_bwd_tile.cuh; the query pass writes dbias and dQ_u
+// once, so everything is deterministic), because the f32 path is held to
+// 1e-4 against the CPU and TF32 cannot meet that.
 
 #include "flash_bwd_tile.cuh"
+#include "mma_tile.cuh"
+
+#ifndef BIAS_PREFETCH_DIST
+#define BIAS_PREFETCH_DIST 0
+#endif
 
 namespace {
+
+namespace mma_path {
+
+using namespace mma;
+
+// K, V, two stages of Q_u and of dO, the P~ and dS tiles, the key-mask flags
+constexpr size_t kSmem = (size_t)8 * kTile * sizeof(bf16) + (size_t)kB * sizeof(float);
+
+struct Args {
+  const bf16 *qu, *k, *v, *d_o;
+  const float* bias;
+  const uint8_t* mask;
+  const float *lse, *delta;
+  float* dqu;                    // f32, zeroed: the reductions' target
+  bf16 *dk, *dv;
+  float* dbias;
+  int H, T_len;
+  float scale;
+  philox::Dropout drop;
+};
+
+template <bool kVec2>
+__global__ void __launch_bounds__(kThreads, 2) rel_bias_bwd_mma(const Args g) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + kTile;
+  bf16* sQu = sV + kTile;         // two stages
+  bf16* sdO = sQu + 2 * kTile;    // two stages
+  bf16* sPd = sdO + 2 * kTile;    // P~ of the pair, [query][key]
+  bf16* sdS = sPd + kTile;        // dS of the pair, [query][key]
+  float* sM = reinterpret_cast<float*>(sdS + kTile);
+
+  const int T_len = g.T_len, bh = blockIdx.y, j0 = blockIdx.x * kB;
+  const size_t base = (size_t)bh * T_len * kD;
+  const float* bias_bh = g.bias + (size_t)bh * T_len * T_len;
+  float* dbias_bh = g.dbias + (size_t)bh * T_len * T_len;
+  const float* lse_bh = g.lse + (size_t)bh * T_len;
+  const float* delta_bh = g.delta + (size_t)bh * T_len;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
+  const int row_w = 16 * warp + (lane >> 2);      // the lane's first row within a tile
+  const int n_tiles = (T_len + kB - 1) / kB;
+
+  load_tile(sK, g.k + base, j0, T_len);
+  load_tile(sV, g.v + base, j0, T_len);
+  flash::load_mask(sM, g.mask + (size_t)(bh / g.H) * T_len, j0, T_len);
+  load_tile(sQu, g.qu + base, 0, T_len);
+  load_tile(sdO, g.d_o + base, 0, T_len);
+  cp_async_commit();
+  float bt[8][4];                 // the bias of the lane's pair elements, a tile ahead
+  load_frag_f32<kVec2>(bt, bias_bh, T_len, row_w, j0, T_len, T_len, q);
+#if BIAS_PREFETCH_DIST > 1
+  for (int d = 1; d < BIAS_PREFETCH_DIST; ++d)
+    prefetch_tile_l2(bias_bh, T_len, d * kB + 16 * warp, j0, T_len, T_len, lane);
+#endif
+
+  float dk[8][4], dv[8][4];
+  zero(dk);
+  zero(dv);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1, i_g = t * kB + row_w;
+    cp_async_wait<0>();
+    __syncthreads();              // tile t has landed; tile t-1's tiles are consumed
+    if (t + 1 < n_tiles) {        // stage st^1 was last read in tile t-1
+      load_tile(sQu + (st ^ 1) * kTile, g.qu + base, (t + 1) * kB, T_len);
+      load_tile(sdO + (st ^ 1) * kTile, g.d_o + base, (t + 1) * kB, T_len);
+      cp_async_commit();
+    }
+    const bf16* qt = sQu + st * kTile;
+    const bf16* dot = sdO + st * kTile;
+    float lse[2], delta[2];       // rows past the sequence: P = 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i_g + 8 * r;
+      lse[r] = i < T_len ? lse_bh[i] : -INFINITY;
+      delta[r] = i < T_len ? delta_bh[i] : 0.f;
+    }
+
+    float s[8][4], dpr[8][4];
+    zero(s);
+    zero(dpr);
+    {
+      uint32_t a[4][4];
+      load_a(a, dot, 16 * warp, lane);
+      product_nt(dpr, a, sV, lane);
+      load_a(a, qt, 16 * warp, lane);
+      product_nt(s, a, sK, lane);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = fmaf(s[n][e], g.scale, bt[n][e]);
+    if (t + 1 < n_tiles)          // lands during the rest of this tile
+      load_frag_f32<kVec2>(bt, bias_bh, T_len, i_g + kB, j0, T_len, T_len, q);
+#if BIAS_PREFETCH_DIST > 1
+    prefetch_tile_l2(bias_bh, T_len, (t + BIAS_PREFETCH_DIST) * kB + 16 * warp, j0, T_len, T_len,
+                     lane);
+#endif
+
+    // P, P~ (to its bf16 tile) and dS = P o (dPr o keep - D), unscaled, in s
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float kf[4] = {1.f, 1.f, 1.f, 1.f};
+      if (g.drop.thresh != 0u) keep_frag(g.drop, (uint32_t)bh, i_g, j0 + 8 * n + 2 * q, q, kf);
+      float pd[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool ok = lse[r] > 0.5f * flash::kMasked && sM[8 * n + 2 * q + (e & 1)] > 0.f;
+        const float prob = ok ? expf(s[n][e] - lse[r]) : 0.f;
+        pd[e] = prob * kf[e];
+        s[n][e] = prob * (dpr[n][e] * kf[e] - delta[r]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(sPd + swz(row_w + 8 * h, 8 * n + 2 * q)) =
+            pack_bf16(pd[2 * h], pd[2 * h + 1]);
+    }
+    store_frag_f32<kVec2>(dbias_bh, s, T_len, i_g, j0, T_len, T_len, q);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= g.scale;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(sdS + swz(row_w + 8 * h, 8 * n + 2 * q)) =
+            pack_bf16(s[n][2 * h], s[n][2 * h + 1]);
+    }
+    {                             // dQ_u of the warp's rows += dS K, to device memory
+      float dq[8][4];
+      zero(dq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        to_a(a, s, kk);
+        product_nn_step(dq, a, sK, kk, lane);
+      }
+      red_add_rows(dq, g.dqu + base, i_g, T_len, lane);
+    }
+    __syncthreads();              // P~ and dS are complete
+    // warp w: keys 16w ..; dV += P~^T dO, dK += dS^T Q_u over the 64 query rows
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t a[4];
+      ldsm_x4_t(a, tile_addr(sPd, a_cols(lane, 16 * warp, 16 * ks)));
+      product_nn_step(dv, a, dot, ks, lane);
+      ldsm_x4_t(a, tile_addr(sdS, a_cols(lane, 16 * warp, 16 * ks)));
+      product_nn_step(dk, a, qt, ks, lane);
+    }
+  }
+  const float one[2] = {1.f, 1.f};
+  const int j_g = j0 + row_w;
+  store_rows(g.dk + base, dk, j_g, T_len, one, q);
+  store_rows(g.dv + base, dv, j_g, T_len, one, q);
+}
+
+template <bool kVec2>
+cudaError_t launch_as(const Args& g, int B, int H, cudaStream_t stream) {
+  auto kern = rel_bias_bwd_mma<kVec2>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((g.T_len + kB - 1) / kB, B * H);
+  kern<<<grid, kThreads, kSmem, stream>>>(g);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* qu, const void* k, const void* v, const float* bias,
+                   const uint8_t* mask, const float* lse, const void* out, const void* d_o,
+                   float* dqu, void* dk, void* dv, float* dbias, float* delta, int B, int H,
+                   int T_len, philox::Dropout drop, cudaStream_t stream) {
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  if (!aligned16({qu, k, v, d_o, dqu}) || addr(bias) % 4 != 0 || addr(dbias) % 4 != 0)
+    return cudaErrorMisalignedAddress;
+  cudaError_t e = flash::launch_row_dot<bf16>(out, d_o, delta, (size_t)B * H * T_len, stream);
+  if (e != cudaSuccess) return e;
+  Args g;
+  g.qu = static_cast<const bf16*>(qu);
+  g.k = static_cast<const bf16*>(k);
+  g.v = static_cast<const bf16*>(v);
+  g.d_o = static_cast<const bf16*>(d_o);
+  g.bias = bias;
+  g.mask = mask;
+  g.lse = lse;
+  g.delta = delta;
+  g.dqu = dqu;
+  g.dk = static_cast<bf16*>(dk);
+  g.dv = static_cast<bf16*>(dv);
+  g.dbias = dbias;
+  g.H = H;
+  g.T_len = T_len;
+  g.scale = 1.0f / sqrtf((float)kD);
+  g.drop = drop;
+  if (T_len % 2 == 0 && addr(bias) % 8 == 0 && addr(dbias) % 8 == 0)
+    return launch_as<true>(g, B, H, stream);
+  return launch_as<false>(g, B, H, stream);
+}
+
+}  // namespace mma_path
+
+namespace fma_path {
 
 using namespace flash;
 
@@ -223,21 +458,26 @@ cudaError_t launch(const void* qu, const void* k, const void* v, const float* bi
   return cudaGetLastError();
 }
 
+}  // namespace fma_path
+
 }  // namespace
 
-// All tensors contiguous. q_u, k, v, out, d_out and the gradients dq_u, dk,
-// dv: (B, H, T, dk) of the input type; bias and dbias (B, H, T, T) float32
+// All tensors contiguous. q_u, k, v, out, d_out and the gradients dk, dv:
+// (B, H, T, dk) of the input type; bias and dbias (B, H, T, T) float32
 // (dbias need not be zeroed); mask (B, T) uint8; lse (B, H, T) float32 from
-// the forward; delta: float32 (B, H, T) scratch. dtype: 0 = float32,
-// 1 = bfloat16. Only dk = 64. rate and seed as given to the forward. Returns
-// cudaGetLastError() after the launches.
+// the forward; delta: float32 (B, H, T) scratch. dq_u: (B, H, T, dk) of the
+// input type for dtype 0 (FMA kernels); for dtype 1 (tensor-core kernel) a
+// float32 buffer, zeroed by the caller, that receives dq_u by reductions
+// (the caller rounds it); q_u, k, v, d_out and that buffer 16-byte aligned,
+// bias and dbias 4-byte. Only dk = 64. rate and seed as given to the
+// forward. Returns cudaGetLastError() after the launches.
 extern "C" int l2s_rel_attention_bias_bwd(const void* qu, const void* k, const void* v,
                                           const void* bias, const void* mask, const void* lse,
                                           const void* out, const void* d_out, void* dqu,
                                           void* dk_out, void* dv_out, void* dbias, void* delta,
                                           int B, int H, int T_len, int dk, int dtype,
                                           float rate, unsigned long long seed, void* stream) {
-  if (dk != kD || B < 1 || H < 1 || T_len < 1 || rate < 0.f || rate >= 1.f)
+  if (dk != flash::kD || B < 1 || H < 1 || T_len < 1 || rate < 0.f || rate >= 1.f)
     return (int)cudaErrorInvalidValue;
   const float* bi = static_cast<const float*>(bias);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -248,11 +488,11 @@ extern "C" int l2s_rel_attention_bias_bwd(const void* qu, const void* k, const v
   const philox::Dropout drop = philox::make_dropout(rate, seed);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float>(qu, k, v, bi, m, l, out, d_out, dqu, dk_out, dv_out, db, dl, B, H, T_len,
-                      drop, s);
+    e = fma_path::launch<float>(qu, k, v, bi, m, l, out, d_out, dqu, dk_out, dv_out, db, dl, B,
+                                H, T_len, drop, s);
   else if (dtype == 1)
-    e = launch<__nv_bfloat16>(qu, k, v, bi, m, l, out, d_out, dqu, dk_out, dv_out, db, dl, B,
-                              H, T_len, drop, s);
+    e = mma_path::launch(qu, k, v, bi, m, l, out, d_out, static_cast<float*>(dqu), dk_out,
+                         dv_out, db, dl, B, H, T_len, drop, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

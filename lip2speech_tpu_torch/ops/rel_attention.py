@@ -16,7 +16,8 @@ the LIP2SPEECH_FLASH_IMPL environment variable, "shear" when unset):
   "bias"   (JAX: entry `_rel_flash_bias`) the position term is built outside
            as an additive f32 (B, H, T, T) bias, `rel_position_bias`;
            csrc/rel_attention_bias.cu is a flash loop with one additive tile
-           and csrc/rel_attention_bias_bwd.cu returns dq_u, dk, dv and dbias;
+           and csrc/rel_attention_bias_bwd.cu returns dq_u, dk, dv and dbias
+           (in bf16 one key-major pass; dq_u by f32 reductions);
            the gradients of q_v and p flow through `rel_position_bias` by
            PyTorch's autograd. Plain versions `dense_bias_attention` and
            `bias_attention_bwd_plain`; autograd through `BiasAttentionFn`.
@@ -252,7 +253,9 @@ rel_attention_bwd_kernel.launches = 0   # kernel launches since the last reset
 def rel_attention_bias_kernel(q_u, k, v, bias, mask, dropout_rate: float = 0.0, seed: int = 0):
     """Launch csrc/rel_attention_bias.cu; returns (out (B,H,T,dk), lse (B,H,T)
     f32). bias is (B, H, T, T) float32 whatever the type of q_u, k, v. Rows
-    with no valid key stay finite."""
+    with no valid key stay finite. f32 inputs take the FMA kernel, bf16 ones
+    the tensor-core kernel, which adds the bias in f32 and rounds P to bf16
+    before P V. Deterministic."""
     b, h, t, dk = q_u.shape
     _check_dropout(dropout_rate, seed)
     _check_inputs("rel_attention_bias",
@@ -274,7 +277,11 @@ rel_attention_bias_kernel.launches = 0   # kernel launches since the last reset
 def rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse, out, g,
                                   dropout_rate: float = 0.0, seed: int = 0):
     """Launch csrc/rel_attention_bias_bwd.cu; returns (dq_u, dk, dv, dbias)
-    with dbias (B, H, T, T) f32."""
+    with dbias (B, H, T, T) f32, the unscaled dS. f32 inputs take the FMA
+    kernels, which are deterministic. bf16 inputs take the tensor-core kernel:
+    it sums dq_u over key blocks by f32 reductions into a zeroed f32 buffer
+    allocated here and rounded to bf16 after the launch, so the last bits of
+    dq_u may differ between runs; dk, dv and dbias are deterministic."""
     b, h, t, dk = q_u.shape
     dev, dt = q_u.device, q_u.dtype
     _check_dropout(dropout_rate, seed)
@@ -283,14 +290,18 @@ def rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse, out, g,
                        [("bias", bias, (b, h, t, t), torch.float32),
                         ("lse", lse, (b, h, t), torch.float32)]), mask, b, t)
     mask_u8 = mask.to(torch.uint8).contiguous()
-    dq_u, dk_, dv = (torch.empty_like(q_u) for _ in range(3))
+    if dt == torch.bfloat16:
+        dq_u = torch.zeros(q_u.shape, dtype=torch.float32, device=dev)
+    else:
+        dq_u = torch.empty_like(q_u)
+    dk_, dv = torch.empty_like(q_u), torch.empty_like(q_u)
     dbias = torch.empty_like(bias)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     _launch("rel_attention_bias_bwd", "l2s_rel_attention_bias_bwd",
             (q_u, k, v, bias, mask_u8, lse, out, g, dq_u, dk_, dv, dbias, delta),
             b, h, t, dk, dt, dropout_rate, seed, dev)
     rel_attention_bias_bwd_kernel.launches += 1
-    return dq_u, dk_, dv, dbias
+    return dq_u.to(dt), dk_, dv, dbias
 
 
 rel_attention_bias_bwd_kernel.launches = 0   # kernel launches since the last reset
