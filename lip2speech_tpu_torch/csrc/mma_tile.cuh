@@ -322,22 +322,6 @@ __device__ __forceinline__ void store_frag_f32(float* __restrict__ dst, const fl
   }
 }
 
-// Asks L2 for the f32 elements (row0 .. row0+15, j0 .. j0+63) of a matrix
-// of row stride ld, the tile that load_frag_f32 will read for a warp whose
-// first row is row0: lane l takes row row0 + l/2 and the 128-byte lines
-// holding its columns j0 + 32 (l%2) and, for odd l, j0 + 63, so every line
-// of a row's 256-byte segment is asked for, aligned or not. No register
-// receives anything.
-__device__ __forceinline__ void prefetch_tile_l2(const float* src, int ld, int row0, int j0,
-                                                 int n_rows, int n_cols, int lane) {
-  const int r = row0 + (lane >> 1);
-  if (r >= n_rows) return;
-  const float* row = src + (size_t)r * ld;
-  const int j = j0 + 32 * (lane & 1);
-  if (j < n_cols) asm volatile("prefetch.global.L2 [%0];" ::"l"(row + j));
-  if ((lane & 1) && j0 + 63 < n_cols) asm volatile("prefetch.global.L2 [%0];" ::"l"(row + j0 + 63));
-}
-
 // Adds a warp's 16 x 64 f32 accumulator to rows i_g and i_g + 8 (the lane's
 // g) of an (n_rows, 64) f32 matrix, four floats per reduction: lanes q and
 // q^1 swap halves so that the even one holds four consecutive floats of row

@@ -57,10 +57,6 @@
 
 #include "mma_tile.cuh"
 
-#ifndef BIAS_PREFETCH_DIST
-#define BIAS_PREFETCH_DIST 0
-#endif
-
 namespace {
 
 namespace mma_path {
@@ -98,10 +94,6 @@ rel_attention_bias_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
   cp_async_commit();
   float bt[8][4];                // the bias of the lane's score elements, a tile ahead
   load_frag_f32<kVec2>(bt, bias_bh, T_len, i_g, 0, T_len, T_len, q4);
-#if BIAS_PREFETCH_DIST > 1
-  for (int d = 1; d < BIAS_PREFETCH_DIST; ++d)
-    prefetch_tile_l2(bias_bh, T_len, i0 + 16 * warp, d * kB, T_len, T_len, lane);
-#endif
 
   uint32_t aq[4][4];
   float o[8][4];
@@ -140,10 +132,6 @@ rel_attention_bias_mma(const bf16* __restrict__ qu, const bf16* __restrict__ k,
       }
     if (t + 1 < n_tiles)         // lands during the rest of this tile
       load_frag_f32<kVec2>(bt, bias_bh, T_len, i_g, (t + 1) * kB, T_len, T_len, q4);
-#if BIAS_PREFETCH_DIST > 1
-    prefetch_tile_l2(bias_bh, T_len, i0 + 16 * warp, (t + BIAS_PREFETCH_DIST) * kB, T_len, T_len,
-                     lane);
-#endif
     float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {

@@ -60,10 +60,6 @@
 #include "flash_bwd_tile.cuh"
 #include "mma_tile.cuh"
 
-#ifndef BIAS_PREFETCH_DIST
-#define BIAS_PREFETCH_DIST 0
-#endif
-
 namespace {
 
 namespace mma_path {
@@ -115,10 +111,6 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bias_bwd_mma(const Args g) {
   cp_async_commit();
   float bt[8][4];                 // the bias of the lane's pair elements, a tile ahead
   load_frag_f32<kVec2>(bt, bias_bh, T_len, row_w, j0, T_len, T_len, q);
-#if BIAS_PREFETCH_DIST > 1
-  for (int d = 1; d < BIAS_PREFETCH_DIST; ++d)
-    prefetch_tile_l2(bias_bh, T_len, d * kB + 16 * warp, j0, T_len, T_len, lane);
-#endif
 
   float dk[8][4], dv[8][4];
   zero(dk);
@@ -159,10 +151,6 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bias_bwd_mma(const Args g) {
       for (int e = 0; e < 4; ++e) s[n][e] = fmaf(s[n][e], g.scale, bt[n][e]);
     if (t + 1 < n_tiles)          // lands during the rest of this tile
       load_frag_f32<kVec2>(bt, bias_bh, T_len, i_g + kB, j0, T_len, T_len, q);
-#if BIAS_PREFETCH_DIST > 1
-    prefetch_tile_l2(bias_bh, T_len, (t + BIAS_PREFETCH_DIST) * kB + 16 * warp, j0, T_len, T_len,
-                     lane);
-#endif
 
     // P, P~ (to its bf16 tile) and dS = P o (dPr o keep - D), unscaled, in s
 #pragma unroll
