@@ -322,23 +322,23 @@ __device__ __forceinline__ void store_frag_f32(float* __restrict__ dst, const fl
   }
 }
 
-// Adds a warp's 16 x 64 f32 accumulator to rows i_g and i_g + 8 (the lane's
-// g) of an (n_rows, 64) f32 matrix, four floats per reduction: lanes q and
-// q^1 swap halves so that the even one holds four consecutive floats of row
-// i_g and the odd one of row i_g + 8. Rows past n_rows are skipped.
+// Adds a warp's 16 x 64 f32 accumulator to rows row0 + g and row0 + g + 8
+// of an (n_rows, 64) f32 matrix, four floats per atomic: lanes q and q^1
+// swap halves so that the even one holds four consecutive floats of row g
+// and the odd one of row g + 8. Rows outside [0, n_rows) are skipped.
 __device__ __forceinline__ void red_add_rows(const float c[8][4], float* __restrict__ dst,
-                                             int i_g, int n_rows, int lane) {
-  const int q = lane & 3;
+                                             int row0, int n_rows, int lane) {
+  const int g = lane >> 2, q = lane & 3;
   const bool odd = q & 1;
-  const int row = i_g + (odd ? 8 : 0);
+  const int row = row0 + g + (odd ? 8 : 0);
+  const bool ok = row >= 0 && row < n_rows;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[n][0] : c[n][2], 1);
     const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[n][1] : c[n][3], 1);
     const float4 val = odd ? make_float4(r0, r1, c[n][2], c[n][3])
                            : make_float4(c[n][0], c[n][1], r0, r1);
-    if (row < n_rows)
-      atomicAdd(reinterpret_cast<float4*>(dst + (size_t)row * kD + 8 * n + 2 * (q & 2)), val);
+    if (ok) atomicAdd(reinterpret_cast<float4*>(dst + (size_t)row * kD + 8 * n + 2 * (q & 2)), val);
   }
 }
 

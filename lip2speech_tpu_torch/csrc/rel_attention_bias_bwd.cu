@@ -190,7 +190,7 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bias_bwd_mma(const Args g) {
         to_a(a, s, kk);
         product_nn_step(dq, a, sK, kk, lane);
       }
-      red_add_rows(dq, g.dqu + base, i_g, T_len, lane);
+      red_add_rows(dq, g.dqu + base, t * kB + 16 * warp, T_len, lane);
     }
     __syncthreads();              // P~ and dS are complete
     // warp w: keys 16w ..; dV += P~^T dO, dK += dS^T Q_u over the 64 query rows

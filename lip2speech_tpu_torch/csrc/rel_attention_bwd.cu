@@ -99,27 +99,6 @@ __device__ __forceinline__ uint32_t dg_addr(const bf16* sDg, RC rc) {
   return smem_u32(sDg + rc.r * kDgLd + rc.c);
 }
 
-// Adds a warp's 16 x 64 f32 accumulator to rows row0 + g and row0 + g + 8
-// of the head's (n_rows, 64) dP, four floats per atomic: lanes q and q^1
-// swap halves so that the even one holds four consecutive floats of row g
-// and the odd one of row g + 8. Rows outside the table are skipped.
-__device__ __forceinline__ void flush_rows(const float c[8][4], float* __restrict__ dp_h,
-                                           int row0, int n_rows, int lane) {
-  const int g = lane >> 2, q = lane & 3;
-  const bool odd = q & 1;
-  const int row = row0 + g + (odd ? 8 : 0);
-  const bool ok = row >= 0 && row < n_rows;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[n][0] : c[n][2], 1);
-    const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[n][1] : c[n][3], 1);
-    const float4 val = odd ? make_float4(r0, r1, c[n][2], c[n][3])
-                           : make_float4(c[n][0], c[n][1], r0, r1);
-    if (ok)
-      atomicAdd(reinterpret_cast<float4*>(dp_h + (size_t)row * kD + 8 * n + 2 * (q & 2)), val);
-  }
-}
-
 // The lane's two rows' log-sum-exp and D; rows past the sequence get
 // lse = -inf (probabilities 0).
 __device__ __forceinline__ void row_stats(const Args& g, int bh, int i_g, float lse[2],
@@ -281,7 +260,7 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_query_pass_mma(const Args
         product_nn_step(c, a, sQv, ks, lane);
       }
       if (half == 0) {
-        flush_rows(c, dp_h, p_base + t * kB + 16 * b, n_table, lane);
+        red_add_rows(c, dp_h, p_base + t * kB + 16 * b, n_table, lane);
       } else {
 #pragma unroll
         for (int n = 0; n < 8; ++n)
@@ -291,7 +270,7 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_query_pass_mma(const Args
     }
     __syncthreads();   // stage st, window chunk t and dG are consumed
   }
-  flush_rows(carry, dp_h, p_base + n_tiles * kB + 16 * warp, n_table, lane);
+  red_add_rows(carry, dp_h, p_base + n_tiles * kB + 16 * warp, n_table, lane);
   const float one[2] = {1.f, 1.f};
   store_rows(g.dqu + base, dqu, i_g, T_len, one, q);
   store_rows(g.dqv + base, dqv, i_g, T_len, one, q);
