@@ -38,13 +38,15 @@ Phases, in order; any failure exits non-zero before the last line:
  11. the backward kernels of both rel-position attention routes against
      their plain versions and against autograd through the dense forward,
      f32 and bf16, T 235 / 470 / 1200, ragged with one fully masked batch
-     row; both kernels' bf16 times at B4 H8 T480 and B8 H8 T1200 beside
-     their plain versions, SDPA's backward and the bound (bytes and
-     operations), the bias route's also beside the autograd of the bias
-     construction;
+     row; the bias route's dbias also by its own limits (DBIAS_TOL), which
+     two faulty dbias made from the kernel's must fail; both kernels' bf16
+     times at B4 H8 T480 and B8 H8 T1200 beside their plain versions, SDPA's
+     backward and the bound (bytes and operations), the bias route's also
+     beside the autograd of the bias construction;
  12. in-kernel attention dropout, both routes, forward and backward, against
-     the plain versions under the identical keep mask; the kernel's mask
-     against ops/dropout_mask.py; determinism, keep rate, unbiasedness;
+     the plain versions under the identical keep mask (dbias by DBIAS_TOL);
+     the kernel's mask against ops/dropout_mask.py; determinism, keep rate,
+     unbiasedness;
  13. stage-1 training of multi_target at full width (no depth cut): bf16
      compute, dropout 0.1, micro-batch 8 x 600 frames, accumulation 2, three
      optimizer steps with exact launch counts, one profiled step, one step
@@ -716,6 +718,41 @@ def bwd_tolerance(dtype) -> float:
     return 1e-4 if dtype == torch.float32 else 1e-2
 
 
+# dbias is the f32 dS = P o (dPr - D), unscaled and never rounded, in both
+# types, and the kernels and the plain version take D from the same forward
+# output: it agrees with the plain version to f32 summation order (5e-7 to
+# 9e-7 of max(1, |ref|) in bf16). Its entries are small (P ~ 1/T), so the
+# gradients' 1e-2 would pass a dbias wrong in most of them; it has limits of
+# its own, on the largest error and on the RMS error over the RMS of ref.
+DBIAS_TOL = {"max": 1e-5, "rms": 1e-4}
+
+
+def dbias_errs(got, ref) -> dict:
+    """dbias's max abs error over max(1, max |ref|), and its RMS error over
+    ref's RMS, which moves when many small entries are wrong."""
+    ref = ref.float()
+    d = got.float() - ref
+    return {"max": float(d.abs().max()) / max(1.0, float(ref.abs().max())),
+            "rms": float(d.square().mean().sqrt() / ref.square().mean().sqrt())}
+
+
+def dbias_ok(errs: dict) -> bool:
+    return all(errs[k] <= DBIAS_TOL[k] for k in DBIAS_TOL)
+
+
+def dbias_faults(got, ref) -> dict:
+    """The errors of two faulty dbias made from the kernel's: dS rounded to
+    bf16 before it is written, and the entries under 1% of the largest
+    lost. The limits must fail both."""
+    small = ref.abs() < 0.01 * ref.abs().max()
+    return {"bf16": dbias_errs(got.to(torch.bfloat16), ref),
+            "small_lost": dbias_errs(torch.where(small, 0.0, got), ref)}
+
+
+def fmt_errs(errs: dict) -> str:
+    return f"max {errs['max']:.2e} rms {errs['rms']:.2e}"
+
+
 def sdpa_bwd_ms(q, k, v, bias, g) -> float:
     """The backward of one scaled_dot_product_attention call with the
     position bias as a float mask (the library yardstick)."""
@@ -782,6 +819,12 @@ def phase_attention_bwd(ra, dev) -> tuple[dict, dict]:
                         f"vs autograd {max(e_auto):.2e} (tol {tol:g}); fully masked batch row max |grad| "
                         f"{masked_row:g}; |dv| max {float(grads[-2 if route == 'bias' else 3].float().abs().max()):.3f} "
                         f"finite {finite}")
+                if route == "bias":
+                    e_db, faults = dbias_errs(grads[3], refs[0][3]), dbias_faults(grads[3], refs[0][3])
+                    ok = ok and dbias_ok(e_db) and not any(dbias_ok(e) for e in faults.values())
+                    line += (f"; dbias vs plain {fmt_errs(e_db)} (tol max {DBIAS_TOL['max']:g} rms "
+                             f"{DBIAS_TOL['rms']:g}), faulty dbias: dS in bf16 {fmt_errs(faults['bf16'])}, "
+                             f"entries under 1% lost {fmt_errs(faults['small_lost'])}")
                 print(line, flush=True)
                 if not ok:
                     failures.append(line)
@@ -872,8 +915,14 @@ def phase_dropout(ra, dm, dev) -> dict:
                 line = (f"dropout {route} B{b} H{h} T{t} {dname} rate {rate}: forward max_abs_err "
                         f"{e_out:.3e} (tol {fwd_tol:g}) backward max err / max(1,|ref|) {e_grad:.3e} "
                         f"(tol {tol:g}), identical keep mask")
+                ok = e_out <= fwd_tol and e_grad <= tol
+                if route == "bias":
+                    e_db = dbias_errs(gr[3], pl[3])
+                    ok = ok and dbias_ok(e_db)
+                    line += (f"; dbias {fmt_errs(e_db)} (tol max {DBIAS_TOL['max']:g} "
+                             f"rms {DBIAS_TOL['rms']:g})")
                 print(line, flush=True)
-                if not (e_out <= fwd_tol and e_grad <= tol):
+                if not ok:
                     failures.append(line)
             del keep, ref, ref_b, plain, plain_b, got, got_b
         del bias, f32
