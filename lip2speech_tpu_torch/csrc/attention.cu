@@ -32,7 +32,7 @@
 // to bf16 in registers as the A operand of P V. 41.5 KB of shared memory and
 // at most 128 registers: four blocks (16 warps) per SM.
 //
-// f32 (dtype 0), `attention_kernel<float>`: the first version, unchanged on
+// f32 (dtype 0), `attention_kernel`: the first version, unchanged on
 // the CUDA cores (FP32 FMAs on f32 shared tiles, flash_tile.cuh), because
 // the f32 path is held to 1e-4 against the CPU and TF32 cannot meet that.
 
@@ -166,11 +166,10 @@ using namespace flash;
 
 // One block of 256 threads owns 64 query rows; thread (ty, tx) owns a 4x4
 // score tile and a 4x4 output tile; f32 shared tiles with a padded stride.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int T_len,
-                 float scale) {
+attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                 float* __restrict__ out, int H, int T_len, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
   float* sK = sQ + kB * kS;     // key tile, then that tile's probabilities
@@ -203,12 +202,12 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     softmax_step(s, st);
     pv_product(sK, sV, ty, tx, s, st);
   }
-  write_out<T>(out + base, nullptr, i0, T_len, ty, tx, st);
+  write_out(out + base, nullptr, i0, T_len, ty, tx, st);
 }
 
 cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* mask, void* out,
                    int B, int H, int T_len, cudaStream_t stream) {
-  auto kern = attention_kernel<float>;
+  auto kern = attention_kernel;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)kSmemBytes);
   if (e != cudaSuccess) return e;

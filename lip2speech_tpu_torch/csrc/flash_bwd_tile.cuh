@@ -31,6 +31,7 @@
 namespace flash {
 
 // delta[r] = sum_c d_o[r, c] * o[r, c] over rows of 64; half a warp per row.
+// T is float (the FMA kernels) or bf16 (the tensor-core kernels).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 row_dot_kernel(const T* __restrict__ o, const T* __restrict__ d_o, float* __restrict__ delta,
@@ -117,16 +118,15 @@ __device__ __forceinline__ void zero_tile(float acc[4][4]) {
     for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
 }
 
-// Rows r0+4ty.. and channels 4tx.. of a (n_rows, 64) gradient, cast to T.
-template <typename T>
-__device__ __forceinline__ void write_grad(T* __restrict__ dst, int r0, int n_rows, int ty,
+// Rows r0+4ty.. and channels 4tx.. of a (n_rows, 64) gradient.
+__device__ __forceinline__ void write_grad(float* __restrict__ dst, int r0, int n_rows, int ty,
                                            int tx, const float acc[4][4]) {
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = r0 + 4 * ty + a;
     if (r >= n_rows) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dst[(size_t)r * kD + 4 * tx + c] = from_f<T>(acc[a][c]);
+    for (int c = 0; c < 4; ++c) dst[(size_t)r * kD + 4 * tx + c] = acc[a][c];
   }
 }
 

@@ -7,8 +7,8 @@
 // score tile of rows 4ty.. and keys 4tx.., and the 4x4 output tile of rows
 // 4ty.. and channels 4tx... The 16 threads that share a row group are half a
 // warp, so row maxima and row sums are four xor-shuffles. Shared tiles are
-// f32 with a padded stride (65); inputs may be f32 or bf16, all arithmetic is
-// f32.
+// f32 with a padded stride (65); inputs, outputs and all arithmetic are f32
+// (the bf16 paths run on the tensor cores, mma_tile.cuh).
 
 #pragma once
 
@@ -31,11 +31,6 @@ constexpr size_t kSmemBytes = ((size_t)3 * kB * kS + kB) * sizeof(float);
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Running softmax state of a thread's four rows and its 4x4 output tile.
 struct State {
@@ -51,14 +46,13 @@ struct State {
   }
 };
 
-// Rows row0 .. row0+63 of a (n_rows, 64) matrix into a shared tile, as f32;
-// rows past n_rows are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+// Rows row0 .. row0+63 of a (n_rows, 64) matrix into a shared tile; rows
+// past n_rows are zero.
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
                                           int n_rows) {
   for (int e = threadIdx.x; e < kB * kD; e += kThreads) {
     const int r = e / kD, c = e % kD, g = row0 + r;
-    dst[r * kS + c] = g < n_rows ? to_f(src[(size_t)g * kD + c]) : 0.f;
+    dst[r * kS + c] = g < n_rows ? src[(size_t)g * kD + c] : 0.f;
   }
 }
 
@@ -194,8 +188,7 @@ __device__ __forceinline__ void pv_product_dropout(float* sK, const float* sV, i
 
 // O = acc / max(l, 1e-20) for the thread's rows inside the sequence; with
 // lse != nullptr also the row's log-sum-exp m + log(max(l, 1e-20)).
-template <typename T>
-__device__ __forceinline__ void write_out(T* __restrict__ out, float* __restrict__ lse,
+__device__ __forceinline__ void write_out(float* __restrict__ out, float* __restrict__ lse,
                                           int i0, int T_len, int ty, int tx, const State& st) {
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -204,7 +197,7 @@ __device__ __forceinline__ void write_out(T* __restrict__ out, float* __restrict
     const float l = fmaxf(st.l[a], 1e-20f);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      out[(size_t)i * kD + 4 * tx + c] = from_f<T>(st.acc[a][c] / l);
+      out[(size_t)i * kD + 4 * tx + c] = st.acc[a][c] / l;
     if (lse != nullptr && tx == 0) lse[i] = st.m[a] + logf(l);
   }
 }

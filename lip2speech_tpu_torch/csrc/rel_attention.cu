@@ -40,7 +40,7 @@
 // share each group of four keys and split one Philox call per row pair.
 // 96.8 KB of shared memory: two blocks per SM.
 //
-// f32 (dtype 0), `rel_attention_kernel<float>`: the first version, kept unchanged on
+// f32 (dtype 0), `rel_attention_kernel`: the first version, kept unchanged on
 // the CUDA cores (FP32 FMAs, f32 shared tiles, rel_tile.cuh), because the
 // f32 path is held to 1e-4 against the CPU and TF32 cannot meet that.
 //
@@ -215,13 +215,12 @@ constexpr size_t kRelSmemBytes = ((size_t)(4 * kB + kWin) * kS + kB) * sizeof(fl
 // score tile whose 16 diagonals need only 7 window rows. Shared tiles are f32
 // with a padded stride (65); all arithmetic is f32 FMAs (flash_tile.cuh,
 // rel_tile.cuh).
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rel_attention_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
-                  const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ p, const uint8_t* __restrict__ mask,
-                  T* __restrict__ out, float* __restrict__ lse, int H, int T_len,
-                  float scale, philox::Dropout drop) {
+rel_attention_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
+                     const float* __restrict__ k, const float* __restrict__ v,
+                     const float* __restrict__ p, const uint8_t* __restrict__ mask,
+                     float* __restrict__ out, float* __restrict__ lse, int H, int T_len,
+                     float scale, philox::Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQu = reinterpret_cast<float*>(smem_raw);
   float* sQv = sQu + kB * kS;
@@ -234,7 +233,7 @@ rel_attention_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
   const int h = bh % H;
   const int i0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
-  const T* ph = p + (size_t)h * (2 * T_len - 1) * kD;
+  const float* ph = p + (size_t)h * (2 * T_len - 1) * kD;
   const uint8_t* mask_row = mask + (size_t)(bh / H) * T_len;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
@@ -260,22 +259,21 @@ rel_attention_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
     softmax_step(s, st);
     pv_product_dropout(sK, sV, ty, tx, s, st, drop, bh, i0, j0);
   }
-  write_out<T>(out + base, lse + (size_t)bh * T_len, i0, T_len, ty, tx, st);
+  write_out(out + base, lse + (size_t)bh * T_len, i0, T_len, ty, tx, st);
 }
 
-template <typename T>
 cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v,
                    const void* p, const uint8_t* mask, void* out, float* lse, int B, int H,
                    int T_len, philox::Dropout drop, cudaStream_t stream) {
-  auto kern = rel_attention_kernel<T>;
+  auto kern = rel_attention_kernel;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)kRelSmemBytes);
   if (e != cudaSuccess) return e;
   dim3 grid((T_len + kB - 1) / kB, B * H);
   kern<<<grid, kThreads, kRelSmemBytes, stream>>>(
-      static_cast<const T*>(qu), static_cast<const T*>(qv), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(p), mask, static_cast<T*>(out), lse,
-      H, T_len, 1.0f / sqrtf((float)kD), drop);
+      static_cast<const float*>(qu), static_cast<const float*>(qv), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(p), mask, static_cast<float*>(out),
+      lse, H, T_len, 1.0f / sqrtf((float)kD), drop);
   return cudaGetLastError();
 }
 
@@ -300,7 +298,7 @@ extern "C" int l2s_rel_attention(const void* qu, const void* qv, const void* k,
   const philox::Dropout drop = philox::make_dropout(rate, seed);
   cudaError_t e;
   if (dtype == 0)
-    e = fma_path::launch<float>(qu, qv, k, v, p, m, out, l, B, H, T_len, drop, s);
+    e = fma_path::launch(qu, qv, k, v, p, m, out, l, B, H, T_len, drop, s);
   else if (dtype == 1)
     e = mma_path::launch(qu, qv, k, v, p, m, out, l, B, H, T_len, drop, s);
   else

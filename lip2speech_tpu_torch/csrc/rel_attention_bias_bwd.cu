@@ -48,10 +48,11 @@
 // (12 T^2 bytes). 64.3 KB of shared memory and at most 255 registers: two
 // blocks per SM, with 32 KB of bias in flight.
 //   Alignment as in the forward: float2 accesses of bias and dbias for even
-// T, single floats for odd T, chosen by the launcher; Q_u, K, V, dO and the
-// dQ_u buffer must be 16-byte aligned, bias and dbias 4-byte.
+// T, single floats for odd T, chosen by the launcher (float2 is 15% faster at
+// B8 H8 T1200 and B4 H8 T480 on an H100); Q_u, K, V, dO and the dQ_u buffer
+// must be 16-byte aligned, bias and dbias 4-byte.
 //
-// f32 (dtype 0), `bias_bwd_{query,key}_pass<float>`: the first version,
+// f32 (dtype 0), `bias_bwd_{query,key}_pass`: the first version,
 // unchanged on the CUDA cores: two passes in parallel blocks (FP32 FMAs,
 // f32 shared tiles, flash_bwd_tile.cuh; the query pass writes dbias and dQ_u
 // once, so everything is deterministic), because the f32 path is held to
@@ -262,13 +263,12 @@ constexpr size_t kQPassSmem = ((size_t)5 * kB * kS + kB) * sizeof(float);
 // key pass: K, V, Q_u, dO, dS, P~ tiles and the mask flags
 constexpr size_t kKPassSmem = ((size_t)6 * kB * kS + kB) * sizeof(float);
 
-template <typename T>
 struct Args {
-  const T *qu, *k, *v, *d_o;
+  const float *qu, *k, *v, *d_o;
   const float* bias;
   const uint8_t* mask;
   const float *lse, *delta;
-  T *dqu, *dk, *dv;
+  float *dqu, *dk, *dv;
   float* dbias;
   int H, T_len;
   float scale;
@@ -297,8 +297,7 @@ __device__ __forceinline__ void bias_scores(const float* sQ, const float* sK,
     for (int j = 0; j < 4; ++j) s[a][j] = fmaf(s[a][j], scale, bt[a][j]);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) bias_bwd_query_pass(const Args<T> g) {
+__global__ void __launch_bounds__(kThreads) bias_bwd_query_pass(const Args g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
   float* sdO = sQ + kB * kS;
@@ -350,11 +349,10 @@ __global__ void __launch_bounds__(kThreads) bias_bwd_query_pass(const Args<T> g)
     __syncthreads();
     rows_product(sS, sK, ty, tx, dqu);
   }
-  write_grad<T>(g.dqu + base, i0, T_len, ty, tx, dqu);
+  write_grad(g.dqu + base, i0, T_len, ty, tx, dqu);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) bias_bwd_key_pass(const Args<T> g) {
+__global__ void __launch_bounds__(kThreads) bias_bwd_key_pass(const Args g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sK = reinterpret_cast<float*>(smem_raw);
   float* sV = sK + kB * kS;
@@ -402,43 +400,42 @@ __global__ void __launch_bounds__(kThreads) bias_bwd_key_pass(const Args<T> g) {
     cols_product(sS, sQ, ty, tx, dk);
     cols_product(sPd, sdO, ty, tx, dv);
   }
-  write_grad<T>(g.dk + base, j0, T_len, ty, tx, dk);
-  write_grad<T>(g.dv + base, j0, T_len, ty, tx, dv);
+  write_grad(g.dk + base, j0, T_len, ty, tx, dk);
+  write_grad(g.dv + base, j0, T_len, ty, tx, dv);
 }
 
-template <typename T>
 cudaError_t launch(const void* qu, const void* k, const void* v, const float* bias,
                    const uint8_t* mask, const float* lse, const void* out, const void* d_o,
                    void* dqu, void* dk, void* dv, float* dbias, float* delta, int B, int H,
                    int T_len, philox::Dropout drop, cudaStream_t stream) {
-  cudaError_t e = launch_row_dot<T>(out, d_o, delta, (size_t)B * H * T_len, stream);
+  cudaError_t e = launch_row_dot<float>(out, d_o, delta, (size_t)B * H * T_len, stream);
   if (e != cudaSuccess) return e;
-  Args<T> g;
-  g.qu = static_cast<const T*>(qu);
-  g.k = static_cast<const T*>(k);
-  g.v = static_cast<const T*>(v);
-  g.d_o = static_cast<const T*>(d_o);
+  Args g;
+  g.qu = static_cast<const float*>(qu);
+  g.k = static_cast<const float*>(k);
+  g.v = static_cast<const float*>(v);
+  g.d_o = static_cast<const float*>(d_o);
   g.bias = bias;
   g.mask = mask;
   g.lse = lse;
   g.delta = delta;
-  g.dqu = static_cast<T*>(dqu);
-  g.dk = static_cast<T*>(dk);
-  g.dv = static_cast<T*>(dv);
+  g.dqu = static_cast<float*>(dqu);
+  g.dk = static_cast<float*>(dk);
+  g.dv = static_cast<float*>(dv);
   g.dbias = dbias;
   g.H = H;
   g.T_len = T_len;
   g.scale = 1.0f / sqrtf((float)kD);
   g.drop = drop;
   dim3 grid((T_len + kB - 1) / kB, B * H);
-  auto q_pass = bias_bwd_query_pass<T>;
+  auto q_pass = bias_bwd_query_pass;
   e = cudaFuncSetAttribute(q_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)kQPassSmem);
   if (e != cudaSuccess) return e;
   q_pass<<<grid, kThreads, kQPassSmem, stream>>>(g);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto k_pass = bias_bwd_key_pass<T>;
+  auto k_pass = bias_bwd_key_pass;
   e = cudaFuncSetAttribute(k_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)kKPassSmem);
   if (e != cudaSuccess) return e;
@@ -476,8 +473,8 @@ extern "C" int l2s_rel_attention_bias_bwd(const void* qu, const void* k, const v
   const philox::Dropout drop = philox::make_dropout(rate, seed);
   cudaError_t e;
   if (dtype == 0)
-    e = fma_path::launch<float>(qu, k, v, bi, m, l, out, d_out, dqu, dk_out, dv_out, db, dl, B,
-                                H, T_len, drop, s);
+    e = fma_path::launch(qu, k, v, bi, m, l, out, d_out, dqu, dk_out, dv_out, db, dl, B, H,
+                         T_len, drop, s);
   else if (dtype == 1)
     e = mma_path::launch(qu, k, v, bi, m, l, out, d_out, static_cast<float*>(dqu), dk_out,
                          dv_out, db, dl, B, H, T_len, drop, s);

@@ -58,7 +58,7 @@
 //               second stage of the three would add 24 KB (126.3 KB) and
 //               leave one block per SM.
 //
-// f32 (dtype 0), `rel_bwd_{query,key}_pass<float>`: the first version, kept
+// f32 (dtype 0), `rel_bwd_{query,key}_pass`: the first version, kept
 // unchanged on the CUDA cores (FP32 FMAs, f32 tiles, rel_tile.cuh; dP by one
 // f32 atomic per element and tile pair), because the f32 path is held to
 // 1e-4 against the CPU and TF32 cannot meet that.
@@ -425,20 +425,18 @@ constexpr size_t kQPassSmem = ((size_t)(6 * kB + kWin) * kS + kB) * sizeof(float
 // key pass: K, V, Q_u, Q_v, dO, dS, P~ tiles, the window, the mask flags
 constexpr size_t kKPassSmem = ((size_t)(7 * kB + kWin) * kS + kB) * sizeof(float);
 
-template <typename T>
 struct Args {
-  const T *qu, *qv, *k, *v, *p, *d_o;
+  const float *qu, *qv, *k, *v, *p, *d_o;
   const uint8_t* mask;
   const float *lse, *delta;
-  T *dqu, *dqv, *dk, *dv;
+  float *dqu, *dqv, *dk, *dv;
   float* dp;
   int H, T_len;
   float scale;
   philox::Dropout drop;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) rel_bwd_query_pass(const Args<T> g) {
+__global__ void __launch_bounds__(kThreads) rel_bwd_query_pass(const Args g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQu = reinterpret_cast<float*>(smem_raw);
   float* sQv = sQu + kB * kS;
@@ -454,7 +452,7 @@ __global__ void __launch_bounds__(kThreads) rel_bwd_query_pass(const Args<T> g) 
   const int h = bh % g.H;
   const int i0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
-  const T* ph = g.p + (size_t)h * (2 * T_len - 1) * kD;
+  const float* ph = g.p + (size_t)h * (2 * T_len - 1) * kD;
   float* dp_h = g.dp + (size_t)h * (2 * T_len - 1) * kD;
   const uint8_t* mask_row = g.mask + (size_t)(bh / g.H) * T_len;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
@@ -493,12 +491,11 @@ __global__ void __launch_bounds__(kThreads) rel_bwd_query_pass(const Args<T> g) 
     band_rows_product(sS, sP, ty, tx, dqv);
     band_scatter(sS, sQv, ty, tx, dp_h, p0, T_len);
   }
-  write_grad<T>(g.dqu + base, i0, T_len, ty, tx, dqu);
-  write_grad<T>(g.dqv + base, i0, T_len, ty, tx, dqv);
+  write_grad(g.dqu + base, i0, T_len, ty, tx, dqu);
+  write_grad(g.dqv + base, i0, T_len, ty, tx, dqv);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) rel_bwd_key_pass(const Args<T> g) {
+__global__ void __launch_bounds__(kThreads) rel_bwd_key_pass(const Args g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sK = reinterpret_cast<float*>(smem_raw);
   float* sV = sK + kB * kS;
@@ -515,7 +512,7 @@ __global__ void __launch_bounds__(kThreads) rel_bwd_key_pass(const Args<T> g) {
   const int h = bh % g.H;
   const int j0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
-  const T* ph = g.p + (size_t)h * (2 * T_len - 1) * kD;
+  const float* ph = g.p + (size_t)h * (2 * T_len - 1) * kD;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
   load_tile(sK, g.k + base, j0, T_len);
@@ -551,45 +548,44 @@ __global__ void __launch_bounds__(kThreads) rel_bwd_key_pass(const Args<T> g) {
     cols_product(sS, sQu, ty, tx, dk);
     cols_product(sPd, sdO, ty, tx, dv);
   }
-  write_grad<T>(g.dk + base, j0, T_len, ty, tx, dk);
-  write_grad<T>(g.dv + base, j0, T_len, ty, tx, dv);
+  write_grad(g.dk + base, j0, T_len, ty, tx, dk);
+  write_grad(g.dv + base, j0, T_len, ty, tx, dv);
 }
 
-template <typename T>
 cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
                    const uint8_t* mask, const float* lse, const void* out, const void* d_o,
                    void* dqu, void* dqv, void* dk, void* dv, float* dp, float* delta, int B,
                    int H, int T_len, philox::Dropout drop, cudaStream_t stream) {
-  cudaError_t e = launch_row_dot<T>(out, d_o, delta, (size_t)B * H * T_len, stream);
+  cudaError_t e = launch_row_dot<float>(out, d_o, delta, (size_t)B * H * T_len, stream);
   if (e != cudaSuccess) return e;
-  Args<T> g;
-  g.qu = static_cast<const T*>(qu);
-  g.qv = static_cast<const T*>(qv);
-  g.k = static_cast<const T*>(k);
-  g.v = static_cast<const T*>(v);
-  g.p = static_cast<const T*>(p);
-  g.d_o = static_cast<const T*>(d_o);
+  Args g;
+  g.qu = static_cast<const float*>(qu);
+  g.qv = static_cast<const float*>(qv);
+  g.k = static_cast<const float*>(k);
+  g.v = static_cast<const float*>(v);
+  g.p = static_cast<const float*>(p);
+  g.d_o = static_cast<const float*>(d_o);
   g.mask = mask;
   g.lse = lse;
   g.delta = delta;
-  g.dqu = static_cast<T*>(dqu);
-  g.dqv = static_cast<T*>(dqv);
-  g.dk = static_cast<T*>(dk);
-  g.dv = static_cast<T*>(dv);
+  g.dqu = static_cast<float*>(dqu);
+  g.dqv = static_cast<float*>(dqv);
+  g.dk = static_cast<float*>(dk);
+  g.dv = static_cast<float*>(dv);
   g.dp = dp;
   g.H = H;
   g.T_len = T_len;
   g.scale = 1.0f / sqrtf((float)kD);
   g.drop = drop;
   dim3 grid((T_len + kB - 1) / kB, B * H);
-  auto q_pass = rel_bwd_query_pass<T>;
+  auto q_pass = rel_bwd_query_pass;
   e = cudaFuncSetAttribute(q_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)kQPassSmem);
   if (e != cudaSuccess) return e;
   q_pass<<<grid, kThreads, kQPassSmem, stream>>>(g);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto k_pass = rel_bwd_key_pass<T>;
+  auto k_pass = rel_bwd_key_pass;
   e = cudaFuncSetAttribute(k_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)kKPassSmem);
   if (e != cudaSuccess) return e;
@@ -625,8 +621,8 @@ extern "C" int l2s_rel_attention_bwd(const void* qu, const void* qv, const void*
   const philox::Dropout drop = philox::make_dropout(rate, seed);
   cudaError_t e;
   if (dtype == 0)
-    e = fma_path::launch<float>(qu, qv, k, v, p, m, l, out, d_out, dqu, dqv, dk_out, dv_out,
-                                dpf, dl, B, H, T_len, drop, s);
+    e = fma_path::launch(qu, qv, k, v, p, m, l, out, d_out, dqu, dqv, dk_out, dv_out, dpf, dl,
+                         B, H, T_len, drop, s);
   else if (dtype == 1)
     e = mma_path::launch(qu, qv, k, v, p, m, l, out, d_out, dqu, dqv, dk_out, dv_out, dpf, dl, B,
                          H, T_len, drop, s);

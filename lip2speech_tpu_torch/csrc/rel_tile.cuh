@@ -20,12 +20,11 @@ __device__ __forceinline__ int window_start(int T_len, int i0, int j0) {
   return T_len - 1 - (i0 + kB - 1) + j0;
 }
 
-template <typename T>
-__device__ __forceinline__ void load_window(float* sP, const T* __restrict__ ph, int p0,
+__device__ __forceinline__ void load_window(float* sP, const float* __restrict__ ph, int p0,
                                             int T_len) {
   for (int e = threadIdx.x; e < kWin * kD; e += kThreads) {
     const int r = e / kD, c = e % kD, g = p0 + r;
-    sP[r * kS + c] = (g >= 0 && g < 2 * T_len - 1) ? to_f(ph[(size_t)g * kD + c]) : 0.f;
+    sP[r * kS + c] = (g >= 0 && g < 2 * T_len - 1) ? ph[(size_t)g * kD + c] : 0.f;
   }
 }
 
