@@ -52,7 +52,19 @@ Phases, in order; any failure exits non-zero before the last line:
      optimizer steps with exact launch counts, one profiled step, one step
      with the bias route; then two f32 steps on the card against the CPU
      plain path; then one step of the flagship multi_target_avhubert
-     (frozen frontend: no gradient, no update).
+     (frozen frontend: no gradient, no update);
+ 14. the trio's f32 path at the stage-2 GAN shapes (B16 x one 8,960-sample
+     segment: C128 M1,120 ... C16 M8,960) against its plain version, timed
+     beside it and the f32 operations bound;
+ 15. TrioFn: under grad fused_resblock_trio launches the kernel once and its
+     gradients (x, weight_v, weight_g, bias) match autograd through the
+     plain trio;
+ 16. stage-2 GAN training at full width (multi_target's vocoder, MPD, MSD),
+     16 x 8,960 samples, f32: three steps with exactly 4 trio launches each,
+     p50, peak memory, one profiled step, validation_mel_l1; three steps
+     with fused_tail_kernel off (0 launches) and their p50;
+ 17. two f32 GAN steps at B2 on the card against the CPU plain path (logs,
+     gradients by name, parameters, the spectral u).
 Kernel times are device time (CUDA events, host enqueue hidden behind a
 device sleep). Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -1287,6 +1299,317 @@ def phase_train_flagship(s1, counters: dict, preset) -> dict:
     torch.cuda.empty_cache()
     return counts
 
+def gan_stage_rows(vcfg) -> list[tuple[int, int]]:
+    """(channels, rows) of each <=128-channel generator stage at one
+    stage-2 training segment: the conditioning's segment / mel_hop rows times
+    the upsample rates so far."""
+    rows, c, out = vcfg.segment_size // vcfg.mel_hop_size, vcfg.upsample_initial_channel, []
+    for u in vcfg.upsample_rates:
+        c //= 2
+        rows *= u
+        if c <= 128:
+            out.append((c, rows))
+    return out
+
+
+def phase_trio_gan(ft, dev, vcfg, batch: int) -> dict:
+    """Kernel 2's f32 path at the GAN step's shapes (batch x one segment per
+    stage), TF32 off: against its plain version (1e-4 of max(1, |ref|)),
+    timed beside the plain version (cuDNN's 18 f32 convs) and the f32
+    operations bound."""
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(5)
+    ks = tuple(vcfg.resblock_kernel_sizes)
+    dils = [tuple(d) for d in vcfg.resblock_dilation_sizes]
+    macs_per_row = sum(2 * k * len(d) for k, d in zip(ks, dils))
+    stages, failures = [], []
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    for c, m in gan_stage_rows(vcfg):
+        ws = trio_weights(gen, c, ks, dils, torch.float32, dev)
+        x = (torch.randn(batch, c, m, generator=gen) * 0.5).to(dev)
+        with torch.no_grad():
+            out = ft.fused_resblock_trio_kernel(x, ws, ks, dils)
+            ref = ft.trio_plain(x, ws, ks, dils)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            k_ms = time_ms(lambda: ft.fused_resblock_trio_kernel(x, ws, ks, dils), iters=5)
+            p_ms = time_ms(lambda: ft.trio_plain(x, ws, ks, dils), iters=5)
+        n_bytes = 2 * x.numel() * 4 + sum(w.numel() * 4 + bb.numel() * 4
+                                          for rb in ws for pair in rb for w, bb in pair)
+        flops = 2 * macs_per_row * c * c * batch * m
+        bms, by = bound_ms(n_bytes, flops, torch.float32)
+        line = (f"fused_trio GAN shape C{c} B{batch} M{m} f32: max_abs_err {err:.3e} (tol {tol:.3g}) "
+                f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {bms:.4f} ({by}, "
+                f"{flops / 1e9:.1f} GFLOP)")
+        print(line, flush=True)
+        if not (err <= tol and bool(torch.isfinite(out).all())):
+            failures.append(line)
+        stages.append({"channels": c, "rows": m, "batch": batch, "ms": k_ms, "plain_ms": p_ms,
+                       "bound_ms": bms, "bound_by": by, "max_abs_err": err})
+        totals["ms"] += k_ms
+        totals["plain_ms"] += p_ms
+        totals["bound_ms"] += bms
+        totals["max_abs_err"] = max(totals["max_abs_err"], err)
+    if failures:
+        fail("fused trio f32 disagrees with its plain version at the GAN shapes")
+    print(f"fused_trio f32 GAN shapes, four stages: kernel_ms {totals['ms']:.4f} plain_ms "
+          f"{totals['plain_ms']:.4f} bound_ms {totals['bound_ms']:.4f}", flush=True)
+    return {**totals, "stages": stages}
+
+
+def phase_trio_fn(ft, voc, dev, vcfg, c: int = 64, batch: int = 16) -> None:
+    """TrioFn on the card at one GAN stage (C64, B16, one segment's rows),
+    f32, TF32 off: fused_resblock_trio under grad goes through TrioFn and
+    launches the kernel once; the output, dx and the gradients of every
+    weight_v, weight_g and bias against autograd through trio_plain, each
+    within 1e-4 of its tensor's largest reference element (the backward is
+    that recompute; only cuDNN's order of sums differs)."""
+    set_tf32(False)
+    ks = tuple(vcfg.resblock_kernel_sizes)
+    dils = [tuple(d) for d in vcfg.resblock_dilation_sizes]
+    m = dict(gan_stage_rows(vcfg))[c]
+    gen = torch.Generator().manual_seed(6)
+    rbs = [voc.ResBlock1(c, k, d) for k, d in zip(ks, dils)]
+    for rb in rbs:
+        for conv in rb.modules():
+            if isinstance(conv, voc.WNConv1d):
+                conv.init_random(gen)
+                with torch.no_grad():             # gains away from ||v||, weights ~ 0.2/sqrt(C K)
+                    conv.weight_g.mul_(20 * (torch.rand(conv.weight_g.shape, generator=gen) + 0.5))
+        rb.to(dev)
+    params = [p for rb in rbs for p in rb.parameters()]
+    x0 = (torch.randn(batch, c, m, generator=gen) * 0.5).to(dev)
+    g = torch.randn(batch, c, m, generator=gen).to(dev)
+    results = {}
+    for route in ("kernel", "plain"):
+        x = x0.clone().requires_grad_()
+        ws = [rb.branch_weights() for rb in rbs]
+        ft.fused_resblock_trio_kernel.launches = 0
+        if route == "kernel":
+            out = ft.fused_resblock_trio(x, ws, ks, dils)
+            launched = ft.fused_resblock_trio_kernel.launches
+            via = type(out.grad_fn).__name__
+        else:
+            out = ft.trio_plain(x, ws, ks, dils)
+        results[route] = (out.detach(), *torch.autograd.grad(out, [x, *params], g))
+    torch.cuda.synchronize()
+    names = ["out", "dx"] + [n for i in range(len(rbs)) for n, _ in rbs[i].named_parameters(
+        prefix=f"resblocks_{i}")]
+    errs = {n: float((a - b).abs().max()) / float(b.abs().max())
+            for n, a, b in zip(names, results["kernel"], results["plain"])}
+    worst = max(errs, key=errs.get)
+    print(f"TrioFn C{c} B{batch} M{m} f32: grad_fn {via}, launches {launched}; {len(errs)} "
+          f"tensors, worst max err / its largest reference element {errs[worst]:.3e} at {worst} "
+          f"(tol 1e-4); out {errs['out']:.3e} dx {errs['dx']:.3e}", flush=True)
+    if via != "TrioFnBackward" or launched != 1:
+        fail("fused_resblock_trio under grad did not go through TrioFn and the kernel")
+    if not errs[worst] <= 1e-4:
+        fail("TrioFn's gradients disagree with autograd through the plain trio")
+
+
+def gan_batch(cfg, b: int, seed: int) -> dict:
+    """A synthetic stage-2 batch of b segments: tones plus noise, random
+    units, mels and speaker embeddings."""
+    rng = np.random.default_rng(seed)
+    n = cfg.vocoder.segment_size
+    t = np.arange(n) / cfg.audio.sample_rate
+    audio = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 400, (b, 1)) * t) + 0.05 * rng.standard_normal((b, n))
+    return {"audio": audio.astype(np.float32),
+            "code": rng.integers(0, cfg.vocoder.num_embeddings, (b, n // cfg.vocoder.code_hop_size)),
+            "mel": rng.standard_normal((b, n // cfg.vocoder.mel_hop_size, 80)).astype(np.float32),
+            "spk_emb": rng.standard_normal((b, cfg.vocoder.embedder_dim)).astype(np.float32)}
+
+
+def counted_gan_step(counters: dict, step, state, batch, expected: dict, what: str):
+    """One GAN step with every launch count set to 0 just before and read
+    just after; returns (logs as floats, wall ms)."""
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, logs = step(state, batch)
+    logs = {k: float(v) for k, v in logs.items()}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {name: c.launches for name, c in counters.items()}
+    want = {name: expected.get(name, 0) for name in counters}
+    print(f"{what}: step_ms {ms:.1f} launches {counts} logs "
+          f"{ {k: round(v, 5) for k, v in logs.items()} }", flush=True)
+    if counts != want:
+        fail(f"{what}: expected launches {want}, got {counts}")
+    if not all(math.isfinite(v) for v in logs.values()):
+        fail(f"{what}: non-finite logs {logs}")
+    return logs, ms
+
+
+def gan_config(preset, fused: bool):
+    base = preset("multi_target")
+    return dataclasses.replace(base, vocoder=dataclasses.replace(base.vocoder,
+                                                                 fused_tail_kernel=fused))
+
+
+def phase_gan_step(s2, counters: dict, preset) -> dict:
+    """Stage-2 GAN training at full width: multi_target's vocoder, the
+    recipe's batch of 16 x 8,960-sample segments, f32, dropout 0.1, TF32 as
+    torch leaves it (cuDNN convs may use it, matmuls not). Three steps with
+    exactly 4 trio launches each (fused_tail_kernel on), p50 and peak
+    memory; one profiled step; then three steps with fused_tail_kernel off:
+    0 trio launches, and their p50 beside."""
+    torch.backends.cuda.matmul.allow_tf32 = False       # torch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = gan_config(preset, fused=True)
+    b = cfg.stage2.batch_size
+    n_trio = n_trio_stages(cfg.vocoder)
+    what = f"GAN step multi_target {b}x{cfg.vocoder.segment_size} f32"
+    t0 = time.perf_counter()
+    state = s2.create_gan_state(cfg, seed=0)
+    step = s2.make_gan_step(cfg)
+    n_params = {k: sum(p.numel() for p in getattr(state, k).parameters())
+                for k in ("generator", "mpd", "msd")}
+    print(f"{what}: init s {time.perf_counter() - t0:.1f} parameters "
+          f"{ {k: round(v / 1e6, 2) for k, v in n_params.items()} } M (TF32: cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}, matmul {torch.backends.cuda.matmul.allow_tf32})",
+          flush=True)
+    batch = gan_batch(cfg, b, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        _, ms = counted_gan_step(counters, step, state, batch, {"fused_resblock_trio": n_trio},
+                                 f"{what} step {i + 1}")
+        times.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{what}: step_ms {[round(t, 1) for t in times]} p50 {float(np.median(times)):.1f}; "
+          f"peak memory {peak:.2f} GiB; step {state.step}", flush=True)
+    if state.step != 3:
+        fail(f"{what}: the state took {state.step} steps, not 3")
+    for c in counters.values():
+        c.launches = 0
+    busy = profile_call(lambda: step(state, batch), what, top=16)
+    profiled_trio = counters["fused_resblock_trio"].launches
+    val = float(s2.validation_mel_l1(state.generator, batch, cfg))
+    print(f"{what}: trio launches in the profiled step {profiled_trio}; validation_mel_l1 "
+          f"{val:.4f}", flush=True)
+    if profiled_trio != n_trio or not math.isfinite(val):
+        fail(f"{what}: profiled step launched the trio {profiled_trio} times or validation failed")
+    sds = {k: getattr(state, k).state_dict() for k in ("generator", "mpd", "msd")}
+    del state, step
+    torch.cuda.empty_cache()
+    off = gan_config(preset, fused=False)
+    state = s2.create_gan_state(off, state_dicts=sds)
+    step = s2.make_gan_step(off)
+    off_times = [counted_gan_step(counters, step, state, batch, {},
+                                  f"{what} fused_tail_kernel off step {i + 1}")[1] for i in range(3)]
+    print(f"{what} fused_tail_kernel off (cuDNN convs for the trio stages): step_ms "
+          f"{[round(t, 1) for t in off_times]} p50 {float(np.median(off_times)):.1f}", flush=True)
+    del state, step, sds
+    torch.cuda.empty_cache()
+    return {"gan_step_launches": n_trio, "gan_step_p50_ms": float(np.median(times)),
+            "gan_step_busy_ms": busy, "gan_step_peak_gib": peak,
+            "gan_step_p50_ms_fused_off": float(np.median(off_times))}
+
+
+def phase_gan_cpu_check(s2, preset) -> None:
+    """f32, TF32 off, dropout off on both sides (the generator's
+    code_dropout: the card's and the CPU's generators draw other masks): two
+    GAN steps of the full-width vocoder and discriminators at B2 x one
+    segment on the card (trio kernel under TrioFn) against the same weights
+    on the CPU (plain path), two batches, the second after next_epoch.
+
+    Adam's first step is lr x sign(g) for any |g| above its eps, and the
+    generator's upstream gradients are ~1e-8 of its largest with ~1% f32
+    rounding in them (tests/test_torch_train_stage2.py), so the yardstick
+    for rounding is measured, not assumed: a twin of the CPU run whose
+    weights are moved by about one unit in the last place is compared with
+    the CPU run in the same way as the card is. Compared:
+    - the logs of both steps, 1e-4 relative;
+    - the first step's gradients by name (from Adam's first moments), each
+      tensor's largest error over its side's largest element: 1e-4 for the
+      discriminators, 2e-4 for the generator;
+    - parameters after both steps, 2e-5 absolute (a tenth of a step), on the
+      tensors whose first-step gradients agree with the CPU's to 1e-3 in the
+      2-norm, on their elements whose first-step gradient is at least a
+      tenth of the tensor's largest (above rounding in both steps); at least
+      a twentieth of all elements;
+    - the spectral u, 1e-5.
+    The gradients and the parameters pass within their tolerance or within
+    ten times what the twin reads."""
+    set_tf32(False)
+    cfg = gan_config(preset, fused=True)
+    b1 = cfg.stage2.adam_b1
+    step = s2.make_gan_step(cfg)
+    batches = [gan_batch(cfg, 2, seed=s) for s in (3, 4)]
+    cpu = s2.create_gan_state(cfg, seed=0, device="cpu")
+    start = {k: {n: v.clone() for n, v in getattr(cpu, k).state_dict().items()}
+             for k in ("generator", "mpd", "msd")}
+    noise = torch.Generator().manual_seed(1)
+    moved = {k: {n: v * (1 + 1e-7 * torch.randn(v.shape, generator=noise))
+                 if n.endswith(("weight", "weight_v", "weight_g", "bias")) else v
+                 for n, v in sd.items()} for k, sd in start.items()}
+    states = {"cpu": cpu, "card": s2.create_gan_state(cfg, state_dicts=start),
+              "twin": s2.create_gan_state(cfg, device="cpu", state_dicts=moved)}
+    sides = {"generator": ("gen_opt", ("generator",)), "disc": ("disc_opt", ("mpd", "msd"))}
+
+    runs = {}
+    t0 = time.perf_counter()
+    for who, state in states.items():
+        state.generator.code_dropout = 0.0
+        logs = []
+        for i, batch in enumerate(batches):
+            logs.append({k: float(v) for k, v in step(state, batch)[1].items()})
+            if i == 0:
+                grads = {f"{m}.{n}": getattr(state, opt).state[p]["exp_avg"].to("cpu", copy=True)
+                         / (1 - b1) for opt, mods in sides.values() for m in mods
+                         for n, p in getattr(state, m).named_parameters()}
+                s2.next_epoch(state)
+        final = {f"{m}.{n}": v.cpu() - (moved[m][n] - start[m][n] if who == "twin" else 0)
+                 for m in start for n, v in getattr(state, m).state_dict().items()}
+        runs[who] = (logs, grads, final)
+        print(f"GAN step f32 B2 card vs CPU: {who} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    ref_logs, g_ref, sd_ref = runs["cpu"]
+    read = {}
+    for who in ("card", "twin"):
+        logs, g_got, sd = runs[who]
+        rel = max(abs(lg[k] - rl[k]) / abs(rl[k]) for lg, rl in zip(logs, ref_logs) for k in rl)
+        grad_err = {}
+        for side, (_, mods) in sides.items():
+            names = [n for n in g_ref if n.split(".")[0] in mods]
+            scale = max(float(g_ref[n].abs().max()) for n in names)
+            grad_err[side] = max((float((g_got[n] - g_ref[n]).abs().max()) / scale, n)
+                                 for n in names)
+        compared = total = 0
+        par = (0.0, "")
+        for n, g in g_ref.items():
+            total += g.numel()
+            if float((g_got[n] - g).norm()) > 1e-3 * float(g.norm()):
+                continue
+            inside = g.abs() >= 0.1 * g.abs().max()
+            compared += int(inside.sum())
+            par = max(par, (float((sd[n] - sd_ref[n])[inside].abs().max()), n))
+        u_err = max(float((sd[k] - v).abs().max()) for k, v in sd_ref.items() if k.endswith(".u"))
+        read[who] = {"rel": rel, "generator": grad_err["generator"], "disc": grad_err["disc"],
+                     "par": par, "compared": compared, "u": u_err}
+        print(f"GAN step f32 B2 {who} vs CPU (2 steps, dropout off): max relative log err {rel:.3e} "
+              f"(tol 1e-4); first-step gradients: generator {grad_err['generator'][0]:.3e} at "
+              f"{grad_err['generator'][1]} (tol 2e-4), discriminators {grad_err['disc'][0]:.3e} at "
+              f"{grad_err['disc'][1]} (tol 1e-4); parameters on {compared} of {total} elements: "
+              f"max abs err {par[0]:.3e} at {par[1]} (tol 2e-5); u {u_err:.3e} (tol 1e-5)",
+              flush=True)
+    card, twin = read["card"], read["twin"]
+    print(f"GAN step f32 B2: logs {ref_logs[1]}; card / twin: generator gradients "
+          f"{card['generator'][0]:.3e} / {twin['generator'][0]:.3e}, discriminator gradients "
+          f"{card['disc'][0]:.3e} / {twin['disc'][0]:.3e}, parameters {card['par'][0]:.3e} / "
+          f"{twin['par'][0]:.3e} (each passes within its tolerance or ten times the twin's)",
+          flush=True)
+    ok = (card["rel"] <= 1e-4 and card["u"] <= 1e-5 and card["compared"] >= total // 20
+          and all(card[k][0] <= max(tol, 10 * twin[k][0])
+                  for k, tol in (("generator", 2e-4), ("disc", 1e-4), ("par", 2e-5))))
+    if not ok:
+        fail("the GAN step on the card disagrees with the CPU plain path")
+    del states, cpu, runs
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1305,7 +1628,9 @@ def main() -> int:
     from lip2speech_tpu_torch.ops import rel_attention as ra
     from lip2speech_tpu_torch.pipeline import synthesise as syn
     from lip2speech_tpu_torch.pipeline import units_extract as ue
+    from lip2speech_tpu_torch.models import vocoder as voc
     from lip2speech_tpu_torch.train import stage1 as s1
+    from lip2speech_tpu_torch.train import stage2 as s2
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1347,6 +1672,10 @@ def main() -> int:
     train_launches = phase_train(s1, counters, preset)
     phase_train_f32_check(s1, preset)
     phase_train_flagship(s1, counters, preset)
+    trio["gan_f32"] = phase_trio_gan(ft, dev, cfg.vocoder, cfg.stage2.batch_size)
+    phase_trio_fn(ft, voc, dev, cfg.vocoder)
+    trio.update(phase_gan_step(s2, counters, preset))
+    phase_gan_cpu_check(s2, preset)
     for name, numbers in (("rel_attention", rel), ("rel_attention_bias", bias),
                           ("rel_attention_bwd", shear_bwd), ("rel_attention_bias_bwd", bias_bwd)):
         numbers["dropout"] = "philox.cuh"

@@ -11,6 +11,9 @@ layouts move:
   Conv3d      (kt, kh, kw, I, O)           -> (O, I, kt, kh, kw)
   WN conv     weight_v (K, I, O), g (O,)   -> (O, I, K), g (O, 1, 1)
   WN convT    weight_v (K, O, I), g (I,)   -> (I, O, K), g (I, 1, 1)
+  WN conv2d   weight_v (kh, kw, I, O), g (O,) -> (O, I, kh, kw), g (O, 1, 1, 1)
+  spectral    weight (K, I, O)             -> (O, I, K); the "spectral"
+              collection's u (O,) -> the conv's u buffer
   nn.Embed    embedding                    -> nn.Embedding weight
   HuBERT feature-extractor convs, bare parameters conv{i}_weight
               (K, I, O)                    -> (O, I, K)
@@ -48,16 +51,21 @@ def _convert_leaf(path: tuple[str, ...], x: np.ndarray) -> tuple[str, torch.Tens
         return ".".join(path[:-1] + ("weight",)), torch.tensor(x)
     if name == "weight" and x.ndim >= 2:
         x = x.transpose(_WEIGHT_PERM[x.ndim])
-    elif name == "weight_v" or re.fullmatch(r"conv\d+_weight", name):
+    elif name == "weight_v":
+        x = x.transpose(_WEIGHT_PERM[x.ndim])
+    elif re.fullmatch(r"conv\d+_weight", name):
         x = x.transpose(2, 1, 0)
-    elif name == "weight_g":
-        x = x.reshape(-1, 1, 1)
     return ".".join(path), torch.tensor(np.ascontiguousarray(x))
 
 
 def jax_tree_to_state_dict(tree: dict[str, Any]) -> dict[str, torch.Tensor]:
-    """Flat port state_dict from one JAX tree (a params or a batch_stats tree)."""
-    return dict(_convert_leaf(path, x) for path, x in _leaves(tree))
+    """Flat port state_dict from one JAX tree (a params, batch_stats or
+    spectral tree). A weight_g takes the rank of its weight_v."""
+    sd = dict(_convert_leaf(path, x) for path, x in _leaves(tree))
+    for key, g in sd.items():
+        if key.endswith("weight_g"):
+            sd[key] = g.reshape((-1,) + (1,) * (sd[key[:-1] + "v"].ndim - 1))
+    return sd
 
 
 def stage1_state_dict(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
@@ -75,3 +83,12 @@ def vocoder_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:
 def hubert_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:
     """HubertBase params -> state_dict."""
     return jax_tree_to_state_dict(params)
+
+
+def discriminator_state_dict(params: dict[str, Any],
+                             spectral: dict[str, Any] | None = None) -> dict[str, torch.Tensor]:
+    """MultiPeriodDiscriminator params, or MultiScaleDiscriminator params
+    with its "spectral" collection (the u vectors) -> state_dict."""
+    sd = jax_tree_to_state_dict(params)
+    sd.update(jax_tree_to_state_dict(spectral or {}))
+    return sd

@@ -1,7 +1,8 @@
 """Typed configuration tree of the port (its own copy; the JAX package's
 core/config.py is the reference). Holds the dataclasses the ported code
-reads: serving and stage-1 training; the stage-2 and decode configs join when
-those parts are ported."""
+reads: serving, stage-1 and stage-2 training; the decode config joins when
+that part is ported. The JAX package's TPU lane-layout switches of the
+vocoder (mxu_fold, fold_tail) have no counterpart here."""
 
 from __future__ import annotations
 
@@ -12,8 +13,17 @@ from typing import Sequence
 
 @dataclass(frozen=True)
 class AudioConfig:
+    """The dataset mel's hop, and the vocoder's mel-loss STFT (1024/256/1024,
+    80 bins from fmin, fmax None: the Nyquist rate)."""
+
     sample_rate: int = 16_000
     hop_length: int = 160
+    num_mels: int = 80
+    fmin: float = 0.0
+    loss_n_fft: int = 1024
+    loss_hop_length: int = 256
+    loss_win_length: int = 1024
+    loss_fmax: float | None = None
 
 
 @dataclass(frozen=True)
@@ -98,6 +108,13 @@ class VocoderConfig:
     upsample_kernel_sizes: Sequence[int] = (11, 8, 4, 4, 4)
     resblock_kernel_sizes: Sequence[int] = (3, 7, 11)
     resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    segment_size: int = 8960                   # stage-2 training segment, samples
+    code_hop_size: int = 320
+    mel_hop_size: int = 160
+    # run each <=128-channel stage's resblock trio through ops/fused_tail.py
+    # (the CUDA kernel on the card; gradients by a plain recompute). Off by
+    # default as in the JAX package; the pipeline turns it on on the card.
+    fused_tail_kernel: bool = False
 
 
 @dataclass(frozen=True)
@@ -129,12 +146,31 @@ class Stage1TrainConfig:
 
 
 @dataclass(frozen=True)
+class Stage2TrainConfig:
+    """Stage-2 GAN optimisation: AdamW(0.8, 0.99, eps 1e-8, weight decay
+    0.01) for the generator and one for both discriminators, the rate decayed
+    by lr_decay per epoch; mel L1 x lambda_mel. lambda_fm is not wired (the
+    feature loss doubles itself), as in the JAX package."""
+
+    lr: float = 2e-4
+    adam_b1: float = 0.8
+    adam_b2: float = 0.99
+    lr_decay: float = 0.999                    # ExponentialLR gamma per epoch
+    batch_size: int = 16
+    seed: int = 1234
+    lambda_mel: float = 45.0
+    lambda_fm: float = 2.0
+    mel_aug: bool = False                      # Gaussian blur + noise on input mels
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     audio: AudioConfig = field(default_factory=AudioConfig)
     video: VideoConfig = field(default_factory=VideoConfig)
     model: MultiTargetConfig = field(default_factory=MultiTargetConfig)
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
     stage1: Stage1TrainConfig = field(default_factory=Stage1TrainConfig)
+    stage2: Stage2TrainConfig = field(default_factory=Stage2TrainConfig)
 
 
 def _frozen_frontend(kind: str, dim: int, heads: int, ffn_dim: int, layers: int) -> dict:

@@ -1,5 +1,5 @@
 """Manifest and label file IO (the port's own copy of what unit extraction
-reads from the JAX package's data/manifest.py).
+and the stage-2 dataset read from the JAX package's data/manifest.py).
 
   * TSV manifest: first line = dataset root; then per-utterance rows
       id \\t video_rel_path \\t audio_rel_path \\t n_video_frames \\t n_audio_samples
@@ -23,6 +23,17 @@ class Utterance:
     n_frames: int
     n_samples: int
     units: np.ndarray | None = None          # raw unit ids 0..199
+
+    @property
+    def mel_path(self) -> Path:
+        """The mel sits in a parallel tree: /video/ -> /mel/, suffix -> .npy."""
+        p = str(self.video_path)
+        return Path(p.replace("/video/", "/mel/")[: -len(self.video_path.suffix)] + ".npy")
+
+    @property
+    def spk_emb_path(self) -> Path:
+        p = str(self.video_path)
+        return Path(p.replace("/video/", "/spk_emb/")[: -len(self.video_path.suffix)] + ".npy")
 
 
 def read_manifest(tsv_path: str | Path, unt_path: str | Path | None = None,

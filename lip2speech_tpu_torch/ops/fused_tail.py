@@ -9,6 +9,9 @@ tile plus its halo out of shared memory; `trio_plain` is its plain version.
 Unlike the TPU kernel the port does not fold channels into 128 lanes:
 activations stay in PyTorch's (B, C, M) conv layout.
 
+Under grad the kernel runs inside `TrioFn`, whose backward recomputes the
+plain version (the bare kernel refuses inputs that require grad).
+
 Semantics both versions hold: every conv output outside the true sequence
 [0, M) is zero (each conv zero-pads its own input), the bias is added after
 the cast to the activation dtype, and the sum is divided by the number of
@@ -169,10 +172,35 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _flat(weights) -> list[torch.Tensor]:
+    return [t for rb in weights for pair in rb for wb in pair for t in wb]
+
+
+def _nesting(weights) -> tuple:
+    """Dilation branches per resblock (each branch two (w, b) convs)."""
+    return tuple(len(rb) for rb in weights)
+
+
+def _nest(flat, nesting):
+    """The flat tensors back in the nesting of the weights."""
+    it = iter(flat)
+    return [[tuple((next(it), next(it)) for _ in range(2)) for _ in range(n)] for n in nesting]
+
+
+def _needs_grad(x, weights) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad
+                                                               for t in _flat(weights)))
+
+
 def fused_resblock_trio_kernel(x, weights, kernel_sizes, dilation_sizes):
-    """Launch csrc/fused_tail.cu on x (B, C, M) with C in {16, 32, 64, 128}."""
+    """Launch csrc/fused_tail.cu on x (B, C, M) with C in {16, 32, 64, 128}.
+    The result has no autograd history, so an input that would want a
+    gradient is refused: under grad, go through fused_resblock_trio."""
     from lip2speech_tpu_torch.kernels import build
 
+    if _needs_grad(x, weights):
+        raise RuntimeError("fused_resblock_trio_kernel has no gradient: call "
+                           "fused_resblock_trio (TrioFn) when an input requires grad")
     b, c, m = x.shape
     if x.device.type != "cuda":
         raise ValueError(f"fused_resblock_trio_kernel needs CUDA tensors, got {x.device}")
@@ -217,9 +245,41 @@ def fused_resblock_trio_kernel(x, weights, kernel_sizes, dilation_sizes):
 fused_resblock_trio_kernel.launches = 0   # kernel launches since the last reset
 
 
+class TrioFn(torch.autograd.Function):
+    """The kernel's forward with the gradient of a plain recompute (JAX
+    reference: the custom_vjp of pallas_fused_tail.fused_resblock_trio):
+    the forward saves x and the composed weights; the backward runs
+    trio_plain on them under autograd and returns its gradients for x and
+    every (w, b), which flow on into weight_v / weight_g through the
+    weight-norm composition. Arguments: x, kernel_sizes, dilation_sizes,
+    the branches per resblock (_nesting), then the weights flat."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_sizes, dilation_sizes, nesting, *flat):
+        weights = _nest(flat, nesting)
+        ctx.save_for_backward(x, *flat)
+        ctx.geometry = (kernel_sizes, dilation_sizes, nesting)
+        return fused_resblock_trio_kernel(x, weights, kernel_sizes, dilation_sizes)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, *flat = ctx.saved_tensors
+        kernel_sizes, dilation_sizes, nesting = ctx.geometry
+        inputs = [t.detach().requires_grad_() for t in (x, *flat)]
+        with torch.enable_grad():
+            out = trio_plain(inputs[0], _nest(inputs[1:], nesting), kernel_sizes,
+                             dilation_sizes)
+            grads = torch.autograd.grad(out, inputs, grad_out)
+        return (grads[0], None, None, None, *grads[1:])
+
+
 def fused_resblock_trio(x, weights, kernel_sizes, dilation_sizes) -> torch.Tensor:
-    """Mean of the stage's ResBlock1 outputs: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. x (B, C, M)."""
+    """Mean of the stage's ResBlock1 outputs, x (B, C, M): the plain version
+    for CPU tensors; for CUDA tensors the kernel, through TrioFn when grad is
+    enabled and an input requires it."""
     if x.device.type == "cpu":
         return trio_plain(x, weights, kernel_sizes, dilation_sizes)
+    if _needs_grad(x, weights):
+        return TrioFn.apply(x, tuple(kernel_sizes), tuple(tuple(d) for d in dilation_sizes),
+                            _nesting(weights), *_flat(weights))
     return fused_resblock_trio_kernel(x, weights, kernel_sizes, dilation_sizes)

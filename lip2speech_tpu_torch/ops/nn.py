@@ -3,8 +3,9 @@
 Convolutions take PyTorch's channel-first layout, (B, C, T) / (B, C, H, W) /
 (B, C, T, H, W), with weights (Cout, Cin/groups, *kernel). The bias is added
 after the convolution, in the activation dtype, as the JAX ops do. The JAX
-package's matrix-unit reshapes (conv3d_timestack, conv1d_group_packed and
-ops/fold_conv.py) have no counterpart here: they only suit the TPU.
+package's matrix-unit reshapes (conv3d_timestack, conv1d_timestack,
+conv1d_group_packed and ops/fold_conv.py) have no counterpart here: they only
+suit the TPU; cuDNN runs Cin=1 and grouped convs as they are.
 """
 
 from __future__ import annotations
@@ -126,6 +127,12 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return F.gelu(x)
+
+
+def avg_pool1d(x, kernel: int, stride: int, padding: int) -> torch.Tensor:
+    """(B, C, T) average pool, zero padding counted (torch AvgPool1d's
+    count_include_pad=True)."""
+    return F.avg_pool1d(x, kernel, stride, padding, count_include_pad=True)
 
 
 def max_pool3d(x, kernel=(1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1)):

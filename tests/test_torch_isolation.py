@@ -38,7 +38,8 @@ def test_port_has_the_slice_modules():
                 "convert/from_jax", "pipeline/synthesise", "kernels/build",
                 "ops/attention", "ops/kmeans", "models/avhubert", "models/hubert",
                 "data/manifest", "utils/audio_io", "pipeline/units_extract",
-                "ops/dropout_mask", "train/losses", "train/stage1"):
+                "ops/dropout_mask", "train/losses", "train/stage1", "ops/dsp",
+                "train/stage2", "data/stage2", "data/transforms"):
         assert f"lip2speech_tpu_torch/{mod}.py" in names
     csrc = {p.name for p in (REPO / "lip2speech_tpu_torch" / "csrc").iterdir()}
     assert {"rel_attention.cu", "fused_tail.cu", "attention.cu", "rel_attention_bias.cu",
@@ -119,7 +120,9 @@ def test_import_and_cpu_path_need_no_nvcc(tmp_path):
         "rel_attention.rel_attention(q, x, x, x, p, m, dropout_rate=0.1, seed=1).sum().backward()\n"
         "rel_attention.rel_attention(q, x, x, x, p, m, impl='bias', dropout_rate=0.1).sum().backward()\n"
         "attention.attention(q, x, x, m).sum().backward()\n"
-        "from lip2speech_tpu_torch.train import losses, stage1\n"
+        "from lip2speech_tpu_torch.train import losses, stage1, stage2\n"
+        "from lip2speech_tpu_torch.ops import dsp\n"
+        "dsp.mel_spectrogram_hifigan(torch.randn(2, 2000))\n"
         "assert not build._libs\n"
         "assert rel_attention.rel_attention_bwd_kernel.launches == 0\n"
         "assert rel_attention.rel_attention_bias_bwd_kernel.launches == 0\n"
