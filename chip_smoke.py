@@ -61,10 +61,11 @@ Phases, in order; any failure exits non-zero before the last line:
      plain trio;
  16. stage-2 GAN training at full width (multi_target's vocoder, MPD, MSD),
      16 x 8,960 samples, f32: three steps with exactly 4 trio launches each,
-     p50, peak memory, one profiled step, validation_mel_l1; three steps
-     with fused_tail_kernel off (0 launches) and their p50;
+     p50, peak memory, one profiled step, validation_mel_l1; for comparison
+     three steps and a profiled one with the trio stages on the plain trio;
  17. two f32 GAN steps at B2 on the card against the CPU plain path (logs,
-     gradients by name, parameters, the spectral u).
+     gradients by name, parameters, the spectral u) at fixed limits, and
+     three faulty TrioFn backwards that must fail the same check.
 Kernel times are device time (CUDA events, host enqueue hidden behind a
 device sleep). Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -502,13 +503,18 @@ def profile_call(fn, what: str, top: int = 12) -> float:
         wall_ms = (time.perf_counter() - t) * 1e3
     dev_us = lambda e: getattr(e, "self_device_time_total", 0) or 0  # noqa: E731
     # device-side events only (kernels, copies, memsets): the aten:: rows
-    # repeat the time of the kernels they launched
+    # repeat the time of the kernels they launched, and a user annotation's
+    # device range (Optimizer.step#AdamW.step) that of the kernels inside it
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+                   and not getattr(e, "is_user_annotation", False)
                    and e.key != "Activity Buffer Request"), key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    notes = [f"{e.key} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in prof.key_averages()
+             if getattr(e, "is_user_annotation", False) and dev_us(e) > 0]
     print(f"profile {what}: wall_ms {wall_ms:.3f} (profiled) device_busy_ms {busy_ms:.3f} "
-          f"busy_share {busy_ms / wall_ms:.3f} kernels {sum(e.count for e in rows)}", flush=True)
+          f"busy_share {busy_ms / wall_ms:.3f} kernels {sum(e.count for e in rows)}"
+          + (f"; annotation ranges left out: {notes}" if notes else ""), flush=True)
     for e in rows[:top]:
         print(f"profile {what}:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}",
               flush=True)
@@ -1443,22 +1449,30 @@ def counted_gan_step(counters: dict, step, state, batch, expected: dict, what: s
     return logs, ms
 
 
-def gan_config(preset, fused: bool):
-    base = preset("multi_target")
-    return dataclasses.replace(base, vocoder=dataclasses.replace(base.vocoder,
-                                                                 fused_tail_kernel=fused))
+@contextlib.contextmanager
+def trio_stages_plain(voc, ft):
+    """For a comparison only (the plain version of the GAN step, as plain_ms
+    is a kernel's): the generator's trio stages on trio_plain, cuDNN's 18
+    convs under autograd, instead of the kernel. The port has no such route:
+    on the card its trio stages always launch the kernel."""
+    real = voc.fused_resblock_trio
+    voc.fused_resblock_trio = ft.trio_plain
+    try:
+        yield
+    finally:
+        voc.fused_resblock_trio = real
 
 
-def phase_gan_step(s2, counters: dict, preset) -> dict:
+def phase_gan_step(s2, voc, ft, counters: dict, preset) -> dict:
     """Stage-2 GAN training at full width: multi_target's vocoder, the
     recipe's batch of 16 x 8,960-sample segments, f32, dropout 0.1, TF32 as
     torch leaves it (cuDNN convs may use it, matmuls not). Three steps with
-    exactly 4 trio launches each (fused_tail_kernel on), p50 and peak
-    memory; one profiled step; then three steps with fused_tail_kernel off:
-    0 trio launches, and their p50 beside."""
+    exactly 4 trio launches each, p50 and peak memory; one profiled step;
+    then, for comparison, three steps and one profiled step with the trio
+    stages on the plain trio (0 launches): the step's plain version."""
     torch.backends.cuda.matmul.allow_tf32 = False       # torch's defaults
     torch.backends.cudnn.allow_tf32 = True
-    cfg = gan_config(preset, fused=True)
+    cfg = preset("multi_target")
     b = cfg.stage2.batch_size
     n_trio = n_trio_stages(cfg.vocoder)
     what = f"GAN step multi_target {b}x{cfg.vocoder.segment_size} f32"
@@ -1492,122 +1506,207 @@ def phase_gan_step(s2, counters: dict, preset) -> dict:
           f"{val:.4f}", flush=True)
     if profiled_trio != n_trio or not math.isfinite(val):
         fail(f"{what}: profiled step launched the trio {profiled_trio} times or validation failed")
-    sds = {k: getattr(state, k).state_dict() for k in ("generator", "mpd", "msd")}
+    plain_what = f"{what}, trio stages on trio_plain (comparison)"
+    with trio_stages_plain(voc, ft):
+        plain_times = [counted_gan_step(counters, step, state, batch, {},
+                                        f"{plain_what} step {i + 1}")[1] for i in range(3)]
+        plain_busy = profile_call(lambda: step(state, batch), plain_what, top=8)
+    print(f"{plain_what}: step_ms {[round(t, 1) for t in plain_times]} p50 "
+          f"{float(np.median(plain_times)):.1f}; device busy {plain_busy:.3f} ms against "
+          f"{busy:.3f} with the kernel", flush=True)
     del state, step
-    torch.cuda.empty_cache()
-    off = gan_config(preset, fused=False)
-    state = s2.create_gan_state(off, state_dicts=sds)
-    step = s2.make_gan_step(off)
-    off_times = [counted_gan_step(counters, step, state, batch, {},
-                                  f"{what} fused_tail_kernel off step {i + 1}")[1] for i in range(3)]
-    print(f"{what} fused_tail_kernel off (cuDNN convs for the trio stages): step_ms "
-          f"{[round(t, 1) for t in off_times]} p50 {float(np.median(off_times)):.1f}", flush=True)
-    del state, step, sds
     torch.cuda.empty_cache()
     return {"gan_step_launches": n_trio, "gan_step_p50_ms": float(np.median(times)),
             "gan_step_busy_ms": busy, "gan_step_peak_gib": peak,
-            "gan_step_p50_ms_fused_off": float(np.median(off_times))}
+            "gan_step_p50_ms_trio_plain": float(np.median(plain_times)),
+            "gan_step_busy_ms_trio_plain": plain_busy}
 
 
-def phase_gan_cpu_check(s2, preset) -> None:
+GAN_CHECK_TOL = {"logs": 1e-4,        # relative
+                 "disc": 1e-5,        # D gradients / the discriminators' largest element
+                 "generator": 2e-4,   # G gradients / the generator's largest element
+                 "par": 2e-5,         # parameters after two steps, absolute
+                 "u": 1e-5}           # spectral u, absolute
+GRAD_AGREE = 1e-3                     # per tensor, 2-norm: the parameter check's filter
+TRIO_PATH_AGREE = 5e-3                # per tensor on the trio's path, 2-norm: sound 1.7e-3
+                                      # (a weight_g, a reduction of dL/dw against v), the
+                                      # faulty backwards 1e-2 and more
+
+
+def trio_path(vcfg) -> tuple[str, ...]:
+    """Name prefixes of the generator parameters whose gradients TrioFn
+    gives or passes on: each trio stage's upsampler and resblocks."""
+    n_k = len(vcfg.resblock_kernel_sizes)
+    out, c = [], vcfg.upsample_initial_channel
+    for i in range(len(vcfg.upsample_rates)):
+        c //= 2
+        if c <= 128:
+            out += [f"generator.generator.ups_{i}."] + [
+                f"generator.generator.resblocks_{i * n_k + j}." for j in range(n_k)]
+    return tuple(out)
+
+
+@contextlib.contextmanager
+def faulty_trio_backward(ft, fault: str):
+    """A deliberately wrong TrioFn backward, to show that the card-against-
+    CPU check fails on it: 'bias gradients dropped' (every trio bias gets
+    0), 'dx 1% off' (the gradient passed upstream x 1.01), 'one weight
+    gradient 1% off' (the first conv of each stage's first resblock)."""
+    real = ft.TrioFn.backward
+
+    def backward(ctx, grad_out):
+        g = list(real(ctx, grad_out))          # dx, 3 x None, then (w, b) per conv
+        if fault == "bias gradients dropped":
+            g[5::2] = [torch.zeros_like(t) for t in g[5::2]]
+        elif fault == "dx 1% off":
+            g[0] = g[0] * 1.01
+        elif fault == "one weight gradient 1% off":
+            g[4] = g[4] * 1.01
+        else:
+            raise ValueError(fault)
+        return tuple(g)
+
+    ft.TrioFn.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        ft.TrioFn.backward = staticmethod(real)
+
+
+def rel_norm_err(got, ref) -> float:
+    """||got - ref|| / ||ref|| (0 when both are 0, inf when only ref is)."""
+    err, norm = float((got - ref).norm()), float(ref.norm())
+    return err / norm if norm > 0 else (0.0 if err == 0 else math.inf)
+
+
+def gan_readings(ref, got, on_trio_path) -> dict:
+    """Readings of one run against the CPU's: logs, first-step gradients,
+    parameters (on the elements where the first-step gradient stands above
+    rounding, of the tensors whose gradients agree to GRAD_AGREE), u; the
+    tensors that filter leaves out; the trio path's worst 2-norm error."""
+    (ref_logs, g_ref, sd_ref), (logs, g_got, sd) = ref, got
+    read = {"logs": max(abs(lg[k] - rl[k]) / abs(rl[k]) for lg, rl in zip(logs, ref_logs)
+                        for k in rl)}
+    for side, disc in (("generator", False), ("disc", True)):
+        names = [n for n in g_ref if n.startswith(("mpd.", "msd.")) == disc]
+        scale = max(float(g_ref[n].abs().max()) for n in names)
+        read[side] = max((float((g_got[n] - g_ref[n]).abs().max()) / scale, n) for n in names)
+    compared = total = 0
+    par, left_out = (0.0, ""), {}
+    for n, g in g_ref.items():
+        total += g.numel()
+        agree = rel_norm_err(g_got[n], g)
+        if agree > GRAD_AGREE:
+            left_out[n] = agree
+            continue
+        inside = g.abs() >= 0.1 * g.abs().max()
+        compared += int(inside.sum())
+        par = max(par, (float((sd[n] - sd_ref[n])[inside].abs().max()), n))
+    read.update(par=par, compared=compared, total=total, left_out=left_out,
+                left_on_trio_path=sorted(n for n in left_out if n.startswith(on_trio_path)),
+                u=max(float((sd[k] - v).abs().max()) for k, v in sd_ref.items()
+                      if k.endswith(".u")))
+    read["trio_path_worst_agree"] = max((rel_norm_err(g_got[n], g_ref[n]), n)
+                                        for n in g_ref if n.startswith(on_trio_path))
+    return read
+
+
+def gan_check_failures(read) -> list[str]:
+    out = [k for k in ("logs", "u") if not read[k] <= GAN_CHECK_TOL[k]]
+    out += [k for k in ("disc", "generator", "par") if not read[k][0] <= GAN_CHECK_TOL[k]]
+    if read["compared"] < read["total"] // 20:
+        out.append("compared")
+    if not read["trio_path_worst_agree"][0] <= TRIO_PATH_AGREE:
+        out.append("trio path")
+    return out
+
+
+def phase_gan_cpu_check(s2, ft, preset) -> None:
     """f32, TF32 off, dropout off on both sides (the generator's
     code_dropout: the card's and the CPU's generators draw other masks): two
     GAN steps of the full-width vocoder and discriminators at B2 x one
     segment on the card (trio kernel under TrioFn) against the same weights
     on the CPU (plain path), two batches, the second after next_epoch.
-
-    Adam's first step is lr x sign(g) for any |g| above its eps, and the
-    generator's upstream gradients are ~1e-8 of its largest with ~1% f32
-    rounding in them (tests/test_torch_train_stage2.py), so the yardstick
-    for rounding is measured, not assumed: a twin of the CPU run whose
-    weights are moved by about one unit in the last place is compared with
-    the CPU run in the same way as the card is. Compared:
+    Fixed limits (GAN_CHECK_TOL), as tests/test_torch_train_stage2.py holds
+    the CPU port against JAX:
     - the logs of both steps, 1e-4 relative;
     - the first step's gradients by name (from Adam's first moments), each
-      tensor's largest error over its side's largest element: 1e-4 for the
-      discriminators, 2e-4 for the generator;
-    - parameters after both steps, 2e-5 absolute (a tenth of a step), on the
-      tensors whose first-step gradients agree with the CPU's to 1e-3 in the
-      2-norm, on their elements whose first-step gradient is at least a
-      tenth of the tensor's largest (above rounding in both steps); at least
-      a twentieth of all elements;
+      tensor's largest error over its side's largest element: 1e-5 for the
+      discriminators, 2e-4 for the generator (whose upstream gradients
+      carry f32 rounding of ~1% where they are ~1e-8 of its largest);
+    - parameters after both steps, 2e-5 absolute (a tenth of a step), where
+      Adam's first step, lr x sign(g), is not set by rounding: on the
+      tensors whose first-step gradients agree with the CPU's to 1e-3 in
+      the 2-norm, on their elements whose first-step gradient is at least a
+      tenth of the tensor's largest; at least a twentieth of all elements;
+      the tensors left out are listed;
+    - the gradient of every tensor on the trio's path (the trio stages'
+      upsamplers and resblocks), 5e-3 of its own 2-norm, so that a wrong
+      gradient in a small tensor shows (sound: up to 1.7e-3, in a weight_g,
+      whose gradient is a reduction of dL/dw against v with cancellation;
+      the three faulty backwards below: 1e-2 and more);
     - the spectral u, 1e-5.
-    The gradients and the parameters pass within their tolerance or within
-    ten times what the twin reads."""
+    Then three faulty TrioFn backwards on the card must each fail it."""
     set_tf32(False)
-    cfg = gan_config(preset, fused=True)
+    cfg = preset("multi_target")
     b1 = cfg.stage2.adam_b1
     step = s2.make_gan_step(cfg)
     batches = [gan_batch(cfg, 2, seed=s) for s in (3, 4)]
     cpu = s2.create_gan_state(cfg, seed=0, device="cpu")
     start = {k: {n: v.clone() for n, v in getattr(cpu, k).state_dict().items()}
              for k in ("generator", "mpd", "msd")}
-    noise = torch.Generator().manual_seed(1)
-    moved = {k: {n: v * (1 + 1e-7 * torch.randn(v.shape, generator=noise))
-                 if n.endswith(("weight", "weight_v", "weight_g", "bias")) else v
-                 for n, v in sd.items()} for k, sd in start.items()}
-    states = {"cpu": cpu, "card": s2.create_gan_state(cfg, state_dicts=start),
-              "twin": s2.create_gan_state(cfg, device="cpu", state_dicts=moved)}
-    sides = {"generator": ("gen_opt", ("generator",)), "disc": ("disc_opt", ("mpd", "msd"))}
+    sides = {"gen_opt": ("generator",), "disc_opt": ("mpd", "msd")}
+    on_trio_path = trio_path(cfg.vocoder)
 
-    runs = {}
-    t0 = time.perf_counter()
-    for who, state in states.items():
+    def run(state):
         state.generator.code_dropout = 0.0
         logs = []
         for i, batch in enumerate(batches):
             logs.append({k: float(v) for k, v in step(state, batch)[1].items()})
             if i == 0:
                 grads = {f"{m}.{n}": getattr(state, opt).state[p]["exp_avg"].to("cpu", copy=True)
-                         / (1 - b1) for opt, mods in sides.values() for m in mods
+                         / (1 - b1) for opt, mods in sides.items() for m in mods
                          for n, p in getattr(state, m).named_parameters()}
                 s2.next_epoch(state)
-        final = {f"{m}.{n}": v.cpu() - (moved[m][n] - start[m][n] if who == "twin" else 0)
-                 for m in start for n, v in getattr(state, m).state_dict().items()}
-        runs[who] = (logs, grads, final)
-        print(f"GAN step f32 B2 card vs CPU: {who} done at {time.perf_counter() - t0:.1f} s",
+        final = {f"{m}.{n}": v.cpu() for m in start
+                 for n, v in getattr(state, m).state_dict().items()}
+        return logs, grads, final
+
+    def show(who, read):
+        print(f"GAN step f32 B2 {who} vs CPU (2 steps, dropout off): logs {read['logs']:.3e} "
+              f"(tol 1e-4); first-step gradients: generator {read['generator'][0]:.3e} at "
+              f"{read['generator'][1]} (tol 2e-4), discriminators {read['disc'][0]:.3e} at "
+              f"{read['disc'][1]} (tol 1e-5); trio path's gradients, worst 2-norm error "
+              f"{read['trio_path_worst_agree'][0]:.3e} at {read['trio_path_worst_agree'][1]} "
+              f"(tol {TRIO_PATH_AGREE:g}); parameters on "
+              f"{read['compared']} of {read['total']} elements: {read['par'][0]:.3e} at "
+              f"{read['par'][1]} (tol 2e-5); u {read['u']:.3e} (tol 1e-5); left out "
+              f"{len(read['left_out'])} tensors, on the trio path "
+              f"{read['left_on_trio_path'][:4]}{' ...' if len(read['left_on_trio_path']) > 4 else ''}",
               flush=True)
-    ref_logs, g_ref, sd_ref = runs["cpu"]
-    read = {}
-    for who in ("card", "twin"):
-        logs, g_got, sd = runs[who]
-        rel = max(abs(lg[k] - rl[k]) / abs(rl[k]) for lg, rl in zip(logs, ref_logs) for k in rl)
-        grad_err = {}
-        for side, (_, mods) in sides.items():
-            names = [n for n in g_ref if n.split(".")[0] in mods]
-            scale = max(float(g_ref[n].abs().max()) for n in names)
-            grad_err[side] = max((float((g_got[n] - g_ref[n]).abs().max()) / scale, n)
-                                 for n in names)
-        compared = total = 0
-        par = (0.0, "")
-        for n, g in g_ref.items():
-            total += g.numel()
-            if float((g_got[n] - g).norm()) > 1e-3 * float(g.norm()):
-                continue
-            inside = g.abs() >= 0.1 * g.abs().max()
-            compared += int(inside.sum())
-            par = max(par, (float((sd[n] - sd_ref[n])[inside].abs().max()), n))
-        u_err = max(float((sd[k] - v).abs().max()) for k, v in sd_ref.items() if k.endswith(".u"))
-        read[who] = {"rel": rel, "generator": grad_err["generator"], "disc": grad_err["disc"],
-                     "par": par, "compared": compared, "u": u_err}
-        print(f"GAN step f32 B2 {who} vs CPU (2 steps, dropout off): max relative log err {rel:.3e} "
-              f"(tol 1e-4); first-step gradients: generator {grad_err['generator'][0]:.3e} at "
-              f"{grad_err['generator'][1]} (tol 2e-4), discriminators {grad_err['disc'][0]:.3e} at "
-              f"{grad_err['disc'][1]} (tol 1e-4); parameters on {compared} of {total} elements: "
-              f"max abs err {par[0]:.3e} at {par[1]} (tol 2e-5); u {u_err:.3e} (tol 1e-5)",
-              flush=True)
-    card, twin = read["card"], read["twin"]
-    print(f"GAN step f32 B2: logs {ref_logs[1]}; card / twin: generator gradients "
-          f"{card['generator'][0]:.3e} / {twin['generator'][0]:.3e}, discriminator gradients "
-          f"{card['disc'][0]:.3e} / {twin['disc'][0]:.3e}, parameters {card['par'][0]:.3e} / "
-          f"{twin['par'][0]:.3e} (each passes within its tolerance or ten times the twin's)",
+
+    t0 = time.perf_counter()
+    ref = run(cpu)
+    print(f"GAN step f32 B2 card vs CPU: CPU steps {time.perf_counter() - t0:.1f} s; logs "
+          f"{ref[0][1]}", flush=True)
+    card = gan_readings(ref, run(s2.create_gan_state(cfg, state_dicts=start)), on_trio_path)
+    show("card", card)
+    print("GAN step f32 B2 card: tensors left out of the parameter check (2-norm gradient "
+          f"agreement): { {n: f'{v:.2e}' for n, v in sorted(card['left_out'].items())} }",
           flush=True)
-    ok = (card["rel"] <= 1e-4 and card["u"] <= 1e-5 and card["compared"] >= total // 20
-          and all(card[k][0] <= max(tol, 10 * twin[k][0])
-                  for k, tol in (("generator", 2e-4), ("disc", 1e-4), ("par", 2e-5))))
-    if not ok:
-        fail("the GAN step on the card disagrees with the CPU plain path")
-    del states, cpu, runs
+    failed = gan_check_failures(card)
+    if failed:
+        fail(f"the GAN step on the card disagrees with the CPU plain path: {failed}")
+    for fault in ("bias gradients dropped", "dx 1% off", "one weight gradient 1% off"):
+        with faulty_trio_backward(ft, fault):
+            read = gan_readings(ref, run(s2.create_gan_state(cfg, state_dicts=start)),
+                                on_trio_path)
+        show(f"card, faulty TrioFn backward ({fault})", read)
+        caught = gan_check_failures(read)
+        print(f"GAN step f32 B2 faulty TrioFn backward ({fault}): fails {caught}", flush=True)
+        if not caught:
+            fail(f"the card-against-CPU GAN check passed a faulty TrioFn backward ({fault})")
+    del cpu, ref
     torch.cuda.empty_cache()
 
 
@@ -1674,8 +1773,8 @@ def main() -> int:
     phase_train_flagship(s1, counters, preset)
     trio["gan_f32"] = phase_trio_gan(ft, dev, cfg.vocoder, cfg.stage2.batch_size)
     phase_trio_fn(ft, voc, dev, cfg.vocoder)
-    trio.update(phase_gan_step(s2, counters, preset))
-    phase_gan_cpu_check(s2, preset)
+    trio.update(phase_gan_step(s2, voc, ft, counters, preset))
+    phase_gan_cpu_check(s2, ft, preset)
     for name, numbers in (("rel_attention", rel), ("rel_attention_bias", bias),
                           ("rel_attention_bwd", shear_bwd), ("rel_attention_bias_bwd", bias_bwd)):
         numbers["dropout"] = "philox.cuh"

@@ -1,8 +1,9 @@
 """Typed configuration tree of the port (its own copy; the JAX package's
 core/config.py is the reference). Holds the dataclasses the ported code
 reads: serving, stage-1 and stage-2 training; the decode config joins when
-that part is ported. The JAX package's TPU lane-layout switches of the
-vocoder (mxu_fold, fold_tail) have no counterpart here."""
+that part is ported. The JAX package's vocoder switches mxu_fold, fold_tail
+(TPU lane layouts) and fused_tail_kernel have no counterpart here: on the
+card every <=128-channel generator stage runs the trio kernel."""
 
 from __future__ import annotations
 
@@ -111,10 +112,6 @@ class VocoderConfig:
     segment_size: int = 8960                   # stage-2 training segment, samples
     code_hop_size: int = 320
     mel_hop_size: int = 160
-    # run each <=128-channel stage's resblock trio through ops/fused_tail.py
-    # (the CUDA kernel on the card; gradients by a plain recompute). Off by
-    # default as in the JAX package; the pipeline turns it on on the card.
-    fused_tail_kernel: bool = False
 
 
 @dataclass(frozen=True)
@@ -149,8 +146,9 @@ class Stage1TrainConfig:
 class Stage2TrainConfig:
     """Stage-2 GAN optimisation: AdamW(0.8, 0.99, eps 1e-8, weight decay
     0.01) for the generator and one for both discriminators, the rate decayed
-    by lr_decay per epoch; mel L1 x lambda_mel. lambda_fm is not wired (the
-    feature loss doubles itself), as in the JAX package."""
+    by lr_decay per epoch; mel L1 x lambda_mel. The JAX config's lambda_fm
+    is read by neither trainer (the feature loss doubles itself) and its
+    mel_aug is the dataset's argument (data/stage2.py), so neither is here."""
 
     lr: float = 2e-4
     adam_b1: float = 0.8
@@ -159,8 +157,6 @@ class Stage2TrainConfig:
     batch_size: int = 16
     seed: int = 1234
     lambda_mel: float = 45.0
-    lambda_fm: float = 2.0
-    mel_aug: bool = False                      # Gaussian blur + noise on input mels
 
 
 @dataclass(frozen=True)

@@ -9,10 +9,10 @@ changes no score or feature-loss mean). Convs keep the weight-norm
 every dim but 0: the output channel of a conv, the input channel of a
 transposed conv (torch weight_norm's default dim=0 in both cases). The first
 scale discriminator uses spectral norm instead, with its power-iteration
-vector `u` a buffer. With `fused_tail_kernel` each generator stage of at
-most 128 channels runs its resblock trio through ops/fused_tail.py (the CUDA
-kernel on the card, gradients by a plain recompute); otherwise, and for the
-wider first stage, the per-resblock loop.
+vector `u` a buffer. Each generator stage of at most 128 channels runs its
+resblock trio through ops/fused_tail.py (the CUDA kernel on the card, under
+grad with a plain-recompute backward; the plain trio on the CPU); the wider
+first stage keeps the per-resblock loop.
 """
 
 from __future__ import annotations
@@ -130,7 +130,7 @@ class HiFiGANGenerator(nn.Module):
         for i in range(len(h.upsample_rates)):
             x = getattr(self, f"ups_{i}")(ops.leaky_relu(x, LRELU_SLOPE))
             rbs = [getattr(self, f"resblocks_{i * n_k + j}") for j in range(n_k)]
-            if h.fused_tail_kernel and x.shape[1] <= FUSED_MAX_CHANNELS:
+            if x.shape[1] <= FUSED_MAX_CHANNELS:
                 x = fused_resblock_trio(x.contiguous(), [rb.branch_weights() for rb in rbs],
                                         h.resblock_kernel_sizes, dils)
             else:

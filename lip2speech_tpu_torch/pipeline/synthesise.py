@@ -17,7 +17,6 @@ versions.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
@@ -67,10 +66,7 @@ class Lip2SpeechPipeline:
         self.emit_int16 = emit_int16
         self.model = MultiTargetModel(cfg.model)
         self.model.load_state_dict(stage1_state, strict=True)
-        # the trio kernel serves on the card, as the JAX pipeline turns its
-        # fused tail on on the TPU
-        fused = cfg.vocoder.fused_tail_kernel or self.device.type == "cuda"
-        self.vocoder = MelCodeGenerator(dataclasses.replace(cfg.vocoder, fused_tail_kernel=fused))
+        self.vocoder = MelCodeGenerator(cfg.vocoder)
         self.vocoder.load_state_dict(vocoder_state, strict=True)
         for m in (self.model, self.vocoder):
             m.eval().requires_grad_(False)

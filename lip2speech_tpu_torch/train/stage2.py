@@ -17,9 +17,9 @@ scale discriminator's spectral-norm vectors u take two power iterations in
 the D step (real, then generated) and keep them; the G step's iterations
 are used for its sigma and then thrown away, as the JAX step keeps only the
 D step's u. f32 throughout; the state is updated in place. No global TF32
-flag is set here. With `fused_tail_kernel` the generator's four <=128-channel
-stages run the trio kernel under autograd (ops/fused_tail.py: TrioFn), four
-launches a step. The entry points run on the card unless the caller passes
+flag is set here. On the card the generator's four <=128-channel stages run
+the trio kernel under autograd (ops/fused_tail.py: TrioFn), four launches a
+step. The entry points run on the card unless the caller passes
 device="cpu", and raise without one. Single device: no mesh.
 """
 

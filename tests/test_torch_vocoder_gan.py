@@ -177,10 +177,9 @@ def test_avg_pool1d_matches_jax():
 
 # ------------------------------------------------------------------ generator
 
-def _tiny_generator(fused=False, seed=0):
+def _tiny_generator(seed=0):
     h = tcfg.VocoderConfig(model_in_dim=96, embedding_dim=8, upsample_initial_channel=64,
-                           resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3, 5),),
-                           fused_tail_kernel=fused)
+                           resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3, 5),))
     g = tvoc.MelCodeGenerator(h)
     init_weights(g, torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
@@ -219,37 +218,28 @@ def test_generator_training_dropout_rate_and_determinism():
     torch.testing.assert_close(g(*inputs, gen=torch.Generator().manual_seed(1)).detach(), clean)
 
 
-def test_generator_fused_switch_routes_the_trio(monkeypatch):
-    """fused_tail_kernel sends every <=128-channel stage through
-    fused_resblock_trio (all five at this width), and is off by default as in
-    the JAX config; on the CPU both routes run the same plain math."""
+@pytest.mark.parametrize("width,fused", [(64, [32, 16, 8, 4, 2]), (512, [128, 64, 32, 16])])
+def test_generator_routes_narrow_stages_through_the_trio(monkeypatch, width, fused):
+    """Every stage of at most 128 channels goes through fused_resblock_trio
+    (the kernel on the card; no config switch picks the plain trio there),
+    the wider ones through the per-resblock loop; on the CPU the trio is the
+    plain math of that loop (the mean of two resblocks here)."""
+    h = tcfg.VocoderConfig(model_in_dim=96, upsample_initial_channel=width,
+                           resblock_kernel_sizes=(3, 5), resblock_dilation_sizes=((1, 3), (1, 2)))
+    g = tvoc.HiFiGANGenerator(h).eval()
+    init_weights(g, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 96, 4)).astype(np.float32))
     calls = []
     real = tvoc.fused_resblock_trio
     monkeypatch.setattr(tvoc, "fused_resblock_trio",
-                        lambda *a: calls.append(a[0].shape) or real(*a))
-    assert tcfg.VocoderConfig().fused_tail_kernel is False
-    plain, inputs = _tiny_generator(fused=False)
-    fused, _ = _tiny_generator(fused=True)
-    plain.eval(), fused.eval()
-    ref = plain(*inputs)
-    assert not calls
-    torch.testing.assert_close(fused(*inputs), ref, rtol=0, atol=1e-6)
-    assert [c[1] for c in calls] == [32, 16, 8, 4, 2]
-
-
-def test_pipeline_on_the_cpu_keeps_the_configured_route():
-    """The pipeline turns the fused tail on only on the card (chip_smoke.py
-    counts its launches there); on the CPU it keeps the config's choice."""
-    from lip2speech_tpu_torch.pipeline import synthesise
-
-    voc = tcfg.VocoderConfig(model_in_dim=96, embedding_dim=8, upsample_initial_channel=32)
-    model = tcfg.MultiTargetConfig(conformer=tcfg.ConformerConfig(
-        dim=32, ffn_dim=64, heads=2, layers=1, conv_kernel=7))
-    for fused in (False, True):
-        cfg = tcfg.PipelineConfig(model=model, vocoder=tcfg.VocoderConfig(
-            **{**voc.__dict__, "fused_tail_kernel": fused}))
-        pipe = synthesise.Lip2SpeechPipeline.initialize_random(cfg, device="cpu")
-        assert pipe.vocoder.generator.h.fused_tail_kernel is fused
+                        lambda *a: calls.append(a[0].shape[1]) or real(*a))
+    with torch.no_grad():
+        got = g(x)
+        assert calls == fused
+        monkeypatch.setattr(tvoc, "FUSED_MAX_CHANNELS", 0)    # the loop at every stage
+        ref = g(x)
+    assert calls == fused
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
 
 
 # ---------------------------------------------------------------------- TrioFn
