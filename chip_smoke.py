@@ -65,7 +65,21 @@ Phases, in order; any failure exits non-zero before the last line:
      three steps and a profiled one with the trio stages on the plain trio;
  17. two f32 GAN steps at B2 on the card against the CPU plain path (logs,
      gradients by name, parameters, the spectral u) at fixed limits, and
-     three faulty TrioFn backwards that must fail the same check.
+     three faulty TrioFn backwards that must fail the same check;
+ 18. the command-line tools at the full width of multi_target, in a
+     temporary directory, on a mini dataset of 8 clips (48-120 frames)
+     written with the port's writers: train_stage1 (2 updates of 2 x 4
+     clips, then --resume to 3 from a file whose noise generators are of
+     the other kind or absent, as a converted JAX run's; rel_attention and
+     rel_attention_bwd 24 launches an update) and a bitwise restore of
+     s1_00000002 into a fresh state; infer from s1_00000003 (12
+     rel_attention launches a batch, f32) against the same call on the CPU,
+     the mels at CLI_REL_TOL, which a rel_attention 0.1% off must fail;
+     synthesise_file in bf16 with a random vocoder (trio x4); train_stage2
+     (one epoch of 2 steps at batch 4, then --resume for a second; trio x4
+     a step); vocode of two clips from the last g_ (trio x4 an utterance,
+     f32) against the CPU, the float waveforms at CLI_REL_TOL, which a trio
+     0.1% off must fail.
 Kernel times are device time (CUDA events, host enqueue hidden behind a
 device sleep). Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -75,12 +89,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -1710,6 +1727,360 @@ def phase_gan_cpu_check(s2, ft, preset) -> None:
     torch.cuda.empty_cache()
 
 
+CLI_LENS = (48, 58, 68, 79, 89, 99, 110, 120)    # frames of the 8 clips: buckets 48, 96, 160
+# infer's mels and vocode's float waveforms, card against CPU, max |error| /
+# max |CPU|: f32_check reads the sound kernels' error at ~1e-6 of that; a
+# kernel 0.1% off moves it by ~1e-4 to 1e-3
+CLI_REL_TOL = 2e-5
+CLI_FAULT = 1 + 1e-3
+
+
+def write_cli_dataset(root: Path, seed: int = 0) -> Path:
+    """A mini dataset tree written with the port's writers: 8 clips of
+    48-120 frames as 96x96 uint8 .npy videos, 16 kHz wavs, 256-d speaker
+    embeddings, mels of 4 frames and unit rows of 2 units a video frame,
+    the .tsv / .unt of all clips and of the two shortest, dict.unt.txt.
+    Returns the label directory."""
+    from lip2speech_tpu_torch.data.manifest import (Utterance, write_manifest,
+                                                    write_unit_dictionary, write_units)
+    from lip2speech_tpu_torch.data.video_io import save_video_gray
+    from lip2speech_tpu_torch.utils.audio_io import write_wav
+
+    rng = np.random.default_rng(seed)
+    utts, rows = [], []
+    for i, n in enumerate(CLI_LENS):
+        uid = f"spk{i % 2}/clip{i}"
+        save_video_gray(root / "video" / f"{uid}.mp4",
+                        rng.integers(0, 256, (n, 96, 96), dtype=np.uint8))
+        t = np.arange(n * 640) / 16_000
+        write_wav(root / "audio" / f"{uid}.wav",
+                  0.4 * np.sin(2 * np.pi * (150 + 30 * i) * t) + 0.02 * rng.standard_normal(t.size),
+                  16_000)
+        for sub, arr in (("spk_emb", rng.standard_normal(256)),
+                         ("mel", rng.standard_normal((4 * n, 80)))):
+            (root / sub / f"spk{i % 2}").mkdir(parents=True, exist_ok=True)
+            np.save(root / sub / f"{uid}.npy", arr.astype(np.float32))
+        utts.append(Utterance(uid, root / "video" / f"{uid}.mp4", root / "audio" / f"{uid}.wav",
+                              n, n * 640))
+        rows.append(rng.integers(0, 200, 2 * n))
+    label = root / "label"
+    write_manifest(label / "all.tsv", root, utts)
+    write_units(label / "all.unt", rows)
+    write_manifest(label / "short.tsv", root, utts[:2])
+    write_units(label / "short.unt", rows[:2])
+    write_unit_dictionary(label / "dict.unt.txt")
+    return label
+
+
+def run_counted(counters: dict, fn, expected: dict, what: str):
+    """fn() with every launch count set to 0 just before and read just after;
+    the counts must be exactly `expected` (kernels not named: 0). Its stdout
+    is captured and printed after. Returns (result, seconds, stdout, the
+    non-zero counts)."""
+    for c in counters.values():
+        c.launches = 0
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: c.launches for name, c in counters.items()}
+    for line in out.getvalue().splitlines():
+        print(f"  {what}: {line}", flush=True)
+    print(f"{what}: {seconds:.2f} s launches {counts}", flush=True)
+    want = {name: expected.get(name, 0) for name in counters}
+    if counts != want:
+        fail(f"{what}: expected launches {want}, got {counts}")
+    return res, seconds, out.getvalue(), {k: n for k, n in counts.items() if n}
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in {*a, *b}}
+
+
+@contextlib.contextmanager
+def scaled_kernel(module, name: str, factor: float):
+    """module.<name>, a kernel's wrapper, with its output (the first of a
+    tuple) times `factor`: a deliberately faulty kernel, to show that a
+    card-against-CPU check sees a fault of that size."""
+    real = getattr(module, name)
+
+    def faulty(*args, **kwargs):
+        out = real(*args, **kwargs)
+        return (out[0] * factor, *out[1:]) if isinstance(out, tuple) else out * factor
+
+    faulty.launches = 0      # the wrapper counts through its module's name, now this one
+    setattr(module, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def rel_max_err(got, ref) -> float:
+    """max |got - ref| / max |ref|."""
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def infer_mel_err(got_dir: Path, ref_dir: Path) -> float:
+    """The worst rel_max_err of the pred_mel files of two infer runs."""
+    return max(rel_max_err(np.load(p), np.load(ref_dir / p.relative_to(got_dir)))
+               for p in sorted((got_dir / "pred_mel").rglob("*.npy")))
+
+
+def vocode_wav_err(got: dict, ref: dict) -> float:
+    """The worst rel_max_err of two run_vocoder(keep_wavs=True) runs'
+    waveforms; they must have the same utterances and lengths."""
+    if got.keys() != ref.keys() or any(got[u].shape != ref[u].shape for u in ref):
+        fail(f"vocode: waveforms {[(u, w.shape) for u, w in got.items()]} on the card, "
+             f"{[(u, w.shape) for u, w in ref.items()]} on the CPU")
+    return max(rel_max_err(got[u], ref[u]) for u in ref)
+
+
+def files_under(root: Path) -> list[Path]:
+    return sorted(p.relative_to(root) for p in root.rglob("*") if p.is_file())
+
+
+def state_mismatches(got, ref) -> list[str]:
+    """Names in a TrainState (model, optimizer, step, both generators) where
+    `got` is not bitwise `ref`."""
+    bad = [k for k, v in ref.model.state_dict().items()
+           if not torch.equal(got.model.state_dict()[k], v)]
+    g_opt, r_opt = got.optimizer.state_dict(), ref.optimizer.state_dict()
+    if g_opt["state"].keys() != r_opt["state"].keys() or not r_opt["state"]:
+        bad.append("optimizer state keys")
+    for i, st in r_opt["state"].items():
+        for k, v in st.items():
+            if not torch.equal(g_opt["state"].get(i, {}).get(k, torch.empty(0)).cpu(), v.cpu()):
+                bad.append(f"optimizer {i}.{k}")
+    if got.step != ref.step:
+        bad.append("step")
+    for k in ("gen", "seed_gen"):
+        if not torch.equal(getattr(got, k).get_state(), getattr(ref, k).get_state()):
+            bad.append(k)
+    return bad
+
+
+def unit_flips_within_ties(cfg, sd, label: Path, gpu_dir: Path, cpu_dir: Path,
+                           tol: float = 1e-3) -> tuple[int, int]:
+    """Units of the card's run against the CPU's, utterance by utterance:
+    where they differ, the card's unit must be within `tol` (f32_check's
+    limit on logits) of the CPU's top logit at that position. Returns
+    (positions compared, positions that differ); fails otherwise."""
+    from lip2speech_tpu_torch.data.stage1 import Stage1Dataset
+    from lip2speech_tpu_torch.models.multi_target import MultiTargetModel
+
+    ds = Stage1Dataset(label / "all.tsv", label / "all.unt", train=False)
+    n_pos = n_diff = 0
+    model = None
+    for i, utt in enumerate(ds.utts):
+        got = np.array((gpu_dir / "pred_unit" / f"{utt.uid}.txt").read_text().split(), int)
+        ref = np.array((cpu_dir / "pred_unit" / f"{utt.uid}.txt").read_text().split(), int)
+        if got.shape != ref.shape:
+            fail(f"infer: {utt.uid} has {got.shape} units on the card, {ref.shape} on the CPU")
+        n_pos += ref.size
+        diff = np.flatnonzero(got != ref)
+        n_diff += diff.size
+        if not diff.size:
+            continue
+        if model is None:
+            model = MultiTargetModel(cfg.model)
+            model.load_state_dict(sd, strict=True)
+            model.eval()
+        s = ds.collate([ds.load(i)])
+        with torch.inference_mode():
+            logits = model(*(torch.as_tensor(s[k]) for k in ("video", "frames_mask", "spk_emb")))[
+                "unit_logits"][0, :, cfg.model.units.num_special:]
+        top = logits.max(-1).values
+        gap = (top[diff] - logits[diff, torch.as_tensor(got[diff])]).abs()
+        print(f"infer: {utt.uid} units differ at {diff.size} positions, CPU logit gap "
+              f"{gap.max().item():.3e}", flush=True)
+        if not bool((gap <= tol).all()):
+            fail(f"infer: {utt.uid} units differ beyond a near-tie ({gap.max().item():.3e})")
+    return n_pos, n_diff
+
+
+def phase_cli(syn, counters: dict, preset) -> dict:
+    """The command-line tools at the full width of multi_target on the card,
+    through their entry points, in a temporary directory removed after:
+    train_stage1 (2 updates, then --resume to 3) with exact launches per
+    update and a bitwise restore of s1_00000002; infer from s1_00000003
+    against the same call on the CPU; synthesise_file (bf16) with a random
+    vocoder; train_stage2 (one epoch, then --resume for a second) with 4
+    trio launches a step; vocode from the last g_ against the CPU. infer and
+    vocode are also run with a kernel 0.1% off, which their checks must
+    fail. Returns the launches of each kernel by tool."""
+    from lip2speech_tpu_torch.cli import infer, train_stage1, train_stage2, vocode
+    from lip2speech_tpu_torch.convert.from_reference import (load_generator_weights,
+                                                             load_stage1_weights)
+    from lip2speech_tpu_torch.data.stage1 import pick_bucket
+    from lip2speech_tpu_torch.models.layers import init_weights
+    from lip2speech_tpu_torch.models.vocoder import MelCodeGenerator
+    from lip2speech_tpu_torch.ops import fused_tail as ft
+    from lip2speech_tpu_torch.ops import rel_attention as ra
+    from lip2speech_tpu_torch.train import checkpoint as ckpt
+    from lip2speech_tpu_torch.train import stage1 as s1
+
+    torch.backends.cuda.matmul.allow_tf32 = False       # torch's defaults for training
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = preset("multi_target")
+    layers, n_trio = cfg.model.conformer.layers, n_trio_stages(cfg.vocoder)
+    seconds, launches, sizes = {}, {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+        label = write_cli_dataset(tmp / "data")
+        tsv, unt = str(label / "all.tsv"), str(label / "all.unt")
+        s1_dir, s2_dir = tmp / "s1", tmp / "s2"
+
+        # stage-1 training: 2 micro-batches of 4 per update, 12 layers each
+        s1_args = ["--preset", "multi_target", "--train-tsv", tsv, "--train-unt", unt,
+                   "--checkpoint-dir", str(s1_dir), "--batch-size", "4", "--update-freq", "2",
+                   "--save-interval", "1", "--log-interval", "1"]
+        per_update = {"rel_attention": 2 * layers, "rel_attention_bwd": 2 * layers}
+        state, t1, _, c1 = run_counted(
+            counters, lambda: train_stage1.main(s1_args + ["--max-updates", "2"]),
+            {k: 2 * v for k, v in per_update.items()}, "train_stage1 --max-updates 2")
+        t0 = time.perf_counter()
+        fresh = s1.create_train_state(cfg, seed=7)
+        ckpt.load_stage1(s1_dir / "s1_00000002.pt", fresh)
+        bad = state_mismatches(fresh, state)
+        n_opt = sum(len(v) for v in state.optimizer.state_dict()["state"].values())
+        print(f"train_stage1: s1_00000002.pt restored into a fresh state on the card in "
+              f"{time.perf_counter() - t0:.2f} s: {len(state.model.state_dict())} model tensors, "
+              f"{n_opt} optimizer entries, step {fresh.step}, both generators; not bitwise: "
+              f"{bad or 'none'}", flush=True)
+        if bad or fresh.step != 2 or fresh.device.type != "cuda":
+            fail(f"train_stage1: the restored state differs from the saved one: {bad}")
+        # resume below from s1_00000002 rewritten as a CPU run or a converted
+        # JAX run would leave it: a CPU generator's state, none for seed_gen
+        content = ckpt.stage1_content(fresh)
+        content["gen"] = ckpt.generator_state(torch.Generator().manual_seed(3))
+        del content["seed_gen"]
+        ckpt.save(s1_dir / "s1_00000002.pt", content)
+        del state, fresh, content
+        torch.cuda.empty_cache()
+        state, t2, out, c2 = run_counted(
+            counters, lambda: train_stage1.main(s1_args + ["--max-updates", "3", "--resume"]),
+            per_update, "train_stage1 --resume --max-updates 3")
+        if "resumed from update 2" not in out or state.step != 3:
+            fail(f"train_stage1 --resume: did not resume from update 2 (step {state.step})")
+        del state
+        torch.cuda.empty_cache()
+        seconds["train_stage1"] = t1 + t2
+        launches["train_stage1"] = add_counts(c1, c2)
+        sizes.update({p.name: p.stat().st_size for p in sorted(s1_dir.glob("s1_*.pt"))})
+
+        # inference from the last checkpoint: the card, f32 and TF32 off, against the CPU
+        set_tf32(False)
+        sd = load_stage1_weights(s1_dir / "s1_00000003.pt", cfg.model)
+        n_batches = sum(-(-c // 4) for c in Counter(pick_bucket(n) for n in CLI_LENS).values())
+        stats, seconds["infer"], _, launches["infer"] = run_counted(
+            counters,
+            lambda: infer.run_inference(cfg, sd, tsv, unt, tmp / "infer_gpu", batch_size=4),
+            {"rel_attention": layers * n_batches}, "infer.run_inference")
+        t0 = time.perf_counter()
+        stats_cpu = infer.run_inference(cfg, sd, tsv, unt, tmp / "infer_cpu", batch_size=4,
+                                        device="cpu")
+        cpu_s = time.perf_counter() - t0
+        gpu_files, cpu_files = files_under(tmp / "infer_gpu"), files_under(tmp / "infer_cpu")
+        mel_err = infer_mel_err(tmp / "infer_gpu", tmp / "infer_cpu")
+        n_pos, n_diff = unit_flips_within_ties(cfg, sd, label, tmp / "infer_gpu", tmp / "infer_cpu")
+        with scaled_kernel(ra, "rel_attention_kernel", CLI_FAULT):
+            infer.run_inference(cfg, sd, tsv, unt, tmp / "infer_faulty", batch_size=4)
+        faulty_err = infer_mel_err(tmp / "infer_faulty", tmp / "infer_cpu")
+        print(f"infer: {stats['n_utts']} utterances, n_failed {stats['n_failed']}, WER "
+              f"{stats['wer']:.2f} (CPU {stats_cpu['wer']:.2f}); {len(gpu_files)} files; mel "
+              f"error vs CPU {mel_err:.3e} of max |mel| (tol {CLI_REL_TOL:g}), with "
+              f"rel_attention {CLI_FAULT - 1:.1%} off {faulty_err:.3e}; units differ at "
+              f"{n_diff} of {n_pos} positions (near-ties only); CPU run {cpu_s:.2f} s", flush=True)
+        if (stats["n_failed"] or stats["n_utts"] != len(CLI_LENS) or gpu_files != cpu_files
+                or len(gpu_files) != 2 * len(CLI_LENS) + 2 or not mel_err <= CLI_REL_TOL):
+            fail("infer: the card's artifacts disagree with the CPU's")
+        if faulty_err <= CLI_REL_TOL:
+            fail("infer: the check passes a rel_attention 0.1% off")
+
+        # one file through the serving call, bf16, with a random vocoder
+        voc = MelCodeGenerator(cfg.vocoder)
+        init_weights(voc, torch.Generator().manual_seed(1))
+        pipe = syn.Lip2SpeechPipeline(cfg, sd, voc.state_dict(), compute_dtype=torch.bfloat16)
+        clip = label.parent / "video" / "spk1" / "clip1.mp4"
+        spk = np.load(label.parent / "spk_emb" / "spk1" / "clip1.npy")
+        pipe.synthesise_file(clip, spk)                 # cuDNN picks its algorithms
+        res, seconds["synthesise_file"], _, launches["synthesise_file"] = run_counted(
+            counters, lambda: pipe.synthesise_file(clip, spk),
+            {"rel_attention": layers, "fused_resblock_trio": n_trio}, "synthesise_file bf16")
+        n = CLI_LENS[1]
+        print(f"synthesise_file: {n} frames -> wav {res.wav.shape} {res.wav.dtype}, units "
+              f"{res.units.shape}, |wav| max {float(np.abs(res.wav).max()):.4f}", flush=True)
+        if (res.wav.shape != (640 * n,) or not np.isfinite(res.wav).all()
+                or res.units.shape != (2 * n,)):
+            fail("synthesise_file: bad result")
+        del pipe, voc, sd
+        torch.cuda.empty_cache()
+
+        # stage-2 GAN training: 8 clips at batch 4, 2 steps an epoch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        s2_args = ["--preset", "multi_target", "--train-tsv", tsv, "--train-unt", unt,
+                   "--checkpoint-dir", str(s2_dir), "--batch-size", "4", "--log-interval", "1"]
+        gan, t1, _, c1 = run_counted(
+            counters, lambda: train_stage2.main(s2_args + ["--epochs", "1"]),
+            {"fused_resblock_trio": 2 * n_trio}, "train_stage2 --epochs 1")
+        if (gan.step, gan.epoch) != (2, 1):
+            fail(f"train_stage2: step {gan.step} epoch {gan.epoch} after one epoch")
+        del gan
+        gan, t2, out, c2 = run_counted(
+            counters, lambda: train_stage2.main(s2_args + ["--epochs", "2", "--resume"]),
+            {"fused_resblock_trio": 2 * n_trio}, "train_stage2 --resume --epochs 2")
+        if "resumed from step 2, epoch 1" not in out or (gan.step, gan.epoch) != (4, 2):
+            fail(f"train_stage2 --resume: step {gan.step} epoch {gan.epoch}")
+        del gan
+        torch.cuda.empty_cache()
+        names = sorted(p.name for p in s2_dir.iterdir() if p.is_file())
+        if names != ["do_00000002", "do_00000004", "g_00000002", "g_00000004"]:
+            fail(f"train_stage2: checkpoint files {names}")
+        seconds["train_stage2"] = t1 + t2
+        launches["train_stage2"] = add_counts(c1, c2)
+        sizes.update({name: (s2_dir / name).stat().st_size for name in names})
+
+        # vocode the two shortest clips from the last g_: the card in f32, TF32 off, against the CPU
+        set_tf32(False)
+        gen_sd = load_generator_weights(s2_dir / "g_00000004", cfg.vocoder)
+        vtsv, vunt = label / "short.tsv", label / "short.unt"
+        vstats, seconds["vocode"], _, launches["vocode"] = run_counted(
+            counters, lambda: vocode.run_vocoder(cfg, gen_sd, vtsv, vunt, tmp / "voc_gpu",
+                                                 keep_wavs=True),
+            {"fused_resblock_trio": 2 * n_trio}, "vocode.run_vocoder")
+        t0 = time.perf_counter()
+        ref_wavs = vocode.run_vocoder(cfg, gen_sd, vtsv, vunt, tmp / "voc_cpu", device="cpu",
+                                      keep_wavs=True)["wavs"]
+        cpu_s = time.perf_counter() - t0
+        wav_err = vocode_wav_err(vstats.pop("wavs"), ref_wavs)
+        with scaled_kernel(ft, "fused_resblock_trio_kernel", CLI_FAULT):
+            faulty = vocode.run_vocoder(cfg, gen_sd, vtsv, vunt, tmp / "voc_faulty",
+                                        keep_wavs=True)["wavs"]
+        faulty_err = vocode_wav_err(faulty, ref_wavs)
+        wav_files = files_under(tmp / "voc_gpu")
+        print(f"vocode: {vstats}; float wav error vs CPU {wav_err:.3e} of max |wav| (tol "
+              f"{CLI_REL_TOL:g}), with the trio {CLI_FAULT - 1:.1%} off {faulty_err:.3e}; |wav| "
+              f"max {max(float(np.abs(w).max()) for w in ref_wavs.values()):.4f}; CPU run "
+              f"{cpu_s:.2f} s", flush=True)
+        if (vstats["n_utts"] != 2 or wav_files != files_under(tmp / "voc_cpu")
+                or len(wav_files) != 2 or not wav_err <= CLI_REL_TOL):
+            fail("vocode: the card's waveforms disagree with the CPU's")
+        if faulty_err <= CLI_REL_TOL:
+            fail("vocode: the check passes a trio 0.1% off")
+    seconds["phase"] = time.perf_counter() - t_phase
+    summary = {"seconds": {k: round(v, 3) for k, v in seconds.items()}, "launches": launches,
+               "checkpoint_bytes": sizes}
+    print(f"phase 18 command-line tools (multi_target, full width): {json.dumps(summary)}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1775,6 +2146,7 @@ def main() -> int:
     phase_trio_fn(ft, voc, dev, cfg.vocoder)
     trio.update(phase_gan_step(s2, voc, ft, counters, preset))
     phase_gan_cpu_check(s2, ft, preset)
+    cli = phase_cli(syn, counters, preset)
     for name, numbers in (("rel_attention", rel), ("rel_attention_bias", bias),
                           ("rel_attention_bwd", shear_bwd), ("rel_attention_bias_bwd", bias_bwd)):
         numbers["dropout"] = "philox.cuh"
@@ -1787,7 +2159,8 @@ def main() -> int:
                                ("attention", "attention", plain),
                                ("fused_resblock_trio", "fused_tail", trio)):
         numbers.update(design="mma.sync m16n8k16 bf16, f32 accumulate; f32: FMA",
-                       hmma_in_sass=hmma[lib])
+                       hmma_in_sass=hmma[lib],
+                       cli_launches={tool: n[name] for tool, n in cli.items() if name in n})
     launches.update({k: train_launches[k] for k in ("rel_attention_bwd", "rel_attention_bias_bwd")})
     pkg = "lip2speech_tpu_torch"
     jax_ops = "lip2speech_tpu/ops"

@@ -1,15 +1,16 @@
 """Typed configuration tree of the port (its own copy; the JAX package's
 core/config.py is the reference). Holds the dataclasses the ported code
-reads: serving, stage-1 and stage-2 training; the decode config joins when
-that part is ported. The JAX package's vocoder switches mxu_fold, fold_tail
-(TPU lane layouts) and fused_tail_kernel have no counterpart here: on the
-card every <=128-channel generator stage runs the trio kernel."""
+reads (serving, stage-1 and stage-2 training), the presets and
+`with_overrides`; the decode config joins when that part is ported. The JAX
+package's vocoder switches mxu_fold, fold_tail (TPU lane layouts) and
+fused_tail_kernel have no counterpart here: on the card every <=128-channel
+generator stage runs the trio kernel."""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Any, Sequence
 
 
 @dataclass(frozen=True)
@@ -30,6 +31,7 @@ class AudioConfig:
 @dataclass(frozen=True)
 class VideoConfig:
     mouth_size: int = 88
+    max_frames: int = 600                      # a file is cut to 24 s at 25 fps
 
 
 @dataclass(frozen=True)
@@ -169,15 +171,49 @@ class PipelineConfig:
     stage2: Stage2TrainConfig = field(default_factory=Stage2TrainConfig)
 
 
+def _replace_nested(cfg: Any, updates: dict[str, Any]) -> Any:
+    kwargs: dict[str, Any] = {}
+    for key, value in updates.items():
+        current = getattr(cfg, key)
+        if dataclasses.is_dataclass(current) and isinstance(value, dict):
+            kwargs[key] = _replace_nested(current, value)
+        else:
+            kwargs[key] = value
+    return dataclasses.replace(cfg, **kwargs)
+
+
+def with_overrides(cfg: Any, overrides: dict[str, Any]) -> Any:
+    """A copy of a (nested) dataclass config with updates applied. Keys are
+    dotted paths or nested dicts: {"model.conformer.dim": 256}."""
+    nested: dict[str, Any] = {}
+    for key, value in overrides.items():
+        parts = key.split(".")
+        node = nested
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return _replace_nested(cfg, nested)
+
+
 def _frozen_frontend(kind: str, dim: int, heads: int, ffn_dim: int, layers: int) -> dict:
-    return {"frontend": FrontendConfig(kind=kind, frozen=True, encoder_dim=dim,
-                                       encoder_heads=heads, encoder_ffn_dim=ffn_dim,
-                                       encoder_layers=layers),
-            "conformer": ConformerConfig(input_dim=dim)}
+    return {"model.frontend": FrontendConfig(kind=kind, frozen=True, encoder_dim=dim,
+                                             encoder_heads=heads, encoder_ffn_dim=ffn_dim,
+                                             encoder_layers=layers),
+            "model.conformer": ConformerConfig(input_dim=dim)}
 
 
 _PRESETS = {
     "multi_target": {},
+    # a few narrow layers for tests and smoke runs (not a reference config)
+    "tiny": {
+        "model.conformer": ConformerConfig(dim=32, ffn_dim=64, heads=2, layers=1,
+                                           input_dim=512),
+        "vocoder": VocoderConfig(model_in_dim=80 + 2 * 8, embedding_dim=8,
+                                 upsample_initial_channel=64, resblock_kernel_sizes=(3,),
+                                 resblock_dilation_sizes=((1, 3, 5),)),
+        "stage1": Stage1TrainConfig(update_freq=1, batch_size=2, warmup_updates=2,
+                                    max_updates=4),
+    },
     "multi_target_avhubert": _frozen_frontend("avhubert", 1024, 16, 4096, 24),
     "multi_target_auto_avsr": _frozen_frontend("auto_avsr", 768, 12, 3072, 12),
     "multi_target_raven": _frozen_frontend("raven", 1024, 16, 4096, 24),
@@ -185,8 +221,7 @@ _PRESETS = {
 
 
 def preset(name: str) -> PipelineConfig:
-    """The four stage-1 variants of the JAX package's presets."""
+    """The JAX package's presets: the four stage-1 variants and `tiny`."""
     if name not in _PRESETS:
         raise ValueError(f"unknown preset {name!r}; available: {sorted(_PRESETS)}")
-    base = PipelineConfig()
-    return dataclasses.replace(base, model=dataclasses.replace(base.model, **_PRESETS[name]))
+    return with_overrides(PipelineConfig(), _PRESETS[name])

@@ -18,6 +18,7 @@ versions.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -25,6 +26,9 @@ import torch
 
 from lip2speech_tpu_torch.convert import from_jax
 from lip2speech_tpu_torch.core.config import PipelineConfig
+from lip2speech_tpu_torch.data.stage1 import pick_bucket
+from lip2speech_tpu_torch.data.transforms import prepare_video
+from lip2speech_tpu_torch.data.video_io import load_video_gray
 from lip2speech_tpu_torch.decode.units import argmax_units
 from lip2speech_tpu_torch.models.layers import init_weights
 from lip2speech_tpu_torch.models.multi_target import MultiTargetModel
@@ -141,3 +145,18 @@ class Lip2SpeechPipeline:
                 mask[:, 0] = True
                 self.synthesise_batch(np.zeros((b, t, size, size, 1), np.float32),
                                       mask, np.zeros((b, self.cfg.model.spk_emb_dim), np.float32))
+
+    def synthesise_file(self, video_path: str | Path, spk_emb: np.ndarray,
+                        pad_to_bucket: bool = True) -> SynthesisResult:
+        """One mouth-ROI video file (data/video_io.py: a .npy sidecar, .gray,
+        or a decodable mp4), cut to cfg.video.max_frames, centre-cropped and
+        normalised, padded to its length bucket: one synthesise_batch call."""
+        frames = load_video_gray(video_path)[: self.cfg.video.max_frames]
+        video = prepare_video(frames, self.cfg.video.mouth_size, train=False)
+        n = video.shape[0]
+        t = pick_bucket(n) if pad_to_bucket else n
+        vb = np.zeros((1, t, video.shape[1], video.shape[2], 1), np.float32)
+        vb[0, :n, :, :, 0] = video
+        mask = np.zeros((1, t), bool)
+        mask[0, :n] = True
+        return self.synthesise_batch(vb, mask, spk_emb[None].astype(np.float32))[0]

@@ -28,13 +28,12 @@ import numpy as np
 import torch
 
 from lip2speech_tpu_torch.core.config import PipelineConfig, Stage1TrainConfig
+from lip2speech_tpu_torch.data.transforms import UINT8_FILL
 from lip2speech_tpu_torch.models.layers import init_weights
 from lip2speech_tpu_torch.models.multi_target import MultiTargetModel
 from lip2speech_tpu_torch.ops.nn import dequantize_video
 from lip2speech_tpu_torch.pipeline.synthesise import resolve_device
 from lip2speech_tpu_torch.train.losses import label_smoothed_ce, stage1_loss, unit_accuracy
-
-UINT8_FILL = 107      # the uint8 pixel closest to normalised 0
 
 
 @dataclass

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Convert a checkpoint of the JAX package (an orbax s1_* or g_* directory)
+into a checkpoint file of the PyTorch port.
+
+    python scripts/orbax_to_torch.py --input ckpt/s1_00010000 \
+        --output torch_ckpt/s1_00010000.pt [--preset multi_target]
+    python scripts/orbax_to_torch.py --input ckpt/g_00100000 --output torch_ckpt/g_00100000
+
+The one tool that imports both packages: the JAX package restores the tree
+(lip2speech_tpu.train.checkpoint.load_pytree) and the port's
+convert/from_jax.py moves it into the port's names and layouts.
+
+  s1_*  -> a full port s1_ file that lip2speech_tpu_torch.train.checkpoint
+           resumes from (restore_stage1): parameters and BatchNorm
+           statistics, the step, and AdamW's moments (optax's mu and nu as
+           exp_avg and exp_avg_sq, its count as each parameter's step). The
+           port's noise generators have no JAX counterpart, so the file
+           holds none: a resumed run keeps the generators it seeded itself,
+           on whatever device it runs.
+  g_*   -> a port g_ file holding the generator ({"generator": state_dict}),
+           which `vocode --checkpoint` reads.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from lip2speech_tpu.train.checkpoint import load_pytree  # noqa: E402
+from lip2speech_tpu_torch.convert import from_jax  # noqa: E402
+from lip2speech_tpu_torch.core.config import preset  # noqa: E402
+from lip2speech_tpu_torch.train import checkpoint, stage1  # noqa: E402
+
+
+def _adam_state(tree):
+    """The optax ScaleByAdam state ({"count", "mu", "nu"}) inside an
+    optimizer state tree, or None."""
+    if isinstance(tree, dict):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree
+        children = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def _dense(tree):
+    """Drop the leaves optax masks out (a frozen frontend's None moments)."""
+    if isinstance(tree, dict):
+        kept = {k: _dense(v) for k, v in tree.items() if v is not None}
+        return {k: v for k, v in kept.items() if not (isinstance(v, dict) and not v)}
+    return tree
+
+
+def convert_stage1(tree: dict, cfg) -> dict:
+    """A restored JAX s1_ tree -> the content of a port s1_ file for the
+    model of `cfg`, without noise generator states."""
+    sd = from_jax.stage1_state_dict({"params": tree["params"],
+                                     "batch_stats": tree.get("batch_stats", {})})
+    state = stage1.create_train_state(cfg, device="cpu", state_dict=sd)
+    state.step = int(np.asarray(tree["step"]))
+    adam = _adam_state(tree.get("opt_state"))
+    if adam is not None and int(np.asarray(adam["count"])) > 0:
+        mu = from_jax.jax_tree_to_state_dict(_dense(adam["mu"]))
+        nu = from_jax.jax_tree_to_state_dict(_dense(adam["nu"]))
+        count = float(np.asarray(adam["count"]))
+        for name, p in state.model.named_parameters():
+            if p.requires_grad:
+                state.optimizer.state[p] = {"step": torch.tensor(count),
+                                            "exp_avg": mu[name].clone(),
+                                            "exp_avg_sq": nu[name].clone()}
+    content = checkpoint.stage1_content(state)
+    del content["gen"], content["seed_gen"]
+    return content
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--input", required=True, help="orbax s1_* or g_* directory")
+    p.add_argument("--output", required=True, help="port checkpoint file to write")
+    p.add_argument("--preset", default="multi_target", help="s1_ only: the model's preset")
+    args = p.parse_args(argv)
+
+    tree = load_pytree(args.input)
+    if "params" in tree:
+        content = convert_stage1(tree, preset(args.preset))
+        kind = "stage1"
+    elif "generator" in tree:
+        content = {"generator": from_jax.vocoder_state_dict(tree["generator"])}
+        kind = "vocoder_g"
+    else:
+        raise SystemExit(f"{args.input}: neither an s1_ nor a g_ checkpoint "
+                         f"(keys {sorted(tree)})")
+    path = checkpoint.save(args.output, content)
+    print(json.dumps({"kind": kind, "output": str(path)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -39,7 +39,10 @@ def test_port_has_the_slice_modules():
                 "ops/attention", "ops/kmeans", "models/avhubert", "models/hubert",
                 "data/manifest", "utils/audio_io", "pipeline/units_extract",
                 "ops/dropout_mask", "train/losses", "train/stage1", "ops/dsp",
-                "train/stage2", "data/stage2", "data/transforms"):
+                "train/stage2", "data/stage2", "data/transforms", "data/video_io",
+                "data/stage1", "data/prefetch", "train/checkpoint", "convert/from_reference",
+                "utils/metrics_log", "cli/train_stage1", "cli/train_stage2", "cli/infer",
+                "cli/vocode", "cli/convert"):
         assert f"lip2speech_tpu_torch/{mod}.py" in names
     csrc = {p.name for p in (REPO / "lip2speech_tpu_torch" / "csrc").iterdir()}
     assert {"rel_attention.cu", "fused_tail.cu", "attention.cu", "rel_attention_bias.cu",

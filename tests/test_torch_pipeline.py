@@ -86,10 +86,15 @@ def test_presets_match_the_jax_presets():
     import dataclasses
 
     for name in ("multi_target", "multi_target_avhubert", "multi_target_auto_avsr",
-                 "multi_target_raven"):
+                 "multi_target_raven", "tiny"):
         ours, theirs = tcfg.preset(name).model, jcfg.preset(name).model
         for part in ("frontend", "conformer", "units"):
             for f in dataclasses.fields(getattr(ours, part)):
                 assert getattr(getattr(ours, part), f.name) == getattr(getattr(theirs, part), f.name)
+        for part in ("vocoder", "stage1"):
+            ours, theirs = getattr(tcfg.preset(name), part), getattr(jcfg.preset(name), part)
+            for f in dataclasses.fields(ours):
+                assert getattr(ours, f.name) == getattr(theirs, f.name), (name, part, f.name)
+    assert tcfg.with_overrides(tcfg.preset("tiny"), {"stage1.batch_size": 5}).stage1.batch_size == 5
     with pytest.raises(ValueError, match="unknown preset"):
-        tcfg.preset("tiny")
+        tcfg.preset("tiny_and_unknown")
