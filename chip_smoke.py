@@ -79,7 +79,24 @@ Phases, in order; any failure exits non-zero before the last line:
      (one epoch of 2 steps at batch 4, then --resume for a second; trio x4
      a step); vocode of two clips from the last g_ (trio x4 an utterance,
      f32) against the CPU, the float waveforms at CLI_REL_TOL, which a trio
-     0.1% off must fail.
+     0.1% off must fail;
+ 19. the serving process (pipeline/server.py) on a thread of this process,
+     spoken to over HTTP: full-width multi_target, pipelines "f32" (the
+     server's default dtype, TF32 off) and "bf16"; /health names the card;
+     /synthesise B1 x 96 in both dtypes (?cid=, then /load_checkpoint),
+     exactly 12 rel_attention and 4 trio launches, PCM16 within 1 step of
+     the direct _synthesise_frames call; /vsg/synthesise of 750 frames (two
+     segments: 24 + 8 launches), again from /dzupload chunks sent last
+     first; /vocode from the direct call's units and mel (4 trio launches)
+     against pipeline.vocode; --batcher: 4 concurrent requests of 96/90/80/61
+     frames in one device call (12 + 4 launches), each within 2 PCM16 steps
+     of its unbatched response; the raw-video path (default_landmarker on a
+     synthetic 96-px face, warp_crop_batch on the card against the CPU and
+     the host crop, embed_utterance and preprocess_audio on the card against
+     the CPU, one request with a speaker wav and post-processing); p50 of 10
+     HTTP requests beside the direct call's p50 and device busy ms (bf16 and
+     f32, with the two kernels' share); a bad video_path gives 400 and the
+     next request 200. Prints one "serving" JSON line.
 Kernel times are device time (CUDA events, host enqueue hidden behind a
 device sleep). Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -505,10 +522,10 @@ def check_results(results, lens, what):
                  f"mel {r.mel.shape} {r.mel.dtype}")
 
 
-def profile_call(fn, what: str, top: int = 12) -> float:
+def profile_call(fn, what: str, top: int = 12, by_name: dict | None = None) -> float:
     """Device time by kernel over one call of fn, and the device's busy share
     of the call's wall time (torch.profiler, CUPTI). Returns the device's
-    busy milliseconds."""
+    busy milliseconds; by_name, when given, gets each kernel's ms by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -527,6 +544,8 @@ def profile_call(fn, what: str, top: int = 12) -> float:
                    and not getattr(e, "is_user_annotation", False)
                    and e.key != "Activity Buffer Request"), key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    if by_name is not None:
+        by_name.update({e.key: dev_us(e) / 1e3 for e in rows})
     notes = [f"{e.key} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in prof.key_averages()
              if getattr(e, "is_user_annotation", False) and dev_us(e) > 0]
     print(f"profile {what}: wall_ms {wall_ms:.3f} (profiled) device_busy_ms {busy_ms:.3f} "
@@ -2080,6 +2099,350 @@ def phase_cli(syn, counters: dict, preset) -> dict:
           flush=True)
     return launches
 
+# phase 19: the serving process
+SERVE_LENS = (96, 90, 80, 61)     # batcher: one bucket (96), so one group and one device call
+VSG_FRAMES = 750                  # 30 s: segments of 587 and 163 frames, buckets 600 and 240
+RAW_FRAMES = 24
+SERVE_PCM_TOL = 1                 # PCM16 steps, HTTP against the direct call
+BATCHER_PCM_TOL = 2               # PCM16 steps, a batch-4 row against its batch-1 request
+DEVICE_OP_TOL = {"warp": 1e-3, "embed": 1e-4, "denoise": 1e-4}   # card vs CPU, of max |ref|
+
+
+def face_video(t: int, seed: int = 0, h: int = 240, w: int = 320, size: int = 96) -> np.ndarray:
+    """(t, h, w) uint8 raw frames: a light size x size head on mid-gray with
+    eyes, a nose and a mouth that opens and closes, sensor noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    cx, cy, r = w / 2, h / 2, size / 2
+    head = ((xx - cx) / (0.85 * r)) ** 2 + ((yy - cy) / r) ** 2 <= 1.0
+    eyes = np.zeros((h, w), bool)
+    for ex in (cx - 0.35 * r, cx + 0.35 * r):
+        eyes |= ((xx - ex) / (0.16 * r)) ** 2 + ((yy - (cy - 0.25 * r)) / (0.08 * r)) ** 2 <= 1.0
+    nose = (np.abs(xx - cx) < 0.05 * r) & (yy > cy - 0.2 * r) & (yy < cy + 0.2 * r)
+    frames = np.empty((t, h, w), np.uint8)
+    for i in range(t):
+        img = np.full((h, w), 120.0, np.float32)
+        img[head], img[eyes], img[nose] = 190.0, 70.0, 140.0
+        opening = (0.06 + 0.05 * np.sin(2 * np.pi * i / 12)) * r
+        img[(np.abs(xx - cx) < 0.33 * r) & (np.abs(yy - (cy + 0.55 * r)) < opening)] = 35.0
+        frames[i] = np.clip(img + rng.normal(0, 2.0, (h, w)), 0, 255)
+    return frames
+
+
+def http(port: int, method: str, path: str, body=None, headers=None, timeout: float = 120.0):
+    """One request to the server on this host: (status, decoded JSON)."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if isinstance(body, dict) else body
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def pcm16(out: dict) -> np.ndarray:
+    import base64
+    import wave
+
+    with wave.open(io.BytesIO(base64.b64decode(out["wav_base64"]))) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def quantised(wav: np.ndarray) -> np.ndarray:
+    """The server's PCM16 (server._wav_base64)."""
+    return (np.clip(wav, -1, 1) * 32767).astype(np.int16)
+
+
+def pcm_diff(a: np.ndarray, b: np.ndarray) -> int:
+    if a.shape != b.shape:
+        fail(f"PCM16 lengths differ: {a.shape} vs {b.shape}")
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def phase_serving(syn, counters: dict, preset) -> dict:
+    """The port's HTTP server on a thread of this process (make_server(port
+    =0)), spoken to over HTTP: full-width multi_target, random weights from
+    seed 0, pipelines "f32" (the server's default dtype) and "bf16" (--bf16).
+    Exact launch counts per request, every response against the direct call.
+    Returns the server's launches per kernel and request kind."""
+    import threading
+
+    from lip2speech_tpu_torch.data.stage1 import pick_bucket
+    from lip2speech_tpu_torch.models.speaker import SpeakerEncoder, embed_utterance
+    from lip2speech_tpu_torch.ops import denoise, warp
+    from lip2speech_tpu_torch.pipeline import landmarks, mouth_crop
+    from lip2speech_tpu_torch.pipeline import server as srv
+    from lip2speech_tpu_torch.utils.audio_io import write_wav
+
+    t_phase = time.perf_counter()
+    set_tf32(False)                   # f32 is f32 (as phase 18 leaves it)
+    cfg = preset("multi_target")
+    one = {"rel_attention": cfg.model.conformer.layers,
+           "fused_resblock_trio": n_trio_stages(cfg.vocoder)}
+    two = {k: 2 * n for k, n in one.items()}
+    f32 = syn.Lip2SpeechPipeline.initialize_random(cfg, seed=0)
+    bf16 = syn.Lip2SpeechPipeline(cfg, f32.model.state_dict(), f32.vocoder.state_dict(),
+                                  compute_dtype=torch.bfloat16)
+    f32.warmup(buckets=(96, 240, 600))
+    f32.warmup(buckets=(96,), batch_sizes=(4,))
+    bf16.warmup(buckets=(96,))
+    torch.manual_seed(0)
+    encoder = SpeakerEncoder().cuda()
+    print(f"serving: pipelines built and warmed in {time.perf_counter() - t_phase:.1f} s; "
+          f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32} cudnn "
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    rng = np.random.default_rng(19)
+    launches, diffs, read = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        clip = rng.integers(0, 256, (96, 96, 96), dtype=np.uint8)
+        np.save(tmp / "clip.npy", clip)
+        long = rng.integers(0, 256, (VSG_FRAMES, 96, 96), dtype=np.uint8)
+        np.save(tmp / "long.npy", long)
+        for n in SERVE_LENS:
+            np.save(tmp / f"b{n}.npy", rng.integers(0, 256, (n, 96, 96), dtype=np.uint8))
+        raw = face_video(RAW_FRAMES)
+        np.save(tmp / "raw.npy", raw)
+        spk_wav = (0.3 * rng.standard_normal(48_000)).astype(np.float32)
+        write_wav(tmp / "spk.wav", spk_wav, 16_000)
+        servers = {
+            "main": srv.make_server(0, pipelines={"f32": f32, "bf16": bf16},
+                                    inputs_dir=str(tmp / "in_main")),
+            "batcher": srv.make_server(0, pipelines={"f32": f32}, use_batcher=True, max_batch=4,
+                                       max_wait_ms=2000.0, inputs_dir=str(tmp / "in_batcher")),
+            "raw": srv.make_server(0, pipelines={"bf16": bf16}, speaker_encoder=encoder,
+                                   postprocess=True, inputs_dir=str(tmp / "in_raw"))}
+        port = {name: s.server_address[1] for name, s in servers.items()}
+        threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers.values()]
+        for th in threads:
+            th.start()
+        state = servers["main"].RequestHandlerClass.state
+        spk = state.default_spk_emb
+        try:
+            code, health = http(port["main"], "GET", "/health")
+            _, ckpts = http(port["main"], "GET", "/checkpoints")
+            print(f"serving: /health {code} {health}; /checkpoints {ckpts}", flush=True)
+            if health["devices"] != [torch.cuda.get_device_name(0)] or ckpts["checkpoints"] != [
+                    "bf16", "f32"]:
+                fail("serving: /health does not name the card or /checkpoints lacks a pipeline")
+
+            def post(name, path, body, expected, what):
+                (code, out), _, _, counts = run_counted(
+                    counters, lambda: http(port[name], "POST", path, body), expected, what)
+                if code != 200:
+                    fail(f"{what}: status {code} {out}")
+                return out, counts
+
+            # /synthesise, B1 x 96, both dtypes through ?cid=, against the direct call
+            direct = {}
+            for dt in ("f32", "bf16"):
+                out, launches[f"synthesise_{dt}"] = post(
+                    "main", f"/synthesise?cid={dt}", {"video_path": str(tmp / "clip.npy")}, one,
+                    f"/synthesise?cid={dt} B1x96")
+                direct[dt] = quantised(srv._synthesise_frames(state, clip, spk, dt))
+                diffs[f"synthesise_{dt}"] = pcm_diff(pcm16(out), direct[dt])
+            if pcm_diff(direct["f32"], direct["bf16"]) == 0:
+                fail("serving: the f32 and bf16 pipelines answer alike: ?cid= did not switch")
+            # hot swap: the active pipeline is "bf16" (first by name); load "f32"
+            code, out = http(port["main"], "POST", "/load_checkpoint", {"name": "f32"})
+            if code != 200 or out["active"] != "f32":
+                fail(f"serving: /load_checkpoint {code} {out}")
+            swapped, _ = post("main", "/synthesise", {"video_path": str(tmp / "clip.npy")}, one,
+                              "/synthesise after /load_checkpoint f32")
+            diffs["load_checkpoint"] = pcm_diff(pcm16(swapped), direct["f32"])
+
+            # /vsg/synthesise of 30 s: two segments; then the same bytes through /dzupload
+            out, launches["vsg"] = post("main", "/vsg/synthesise?cid=f32",
+                                        {"video_path": str(tmp / "long.npy")}, two,
+                                        f"/vsg/synthesise {VSG_FRAMES} frames")
+            vsg_ref = quantised(srv.synthesise_long_video(state, long, spk, "f32"))
+            diffs["vsg"] = pcm_diff(pcm16(out), vsg_ref)
+            data = (tmp / "long.npy").read_bytes()
+            size = 1_000_000
+            offsets = list(range(0, len(data), size))
+            order = list(range(len(offsets)))[::-1]
+            for n, i in enumerate(order):
+                q = (f"/dzupload?id=vsg1&filename=long.npy&dzchunkbyteoffset={offsets[i]}"
+                     f"&dzchunkindex={i}&dztotalchunkcount={len(offsets)}"
+                     f"&dztotalfilesize={len(data)}")
+                code, out = http(port["main"], "POST", q, data[offsets[i]: offsets[i] + size],
+                                 {"Content-Type": "application/octet-stream"})
+                if code != 200 or out["complete"] != (n == len(order) - 1):
+                    fail(f"serving: /dzupload chunk {i}: {code} {out}")
+            out, launches["vsg_dzupload"] = post("main", "/vsg/synthesise?cid=f32",
+                                                 {"upload_id": "vsg1"}, two,
+                                                 f"/vsg/synthesise of {len(offsets)} chunks "
+                                                 f"uploaded last first")
+            diffs["vsg_dzupload"] = pcm_diff(pcm16(out), vsg_ref)
+
+            # /vocode from the direct call's units and mel
+            res = f32.synthesise_batch(*request(cfg, 1, 96, (96,), seed=19)[:2], spk[None])[0]
+            np.save(tmp / "mel.npy", res.mel)
+            out, launches["vocode"] = post("main", "/vocode?cid=f32",
+                                           {"units": res.units.tolist(),
+                                            "mel_path": str(tmp / "mel.npy")},
+                                           {"fused_resblock_trio": one["fused_resblock_trio"]},
+                                           "/vocode 192 units")
+            n = len(res.units)
+            tc = 2 * pick_bucket((n + 1) // 2)
+            code_b = np.zeros((1, tc), np.int32)
+            code_b[0, :n] = res.units
+            mel_b = np.zeros((1, 2 * tc, res.mel.shape[1]), np.float32)
+            mel_b[0, : len(res.mel)] = res.mel
+            voc_ref = quantised(f32.vocode(code_b, mel_b, spk[None])[0, : n * 320])
+            diffs["vocode"] = pcm_diff(pcm16(out), voc_ref)
+
+            # --batcher: 4 concurrent requests of one bucket -> one group, one device call
+            unbatched = {}
+            for n in SERVE_LENS:
+                code, out = http(port["main"], "POST", "/synthesise?cid=f32",
+                                 {"video_path": str(tmp / f"b{n}.npy")})
+                unbatched[n] = pcm16(out)
+            answers = {}
+
+            def one_request(n):
+                answers[n] = http(port["batcher"], "POST", "/synthesise",
+                                  {"video_path": str(tmp / f"b{n}.npy")})
+
+            def concurrent():
+                workers = [threading.Thread(target=one_request, args=(n,)) for n in SERVE_LENS]
+                for w in workers:
+                    w.start()
+                for w in workers:
+                    w.join(120)
+
+            _, batch_s, _, launches["batcher_group_of_4"] = run_counted(
+                counters, concurrent, one, "--batcher: 4 concurrent requests (96/90/80/61)")
+            batch_diffs = {}
+            for n in SERVE_LENS:
+                code, out = answers.get(n, (None, None))
+                if code != 200:
+                    fail(f"--batcher: request of {n} frames: {code} {out}")
+                batch_diffs[n] = pcm_diff(pcm16(out), unbatched[n])
+            diffs["batcher"] = max(batch_diffs.values())
+            read["batcher_pcm_diff_by_frames"] = batch_diffs
+            read["batcher_seconds"] = batch_s
+
+            # the raw-video path: landmarks on the host, the mouth crop, the
+            # speaker encoder and the denoiser on the card
+            provider = landmarks.default_landmarker()
+            t0 = time.perf_counter()
+            lms = provider(raw)
+            read["landmarker"] = type(provider).__name__
+            read["landmarks_s"] = time.perf_counter() - t0
+            detected = sum(lm is not None for lm in lms)
+            mean = mouth_crop.default_mean_face()
+            mats, centers = warp.crop_transforms(lms, mean)
+            args = [np.asarray(a, np.float32) for a in (raw, mats, centers)]
+            on_card = warp.warp_crop_batch(*(torch.from_numpy(a).cuda() for a in args)).cpu()
+            on_cpu = warp.warp_crop_batch(*(torch.from_numpy(a) for a in args))
+            read["warp_err"] = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+            dev_crop = warp.crop_mouth_sequence_device(raw, lms, mean)
+            host_crop = mouth_crop.crop_mouth_sequence(raw, lms, mean)
+            steps = np.abs(dev_crop.astype(int) - host_crop.astype(int))
+            read["warp_vs_host_crop"] = {"max_levels": int(steps.max()),
+                                         "share_within_1": float((steps <= 1).mean())}
+            enc_cpu = SpeakerEncoder()
+            enc_cpu.load_state_dict({k: v.cpu() for k, v in encoder.state_dict().items()})
+            emb_ref = embed_utterance(enc_cpu, spk_wav)
+            read["embed_err"] = float(np.abs(embed_utterance(encoder, spk_wav) - emb_ref).max()
+                                      / np.abs(emb_ref).max())
+            wav = srv._synthesise_frames(state, clip, spk, "f32")
+            den_ref = denoise.preprocess_audio(torch.from_numpy(wav)).numpy()
+            den = denoise.preprocess_audio(torch.from_numpy(wav).cuda()).cpu().numpy()
+            read["denoise_err"] = float(np.abs(den - den_ref).max() / np.abs(den_ref).max())
+            out, launches["raw_video"] = post("raw", "/synthesise?close_up=0",
+                                              {"video_path": str(tmp / "raw.npy"),
+                                               "spk_wav_path": str(tmp / "spk.wav")}, one,
+                                              f"/synthesise?close_up=0 raw {RAW_FRAMES} frames "
+                                              f"(+ speaker wav, postprocess)")
+            raw_pcm = pcm16(out)
+            print(f"serving raw video: {read['landmarker']} found {detected}/{RAW_FRAMES} "
+                  f"faces in {read['landmarks_s']:.2f} s; warp card vs CPU {read['warp_err']:.3e} "
+                  f"of max (tol {DEVICE_OP_TOL['warp']:g}); device crop vs host crop "
+                  f"{read['warp_vs_host_crop']}; embed_utterance card vs CPU "
+                  f"{read['embed_err']:.3e} (tol {DEVICE_OP_TOL['embed']:g}); preprocess_audio "
+                  f"card vs CPU {read['denoise_err']:.3e} (tol {DEVICE_OP_TOL['denoise']:g}); "
+                  f"response {len(raw_pcm)} samples, peak {int(np.abs(raw_pcm).max())}",
+                  flush=True)
+            if (detected < RAW_FRAMES // 2 or dev_crop.shape != (RAW_FRAMES, 96, 96)
+                    or read["warp_vs_host_crop"]["max_levels"] > 2
+                    or read["warp_vs_host_crop"]["share_within_1"] < 0.99
+                    or len(raw_pcm) != RAW_FRAMES * 640
+                    or not 0.9 * 32767 < np.abs(raw_pcm).max() <= 0.96 * 32767
+                    or any(read[f"{k}_err"] > tol for k, tol in DEVICE_OP_TOL.items())):
+                fail("serving: the raw-video path disagrees")
+
+            # HTTP and host overhead at bf16 B1x96: 10 requests as the server
+            # ships (device calls on its one device thread) and, in turns, 10
+            # with the device call made in each request's own new thread (as
+            # the JAX server makes it); the handler's own time (elapsed_s);
+            # then 10 direct calls
+            http_ms, handler_ms, direct_ms = {"device_thread": [], "handler_thread": []}, [], []
+            for kind in ("device_thread", "handler_thread", "handler_thread", "device_thread"):
+                if kind == "handler_thread":
+                    state.on_device = lambda fn, *a: fn(*a)
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    code, out = http(port["main"], "POST", "/synthesise?cid=bf16",
+                                     {"video_path": str(tmp / "clip.npy")})
+                    http_ms[kind].append((time.perf_counter() - t0) * 1e3)
+                    if code != 200:
+                        fail(f"serving: p50 request status {code}")
+                    if kind == "device_thread":
+                        handler_ms.append(out["elapsed_s"] * 1e3)
+                vars(state).pop("on_device", None)          # the class's own again
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                srv._synthesise_frames(state, clip, spk, "bf16")
+                torch.cuda.synchronize()
+                direct_ms.append((time.perf_counter() - t0) * 1e3)
+            busy, shares = {}, {}
+            for dt in ("bf16", "f32"):
+                by_name = {}
+                busy[dt] = profile_call(lambda: srv._synthesise_frames(state, clip, spk, dt),
+                                        f"serving direct B1x96 {dt}", top=6, by_name=by_name)
+                shares[dt] = {k: sum(ms for name, ms in by_name.items() if k in name) / busy[dt]
+                              for k in ("rel_attention", "trio_")}
+            read.update(http_p50_ms=float(np.median(http_ms["device_thread"])),
+                        http_min_ms=min(http_ms["device_thread"]),
+                        http_handler_thread_p50_ms=float(np.median(http_ms["handler_thread"])),
+                        handler_p50_ms=float(np.median(handler_ms)),
+                        direct_p50_ms=float(np.median(direct_ms)), direct_min_ms=min(direct_ms),
+                        busy_ms=busy, kernel_share_of_busy=shares)
+            code, out = http(port["main"], "POST", "/synthesise",
+                             {"video_path": str(tmp / "missing.npy")})
+            code_after, _ = http(port["main"], "POST", "/synthesise?cid=bf16",
+                                 {"video_path": str(tmp / "clip.npy")})
+            read["bad_video_path"] = [code, code_after]
+            if (code, code_after) != (400, 200):
+                fail(f"serving: a bad video_path gave {code}, the next request {code_after}")
+        finally:
+            for s in servers.values():
+                s.shutdown()
+                s.server_close()
+                s.RequestHandlerClass.state.close()
+            for th in threads:
+                th.join(60)
+    read["pcm_diffs"] = diffs
+    bad = {k: d for k, d in diffs.items()
+           if d > (BATCHER_PCM_TOL if k == "batcher" else SERVE_PCM_TOL)}
+    if bad:
+        fail(f"serving: responses differ from the direct calls by {bad} PCM16 steps "
+             f"(tol {SERVE_PCM_TOL}, batcher {BATCHER_PCM_TOL})")
+    read["launches"] = launches
+    read["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"serving": read}), flush=True)
+    del f32, bf16, encoder
+    torch.cuda.empty_cache()
+    return {kernel: {kind: counts.get(kernel, 0) for kind, counts in launches.items()}
+            for kernel in one}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2147,6 +2510,7 @@ def main() -> int:
     trio.update(phase_gan_step(s2, voc, ft, counters, preset))
     phase_gan_cpu_check(s2, ft, preset)
     cli = phase_cli(syn, counters, preset)
+    served = phase_serving(syn, counters, preset)
     for name, numbers in (("rel_attention", rel), ("rel_attention_bias", bias),
                           ("rel_attention_bwd", shear_bwd), ("rel_attention_bias_bwd", bias_bwd)):
         numbers["dropout"] = "philox.cuh"
@@ -2160,7 +2524,8 @@ def main() -> int:
                                ("fused_resblock_trio", "fused_tail", trio)):
         numbers.update(design="mma.sync m16n8k16 bf16, f32 accumulate; f32: FMA",
                        hmma_in_sass=hmma[lib],
-                       cli_launches={tool: n[name] for tool, n in cli.items() if name in n})
+                       cli_launches={tool: n[name] for tool, n in cli.items() if name in n},
+                       server_launches=served.get(name, {}))
     launches.update({k: train_launches[k] for k in ("rel_attention_bwd", "rel_attention_bias_bwd")})
     pkg = "lip2speech_tpu_torch"
     jax_ops = "lip2speech_tpu/ops"

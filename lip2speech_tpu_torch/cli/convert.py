@@ -8,9 +8,8 @@ checkpoint file (JAX reference: cli/convert.py, which writes orbax trees).
               `vocode --checkpoint` reads it
   vocoder_do  do_######## -> {"mpd", "msd"} state_dicts (the MSD's with its
               spectral-norm u buffers)
-
-The JAX CLI's `speaker` kind (the RTVC speaker encoder) waits for the port
-of models/speaker.py.
+  speaker     the RTVC speaker encoder (a flat state_dict) -> {"speaker":
+              SpeakerEncoder state_dict}
 """
 
 from __future__ import annotations
@@ -22,8 +21,8 @@ import json
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--kind", required=True, choices=["stage1", "vocoder_g", "vocoder_do"],
-                   help="the `speaker` kind is not ported yet (models/speaker.py)")
+    p.add_argument("--kind", required=True,
+                   choices=["stage1", "vocoder_g", "vocoder_do", "speaker"])
     p.add_argument("--preset", default="multi_target", help="stage1 only: the variant's preset")
     p.add_argument("--input", required=True, help="reference .pt checkpoint")
     p.add_argument("--output", required=True, help="port checkpoint file")
@@ -38,8 +37,12 @@ def main(argv=None):
         content = {"model": conv.stage1_state_dict(sd, preset(args.preset).model)}
     elif args.kind == "vocoder_g":
         content = {"generator": conv.generator_state_dict(sd, preset(args.preset).vocoder)}
-    else:
+    elif args.kind == "vocoder_do":
         content = conv.discriminator_state_dicts(sd)
+    else:
+        from lip2speech_tpu_torch.models.speaker import convert_rtvc_encoder
+
+        content = {"speaker": convert_rtvc_encoder(sd)}
     checkpoint.save(args.output, content)
     n = sum(t.numel() for part in content.values() for t in part.values())
     print(json.dumps({"kind": args.kind, "output": args.output, "n_params": int(n)}))

@@ -92,3 +92,20 @@ def discriminator_state_dict(params: dict[str, Any],
     sd = jax_tree_to_state_dict(params)
     sd.update(jax_tree_to_state_dict(spectral or {}))
     return sd
+
+
+def speaker_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """GE2E encoder params ({"lstm_{k}": {w_ih, w_hh, b_ih, b_hh}, "linear":
+    {weight (in, out), bias}}) -> SpeakerEncoder's state_dict (nn.LSTM's
+    names; the linear weight transposed to (out, in))."""
+    sd = {}
+    for key, layer in params.items():
+        if key == "linear":
+            continue
+        k = int(key.rsplit("_", 1)[1])
+        for ours, theirs in (("weight_ih", "w_ih"), ("weight_hh", "w_hh"),
+                             ("bias_ih", "b_ih"), ("bias_hh", "b_hh")):
+            sd[f"lstm.{ours}_l{k}"] = torch.tensor(np.asarray(layer[theirs]))
+    sd["linear.weight"] = torch.tensor(np.ascontiguousarray(np.asarray(params["linear"]["weight"]).T))
+    sd["linear.bias"] = torch.tensor(np.asarray(params["linear"]["bias"]))
+    return sd

@@ -85,6 +85,23 @@ class Lip2SpeechPipeline:
                    from_jax.vocoder_state_dict(vocoder_params), **kwargs)
 
     @classmethod
+    def from_checkpoints(cls, cfg: PipelineConfig, stage1_path: str | Path,
+                         vocoder_path: str | Path, compute_dtype: Any = None,
+                         emit_int16: bool = False,
+                         device: str | torch.device | None = None) -> "Lip2SpeechPipeline":
+        """Real-weight pipeline from checkpoint files: each is a port file
+        (s1_* / g_*) or a reference .pt converted on load (reference
+        inference_server.py:106-176 preloads the published pair the same
+        way); both are read weights-only. A JAX orbax directory is converted
+        first with scripts/orbax_to_torch.py."""
+        from lip2speech_tpu_torch.convert.from_reference import (
+            load_generator_weights, load_stage1_weights)
+
+        return cls(cfg, load_stage1_weights(stage1_path, cfg.model),
+                   load_generator_weights(vocoder_path, cfg.vocoder),
+                   compute_dtype=compute_dtype, emit_int16=emit_int16, device=device)
+
+    @classmethod
     def initialize_random(cls, cfg: PipelineConfig, seed: int = 0,
                           **kwargs) -> "Lip2SpeechPipeline":
         """Random weights from one seeded torch.Generator (made on the CPU,
@@ -113,6 +130,18 @@ class Lip2SpeechPipeline:
         else:
             wav, mel = wav.float(), out["mel"].float()
         return wav, units, mel, out["mask"]
+
+    @torch.inference_mode()
+    def vocode(self, code: np.ndarray, mel: np.ndarray, spk_emb: np.ndarray) -> np.ndarray:
+        """The vocoder alone (the reference's standalone vocoder service,
+        multi_input_vocoder/inference_server.py:149-215): code (B, Tc) int
+        units, mel (B, 2 Tc, 80), spk_emb (B, 256) -> float32 wav (B, Tc *
+        code_hop_size), on the pipeline's device and in its dtype."""
+        dev, dt = self.device, self.compute_dtype or torch.float32
+        wav = self.vocoder(torch.as_tensor(np.asarray(code, np.int64), device=dev),
+                           torch.as_tensor(np.asarray(mel, np.float32), device=dev).to(dt),
+                           torch.as_tensor(np.asarray(spk_emb, np.float32), device=dev).to(dt))
+        return wav.float().cpu().numpy()
 
     def synthesise_batch(self, video: np.ndarray, frames_mask: np.ndarray,
                          spk_emb: np.ndarray) -> list[SynthesisResult]:

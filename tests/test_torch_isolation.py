@@ -42,7 +42,10 @@ def test_port_has_the_slice_modules():
                 "train/stage2", "data/stage2", "data/transforms", "data/video_io",
                 "data/stage1", "data/prefetch", "train/checkpoint", "convert/from_reference",
                 "utils/metrics_log", "cli/train_stage1", "cli/train_stage2", "cli/infer",
-                "cli/vocode", "cli/convert"):
+                "cli/vocode", "cli/convert", "pipeline/db", "utils/email_client", "eval/asr",
+                "ops/denoise", "models/speaker", "pipeline/mouth_crop", "pipeline/haar",
+                "pipeline/ert", "pipeline/landmarks", "ops/warp", "pipeline/batcher",
+                "pipeline/server", "pipeline/streaming"):
         assert f"lip2speech_tpu_torch/{mod}.py" in names
     csrc = {p.name for p in (REPO / "lip2speech_tpu_torch" / "csrc").iterdir()}
     assert {"rel_attention.cu", "fused_tail.cu", "attention.cu", "rel_attention_bias.cu",
@@ -86,6 +89,36 @@ def test_pipeline_without_cuda_raises_unless_cpu_requested(monkeypatch):
     assert synthesise.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_server_without_cuda_raises_unless_cpu_requested(monkeypatch):
+    """make_server builds its random pipeline on the card unless
+    device="cpu"; the device ops that take a tensor (preprocess_audio) or
+    hold weights (SpeakerEncoder) follow the device of their input, and the
+    device crop follows resolve_device."""
+    from lip2speech_tpu_torch.core.config import preset
+    from lip2speech_tpu_torch.models.speaker import SpeakerEncoder, embed_utterance
+    from lip2speech_tpu_torch.ops import denoise, warp
+    from lip2speech_tpu_torch.pipeline import server
+    from lip2speech_tpu_torch.pipeline.mouth_crop import default_mean_face
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server.make_server(port=0, cfg=preset("tiny"))
+    mean = default_mean_face()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        warp.crop_mouth_sequence_device(torch.zeros(2, 256, 256).numpy(), [mean, mean], mean)
+    srv = server.make_server(port=0, cfg=preset("tiny"), device="cpu")
+    try:
+        state = srv.RequestHandlerClass.state
+        assert state.pipeline.device == torch.device("cpu")
+        with pytest.raises(ValueError, match="device only applies"):
+            server.make_server(port=0, pipelines=state.pipelines, device="cpu")
+    finally:
+        srv.server_close()
+        state.close()
+    assert denoise.preprocess_audio(torch.ones(4_000)).device == torch.device("cpu")
+    assert embed_utterance(SpeakerEncoder(), torch.zeros(4_000).numpy()).shape == (256,)
+
+
 def test_unit_extraction_without_cuda_raises_unless_cpu_requested(monkeypatch):
     from lip2speech_tpu_torch.ops import kmeans
     from lip2speech_tpu_torch.pipeline import units_extract
@@ -126,6 +159,9 @@ def test_import_and_cpu_path_need_no_nvcc(tmp_path):
         "from lip2speech_tpu_torch.train import losses, stage1, stage2\n"
         "from lip2speech_tpu_torch.ops import dsp\n"
         "dsp.mel_spectrogram_hifigan(torch.randn(2, 2000))\n"
+        "from lip2speech_tpu_torch.pipeline import server, streaming, batcher, landmarks\n"
+        "from lip2speech_tpu_torch.ops import denoise, warp\n"
+        "from lip2speech_tpu_torch.models import speaker\n"
         "assert not build._libs\n"
         "assert rel_attention.rel_attention_bwd_kernel.launches == 0\n"
         "assert rel_attention.rel_attention_bias_bwd_kernel.launches == 0\n"
