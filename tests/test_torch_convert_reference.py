@@ -257,5 +257,5 @@ def test_convert_cli_writes_port_checkpoints(tmp_path, capsys):
     gen = MelCodeGenerator(vcfg)
     gen.load_state_dict(ckpt.load(tmp_path / "out" / "g_1")["generator"], strict=True)
     assert '"kind": "vocoder_g"' in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        convert_cli.main(["--kind", "speaker", "--input", "x", "--output", "y"])
+    with pytest.raises(SystemExit):         # a kind the CLI does not know
+        convert_cli.main(["--kind", "nope", "--input", "x", "--output", "y"])
