@@ -20,7 +20,6 @@ import socket
 import threading
 import wave
 from http.client import HTTPConnection
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -38,6 +37,7 @@ from lip2speech_tpu.pipeline.synthesise import Lip2SpeechPipeline as JaxPipeline
 from lip2speech_tpu_torch.core import config as tcfg
 from lip2speech_tpu_torch.pipeline import server as tserver
 from lip2speech_tpu_torch.pipeline.batcher import DynamicBatcher
+from lip2speech_tpu_torch.pipeline.landmarks import HeuristicLandmarks
 from lip2speech_tpu_torch.pipeline.synthesise import Lip2SpeechPipeline as TorchPipeline
 from lip2speech_tpu_torch.train import checkpoint
 from lip2speech_tpu_torch.utils.audio_io import write_wav
@@ -133,7 +133,6 @@ def env(tmp_path_factory):
     np.save(files.too_long, np.zeros((601, 96, 96), np.uint8))
     raw = _render_face_video(4)
     np.save(files.raw, raw)
-    from lip2speech_tpu_torch.pipeline.landmarks import HeuristicLandmarks
     np.save(files.lms, np.stack(HeuristicLandmarks()(raw)))
     write_wav(files.spk_wav, 0.3 * rng.standard_normal(20_000), 16_000)
     np.save(files.spk_emb, rng.standard_normal(256).astype(np.float32))
@@ -265,7 +264,6 @@ def test_synthesise_routes_match_jax(env, case, monkeypatch):
     path, body, headers = _synthesise_cases(f)[case]
     body_for = None
     if case == "output_path":
-        path = "/synthesise"
         body_for = lambda name: {"video_path": str(f.clip2),  # noqa: E731
                                  "output_path": str(f.root / f"out_{name}.wav")}
     code, out = _both(env, "POST", path, body, headers, body_for)
