@@ -7,22 +7,26 @@ Phases, in order; any failure exits non-zero before the last line:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels from lip2speech_tpu_torch/csrc (nvcc, in parallel);
      print ptxas's registers and spills, and count the tensor-core (HMMA)
-     instructions in each library's SASS: none in rel_attention,
-     rel_attention_bwd, rel_attention_bias, rel_attention_bias_bwd,
-     attention or fused_tail (bf16 on mma.sync) fails;
+     instructions in each library's SASS, the TF32 ones apart: none in
+     rel_attention, rel_attention_bwd, rel_attention_bias,
+     rel_attention_bias_bwd, attention or fused_tail (bf16 on mma.sync), or
+     no TF32 one in fused_tail (f32 in 3xTF32), fails;
   3. rel-position attention kernel against its plain version, f32 and bf16;
      times at B4 H8 T480 and at the train step's B8 H8 T1200, each beside
-     SDPA with the position term as a float bias mask;
-  4. fused resblock-trio kernel against its plain version, per stage width;
-     each stage's time beside its plain version (cuDNN's 18 convs) and its
-     bound at the batch-4 x 240-frame and batch-1 x 96-frame row counts;
+     SDPA with the position term as a float bias mask, and the f32 path's
+     at the f32 request's B1 H8 T192 beside SDPA in f32;
+  4. fused resblock-trio kernel against its plain version, per stage width,
+     bf16 and f32 (3xTF32, 1e-4 of max(1, |ref|) with TF32 off); each
+     stage's time beside its plain version (cuDNN's 18 convs), its bound
+     (f32: the FMA and the 3xTF32 bound) and its tile and blocks at the
+     batch-4 x 240-frame and batch-1 x 96-frame row counts;
   5. the full-width multi_target pipeline: bf16 + PCM16 requests at batch
      4 x 240 frames (ragged) and 1 x 96, launch counts per forward, p50; then
      the f32 kernel path against the same weights' plain path on the CPU;
   6. masked flash attention kernel against its plain version (the AV-HuBERT
      and HuBERT shapes, a fully masked batch row), f32 and bf16; bf16 times
-     at B4 H16 T240 and at the flagship train step's B8 H16 T600 beside
-     SDPA and the bound;
+     at B4 H16 T240 and at the flagship train step's B8 H16 T600, f32 at
+     unit extraction's B1 H12 T500, beside SDPA and the bound;
   7. bias-flash rel-position attention kernel against its plain version
      (T 480 / 470, f32 and bf16), and its time plus the bias construction
      beside the shear kernel of phase 3; bf16 times at B4 H8 T480 and at the
@@ -55,7 +59,7 @@ Phases, in order; any failure exits non-zero before the last line:
      (frozen frontend: no gradient, no update);
  14. the trio's f32 path at the stage-2 GAN shapes (B16 x one 8,960-sample
      segment: C128 M1,120 ... C16 M8,960) against its plain version, timed
-     beside it and the f32 operations bound;
+     beside it, the f32 FMA operations bound and the 3xTF32 bound;
  15. TrioFn: under grad fused_resblock_trio launches the kernel once and its
      gradients (x, weight_v, weight_g, bias) match autograd through the
      plain trio;
@@ -124,6 +128,7 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12,            # FP32, CUDA cores
               torch.bfloat16: 989e12}          # BF16 dense, tensor cores
+TF32_FLOPS = 494.7e12                          # TF32 dense, tensor cores
 MAIN_LENS = (240, 200, 150, 97)                # batch-4 request lengths
 
 
@@ -161,6 +166,12 @@ def both_bounds_ms(n_bytes: float, flops: float, dtype) -> dict:
             "operations_bound_ms": flops / PEAK_FLOPS[dtype] * 1e3}
 
 
+def tf32x3_bound_ms(n_bytes: float, flops: float) -> float:
+    """The bound of an f32 function computed in 3xTF32: three TF32 products
+    for each f32 one, at the dense TF32 peak (or the bytes, if more)."""
+    return max(n_bytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
+
+
 def set_tf32(on: bool) -> None:
     torch.backends.cuda.matmul.allow_tf32 = on
     torch.backends.cudnn.allow_tf32 = on
@@ -177,25 +188,32 @@ def valid_rows_err(out, ref, lens) -> float:
     return max(float((out.float() - ref)[i, :, :n].abs().max()) for i, n in enumerate(lens) if n)
 
 
-# libraries whose bf16 path runs on mma.sync
+# libraries whose bf16 path runs on mma.sync, and those whose f32 path runs
+# on mma.sync in 3xTF32
 TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd", "rel_attention_bias",
                        "rel_attention_bias_bwd", "attention", "fused_tail")
+TF32_KERNELS = ("fused_tail",)
 
 
-def sass_tensor_core_counts(build) -> dict:
-    """HMMA instructions in each kernel library's SASS (cuobjdump); fails if
-    a library whose bf16 path runs on mma.sync has none."""
+def sass_tensor_core_counts(build) -> tuple[dict, dict]:
+    """HMMA instructions in each kernel library's SASS (cuobjdump), all of
+    them and the TF32 ones (HMMA.1688.F32.TF32) apart; fails if a library
+    whose bf16 path runs on mma.sync has none, or one whose f32 path runs in
+    3xTF32 has no TF32 one."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    counts = {}
+    counts, tf32 = {}, {}
     for lib in sorted(build._build_dir().glob("lib*.so")):
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                               timeout=120, check=True).stdout
-        counts[lib.stem[3:]] = sum(1 for line in sass.splitlines() if "HMMA" in line)
-    print(f"SASS HMMA instructions per library: {counts}", flush=True)
+        hmma = [line for line in sass.splitlines() if "HMMA" in line]
+        counts[lib.stem[3:]] = len(hmma)
+        tf32[lib.stem[3:]] = sum(1 for line in hmma if "TF32" in line)
+    print(f"SASS HMMA instructions per library: {counts}; of them TF32: {tf32}", flush=True)
     missing = [k for k in TENSOR_CORE_KERNELS if not counts.get(k)]
+    missing += [f"{k} (TF32)" for k in TF32_KERNELS if not tf32.get(k)]
     if missing:
         fail(f"no tensor-core instruction in {missing}")
-    return counts
+    return counts, tf32
 
 
 def phase_attention(ra, dev) -> dict:
@@ -243,7 +261,32 @@ def phase_attention(ra, dev) -> dict:
     if failures:
         fail("rel_attention kernel disagrees with its plain version")
     result["train_shape"] = rel_attention_train_shape(ra, dev, gen)
+    result["f32_request"] = rel_attention_f32_request(ra, dev, gen)
     return result
+
+
+def rel_attention_f32_request(ra, dev, gen) -> dict:
+    """Kernel 1's f32 path at the server's default request (f32, B1 x 96
+    frames: B1 H8 T192, all keys valid; 12 launches a request): its time
+    beside the plain version, SDPA in f32 with the position term as a float
+    bias mask, and its f32 bound."""
+    b, h, t, dk, dtype = 1, 8, 192, 64, torch.float32
+    mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
+    q_u, q_v, k, v = (mk(b, h, t, dk) for _ in range(4))
+    p = mk(h, 2 * t - 1, dk)
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    k_ms = time_ms(lambda: ra.rel_attention_kernel(q_u, q_v, k, v, p, mask))
+    plain_ms = time_ms(lambda: ra.dense_rel_attention(q_u, q_v, k, v, p, mask))
+    bias = ra.rel_position_bias(q_v, p)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_u, k, v, attn_mask=bias))
+    n_bytes = 5 * b * h * t * dk * 4 + h * (2 * t - 1) * dk * 4 + b * t + b * h * t * 4
+    bms, by = bound_ms(n_bytes, 3 * 2 * b * h * t * t * dk, dtype)
+    print(f"rel_attention B{b} H{h} T{t} f32 (the f32 request): kernel_ms {k_ms:.4f} "
+          f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA f32, float bias mask) "
+          f"bound_ms {bms:.4f} ({by})", flush=True)
+    return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by}
 
 
 def rel_attention_train_shape(ra, dev, gen) -> dict:
@@ -328,6 +371,8 @@ def phase_plain_attention(att, dev) -> dict:
                 result = {"max_abs_err": err, **numbers}
             elif dtype == torch.bfloat16:
                 result["train_shape"] = numbers
+            else:                       # HuBERT's shape in unit extraction, f32
+                result["f32_unit_extraction"] = numbers
         if dtype == torch.bfloat16 and result is not None:
             result["max_abs_err"] = max(result["max_abs_err"], err)
         print(line, flush=True)
@@ -421,11 +466,20 @@ def trio_weights(gen, c, ks, dils, dtype, dev):
             for rb in ws]
 
 
+def trio_bytes(x, ws) -> int:
+    """x read and the output written once, every weight and bias read once."""
+    return 2 * x.numel() * x.element_size() + sum(
+        w.numel() * w.element_size() + bb.numel() * bb.element_size()
+        for rb in ws for pair in rb for w, bb in pair)
+
+
 def phase_trio(ft, dev, vcfg) -> dict:
-    """Kernel 2 per stage width at the batch-4 x 240-frame row counts, plus a
-    row count that is not a tile multiple, and (bf16) at the batch-1 x
-    96-frame row counts. Returns the bf16 totals at batch 4 with each
-    stage's numbers at both request shapes."""
+    """Kernel 2 per stage width, both dtypes, at the batch-4 x 240-frame and
+    batch-1 x 96-frame row counts (each timed beside its plain version, its
+    bound, and in f32 the 3xTF32 bound beside the FMA one; the tile and
+    blocks a stage) plus a row count that is not a tile multiple. Returns
+    the bf16 totals at batch 4 (the kernels line's numbers) with each
+    stage's numbers and the f32 totals at both shapes."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(2)
     ks = tuple(vcfg.resblock_kernel_sizes)
@@ -433,72 +487,81 @@ def phase_trio(ft, dev, vcfg) -> dict:
     macs_per_row = sum(2 * k * len(d) for k, d in zip(ks, dils))  # x C^2
     b, frames = 4, 240
     rows = frames * 4                          # mel rows per item
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    sums = {(dtype, shape): {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+            for dtype in (torch.bfloat16, torch.float32) for shape in ("B4x240", "B1x96")}
     stages = []
     bound_kind = set()
     failures = []
+    max_err = {torch.bfloat16: 0.0, torch.float32: 0.0}   # over every shape
     c = vcfg.upsample_initial_channel
     for u in vcfg.upsample_rates:
         c //= 2
         rows *= u
         if c > 128:
             continue
+        stage = {"channels": c}
         for dtype in (torch.bfloat16, torch.float32):
             ws = trio_weights(gen, c, ks, dils, dtype, dev)
             name = str(dtype).replace("torch.", "")
-            shapes = [(b, rows, "B4x240"), (2, 1000 + 37, None)]
-            if dtype == torch.bfloat16:
-                shapes.append((1, rows * 96 // 240, "B1x96"))
-                stage = {"channels": c}
-            for bsz, m, timed in shapes:
+            for bsz, m, timed in ((b, rows, "B4x240"), (2, 1000 + 37, None),
+                                  (1, rows * 96 // 240, "B1x96")):
                 x = (torch.randn(bsz, c, m, generator=gen) * 0.5).to(dev, dtype)
                 out = ft.fused_resblock_trio_kernel(x, ws, ks, dils)
                 ref = ft.trio_plain(x, ws, ks, dils)
                 torch.cuda.synchronize()
                 err = float((out.float() - ref.float()).abs().max())
                 scale = max(1.0, float(ref.float().abs().max()))
-                # f32: summation order only; bf16: both round after every op,
-                # so a one-ulp split early in the 18-conv chain can propagate
+                # f32: summation order (3xTF32 drops ~2^-22 of each product);
+                # bf16: both round after every op, so a one-ulp split early in
+                # the 18-conv chain can propagate
                 tol = (1e-4 if dtype == torch.float32 else 3e-2) * scale
                 finite = bool(torch.isfinite(out.float()).all())
+                max_err[dtype] = max(max_err[dtype], err)
                 line = (f"fused_trio C{c} B{bsz} M{m} {name}: max_abs_err {err:.3e} "
                         f"(tol {tol:.3g}) finite {finite}")
                 if timed:
                     k_ms = time_ms(lambda: ft.fused_resblock_trio_kernel(x, ws, ks, dils), iters=5)
                     p_ms = time_ms(lambda: ft.trio_plain(x, ws, ks, dils), iters=5)
-                    n_bytes = 2 * x.numel() * x.element_size() + sum(
-                        w.numel() * w.element_size() + bb.numel() * bb.element_size()
-                        for rb in ws for pair in rb for w, bb in pair)
-                    bms, by = bound_ms(n_bytes, 2 * macs_per_row * c * c * bsz * m, dtype)
+                    n_bytes, flops = trio_bytes(x, ws), 2 * macs_per_row * c * c * bsz * m
+                    bms, by = bound_ms(n_bytes, flops, dtype)
                     tile = ft.tile_rows(c, dtype, ft._geometry(ks, dils)[1], m, bsz,
                                         ft._sm_count(x.device), ks, tuple(dils))
-                    line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {bms:.4f} ({by})"
-                             f" tile {tile} blocks {bsz * -(-m // tile)}")
-                    if dtype == torch.bfloat16:
-                        stage[timed] = {"rows": m, "batch": bsz, "ms": k_ms, "plain_ms": p_ms,
-                                        "bound_ms": bms, "tile": tile}
-                        if timed == "B4x240":
-                            totals["ms"] += k_ms
-                            totals["plain_ms"] += p_ms
-                            totals["bound_ms"] += bms
-                            bound_kind.add(by)
-                if dtype == torch.bfloat16:
-                    totals["max_abs_err"] = max(totals["max_abs_err"], err)
+                    numbers = {"rows": m, "batch": bsz, "ms": k_ms, "plain_ms": p_ms,
+                               "bound_ms": bms, "tile": tile, "blocks": bsz * -(-m // tile)}
+                    line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {bms:.4f} ({by})")
+                    if dtype == torch.float32:
+                        numbers["tf32x3_bound_ms"] = tf32x3_bound_ms(n_bytes, flops)
+                        line += f" 3xTF32 bound_ms {numbers['tf32x3_bound_ms']:.4f}"
+                    line += f" tile {tile} blocks {numbers['blocks']}"
+                    stage[timed if dtype == torch.bfloat16 else f"f32_{timed}"] = numbers
+                    acc = sums[(dtype, timed)]
+                    for key in ("ms", "plain_ms", "bound_ms", "tf32x3_bound_ms"):
+                        if key in numbers:
+                            acc[key] = acc.get(key, 0.0) + numbers[key]
+                    if dtype == torch.bfloat16 and timed == "B4x240":
+                        bound_kind.add(by)
                 print(line, flush=True)
                 if not (err <= tol and finite):
                     failures.append(line)
-            if dtype == torch.bfloat16:
-                stages.append(stage)
+        stages.append(stage)
     if failures:
         fail("fused trio kernel disagrees with its plain version")
-    slower = [f"C{st['channels']} {shape}" for st in stages for shape in ("B4x240", "B1x96")
+    slower = [f"C{st['channels']} {shape}" for st in stages
+              for shape in ("B4x240", "B1x96", "f32_B4x240", "f32_B1x96")
               if st[shape]["ms"] > st[shape]["plain_ms"]]
-    print(f"fused_trio bf16 B4x240 four stages: kernel_ms {totals['ms']:.4f} plain_ms "
-          f"{totals['plain_ms']:.4f} bound_ms {totals['bound_ms']:.4f}; stages slower than "
-          f"their plain version: {slower or 'none'}", flush=True)
+    for (dtype, shape), acc in sums.items():
+        extra = (f" 3xTF32 bound_ms {acc['tf32x3_bound_ms']:.4f}"
+                 if dtype == torch.float32 else "")
+        print(f"fused_trio {str(dtype)[6:]} {shape} four stages: kernel_ms {acc['ms']:.4f} "
+              f"plain_ms {acc['plain_ms']:.4f} bound_ms {acc['bound_ms']:.4f}{extra}", flush=True)
+    print(f"fused_trio stages slower than their plain version: {slower or 'none'}", flush=True)
+    totals = dict(sums[(torch.bfloat16, "B4x240")])
+    totals["max_abs_err"] = max_err[torch.bfloat16]
     totals["bound_by"] = "/".join(sorted(bound_kind))
     totals["library_ms"] = None                 # no single PyTorch call does a trio
     totals["stages"] = stages
+    totals["f32"] = {shape: sums[(torch.float32, shape)] for shape in ("B4x240", "B1x96")}
+    totals["f32"]["max_abs_err"] = max_err[torch.float32]
     return totals
 
 
@@ -1357,15 +1420,16 @@ def gan_stage_rows(vcfg) -> list[tuple[int, int]]:
 def phase_trio_gan(ft, dev, vcfg, batch: int) -> dict:
     """Kernel 2's f32 path at the GAN step's shapes (batch x one segment per
     stage), TF32 off: against its plain version (1e-4 of max(1, |ref|)),
-    timed beside the plain version (cuDNN's 18 f32 convs) and the f32
-    operations bound."""
+    timed beside the plain version (cuDNN's 18 f32 convs), the f32 FMA
+    operations bound and the 3xTF32 bound."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(5)
     ks = tuple(vcfg.resblock_kernel_sizes)
     dils = [tuple(d) for d in vcfg.resblock_dilation_sizes]
     macs_per_row = sum(2 * k * len(d) for k, d in zip(ks, dils))
     stages, failures = [], []
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "tf32x3_bound_ms": 0.0,
+              "max_abs_err": 0.0}
     for c, m in gan_stage_rows(vcfg):
         ws = trio_weights(gen, c, ks, dils, torch.float32, dev)
         x = (torch.randn(batch, c, m, generator=gen) * 0.5).to(dev)
@@ -1377,26 +1441,28 @@ def phase_trio_gan(ft, dev, vcfg, batch: int) -> dict:
             tol = 1e-4 * max(1.0, float(ref.abs().max()))
             k_ms = time_ms(lambda: ft.fused_resblock_trio_kernel(x, ws, ks, dils), iters=5)
             p_ms = time_ms(lambda: ft.trio_plain(x, ws, ks, dils), iters=5)
-        n_bytes = 2 * x.numel() * 4 + sum(w.numel() * 4 + bb.numel() * 4
-                                          for rb in ws for pair in rb for w, bb in pair)
-        flops = 2 * macs_per_row * c * c * batch * m
+        n_bytes, flops = trio_bytes(x, ws), 2 * macs_per_row * c * c * batch * m
         bms, by = bound_ms(n_bytes, flops, torch.float32)
+        tf32_bms = tf32x3_bound_ms(n_bytes, flops)
         line = (f"fused_trio GAN shape C{c} B{batch} M{m} f32: max_abs_err {err:.3e} (tol {tol:.3g}) "
                 f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {bms:.4f} ({by}, "
-                f"{flops / 1e9:.1f} GFLOP)")
+                f"{flops / 1e9:.1f} GFLOP) 3xTF32 bound_ms {tf32_bms:.4f}")
         print(line, flush=True)
         if not (err <= tol and bool(torch.isfinite(out).all())):
             failures.append(line)
         stages.append({"channels": c, "rows": m, "batch": batch, "ms": k_ms, "plain_ms": p_ms,
-                       "bound_ms": bms, "bound_by": by, "max_abs_err": err})
+                       "bound_ms": bms, "bound_by": by, "tf32x3_bound_ms": tf32_bms,
+                       "max_abs_err": err})
         totals["ms"] += k_ms
         totals["plain_ms"] += p_ms
         totals["bound_ms"] += bms
+        totals["tf32x3_bound_ms"] += tf32_bms
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
     if failures:
         fail("fused trio f32 disagrees with its plain version at the GAN shapes")
     print(f"fused_trio f32 GAN shapes, four stages: kernel_ms {totals['ms']:.4f} plain_ms "
-          f"{totals['plain_ms']:.4f} bound_ms {totals['bound_ms']:.4f}", flush=True)
+          f"{totals['plain_ms']:.4f} bound_ms {totals['bound_ms']:.4f} 3xTF32 bound_ms "
+          f"{totals['tf32x3_bound_ms']:.4f}", flush=True)
     return {**totals, "stages": stages}
 
 
@@ -2477,7 +2543,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {log.stem}: {line.strip()}", flush=True)
-    hmma = sass_tensor_core_counts(build)
+    hmma, hmma_tf32 = sass_tensor_core_counts(build)
 
     counters = {"rel_attention": ra.rel_attention_kernel,
                 "rel_attention_bwd": ra.rel_attention_bwd_kernel,
@@ -2522,8 +2588,10 @@ def main() -> int:
                                ("rel_attention_bias_bwd", "rel_attention_bias_bwd", bias_bwd),
                                ("attention", "attention", plain),
                                ("fused_resblock_trio", "fused_tail", trio)):
-        numbers.update(design="mma.sync m16n8k16 bf16, f32 accumulate; f32: FMA",
-                       hmma_in_sass=hmma[lib],
+        f32_design = ("3xTF32 mma.sync m16n8k8, f32 accumulate" if lib in TF32_KERNELS
+                      else "FMA")
+        numbers.update(design=f"mma.sync m16n8k16 bf16, f32 accumulate; f32: {f32_design}",
+                       hmma_in_sass=hmma[lib], hmma_tf32_in_sass=hmma_tf32[lib],
                        cli_launches={tool: n[name] for tool, n in cli.items() if name in n},
                        server_launches=served.get(name, {}))
     launches.update({k: train_launches[k] for k in ("rel_attention_bwd", "rel_attention_bias_bwd")})

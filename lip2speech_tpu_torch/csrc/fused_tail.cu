@@ -17,10 +17,12 @@
 //
 // What bounds it: the 126 C^2 multiply-adds per row of a default trio (about
 // 594 GFLOP for the four stages of a batch of 4 x 240 frames) against a few
-// bytes per row of traffic: operations, far above the card's ridge point.
-// What kept the first (WMMA) version at 4% of the bf16 peak at C = 128 was
-// the weight path: every warp loaded its B fragments straight from L2 inside
-// the tap loop, with nothing in flight, and each fragment fed two products.
+// bytes per row of traffic: operations, far above the card's ridge point, in
+// both dtypes. What kept the first versions of both paths far from the peak
+// (4% of bf16 for the WMMA version, ~9.5% of the f32 FMA peak for the FMA
+// version) was the weight path: every warp read its weights straight from L2
+// inside the tap loop, with nothing in flight. Both paths now stream the
+// weights through a shared-memory ring and run on the tensor cores.
 //
 // bf16 (dtype 1), `trio_mma`: each conv is a GEMM, rows x C_out, reduced
 // over taps x C_in, on mma.sync m16n8k16 (bf16 in, f32 accumulate; the
@@ -76,11 +78,53 @@
 //    and one bf16x2 max (6 instructions a register, not 13), so that conv1's
 //    issue slots go to the products.
 //
-// f32 (dtype 0), `trio_kernel<FmaConv<C>>`: exact FP32 FMAs on the CUDA
-// cores (tensor cores would round to TF32). Activations sit channel-major
-// ([C][rows]) so a warp reads 32 consecutive rows without bank conflicts at
-// any tap shift; each thread holds a 4-row x 16-channel register tile fed by
-// warp-uniform weight reads from L2; the weights are (K, C_in, C_out).
+// f32 (dtype 0), `trio_tf32`: the same GEMMs on mma.sync m16n8k8 in 3xTF32
+// (f32 accumulate), the bf16 path's structure with f32 buffers.
+//  * Accuracy. Each operand is split as hi = v rounded to TF32 (as
+//    cvt.rna.tf32.f32 rounds) and lo = v - hi, and a product is lo_a hi_b +
+//    hi_a lo_b + hi_a hi_b: what is dropped (lo_a lo_b, and lo's bits below
+//    TF32, which the tensor core ignores) is ~2^-21 of |a b|, so the conv
+//    agrees with an f32 conv to about summation order (2e-6 of max |ref|
+//    against cuDNN's f32 convs on an H100). One TF32 product alone (~2^-11)
+//    would not.
+//  * The kernel is bound by issue, not by the tensor cores: a TF32 product
+//    needs its operands split, and cvt.rna.tf32.f32 compiles to 4
+//    instructions (a NaN guard). So the split is an integer add of half a
+//    TF32 ulp and a mask (2 instructions, the same rounding) plus one f32
+//    subtract, lo is left unrounded, and the weights are split once per
+//    block instead of once per warp: each chunk of 2048 / C columns of a
+//    conv's (C_out, K * C_in) weights is staged through registers (a
+//    thread loads its 4 floats of the next chunk from L2 before the
+//    products of the current one, and splits and stores them after) into
+//    one of two ring slots, as hi and lo halves of [C_out][2048 / C + 4]
+//    floats, so that ldmatrix (b16 8x8 = 8 rows x 4 floats: lane g, t gets
+//    row g, float t, which is the TF32 B fragment) reads 8 rows at distinct
+//    banks. One barrier a chunk: 2 k8 steps at C = 128, 16 at C = 16.
+//  * Activations sit row-major [rows][C + 4] f32: ldmatrix.x4 at rows base +
+//    shift + (lane & 15), floats ci + 4 (lane >> 4) gives the A fragment in
+//    one instruction, and the padded stride (16 bytes past a multiple of
+//    128) keeps the eight rows of each 8x8 on distinct banks at any tap
+//    shift. The A fragment is split after the load (conv1's lrelu first:
+//    max(v, 0.1 v) is the epilogue's lrelu). No slack rows: a last m16 tile
+//    reads up to 15 rows past its region, into the next buffer or the ring
+//    behind xt; those rows only feed outputs past the region, never stored.
+//  * Warps and rounds as in bf16 (16 warps, 64 f32 accumulators a lane),
+//    but a warp owns 32 outputs (16 at C = 16) and 4 m16 tiles a round (8
+//    at C = 16): at C = 128 four warps share a row band, at 64 two. Small
+//    row tiles leave few m16 tiles a conv (4-11 at C = 128), and narrow
+//    warps keep all 16 warps busy on them and halve each warp's B
+//    fragments, the shared-memory reads that every row warp repeats; with
+//    64 outputs a warp at C >= 64, as in bf16, batch 1 x 96 took 3.07 ms
+//    instead of 2.27 (one-off A/B on an H100). A warp holds its n8 tiles'
+//    B fragments (hi, lo) and streams its A fragments; the three products
+//    of a tile go out term by term over the n8 tiles, so that consecutive
+//    mma.sync write different accumulators.
+//  * Fill: buffers of (tile + 2H) rows x (C + 4) x 4 B each plus the 33-40
+//    KB ring fit 227 KB up to tiles of 60 / 238 / 566 / 1120 rows at C =
+//    128 / 64 / 32 / 16; the wrapper picks the tile by the bf16 rule
+//    (fused_tail.py: tile_rows), so a batch-1 x 96-frame stage gets 128 /
+//    131 / 132 / 132 blocks on 132 SMs (the FMA kernel it replaces: 80 /
+//    48 / 42 / 60).
 
 #include "mma_tile.cuh"
 
@@ -90,8 +134,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kMaxRes = 4;
 constexpr int kMaxDil = 4;
 constexpr int kMaxConvs = 2 * kMaxRes * kMaxDil;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kSlope = 0.1f;
 
 struct TrioGeom {
@@ -118,150 +160,69 @@ template <typename T> __device__ __forceinline__ float lrelu(float v) {
   return v >= 0.f ? v : round_t<T>(kSlope * v);
 }
 
-// Conv epilogue for one output element: round the f32 sum to T, add the
-// bias in T, zero rows outside [0, M); FIRST stores lrelu(y) (conv2's
-// input), otherwise y is added into the residual.
-template <typename T, bool FIRST>
-__device__ __forceinline__ void epilogue(T* p, float acc, float bias, bool in_seq) {
-  float y = in_seq ? round_t<T>(round_t<T>(acc) + bias) : 0.f;
-  *p = FIRST ? from_f<T>(lrelu<T>(y)) : from_f<T>(to_f(*p) + y);
-}
-
 // ---------------------------------------------------------------------------
-// f32: FMA on the CUDA cores, buffers channel-major [C][BR]
+// Shared by both paths: the conv table and the weight stream's cursor
 // ---------------------------------------------------------------------------
-template <int C>
-struct FmaConv {
-  using T = float;
-  static constexpr int kCN = 16;  // output channels per thread
-  static constexpr int kRM = 4;   // rows per thread per pass
 
-  __device__ static int buf_elems(int BR) { return C * BR; }
-  __device__ static int at(int c, int l, int BR) { return c * BR + l; }
-  static size_t smem_bytes(int tile, int halo) {
-    return (size_t)2 * C * (tile + 2 * halo) * sizeof(float);
-  }
-
-  // dst rows [olo, ohi) <- conv(in) with taps at r - pad + k*d
-  template <bool FIRST>
-  __device__ static void conv(const float* __restrict__ in, float* __restrict__ dst,
-                              const float* __restrict__ w, const float* __restrict__ bias,
-                              int K, int d, int pad, int olo, int ohi, int BR, int row0,
-                              int M) {
-    constexpr int kNCG = C / kCN;               // channel groups: 1, 2, 4, 8
-    constexpr int kNRG = kWarps / kNCG;         // warps sharing a channel group
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int o0 = (warp % kNCG) * kCN;
-    const int rg = warp / kNCG;
-    const int span = kNRG * 32 * kRM;
-    for (int base = olo; base < ohi; base += span) {
-      int src[kRM];
-#pragma unroll
-      for (int j = 0; j < kRM; ++j)
-        src[j] = min(base + (rg * kRM + j) * 32 + lane, ohi - 1) - pad;
-      float acc[kRM][kCN];
-#pragma unroll
-      for (int j = 0; j < kRM; ++j)
-#pragma unroll
-        for (int c = 0; c < kCN; ++c) acc[j][c] = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const float* wk = w + (size_t)k * C * C + o0;
-        const float* ink = in + k * d;
-#pragma unroll 4
-        for (int i = 0; i < C; ++i) {
-          float a[kRM];
-#pragma unroll
-          for (int j = 0; j < kRM; ++j) {
-            const float v = ink[i * BR + src[j]];
-            a[j] = FIRST ? lrelu<float>(v) : v;
-          }
-          const float4* wp = reinterpret_cast<const float4*>(wk + (size_t)i * C);
-          float wv[kCN];
-#pragma unroll
-          for (int q = 0; q < kCN / 4; ++q) {
-            const float4 t = __ldg(wp + q);
-            wv[4 * q] = t.x; wv[4 * q + 1] = t.y; wv[4 * q + 2] = t.z; wv[4 * q + 3] = t.w;
-          }
-#pragma unroll
-          for (int j = 0; j < kRM; ++j)
-#pragma unroll
-            for (int c = 0; c < kCN; ++c) acc[j][c] = fmaf(a[j], wv[c], acc[j][c]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kRM; ++j) {
-        const int r = base + (rg * kRM + j) * 32 + lane;
-        if (r >= ohi) continue;
-        const int g = row0 + r;
-#pragma unroll
-        for (int c = 0; c < kCN; ++c)
-          epilogue<float, FIRST>(dst + (o0 + c) * BR + r, acc[j][c], bias[o0 + c],
-                                 g >= 0 && g < M);
-      }
-    }
-  }
+// Every conv of the trio in launch order: taps, dilation, padding, its output
+// rows [olo, ohi) in buffer coordinates (block-independent), its rounds, and
+// its first row in the weight stream (rows of C: conv j's weights start at
+// element wrow[j] * C in both layouts).
+struct ConvTab {
+  int n_res, n_dil, n_convs;
+  int k[kMaxConvs], d[kMaxConvs], pad[kMaxConvs], olo[kMaxConvs], ohi[kMaxConvs];
+  int rounds[kMaxConvs], wrow[kMaxConvs];
 };
 
-template <class Conv, int C>
-__global__ void __launch_bounds__(kThreads)
-trio_kernel(const typename Conv::T* __restrict__ x, const typename Conv::T* __restrict__ w,
-            const typename Conv::T* __restrict__ bias, typename Conv::T* __restrict__ out,
-            int M, int tile, TrioGeom g) {
-  using T = typename Conv::T;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int H = g.halo;
-  const int BR = tile + 2 * H;
-  T* xb = reinterpret_cast<T*>(smem_raw);   // running residual of a resblock
-  T* xt = xb + Conv::buf_elems(BR);         // activated conv1 output
-  const int t0 = blockIdx.x * tile;
-  const T* xg = x + (size_t)blockIdx.y * C * M;
-  T* og = out + (size_t)blockIdx.y * C * M;
-  const int row0 = t0 - H;
+// The position of a chunk in the weight stream: conv j, round r, chunk c.
+struct Cursor {
+  int j, r, c;
+};
 
-  size_t woff = 0;
-  int conv = 0;
+// Advance the cursor past a chunk of conv cu.j, which has n_chunks chunks.
+__device__ __forceinline__ void advance(Cursor& cu, const ConvTab& tb, int n_chunks) {
+  if (++cu.c == n_chunks) {
+    cu.c = 0;
+    if (++cu.r == tb.rounds[cu.j]) {
+      cu.r = 0;
+      ++cu.j;
+    }
+  }
+}
+
+// The conv table of a tile; per_round: the m16 tiles a block computes at once.
+ConvTab conv_table(const TrioGeom& g, int tile, int C, int per_round) {
+  ConvTab tb{};
+  tb.n_res = g.n_res;
+  tb.n_dil = g.n_dil;
+  const int H = g.halo;
+  int j = 0, wrow = 0;
+  auto add = [&](int k, int d, int pad, int olo, int ohi) {
+    tb.k[j] = k;
+    tb.d[j] = d;
+    tb.pad[j] = pad;
+    tb.olo[j] = olo;
+    tb.ohi[j] = ohi;
+    tb.rounds[j] = ((ohi - olo + 15) / 16 + per_round - 1) / per_round;
+    tb.wrow[j] = wrow;
+    wrow += k * C;
+    ++j;
+  };
   for (int r = 0; r < g.n_res; ++r) {
     const int K = g.k[r];
     int hr = 0;
     for (int i = 0; i < g.n_dil; ++i) hr += g.pad1[r * kMaxDil + i] + g.pad2[r * kMaxDil + i];
     int lo = H - hr, hi = H + tile + hr;
-    const int len = hi - lo;
-    for (int e = threadIdx.x; e < C * len; e += kThreads) {
-      const int c = e / len, l = lo + e % len;
-      const int gr = row0 + l;
-      xb[Conv::at(c, l, BR)] = (gr >= 0 && gr < M) ? xg[(size_t)c * M + gr] : from_f<T>(0.f);
-    }
-    __syncthreads();
     for (int i = 0; i < g.n_dil; ++i) {
-      const int d = g.dil[r * kMaxDil + i];
       const int p1 = g.pad1[r * kMaxDil + i], p2 = g.pad2[r * kMaxDil + i];
-      Conv::template conv<true>(xb, xt, w + woff, bias + conv * C, K, d, p1, lo + p1,
-                                hi - p1, BR, row0, M);
-      woff += (size_t)K * C * C;
-      ++conv;
-      __syncthreads();
-      Conv::template conv<false>(xt, xb, w + woff, bias + conv * C, K, 1, p2, lo + p1 + p2,
-                                 hi - p1 - p2, BR, row0, M);
-      woff += (size_t)K * C * C;
-      ++conv;
-      __syncthreads();
+      add(K, g.dil[r * kMaxDil + i], p1, lo + p1, hi - p1);
+      add(K, 1, p2, lo + p1 + p2, hi - p1 - p2);
       lo += p1 + p2;
       hi -= p1 + p2;
     }
-    // rows [H, H + tile) now hold this resblock's output: fold it into the
-    // output tile (each element is read and written by the same thread)
-    for (int e = threadIdx.x; e < C * tile; e += kThreads) {
-      const int c = e / tile, l = e % tile;
-      const int gr = t0 + l;
-      if (gr >= M) continue;
-      const size_t gi = (size_t)c * M + gr;
-      const float v = to_f(xb[Conv::at(c, H + l, BR)]);
-      float s = r == 0 ? v : round_t<T>(to_f(og[gi]) + v);
-      if (r == g.n_res - 1) s = s / (float)g.n_res;
-      og[gi] = from_f<T>(s);
-    }
-    __syncthreads();
   }
+  tb.n_convs = j;
+  return tb;
 }
 
 // ---------------------------------------------------------------------------
@@ -276,15 +237,6 @@ constexpr int kSlotBytes = 16384;        // one slot (the largest chunk)
 constexpr int kSlotElems = kSlotBytes / 2;
 constexpr int kSlack = 16;               // rows a last m16 tile may read past a region
 constexpr int kBatch = 8;                // rows a lane loads at once in the copy loops
-
-// Every conv of the trio in launch order: taps, dilation, padding, its output
-// rows [olo, ohi) in buffer coordinates (block-independent), its rounds, and
-// its first row in the weight stream (rows of C_out).
-struct ConvTab {
-  int n_res, n_dil, n_convs;
-  int k[kMaxConvs], d[kMaxConvs], pad[kMaxConvs], olo[kMaxConvs], ohi[kMaxConvs];
-  int rounds[kMaxConvs], wrow[kMaxConvs];
-};
 
 template <int C>
 struct Cfg {
@@ -320,11 +272,6 @@ __device__ __forceinline__ uint32_t lrelu2(uint32_t r) {
   return *reinterpret_cast<const uint32_t*>(&m);
 }
 
-// The position of a chunk in the weight stream: conv j, round r, chunk c.
-struct Cursor {
-  int j, r, c;
-};
-
 template <int C>
 __device__ __forceinline__ int n_chunks(const ConvTab& tb, int j) {
   return (tb.k[j] * C + Cfg<C>::kKR - 1) / Cfg<C>::kKR;
@@ -343,13 +290,7 @@ __device__ __forceinline__ void issue(Cursor& cu, bf16* slot, const bf16* __rest
       const int r = e / Cfg<C>::kCPR, u = e % Cfg<C>::kCPR;
       mma::cp_async16(slot + swz<C>(r, 8 * u), src + (size_t)r * C + 8 * u, true);
     }
-    if (++cu.c == n_chunks<C>(tb, cu.j)) {
-      cu.c = 0;
-      if (++cu.r == tb.rounds[cu.j]) {
-        cu.r = 0;
-        ++cu.j;
-      }
-    }
+    advance(cu, tb, n_chunks<C>(tb, cu.j));
   }
   mma::cp_async_commit();
 }
@@ -531,42 +472,6 @@ size_t smem_bytes(int tile, int halo) {
   return (size_t)kStages * kSlotBytes + (size_t)2 * (tile + 2 * halo + kSlack) * C * sizeof(bf16);
 }
 
-// The conv table of a tile: the same region bookkeeping as trio_kernel.
-template <int C>
-ConvTab conv_table(const TrioGeom& g, int tile) {
-  ConvTab tb{};
-  tb.n_res = g.n_res;
-  tb.n_dil = g.n_dil;
-  const int H = g.halo, per_round = Cfg<C>::kRoundTiles;
-  int j = 0, wrow = 0;
-  auto add = [&](int k, int d, int pad, int olo, int ohi) {
-    tb.k[j] = k;
-    tb.d[j] = d;
-    tb.pad[j] = pad;
-    tb.olo[j] = olo;
-    tb.ohi[j] = ohi;
-    tb.rounds[j] = ((ohi - olo + 15) / 16 + per_round - 1) / per_round;
-    tb.wrow[j] = wrow;
-    wrow += k * C;
-    ++j;
-  };
-  for (int r = 0; r < g.n_res; ++r) {
-    const int K = g.k[r];
-    int hr = 0;
-    for (int i = 0; i < g.n_dil; ++i) hr += g.pad1[r * kMaxDil + i] + g.pad2[r * kMaxDil + i];
-    int lo = H - hr, hi = H + tile + hr;
-    for (int i = 0; i < g.n_dil; ++i) {
-      const int p1 = g.pad1[r * kMaxDil + i], p2 = g.pad2[r * kMaxDil + i];
-      add(K, g.dil[r * kMaxDil + i], p1, lo + p1, hi - p1);
-      add(K, 1, p2, lo + p1 + p2, hi - p1 - p2);
-      lo += p1 + p2;
-      hi -= p1 + p2;
-    }
-  }
-  tb.n_convs = j;
-  return tb;
-}
-
 template <int C>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out, int B, int M,
                    int tile, const TrioGeom& g, cudaStream_t stream) {
@@ -579,34 +484,341 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out, in
   dim3 grid((M + tile - 1) / tile, B);
   kern<<<grid, kThreadsM, smem, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                                           static_cast<const bf16*>(bias), static_cast<bf16*>(out),
-                                          M, tile, g.halo, conv_table<C>(g, tile));
+                                          M, tile, g.halo,
+                                          conv_table(g, tile, C, Cfg<C>::kRoundTiles));
   return cudaGetLastError();
 }
 
 }  // namespace mma_path
 
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 mma.sync on the tensor cores, weights streamed through shared memory
+// ---------------------------------------------------------------------------
+namespace tf32_path {
+
+constexpr int kThreadsT = 512;           // 16 warps, one block per SM
+constexpr int kWarpsT = kThreadsT / 32;
+constexpr int kBatch = 8;                // rows a lane loads at once in the copy loops
+
 template <int C>
-cudaError_t launch_fma(const void* x, const void* w, const void* bias, void* out, int B, int M,
-                       int tile, const TrioGeom& g, cudaStream_t stream) {
-  using Conv = FmaConv<C>;
-  const size_t smem = Conv::smem_bytes(tile, g.halo);
-  auto kern = trio_kernel<Conv, C>;
+struct Cfg {
+  static constexpr int kS = C + 4;                    // activation row stride (floats)
+  static constexpr int kKC = 2048 / C;                // weight columns (k) per chunk
+  static constexpr int kWS = kKC + 4;                 // chunk row stride (floats)
+  static constexpr int kHalf = C * kWS;               // one part (hi or lo) of a slot
+  static constexpr int kSlot = 2 * kHalf;             // a slot: hi, then lo
+  static constexpr int kCols = C < 32 ? C : 32;       // outputs of one warp
+  static constexpr int kWN = C / kCols;               // warps across the outputs
+  static constexpr int kWM = kWarpsT / kWN;           // warps across the rows
+  static constexpr int kNT = kCols / 8;               // its n8 tiles
+  static constexpr int kMT = 128 / kCols;             // its m16 tiles per round (64 f32 acc)
+  static constexpr int kSteps = kKC / 8;              // k8 steps of a full chunk
+  static constexpr int kRoundTiles = kWM * kMT;
+  static_assert(C * kKC == 4 * kThreadsT, "a thread stages 4 floats of a chunk");
+  // a last m16 tile reads up to 15 rows past its input region: past xt
+  // those rows must still lie in the block's shared memory (the ring)
+  static_assert(2 * kSlot >= 15 * kS, "ring too small to absorb the overread");
+};
+
+// v = hi + lo exactly: hi is v rounded to TF32 (to nearest, ties away, as
+// cvt.rna.tf32.f32 rounds: an integer add of half a TF32 ulp and a mask,
+// 2 instructions where the cvt compiles to 4 with its NaN guard), lo = v -
+// hi is an f32 value of at most 2^-11 |v|, which the tensor core reads
+// truncated to TF32 (~2^-21 |v| lost).
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// c += a b: A 16x8 row-major, B 8x8 column-major, TF32; C f32. Not volatile,
+// so that the compiler may interleave the products of independent tiles.
+__device__ __forceinline__ void mma1688(float c[4], const uint32_t a[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Term t of the 3xTF32 product a b: 0 = lo_a hi_b, 1 = hi_a lo_b, 2 = hi_a
+// hi_b (t is a constant once the loops are unrolled). A tile's three terms
+// go in this order, the small ones first, each over all of a warp's tiles
+// before the next, so that consecutive products go to other accumulators.
+__device__ __forceinline__ void mma_term(int t, float c[4], const uint32_t ah[4],
+                                         const uint32_t al[4], const uint32_t bh[2],
+                                         const uint32_t bl[2]) {
+  const uint32_t* b = t == 1 ? bl : bh;
+  mma1688(c, t == 0 ? al : ah, b[0], b[1]);
+}
+
+// The A fragment (hi, lo) of the 16 rows at `row` (the lane's own row
+// already added), floats ci.. of an activation buffer; conv1 applies lrelu.
+template <int C, bool FIRST>
+__device__ __forceinline__ void load_a(uint32_t ah[4], uint32_t al[4], const float* in, int row,
+                                       int col) {
+  uint32_t a[4];
+  mma::ldsm_x4(a, mma::smem_u32(in + row * Cfg<C>::kS + col));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float v = __uint_as_float(a[e]);
+    if (FIRST) v = fmaxf(v, kSlope * v);
+    split(v, ah[e], al[e]);
+  }
+}
+
+// The B fragments (hi, lo) of n8 tiles n and n + 1 from a slot, already
+// split (one ldmatrix.x4 each; the lane's row and column offset in wt).
+template <int C>
+__device__ __forceinline__ void load_b2(uint32_t bh[2][2], uint32_t bl[2][2], const float* wt) {
+  uint32_t h[4], l[4];
+  mma::ldsm_x4(h, mma::smem_u32(wt));
+  mma::ldsm_x4(l, mma::smem_u32(wt + Cfg<C>::kHalf));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    bh[e >> 1][e & 1] = h[e];
+    bl[e >> 1][e & 1] = l[e];
+  }
+}
+
+template <int C>
+__device__ __forceinline__ int n_chunks(const ConvTab& tb, int j) {
+  return (tb.k[j] * C + Cfg<C>::kKC - 1) / Cfg<C>::kKC;
+}
+
+// The weight ring: two slots, each a chunk (columns k0.. of conv j's (C_out,
+// K * C_in) weights) split into hi and lo once for the whole block. A chunk
+// is staged through registers: each thread loads its 4 floats (row n,
+// columns 4u..) of the next chunk from L2 before the products of the
+// current one, and splits and stores them after, into the other slot.
+struct WeightRing {
+  float* s;
+  Cursor prod;     // the next chunk to load
+  int slot;        // the slot of the chunk to compute
+  float4 v;        // this thread's share of the next chunk
+};
+
+// Load the thread's share of the cursor's chunk (zeros past the conv's
+// columns; nothing past the last conv) and advance the cursor.
+template <int C>
+__device__ __forceinline__ void fetch(WeightRing& ring, const float* __restrict__ w,
+                                      const ConvTab& tb) {
+  using Q = Cfg<C>;
+  Cursor& cu = ring.prod;
+  ring.v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (cu.j >= tb.n_convs) return;
+  const int kc = tb.k[cu.j] * C, k0 = cu.c * Q::kKC;
+  const int n = threadIdx.x / (Q::kKC / 4), u = threadIdx.x % (Q::kKC / 4);
+  if (4 * u < kc - k0)
+    ring.v = __ldg(reinterpret_cast<const float4*>(w + (size_t)tb.wrow[cu.j] * C +
+                                                   (size_t)n * kc + k0 + 4 * u));
+  advance(cu, tb, n_chunks<C>(tb, cu.j));
+}
+
+// Split the fetched share and store it into `slot` (hi, then lo).
+template <int C>
+__device__ __forceinline__ void put(const WeightRing& ring, float* slot) {
+  using Q = Cfg<C>;
+  const int n = threadIdx.x / (Q::kKC / 4), u = threadIdx.x % (Q::kKC / 4);
+  uint4 hi, lo;
+  split(ring.v.x, hi.x, lo.x);
+  split(ring.v.y, hi.y, lo.y);
+  split(ring.v.z, hi.z, lo.z);
+  split(ring.v.w, hi.w, lo.w);
+  *reinterpret_cast<uint4*>(slot + n * Q::kWS + 4 * u) = hi;
+  *reinterpret_cast<uint4*>(slot + Q::kHalf + n * Q::kWS + 4 * u) = lo;
+}
+
+// dst rows [olo, ohi) of conv j <- conv(in); FIRST: conv1 (lrelu on its
+// input, lrelu(y) stored), else conv2 (y added into dst).
+template <int C, bool FIRST>
+__device__ __forceinline__ void conv(const float* __restrict__ in, float* __restrict__ dst,
+                                     const float* __restrict__ w, const float* __restrict__ bias,
+                                     const ConvTab& tb, int j, WeightRing& ring, int row0,
+                                     int M) {
+  using Q = Cfg<C>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / Q::kWN, n0 = (warp % Q::kWN) * Q::kCols;
+  const int g = lane >> 2, q = lane & 3;
+  const int K = tb.k[j], shift0 = -tb.pad[j], d = tb.d[j];
+  const int olo = tb.olo[j], ohi = tb.ohi[j];
+  const int nch = n_chunks<C>(tb, j);
+  const float* bj = bias + j * C;
+  // the lane's ldmatrix row and float offsets: A (rows, k) and B ([n][k])
+  const int a_row = lane & 15, a_col = (lane >> 4) << 2;
+  const int b_off = (n0 + (lane & 7) + ((lane >> 4) << 3)) * Q::kWS + (((lane >> 3) & 1) << 2);
+  for (int rd = 0; rd < tb.rounds[j]; ++rd) {
+    const int base0 = olo + 16 * (rd * Q::kRoundTiles + wm);   // the warp's first m16 tile
+    // its m16 tiles this round (warp-uniform): tile mt starts at base0 + 16 kWM mt
+    const int nmt = min(Q::kMT, max(0, (ohi - base0 + 16 * Q::kWM - 1) / (16 * Q::kWM)));
+    float acc[Q::kMT][Q::kNT][4];
+#pragma unroll
+    for (int mt = 0; mt < Q::kMT; ++mt)
+#pragma unroll
+      for (int n = 0; n < Q::kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+
+    for (int c = 0; c < nch; ++c) {
+      __syncthreads();   // chunk c is in ring.slot; every warp is done with the other slot
+      fetch<C>(ring, w, tb);
+      const float* wt = ring.s + ring.slot * Q::kSlot + b_off;
+      const int n_steps = nmt == 0 ? 0 : min(Q::kKC, K * C - c * Q::kKC) / 8;
+#pragma unroll
+      for (int s = 0; s < Q::kSteps; ++s) {
+        if (s >= n_steps) break;   // the last chunk of a conv may be short
+        const int kr = c * Q::kKC + 8 * s;
+        const int tap = kr / C, ci = kr % C;
+        const int row = base0 + shift0 + tap * d + a_row;
+        uint32_t bh[Q::kNT][2], bl[Q::kNT][2];
+#pragma unroll
+        for (int np = 0; np < Q::kNT / 2; ++np)
+          load_b2<C>(bh + 2 * np, bl + 2 * np, wt + 16 * np * Q::kWS + 8 * s);
+#pragma unroll
+        for (int mt = 0; mt < Q::kMT; ++mt) {
+          if (mt >= nmt) break;
+          uint32_t ah[4], al[4];
+          load_a<C, FIRST>(ah, al, in, row + 16 * Q::kWM * mt, ci + a_col);
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+#pragma unroll
+            for (int n = 0; n < Q::kNT; ++n) mma_term(t, acc[mt][n], ah, al, bh[n], bl[n]);
+          }
+        }
+      }
+      put<C>(ring, ring.s + (ring.slot ^ 1) * Q::kSlot);
+      ring.slot ^= 1;
+    }
+
+#pragma unroll
+    for (int mt = 0; mt < Q::kMT; ++mt) {
+      if (mt >= nmt) break;
+      const int base = base0 + 16 * Q::kWM * mt;
+#pragma unroll
+      for (int n = 0; n < Q::kNT; ++n) {
+        const int col = n0 + 8 * n + 2 * q;
+        const float2 bv = __ldg(reinterpret_cast<const float2*>(bj + col));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = base + g + 8 * h;
+          if (row >= ohi) continue;
+          const int gr = row0 + row;
+          const bool in_seq = gr >= 0 && gr < M;
+          const float y0 = in_seq ? acc[mt][n][2 * h] + bv.x : 0.f;
+          const float y1 = in_seq ? acc[mt][n][2 * h + 1] + bv.y : 0.f;
+          float2* p = reinterpret_cast<float2*>(dst + row * Q::kS + col);
+          if (FIRST) {
+            *p = make_float2(lrelu<float>(y0), lrelu<float>(y1));
+          } else {
+            const float2 old = *p;
+            *p = make_float2(old.x + y0, old.y + y1);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreadsT, 1)
+trio_tf32(const float* __restrict__ x, const float* __restrict__ w,
+          const float* __restrict__ bias, float* __restrict__ out, int M, int tile, int halo,
+          const __grid_constant__ ConvTab tb) {
+  using Q = Cfg<C>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int BR = tile + 2 * halo;
+  float* xb = reinterpret_cast<float*>(smem_raw);   // running residual of a resblock
+  float* xt = xb + BR * Q::kS;                      // activated conv1 output
+  WeightRing ring{xt + BR * Q::kS, {0, 0, 0}, 0, {}};   // behind xt: absorbs the overread
+  const int t0 = blockIdx.x * tile;
+  const int row0 = t0 - halo;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* xg = x + (size_t)blockIdx.y * C * M;
+  float* og = out + (size_t)blockIdx.y * C * M;
+
+  fetch<C>(ring, w, tb);
+  put<C>(ring, ring.s);
+
+  for (int r = 0; r < tb.n_res; ++r) {
+    const int j0 = 2 * r * tb.n_dil;
+    const int lo = tb.olo[j0] - tb.pad[j0], hi = tb.ohi[j0] + tb.pad[j0];
+    // x rows [lo, hi) into xb: a warp reads 32 consecutive rows of one
+    // channel per load, kBatch loads in flight before the stores
+    for (int c = warp; c < C; c += kWarpsT) {
+      const float* src = xg + (size_t)c * M;
+      for (int l0 = lo + lane; l0 < hi; l0 += 32 * kBatch) {
+        float v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int l = l0 + 32 * u, gr = row0 + l;
+          v[u] = (l < hi && gr >= 0 && gr < M) ? src[gr] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (l0 + 32 * u < hi) xb[(l0 + 32 * u) * Q::kS + c] = v[u];
+      }
+    }
+    // (the first chunk's barrier in conv() orders these stores before any read)
+    for (int i = 0; i < tb.n_dil; ++i) {
+      conv<C, true>(xb, xt, w, bias, tb, j0 + 2 * i, ring, row0, M);
+      conv<C, false>(xt, xb, w, bias, tb, j0 + 2 * i + 1, ring, row0, M);
+    }
+    __syncthreads();
+    // rows [H, H + tile) now hold this resblock's output: fold it into the
+    // output tile (each element is read and written by the same thread)
+    for (int c = warp; c < C; c += kWarpsT) {
+      float* dst = og + (size_t)c * M;
+      for (int l0 = lane; l0 < tile; l0 += 32 * kBatch) {
+        float prev[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int l = l0 + 32 * u;
+          prev[u] = (r > 0 && l < tile && t0 + l < M) ? dst[t0 + l] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int l = l0 + 32 * u;
+          if (l >= tile || t0 + l >= M) continue;
+          const float v = xb[(halo + l) * Q::kS + c];
+          float s = r == 0 ? v : prev[u] + v;
+          if (r == tb.n_res - 1) s = s / (float)tb.n_res;
+          dst[t0 + l] = s;
+        }
+      }
+    }
+    __syncthreads();   // before the next resblock's load overwrites xb
+  }
+}
+
+template <int C>
+size_t smem_bytes(int tile, int halo) {
+  return ((size_t)2 * (tile + 2 * halo) * Cfg<C>::kS + (size_t)2 * Cfg<C>::kSlot) * sizeof(float);
+}
+
+template <int C>
+cudaError_t launch(const void* x, const void* w, const void* bias, void* out, int B, int M,
+                   int tile, const TrioGeom& g, cudaStream_t stream) {
+  if (!mma::aligned16({w})) return cudaErrorMisalignedAddress;   // float4 weight loads
+  const size_t smem = smem_bytes<C>(tile, g.halo);
+  auto kern = trio_tf32<C>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((M + tile - 1) / tile, B);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(x),
-                                         static_cast<const float*>(w),
-                                         static_cast<const float*>(bias),
-                                         static_cast<float*>(out), M, tile, g);
+  kern<<<grid, kThreadsT, smem, stream>>>(static_cast<const float*>(x),
+                                          static_cast<const float*>(w),
+                                          static_cast<const float*>(bias),
+                                          static_cast<float*>(out), M, tile, g.halo,
+                                          conv_table(g, tile, C, Cfg<C>::kRoundTiles));
   return cudaGetLastError();
 }
+
+}  // namespace tf32_path
 
 cudaError_t dispatch_c(int dtype, const void* x, const void* w, const void* bias, void* out,
                        int B, int C, int M, int tile, const TrioGeom& g, cudaStream_t s) {
 #define L2S_TRIO_CASE(CC)                                                     \
   case CC:                                                                     \
-    return dtype == 0 ? launch_fma<CC>(x, w, bias, out, B, M, tile, g, s)     \
+    return dtype == 0 ? tf32_path::launch<CC>(x, w, bias, out, B, M, tile, g, s) \
                       : mma_path::launch<CC>(x, w, bias, out, B, M, tile, g, s);
   switch (C) {
     L2S_TRIO_CASE(16)
@@ -620,11 +832,11 @@ cudaError_t dispatch_c(int dtype, const void* x, const void* w, const void* bias
 
 }  // namespace
 
-// x, out (B, C, M); w: every conv's (K, Cin, Cout) weights back to back, in
-// x's dtype (bf16: 16-byte aligned); bias (n_convs, C). geom: [n_res, n_dil,
-// halo, k[4], dil[4*4], pad1[4*4], pad2[4*4]] in host memory, read before
-// the launch. dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core
-// kernel). tile: output rows per block; the caller sizes it to the shared
+// x, out (B, C, M); w: every conv's weights back to back in x's dtype,
+// 16-byte aligned: f32 (Cout, K, Cin), bf16 (K, Cin, Cout); bias (n_convs,
+// C). geom: [n_res, n_dil, halo, k[4], dil[4*4], pad1[4*4], pad2[4*4]] in
+// host memory, read before the launch. dtype: 0 = float32 (3xTF32 kernel),
+// 1 = bfloat16 (bf16 kernel); both on the tensor cores. tile: output rows per block; the caller sizes it to the shared
 // memory (fused_tail.py: tile_rows). Returns cudaGetLastError() after the
 // launch.
 extern "C" int l2s_resblock_trio(const void* x, const void* w, const void* bias,

@@ -5,9 +5,11 @@ One vocoder stage runs several ResBlock1 modules (kernels 3/7/11, each with
 dilation branches 1/3/5 of lrelu -> dilated conv -> lrelu -> conv ->
 residual add) over the same input and averages them: 18 convs at the default
 config. The CUDA kernel (csrc/fused_tail.cu) runs the whole trio for one row
-tile plus its halo out of shared memory; `trio_plain` is its plain version.
-Unlike the TPU kernel the port does not fold channels into 128 lanes:
-activations stay in PyTorch's (B, C, M) conv layout.
+tile plus its halo out of shared memory, on the tensor cores in both dtypes:
+bf16 on mma.sync m16n8k16, f32 in 3xTF32 on mma.sync m16n8k8 (each operand
+split into two TF32 parts, three products: f32 accuracy); `trio_plain` is its
+plain version. Unlike the TPU kernel the port does not fold channels into
+128 lanes: activations stay in PyTorch's (B, C, M) conv layout.
 
 Under grad the kernel runs inside `TrioFn`, whose backward recomputes the
 plain version (the bare kernel refuses inputs that require grad).
@@ -30,7 +32,9 @@ from lip2speech_tpu_torch.ops import nn as ops
 
 LRELU_SLOPE = 0.1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SMEM_BUDGET = 220 * 1024     # of the 227 KB a block may use on Hopper
+# shared memory a block may take, of the 227 KB a block may use on Hopper:
+# f32 takes all of it (a C128 tile of 60 rows, one wave at batch 1 x 96)
+SMEM_BUDGET = {torch.bfloat16: 220 * 1024, torch.float32: 227 * 1024}
 RING_STAGES, RING_CHUNK = 3, 16384  # bf16 weight ring of csrc/fused_tail.cu
 MAX_RES, MAX_DIL = 4, 4      # geometry table size of csrc/fused_tail.cu
 
@@ -81,18 +85,22 @@ def _geometry(kernel_sizes, dilation_sizes) -> tuple[list[int], int]:
 
 def smem_bytes(channels: int, dtype: torch.dtype, tile: int, halo: int) -> int:
     """Shared memory of one block as csrc/fused_tail.cu lays it out: two
-    activation buffers of tile + 2*halo rows; f32 channel-major [C][rows];
-    bf16 row-major [rows + 16][C] plus the weight ring (RING_STAGES chunks
-    of RING_CHUNK bytes)."""
+    activation buffers of tile + 2*halo rows and a weight ring. bf16:
+    row-major [rows + 16][C], RING_STAGES chunks of RING_CHUNK bytes. f32:
+    row-major [rows][C + 4] (no slack rows: the ring behind them takes a
+    last m16 tile's overread), two slots of a chunk [C][2048 / C + 4] split
+    into hi and lo."""
     rows = tile + 2 * halo
     if dtype == torch.float32:
-        return 2 * channels * rows * 4
+        return 2 * rows * (channels + 4) * 4 + 2 * 2 * channels * (2048 // channels + 4) * 4
     return RING_STAGES * RING_CHUNK + 2 * (rows + 16) * channels * 2
 
 
-# csrc/fused_tail.cu's bf16 warp layout per C (Cfg): warps across the rows,
-# m16 tiles a warp holds per round, weight rows per ring chunk
+# csrc/fused_tail.cu's warp layout per dtype and C (Cfg): warps across the
+# rows, m16 tiles a warp holds per round, weight rows (k) per ring chunk
 MMA_LAYOUT = {128: (8, 2, 64), 64: (16, 2, 128), 32: (16, 4, 128), 16: (16, 8, 128)}
+TF32_LAYOUT = {128: (4, 4, 16), 64: (8, 4, 32), 32: (16, 4, 64), 16: (16, 8, 128)}
+LAYOUTS = {torch.bfloat16: MMA_LAYOUT, torch.float32: TF32_LAYOUT}
 
 
 def conv_regions(kernel_sizes, dilation_sizes, tile: int) -> list[tuple[int, int]]:
@@ -110,11 +118,11 @@ def conv_regions(kernel_sizes, dilation_sizes, tile: int) -> list[tuple[int, int
     return regions
 
 
-def block_cost(channels: int, regions) -> int:
-    """A bf16 block's work in chunk steps of its busiest warp: per conv, the
+def block_cost(channels: int, regions, dtype: torch.dtype = torch.bfloat16) -> int:
+    """A block's work in chunk steps of its busiest warp: per conv, the
     weight chunks it streams times, per round, the m16 tiles a row warp
     holds (a round that fills few warps costs as many chunks)."""
-    warps, per_warp, chunk_rows = MMA_LAYOUT[channels]
+    warps, per_warp, chunk_rows = LAYOUTS[dtype][channels]
     cost = 0
     for k, rows in regions:
         tiles = -(-rows // 16)
@@ -130,30 +138,24 @@ def block_cost(channels: int, regions) -> int:
 def tile_rows(channels: int, dtype: torch.dtype, halo: int, m: int, batch: int = 1,
               n_sm: int = 132, kernel_sizes: tuple = (3, 7, 11),
               dilation_sizes: tuple = ((1, 3, 5),) * 3) -> int:
-    """Output rows per block whose buffers fit SMEM_BUDGET.
-
-    f32: the largest multiple of 32, at most 1024 and no more than the
-    sequence needs. bf16 (one block per SM): an even tile from 32 up to what
-    fits or the sequence needs. For each number of waves the smallest such
-    tile does the least work a block (block_cost grows with the tile), so of
-    those the one with the least waves x block_cost wins; ties go to the
-    fewer waves. Small tiles fill the card, large ones recompute less halo,
-    and a tile whose regions fill whole rounds wastes no warps."""
-    if dtype == torch.float32:
-        top = min(1024, -(-m // 32) * 32)
-        fits = [t for t in range(32, max(top, 32) + 1, 32)
-                if smem_bytes(channels, dtype, t, halo) <= SMEM_BUDGET]
-    else:
-        most = (SMEM_BUDGET - smem_bytes(channels, dtype, 0, halo)) // (4 * channels)
-        fits = list(range(32, min(m + m % 2, most - most % 2) + 1, 2))
+    """Output rows per block whose buffers fit SMEM_BUDGET[dtype], one block per
+    SM in both dtypes: an even tile from 32 (or the sequence, if shorter) up
+    to what fits or the sequence needs. For each number of waves the
+    smallest such tile does the least work a block (block_cost grows with
+    the tile), so of those the one with the least waves x block_cost wins;
+    ties go to the fewer waves. Small tiles fill the card, large ones
+    recompute less halo, and a tile whose regions fill whole rounds wastes
+    no warps."""
+    row_bytes = smem_bytes(channels, dtype, 1, halo) - smem_bytes(channels, dtype, 0, halo)
+    most = (SMEM_BUDGET[dtype] - smem_bytes(channels, dtype, 0, halo)) // row_bytes
+    need = m + m % 2
+    fits = list(range(min(32, need), min(need, most - most % 2) + 1, 2))
     if not fits:
         raise ValueError(f"fused trio: halo {halo} leaves no room for a tile "
                          f"at {channels} channels")
-    if dtype == torch.float32:
-        return fits[-1]
 
     def cost(t):
-        return block_cost(channels, conv_regions(kernel_sizes, dilation_sizes, t))
+        return block_cost(channels, conv_regions(kernel_sizes, dilation_sizes, t), dtype)
 
     smallest = {}                                   # waves -> smallest tile
     for t in reversed(fits):
@@ -222,7 +224,9 @@ def fused_resblock_trio_kernel(x, weights, kernel_sizes, dilation_sizes):
                                      f"{tuple(bias.shape)}, expected {(c, c, k)} / {(c,)}")
                 if w.device != x.device or bias.device != x.device:
                     raise ValueError("fused trio: weights must be on x's device")
-                w_parts.append(w.permute(2, 1, 0).reshape(-1))   # (K, Cin, Cout)
+                # f32 (Cout, K, Cin): the 3xTF32 path's B operand; bf16 (K, Cin, Cout)
+                order = (0, 2, 1) if x.dtype == torch.float32 else (2, 1, 0)
+                w_parts.append(w.permute(*order).reshape(-1))
                 b_parts.append(bias)
     w_all = torch.cat(w_parts).to(x.dtype)
     b_all = torch.stack(b_parts).to(x.dtype).contiguous()

@@ -62,27 +62,27 @@ def test_geometry_halo_from_branch_paddings():
 @pytest.mark.parametrize("c", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tile_rows_fit_shared_memory(c, dtype):
-    """f32: the largest multiple of 32 up to 1024 whose channel-major buffers
-    fit. bf16: row-major buffers [rows + 16][C] plus the 32 KB weight ring;
-    among the multiples of 16 that fit, the least waves x (tile + halo)."""
+    """Both dtypes: among the even tiles from 32 that fit, the least waves x
+    block cost. bf16: row-major buffers [rows + 16][C] plus the 48 KB weight
+    ring, within 220 KB; f32: row-major [rows][C + 4] plus two slots of a
+    [C][2048/C + 4] chunk in hi and lo, within 227 KB."""
     m, batch = 153_600, 4
+    budget = tft.SMEM_BUDGET[dtype]
     tile = tft.tile_rows(c, dtype, 60, m, batch)
-    assert tft.smem_bytes(c, dtype, tile, 60) <= tft.SMEM_BUDGET
-    if dtype == torch.float32:
-        assert tile % 32 == 0 and 32 <= tile <= 1024
-        assert tile == 1024 or tft.smem_bytes(c, dtype, tile + 32, 60) > tft.SMEM_BUDGET
-        assert tft.smem_bytes(c, dtype, tile, 60) == 2 * c * (tile + 120) * 4
-        assert tft.tile_rows(c, dtype, 60, 40) == 64      # never past the sequence
-        return
+    assert tft.smem_bytes(c, dtype, tile, 60) <= budget
     assert tile % 2 == 0 and tile >= 32
-    assert tft.smem_bytes(c, dtype, tile, 60) == (tft.RING_STAGES * tft.RING_CHUNK
-                                                  + 2 * (tile + 136) * c * 2)
-    fits = [t for t in range(32, m + 1, 2) if tft.smem_bytes(c, dtype, t, 60) <= tft.SMEM_BUDGET]
-    assert tile + 2 not in fits or tft.smem_bytes(c, dtype, fits[-1] + 2, 60) > tft.SMEM_BUDGET
+    if dtype == torch.float32:
+        assert tft.smem_bytes(c, dtype, tile, 60) == (2 * (tile + 120) * (c + 4) * 4
+                                                      + 4 * c * (2048 // c + 4) * 4)
+    else:
+        assert tft.smem_bytes(c, dtype, tile, 60) == (tft.RING_STAGES * tft.RING_CHUNK
+                                                      + 2 * (tile + 136) * c * 2)
+    fits = [t for t in range(32, m + 1, 2) if tft.smem_bytes(c, dtype, t, 60) <= budget]
+    assert tile + 2 not in fits or tft.smem_bytes(c, dtype, fits[-1] + 2, 60) > budget
 
     def cost(t):
         waves = -(-batch * -(-m // t) // 132)
-        return waves * tft.block_cost(c, tft.conv_regions(KS, DILS, t))
+        return waves * tft.block_cost(c, tft.conv_regions(KS, DILS, t), dtype)
     assert cost(tile) == min(cost(t) for t in fits)
     assert tft.tile_rows(c, dtype, 60, 40) <= 40        # never past the sequence
 
@@ -100,11 +100,13 @@ def test_conv_regions_shrink_by_each_conv_padding():
     assert tft.block_cost(128, [(11, 260)]) == 22 * (2 + 1)     # 17 tiles: two rounds
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,m", [(128, 7_680), (64, 15_360), (32, 30_720), (16, 61_440)])
-def test_bf16_tiles_fill_the_card_at_batch_1(c, m):
+def test_bf16_tiles_fill_the_card_at_batch_1(c, m, dtype):
     """A batch-1 x 96-frame request's stage gets at least 120 blocks on the
-    H100's 132 SMs, and never more than one wave of them."""
-    tile = tft.tile_rows(c, torch.bfloat16, 60, m, 1, 132)
+    H100's 132 SMs, and never more than one wave of them, in both dtypes
+    (f32 is the server's default)."""
+    tile = tft.tile_rows(c, dtype, 60, m, 1, 132)
     assert 120 <= -(-m // tile) <= 132
 
 
@@ -114,3 +116,89 @@ def test_kernel_launcher_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tft.fused_resblock_trio_kernel(torch.zeros(1, 16, 40), tw, KS, DILS)
     assert tft.fused_resblock_trio_kernel.launches == before
+
+
+def _tf32(t):
+    """cvt.rna.tf32.f32 on the f32 bits, as the kernel's split computes it:
+    add half a TF32 ulp (0x1000), drop the 13 low bits (ties away from zero,
+    as the sign is a separate bit)."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tc(t):
+    """An f32 register as the tensor core reads it for a TF32 product: the
+    13 low bits dropped."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _conv_tf32(x, w, b, padding, dilation, terms):
+    """One conv as csrc/fused_tail.cu's f32 path computes it: each operand
+    split into hi = tf32(v) and lo = v - hi, which the tensor core reads
+    truncated; terms 3 sums lo_x hi_w + hi_x lo_w + hi_x hi_w, terms 1 only
+    hi_x hi_w. Every product of two TF32 values is exact in f32, so f32
+    convs of the parts give the kernel's products; the bias is added
+    after."""
+    xh, wh = _tf32(x), _tf32(w)
+    pairs = [(xh, wh)]
+    if terms == 3:
+        pairs = [(_tc(x - xh), wh), (xh, _tc(w - wh)), (xh, wh)]
+    y = sum(torch.nn.functional.conv1d(a, bw, padding=padding, dilation=dilation)
+            for a, bw in pairs)
+    return y + b[None, :, None]
+
+
+def _trio_tf32(x, weights, terms):
+    """trio_plain with every conv replaced by _conv_tf32."""
+    acc = None
+    for rb, k, dils in zip(weights, KS, DILS):
+        y = x
+        for ((w1, b1), (w2, b2)), d in zip(rb, dils):
+            p1, p2 = tft.ops.branch_paddings(k, d)
+            t = _conv_tf32(tft.ops.leaky_relu(y, tft.LRELU_SLOPE), w1, b1, p1, d, terms)
+            y = y + _conv_tf32(tft.ops.leaky_relu(t, tft.LRELU_SLOPE), w2, b2, p2, 1, terms)
+        acc = y if acc is None else acc + y
+    return acc / len(weights)
+
+
+def _rel_err(got, ref):
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def test_tf32_split_emulation_rounds_like_cvt_rna():
+    v = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12 - 2.0 ** -23])
+    # TF32 keeps 10 mantissa bits: ties go away from zero, below a tie down
+    assert _tf32(v).tolist() == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                                 -(1.0 + 2.0 ** -10), 1.0]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    hi = _tf32(x)
+    lo = _tc(x - hi)
+    assert (_tc(hi) == hi).all() and (_tc(lo) == lo).all()
+    assert float(((x - hi).abs() / x.abs()).max()) <= 2.0 ** -11
+    assert float(((hi + lo - x).abs() / x.abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("case", ["C128 K11 conv", "tiny trio"])
+def test_3xtf32_holds_f32_accuracy_and_1xtf32_does_not(case):
+    """The f32 path's split (3xTF32) stays within 1e-5 of an f64 reference
+    relative to max |ref|, where one TF32 product (1xTF32) does not: the
+    limits of the card's f32 checks (1e-4 of max(1, |ref|) against the
+    plain trio, 2e-5 of max |ref| for the CLIs' waveforms) need the split."""
+    rng = np.random.default_rng(11)
+    if case == "C128 K11 conv":
+        c, k, d = 128, 11, 3
+        x = torch.from_numpy(rng.standard_normal((1, c, 600)).astype(np.float32))
+        w = torch.from_numpy((rng.standard_normal((c, c, k)) / np.sqrt(c * k)).astype(np.float32))
+        b = torch.from_numpy(rng.standard_normal(c).astype(np.float32) * 0.1)
+        pad = tft.ops.branch_paddings(k, d)[0]
+        ref = torch.nn.functional.conv1d(x.double(), w.double(), b.double(), padding=pad,
+                                         dilation=d)
+        errs = {t: _rel_err(_conv_tf32(x, w, b, pad, d, t), ref) for t in (1, 3)}
+    else:
+        _, tw = _weights(rng, 16)
+        x = torch.from_numpy(rng.standard_normal((2, 16, 300)).astype(np.float32) * 0.5)
+        ref = tft.trio_plain(x.double(), [[tuple((w.double(), bb.double()) for w, bb in pair)
+                                           for pair in rb] for rb in tw], KS, DILS)
+        errs = {t: _rel_err(_trio_tf32(x, tw, t), ref) for t in (1, 3)}
+    assert errs[3] <= 1e-5, errs
+    assert errs[1] > 1e-5, errs
