@@ -98,9 +98,10 @@ def smem_bytes(channels: int, dtype: torch.dtype, tile: int, halo: int) -> int:
 
 # csrc/fused_tail.cu's warp layout per dtype and C (Cfg): warps across the
 # rows, m16 tiles a warp holds per round, weight rows (k) per ring chunk
-MMA_LAYOUT = {128: (8, 2, 64), 64: (16, 2, 128), 32: (16, 4, 128), 16: (16, 8, 128)}
-TF32_LAYOUT = {128: (4, 4, 16), 64: (8, 4, 32), 32: (16, 4, 64), 16: (16, 8, 128)}
-LAYOUTS = {torch.bfloat16: MMA_LAYOUT, torch.float32: TF32_LAYOUT}
+LAYOUTS = {
+    torch.bfloat16: {128: (8, 2, 64), 64: (16, 2, 128), 32: (16, 4, 128), 16: (16, 8, 128)},
+    torch.float32: {128: (4, 4, 16), 64: (8, 4, 32), 32: (16, 4, 64), 16: (16, 8, 128)},
+}
 
 
 def conv_regions(kernel_sizes, dilation_sizes, tile: int) -> list[tuple[int, int]]:
@@ -138,14 +139,14 @@ def block_cost(channels: int, regions, dtype: torch.dtype = torch.bfloat16) -> i
 def tile_rows(channels: int, dtype: torch.dtype, halo: int, m: int, batch: int = 1,
               n_sm: int = 132, kernel_sizes: tuple = (3, 7, 11),
               dilation_sizes: tuple = ((1, 3, 5),) * 3) -> int:
-    """Output rows per block whose buffers fit SMEM_BUDGET[dtype], one block per
-    SM in both dtypes: an even tile from 32 (or the sequence, if shorter) up
-    to what fits or the sequence needs. For each number of waves the
-    smallest such tile does the least work a block (block_cost grows with
-    the tile), so of those the one with the least waves x block_cost wins;
-    ties go to the fewer waves. Small tiles fill the card, large ones
-    recompute less halo, and a tile whose regions fill whole rounds wastes
-    no warps."""
+    """Output rows per block whose buffers fit SMEM_BUDGET[dtype], one block
+    per SM in both dtypes: an even tile from 32 (or the sequence, if
+    shorter) up to what fits or the sequence needs. For each number of
+    waves the smallest such tile does the least work a block (block_cost
+    grows with the tile), so of those the one with the least waves x
+    block_cost wins; ties go to the fewer waves. Small tiles fill the card,
+    large ones recompute less halo, and a tile whose regions fill whole
+    rounds wastes no warps."""
     row_bytes = smem_bytes(channels, dtype, 1, halo) - smem_bytes(channels, dtype, 0, halo)
     most = (SMEM_BUDGET[dtype] - smem_bytes(channels, dtype, 0, halo)) // row_bytes
     need = m + m % 2
