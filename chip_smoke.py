@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero before the last line:
      SDPA with the position term as a float bias mask, and the f32 path's
      at the f32 request's B1 H8 T192 beside SDPA in f32;
   4. fused resblock-trio kernel against its plain version, per stage width,
-     bf16 and f32 (3xTF32, 1e-4 of max(1, |ref|) with TF32 off); each
+     bf16 and f32 (3xTF32, TRIO_F32_TOL = 2e-5 of max(1, |ref|) with TF32
+     off, which the trio at one TF32 product, trio_one_tf32, must fail); each
      stage's time beside its plain version (cuDNN's 18 convs), its bound
      (f32: the FMA and the 3xTF32 bound) and its tile and blocks at the
      batch-4 x 240-frame and batch-1 x 96-frame row counts;
@@ -58,7 +59,8 @@ Phases, in order; any failure exits non-zero before the last line:
      plain path; then one step of the flagship multi_target_avhubert
      (frozen frontend: no gradient, no update);
  14. the trio's f32 path at the stage-2 GAN shapes (B16 x one 8,960-sample
-     segment: C128 M1,120 ... C16 M8,960) against its plain version, timed
+     segment: C128 M1,120 ... C16 M8,960) against its plain version at
+     TRIO_F32_TOL (which trio_one_tf32 must fail), timed
      beside it, the f32 FMA operations bound and the 3xTF32 bound;
  15. TrioFn: under grad fused_resblock_trio launches the kernel once and its
      gradients (x, weight_v, weight_g, bias) match autograd through the
@@ -473,13 +475,45 @@ def trio_bytes(x, ws) -> int:
         for rb in ws for pair in rb for w, bb in pair)
 
 
+# The trio's f32 path against trio_plain (TF32 off), of max(1, |ref|): 3xTF32
+# reads at most 5.5e-6 on an H100, one TF32 product a multiply (1xTF32)
+# 5e-5 to 7e-5, which must fail it (trio_one_tf32 in every f32 check).
+TRIO_F32_TOL = 2e-5
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to TF32 as cvt.rna.tf32.f32 rounds: half a TF32 ulp added
+    to the f32 bits, the 13 low bits dropped."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def trio_one_tf32(ft, x, ws, ks, dils) -> torch.Tensor:
+    """The trio at one TF32 product a multiply (1xTF32): trio_plain with
+    every conv's input (after its lrelu) and weights rounded to TF32. With
+    TF32 off the products of TF32 values are exact in f32, so only the
+    rounding of the operands differs from the f32 trio."""
+    def conv(v, w, b, pad, d):
+        return ft.ops.conv1d(tf32_round(ft.ops.leaky_relu(v, ft.LRELU_SLOPE)), tf32_round(w), b,
+                             padding=pad, dilation=d)
+    acc = None
+    for rb, k, ds in zip(ws, ks, dils):
+        y = x
+        for ((w1, b1), (w2, b2)), d in zip(rb, ds):
+            p1, p2 = ft.ops.branch_paddings(k, d)
+            y = y + conv(conv(y, w1, b1, p1, d), w2, b2, p2, 1)
+        acc = y if acc is None else acc + y
+    return acc / len(ws)
+
+
 def phase_trio(ft, dev, vcfg) -> dict:
     """Kernel 2 per stage width, both dtypes, at the batch-4 x 240-frame and
     batch-1 x 96-frame row counts (each timed beside its plain version, its
     bound, and in f32 the 3xTF32 bound beside the FMA one; the tile and
     blocks a stage) plus a row count that is not a tile multiple. Returns
     the bf16 totals at batch 4 (the kernels line's numbers) with each
-    stage's numbers and the f32 totals at both shapes."""
+    stage's numbers and the f32 totals at both shapes. f32 is held to
+    TRIO_F32_TOL, which the trio at one TF32 product must fail at both
+    timed shapes."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(2)
     ks = tuple(vcfg.resblock_kernel_sizes)
@@ -514,11 +548,16 @@ def phase_trio(ft, dev, vcfg) -> dict:
                 # f32: summation order (3xTF32 drops ~2^-22 of each product);
                 # bf16: both round after every op, so a one-ulp split early in
                 # the 18-conv chain can propagate
-                tol = (1e-4 if dtype == torch.float32 else 3e-2) * scale
+                tol = (TRIO_F32_TOL if dtype == torch.float32 else 3e-2) * scale
                 finite = bool(torch.isfinite(out.float()).all())
                 max_err[dtype] = max(max_err[dtype], err)
                 line = (f"fused_trio C{c} B{bsz} M{m} {name}: max_abs_err {err:.3e} "
                         f"(tol {tol:.3g}) finite {finite}")
+                if timed and dtype == torch.float32:
+                    one = float((trio_one_tf32(ft, x, ws, ks, dils) - ref).abs().max())
+                    line += f" 1xTF32 {one:.3e}"
+                    if not one > tol:
+                        failures.append(f"{line}: 1xTF32 passes the f32 limit")
                 if timed:
                     k_ms = time_ms(lambda: ft.fused_resblock_trio_kernel(x, ws, ks, dils), iters=5)
                     p_ms = time_ms(lambda: ft.trio_plain(x, ws, ks, dils), iters=5)
@@ -545,7 +584,7 @@ def phase_trio(ft, dev, vcfg) -> dict:
                     failures.append(line)
         stages.append(stage)
     if failures:
-        fail("fused trio kernel disagrees with its plain version")
+        fail(f"fused trio kernel disagrees with its plain version: {failures}")
     slower = [f"C{st['channels']} {shape}" for st in stages
               for shape in ("B4x240", "B1x96", "f32_B4x240", "f32_B1x96")
               if st[shape]["ms"] > st[shape]["plain_ms"]]
@@ -1419,9 +1458,10 @@ def gan_stage_rows(vcfg) -> list[tuple[int, int]]:
 
 def phase_trio_gan(ft, dev, vcfg, batch: int) -> dict:
     """Kernel 2's f32 path at the GAN step's shapes (batch x one segment per
-    stage), TF32 off: against its plain version (1e-4 of max(1, |ref|)),
-    timed beside the plain version (cuDNN's 18 f32 convs), the f32 FMA
-    operations bound and the 3xTF32 bound."""
+    stage), TF32 off: against its plain version (TRIO_F32_TOL of max(1,
+    |ref|), which the trio at one TF32 product must fail), timed beside the
+    plain version (cuDNN's 18 f32 convs), the f32 FMA operations bound and
+    the 3xTF32 bound."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(5)
     ks = tuple(vcfg.resblock_kernel_sizes)
@@ -1438,18 +1478,21 @@ def phase_trio_gan(ft, dev, vcfg, batch: int) -> dict:
             ref = ft.trio_plain(x, ws, ks, dils)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
-            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            tol = TRIO_F32_TOL * max(1.0, float(ref.abs().max()))
+            one = float((trio_one_tf32(ft, x, ws, ks, dils) - ref).abs().max())
             k_ms = time_ms(lambda: ft.fused_resblock_trio_kernel(x, ws, ks, dils), iters=5)
             p_ms = time_ms(lambda: ft.trio_plain(x, ws, ks, dils), iters=5)
         n_bytes, flops = trio_bytes(x, ws), 2 * macs_per_row * c * c * batch * m
         bms, by = bound_ms(n_bytes, flops, torch.float32)
         tf32_bms = tf32x3_bound_ms(n_bytes, flops)
         line = (f"fused_trio GAN shape C{c} B{batch} M{m} f32: max_abs_err {err:.3e} (tol {tol:.3g}) "
-                f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {bms:.4f} ({by}, "
-                f"{flops / 1e9:.1f} GFLOP) 3xTF32 bound_ms {tf32_bms:.4f}")
+                f"1xTF32 {one:.3e} kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {bms:.4f} "
+                f"({by}, {flops / 1e9:.1f} GFLOP) 3xTF32 bound_ms {tf32_bms:.4f}")
         print(line, flush=True)
         if not (err <= tol and bool(torch.isfinite(out).all())):
             failures.append(line)
+        if not one > tol:
+            failures.append(f"{line}: 1xTF32 passes the f32 limit")
         stages.append({"channels": c, "rows": m, "batch": batch, "ms": k_ms, "plain_ms": p_ms,
                        "bound_ms": bms, "bound_by": by, "tf32x3_bound_ms": tf32_bms,
                        "max_abs_err": err})
@@ -1459,7 +1502,7 @@ def phase_trio_gan(ft, dev, vcfg, batch: int) -> dict:
         totals["tf32x3_bound_ms"] += tf32_bms
         totals["max_abs_err"] = max(totals["max_abs_err"], err)
     if failures:
-        fail("fused trio f32 disagrees with its plain version at the GAN shapes")
+        fail(f"fused trio f32 disagrees with its plain version at the GAN shapes: {failures}")
     print(f"fused_trio f32 GAN shapes, four stages: kernel_ms {totals['ms']:.4f} plain_ms "
           f"{totals['plain_ms']:.4f} bound_ms {totals['bound_ms']:.4f} 3xTF32 bound_ms "
           f"{totals['tf32x3_bound_ms']:.4f}", flush=True)

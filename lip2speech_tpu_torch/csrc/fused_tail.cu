@@ -226,23 +226,99 @@ ConvTab conv_table(const TrioGeom& g, int tile, int C, int per_round) {
 }
 
 // ---------------------------------------------------------------------------
+// Shared by both paths: the block, the tile's load and fold, the launch
+// ---------------------------------------------------------------------------
+constexpr int kThreads = 512;            // 16 warps, one block per SM
+constexpr int kWarps = kThreads / 32;
+constexpr int kBatch = 8;                // rows a lane loads at once in the copy loops
+
+// x rows [lo, hi) of a batch item (xg: (C, M)) into the activation buffer
+// xb, element (row, channel) at Buf::at: a warp reads 32 consecutive rows of
+// one channel per load, kBatch loads in flight before the stores; rows
+// outside [0, M) are zero.
+template <int C, typename Buf, typename T>
+__device__ __forceinline__ void load_rows(const T* __restrict__ xg, T* __restrict__ xb, int lo,
+                                          int hi, int row0, int M) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = warp; c < C; c += kWarps) {
+    const T* src = xg + (size_t)c * M;
+    for (int l0 = lo + lane; l0 < hi; l0 += 32 * kBatch) {
+      T v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int l = l0 + 32 * u, gr = row0 + l;
+        v[u] = (l < hi && gr >= 0 && gr < M) ? src[gr] : from_f<T>(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (l0 + 32 * u < hi) xb[Buf::at(l0 + 32 * u, c)] = v[u];
+    }
+  }
+}
+
+// Rows [halo, halo + tile) of xb hold resblock r's output: fold them into
+// the output tile (og: (C, M), rows t0..), rounding the running sum to T
+// and dividing by n_res after the last. Each element is read and written
+// by the same thread.
+template <int C, typename Buf, typename T>
+__device__ __forceinline__ void fold_rows(const T* __restrict__ xb, T* __restrict__ og, int r,
+                                          int n_res, int t0, int tile, int halo, int M) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = warp; c < C; c += kWarps) {
+    T* dst = og + (size_t)c * M;
+    for (int l0 = lane; l0 < tile; l0 += 32 * kBatch) {
+      float prev[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int l = l0 + 32 * u;
+        prev[u] = (r > 0 && l < tile && t0 + l < M) ? to_f(dst[t0 + l]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int l = l0 + 32 * u;
+        if (l >= tile || t0 + l >= M) continue;
+        const float v = to_f(xb[Buf::at(halo + l, c)]);
+        float s = r == 0 ? v : round_t<T>(prev[u] + v);
+        if (r == n_res - 1) s = s / (float)n_res;
+        dst[t0 + l] = from_f<T>(s);
+      }
+    }
+  }
+}
+
+// Launch a path's kernel over (row tiles, batch items) with smem bytes of
+// dynamic shared memory. w must be 16-byte aligned: both paths read it in
+// 16-byte pieces.
+template <typename T, typename Kernel>
+cudaError_t launch_trio(Kernel kern, size_t smem, const void* x, const void* w, const void* bias,
+                        void* out, int B, int M, int tile, int halo, const ConvTab& tb,
+                        cudaStream_t stream) {
+  if (!mma::aligned16({w})) return cudaErrorMisalignedAddress;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((M + tile - 1) / tile, B);
+  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                                         static_cast<const T*>(bias), static_cast<T*>(out), M,
+                                         tile, halo, tb);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // bf16: mma.sync on the tensor cores, weights streamed through shared memory
 // ---------------------------------------------------------------------------
 namespace mma_path {
 
-constexpr int kThreadsM = 512;           // 16 warps, one block per SM
-constexpr int kWarpsM = kThreadsM / 32;
 constexpr int kStages = 3;               // weight ring slots
 constexpr int kSlotBytes = 16384;        // one slot (the largest chunk)
 constexpr int kSlotElems = kSlotBytes / 2;
 constexpr int kSlack = 16;               // rows a last m16 tile may read past a region
-constexpr int kBatch = 8;                // rows a lane loads at once in the copy loops
 
 template <int C>
 struct Cfg {
   static constexpr int kCPR = C / 8;                  // 16-byte chunks per row
   static constexpr int kWN = C >= 128 ? 2 : 1;        // warps across the outputs
-  static constexpr int kWM = kWarpsM / kWN;           // warps across the rows
+  static constexpr int kWM = kWarps / kWN;            // warps across the rows
   static constexpr int kCols = C / kWN;               // outputs of one warp
   static constexpr int kNT = kCols / 8;               // its n8 tiles
   static constexpr int kMT = 128 / kCols;             // its m16 tiles per round (64 f32 acc)
@@ -260,6 +336,11 @@ __device__ __forceinline__ int swz(int row, int col) {
   const int f = kCPR >= 8 ? (row & 7) : kCPR == 4 ? ((row >> 1) & 3) : ((row >> 2) & 1);
   return row * C + ((((col >> 3) ^ f)) << 3) + (col & 7);
 }
+
+template <int C>
+struct Buf {
+  static __device__ __forceinline__ int at(int row, int col) { return swz<C>(row, col); }
+};
 
 // lrelu on both bf16 halves of an A-fragment register, the same values as
 // the epilogue's lrelu: max(v, bf16(0.1 v)) is v for v >= 0 and the rounded
@@ -286,7 +367,7 @@ __device__ __forceinline__ void issue(Cursor& cu, bf16* slot, const bf16* __rest
     const int r0 = cu.c * Cfg<C>::kKR;
     const int rows = min(Cfg<C>::kKR, tb.k[cu.j] * C - r0);
     const bf16* src = w + ((size_t)tb.wrow[cu.j] + r0) * C;
-    for (int e = threadIdx.x; e < rows * Cfg<C>::kCPR; e += kThreadsM) {
+    for (int e = threadIdx.x; e < rows * Cfg<C>::kCPR; e += kThreads) {
       const int r = e / Cfg<C>::kCPR, u = e % Cfg<C>::kCPR;
       mma::cp_async16(slot + swz<C>(r, 8 * u), src + (size_t)r * C + 8 * u, true);
     }
@@ -399,7 +480,7 @@ __device__ __forceinline__ void conv(const bf16* __restrict__ in, bf16* __restri
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreadsM, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 trio_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ bias,
          bf16* __restrict__ out, int M, int tile, int halo, const __grid_constant__ ConvTab tb) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -409,7 +490,6 @@ trio_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __r
   bf16* xt = xb + BR * C;                      // activated conv1 output
   const int t0 = blockIdx.x * tile;
   const int row0 = t0 - halo;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bf16* xg = x + (size_t)blockIdx.y * C * M;
   bf16* og = out + (size_t)blockIdx.y * C * M;
 
@@ -417,51 +497,14 @@ trio_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, const bf16* __r
 
   for (int r = 0; r < tb.n_res; ++r) {
     const int j0 = 2 * r * tb.n_dil;
-    const int lo = tb.olo[j0] - tb.pad[j0], hi = tb.ohi[j0] + tb.pad[j0];
-    // x rows [lo, hi) into xb: a warp reads 32 consecutive rows of one
-    // channel per load, kBatch loads in flight before the stores
-    for (int c = warp; c < C; c += kWarpsM) {
-      const bf16* src = xg + (size_t)c * M;
-      for (int l0 = lo + lane; l0 < hi; l0 += 32 * kBatch) {
-        bf16 v[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int l = l0 + 32 * u, gr = row0 + l;
-          v[u] = (l < hi && gr >= 0 && gr < M) ? src[gr] : from_f<bf16>(0.f);
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-          if (l0 + 32 * u < hi) xb[swz<C>(l0 + 32 * u, c)] = v[u];
-      }
-    }
+    load_rows<C, Buf<C>>(xg, xb, tb.olo[j0] - tb.pad[j0], tb.ohi[j0] + tb.pad[j0], row0, M);
     // (the first chunk's barrier in conv() orders these stores before any read)
     for (int i = 0; i < tb.n_dil; ++i) {
       conv<C, true>(xb, xt, w, bias, tb, j0 + 2 * i, ring, row0, M);
       conv<C, false>(xt, xb, w, bias, tb, j0 + 2 * i + 1, ring, row0, M);
     }
     __syncthreads();
-    // rows [H, H + tile) now hold this resblock's output: fold it into the
-    // output tile (each element is read and written by the same thread)
-    for (int c = warp; c < C; c += kWarpsM) {
-      bf16* dst = og + (size_t)c * M;
-      for (int l0 = lane; l0 < tile; l0 += 32 * kBatch) {
-        float prev[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int l = l0 + 32 * u;
-          prev[u] = (r > 0 && l < tile && t0 + l < M) ? to_f(dst[t0 + l]) : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int l = l0 + 32 * u;
-          if (l >= tile || t0 + l >= M) continue;
-          const float v = to_f(xb[swz<C>(halo + l, c)]);
-          float s = r == 0 ? v : round_t<bf16>(prev[u] + v);
-          if (r == tb.n_res - 1) s = s / (float)tb.n_res;
-          dst[t0 + l] = from_f<bf16>(s);
-        }
-      }
-    }
+    fold_rows<C, Buf<C>>(xb, og, r, tb.n_res, t0, tile, halo, M);
     __syncthreads();   // before the next resblock's load overwrites xb
   }
   mma::cp_async_wait<0>();
@@ -475,18 +518,8 @@ size_t smem_bytes(int tile, int halo) {
 template <int C>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out, int B, int M,
                    int tile, const TrioGeom& g, cudaStream_t stream) {
-  if (!mma::aligned16({w})) return cudaErrorMisalignedAddress;
-  const size_t smem = smem_bytes<C>(tile, g.halo);
-  auto kern = trio_mma<C>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((M + tile - 1) / tile, B);
-  kern<<<grid, kThreadsM, smem, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                                          static_cast<const bf16*>(bias), static_cast<bf16*>(out),
-                                          M, tile, g.halo,
-                                          conv_table(g, tile, C, Cfg<C>::kRoundTiles));
-  return cudaGetLastError();
+  return launch_trio<bf16>(trio_mma<C>, smem_bytes<C>(tile, g.halo), x, w, bias, out, B, M,
+                           tile, g.halo, conv_table(g, tile, C, Cfg<C>::kRoundTiles), stream);
 }
 
 }  // namespace mma_path
@@ -495,10 +528,6 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out, in
 // f32: 3xTF32 mma.sync on the tensor cores, weights streamed through shared memory
 // ---------------------------------------------------------------------------
 namespace tf32_path {
-
-constexpr int kThreadsT = 512;           // 16 warps, one block per SM
-constexpr int kWarpsT = kThreadsT / 32;
-constexpr int kBatch = 8;                // rows a lane loads at once in the copy loops
 
 template <int C>
 struct Cfg {
@@ -509,15 +538,20 @@ struct Cfg {
   static constexpr int kSlot = 2 * kHalf;             // a slot: hi, then lo
   static constexpr int kCols = C < 32 ? C : 32;       // outputs of one warp
   static constexpr int kWN = C / kCols;               // warps across the outputs
-  static constexpr int kWM = kWarpsT / kWN;           // warps across the rows
+  static constexpr int kWM = kWarps / kWN;            // warps across the rows
   static constexpr int kNT = kCols / 8;               // its n8 tiles
   static constexpr int kMT = 128 / kCols;             // its m16 tiles per round (64 f32 acc)
   static constexpr int kSteps = kKC / 8;              // k8 steps of a full chunk
   static constexpr int kRoundTiles = kWM * kMT;
-  static_assert(C * kKC == 4 * kThreadsT, "a thread stages 4 floats of a chunk");
+  static_assert(C * kKC == 4 * kThreads, "a thread stages 4 floats of a chunk");
   // a last m16 tile reads up to 15 rows past its input region: past xt
   // those rows must still lie in the block's shared memory (the ring)
   static_assert(2 * kSlot >= 15 * kS, "ring too small to absorb the overread");
+};
+
+template <int C>
+struct Buf {
+  static __device__ __forceinline__ int at(int row, int col) { return row * Cfg<C>::kS + col; }
 };
 
 // v = hi + lo exactly: hi is v rounded to TF32 (to nearest, ties away, as
@@ -719,7 +753,7 @@ __device__ __forceinline__ void conv(const float* __restrict__ in, float* __rest
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreadsT, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 trio_tf32(const float* __restrict__ x, const float* __restrict__ w,
           const float* __restrict__ bias, float* __restrict__ out, int M, int tile, int halo,
           const __grid_constant__ ConvTab tb) {
@@ -731,7 +765,6 @@ trio_tf32(const float* __restrict__ x, const float* __restrict__ w,
   WeightRing ring{xt + BR * Q::kS, {0, 0, 0}, 0, {}};   // behind xt: absorbs the overread
   const int t0 = blockIdx.x * tile;
   const int row0 = t0 - halo;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* xg = x + (size_t)blockIdx.y * C * M;
   float* og = out + (size_t)blockIdx.y * C * M;
 
@@ -740,51 +773,14 @@ trio_tf32(const float* __restrict__ x, const float* __restrict__ w,
 
   for (int r = 0; r < tb.n_res; ++r) {
     const int j0 = 2 * r * tb.n_dil;
-    const int lo = tb.olo[j0] - tb.pad[j0], hi = tb.ohi[j0] + tb.pad[j0];
-    // x rows [lo, hi) into xb: a warp reads 32 consecutive rows of one
-    // channel per load, kBatch loads in flight before the stores
-    for (int c = warp; c < C; c += kWarpsT) {
-      const float* src = xg + (size_t)c * M;
-      for (int l0 = lo + lane; l0 < hi; l0 += 32 * kBatch) {
-        float v[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int l = l0 + 32 * u, gr = row0 + l;
-          v[u] = (l < hi && gr >= 0 && gr < M) ? src[gr] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-          if (l0 + 32 * u < hi) xb[(l0 + 32 * u) * Q::kS + c] = v[u];
-      }
-    }
+    load_rows<C, Buf<C>>(xg, xb, tb.olo[j0] - tb.pad[j0], tb.ohi[j0] + tb.pad[j0], row0, M);
     // (the first chunk's barrier in conv() orders these stores before any read)
     for (int i = 0; i < tb.n_dil; ++i) {
       conv<C, true>(xb, xt, w, bias, tb, j0 + 2 * i, ring, row0, M);
       conv<C, false>(xt, xb, w, bias, tb, j0 + 2 * i + 1, ring, row0, M);
     }
     __syncthreads();
-    // rows [H, H + tile) now hold this resblock's output: fold it into the
-    // output tile (each element is read and written by the same thread)
-    for (int c = warp; c < C; c += kWarpsT) {
-      float* dst = og + (size_t)c * M;
-      for (int l0 = lane; l0 < tile; l0 += 32 * kBatch) {
-        float prev[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int l = l0 + 32 * u;
-          prev[u] = (r > 0 && l < tile && t0 + l < M) ? dst[t0 + l] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int l = l0 + 32 * u;
-          if (l >= tile || t0 + l >= M) continue;
-          const float v = xb[(halo + l) * Q::kS + c];
-          float s = r == 0 ? v : prev[u] + v;
-          if (r == tb.n_res - 1) s = s / (float)tb.n_res;
-          dst[t0 + l] = s;
-        }
-      }
-    }
+    fold_rows<C, Buf<C>>(xb, og, r, tb.n_res, t0, tile, halo, M);
     __syncthreads();   // before the next resblock's load overwrites xb
   }
 }
@@ -797,19 +793,8 @@ size_t smem_bytes(int tile, int halo) {
 template <int C>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out, int B, int M,
                    int tile, const TrioGeom& g, cudaStream_t stream) {
-  if (!mma::aligned16({w})) return cudaErrorMisalignedAddress;   // float4 weight loads
-  const size_t smem = smem_bytes<C>(tile, g.halo);
-  auto kern = trio_tf32<C>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((M + tile - 1) / tile, B);
-  kern<<<grid, kThreadsT, smem, stream>>>(static_cast<const float*>(x),
-                                          static_cast<const float*>(w),
-                                          static_cast<const float*>(bias),
-                                          static_cast<float*>(out), M, tile, g.halo,
-                                          conv_table(g, tile, C, Cfg<C>::kRoundTiles));
-  return cudaGetLastError();
+  return launch_trio<float>(trio_tf32<C>, smem_bytes<C>(tile, g.halo), x, w, bias, out, B, M,
+                            tile, g.halo, conv_table(g, tile, C, Cfg<C>::kRoundTiles), stream);
 }
 
 }  // namespace tf32_path

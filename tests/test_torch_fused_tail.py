@@ -4,6 +4,9 @@ JAX package's fused Pallas kernel in interpret mode and its XLA reference.
 The JAX kernel works on the folded (B, M, fold*C) layout; unfolding is a
 reshape to (B, M*fold, C), then the port's (B, C, M*fold) conv layout."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -87,6 +90,51 @@ def test_tile_rows_fit_shared_memory(c, dtype):
     assert tft.tile_rows(c, dtype, 60, 40) <= 40        # never past the sequence
 
 
+CU = Path(tft.__file__).resolve().parent.parent / "csrc" / "fused_tail.cu"
+
+
+def _cxx(expr: str) -> str:
+    """A constant expression of csrc/fused_tail.cu in Python (integer
+    division; one ternary at most)."""
+    expr = re.sub(r"\(size_t\)|Cfg<C>::", "", expr)
+    expr = expr.replace("sizeof(bf16)", "2").replace("sizeof(float)", "4").replace("/", "//")
+    m = re.fullmatch(r"(.+?)\s*\?\s*(.+?)\s*:\s*(.+)", expr)
+    return f"({m[2]}) if ({m[1]}) else ({m[3]})" if m else expr
+
+
+def _kernel_layout(path: str, c: int) -> dict:
+    """The int constants of csrc/fused_tail.cu at C = c: the file's own and
+    those of namespace `path` and its Cfg<C>; "smem" is its smem_bytes."""
+    src = CU.read_text()
+    body = src[src.index(f"namespace {path} {{"):src.index(f"}}  // namespace {path}")]
+    shared = src[:src.index("namespace mma_path {")]
+    env = {"C": c}
+    for name, expr in re.findall(r"^\s*(?:static )?constexpr int (\w+) = ([^;]+);",
+                                 shared + body, re.M):
+        env[name] = eval(_cxx(expr), {}, env)
+    ret = re.search(r"size_t smem_bytes\(int tile, int halo\) \{\s*return ([^;]+);", body)[1]
+    env["smem"] = lambda tile, halo: eval(_cxx(ret), {}, {**env, "tile": tile, "halo": halo})
+    return env
+
+
+@pytest.mark.parametrize("c", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layout_tables_match_the_kernel_source(c, dtype):
+    """tile_rows sizes the kernel's tiles from tables of its own: LAYOUTS
+    (row warps, m16 tiles a warp holds per round, weight rows per chunk),
+    smem_bytes and the ring and geometry sizes. They are the constants of
+    csrc/fused_tail.cu's Cfg<C> and smem_bytes for each path, read from the
+    source."""
+    k = _kernel_layout("tf32_path" if dtype == torch.float32 else "mma_path", c)
+    chunk = k["kKC"] if dtype == torch.float32 else k["kKR"]
+    assert tft.LAYOUTS[dtype][c] == (k["kWM"], k["kMT"], chunk)
+    for tile, halo in ((32, 60), (54, 60), (1000, 7)):
+        assert tft.smem_bytes(c, dtype, tile, halo) == k["smem"](tile, halo)
+    assert (tft.MAX_RES, tft.MAX_DIL) == (k["kMaxRes"], k["kMaxDil"])
+    if dtype == torch.bfloat16:
+        assert (tft.RING_STAGES, tft.RING_CHUNK) == (k["kStages"], k["kSlotBytes"])
+
+
 def test_conv_regions_shrink_by_each_conv_padding():
     """The rows each conv of the default trio computes for one 100-row tile
     (csrc/fused_tail.cu: conv_table): the k=11 chain needs 60 halo rows."""
@@ -165,6 +213,9 @@ def _rel_err(got, ref):
 
 
 def test_tf32_split_emulation_rounds_like_cvt_rna():
+    """The emulation's rounding (as cvt.rna.tf32.f32 rounds, and as the
+    kernel's split computes it) and that hi + lo recovers v to ~2^-21; the
+    kernel itself is checked on the card."""
     v = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12, -(1.0 + 2.0 ** -11),
                       1.0 + 2.0 ** -12 - 2.0 ** -23])
     # TF32 keeps 10 mantissa bits: ties go away from zero, below a tie down
@@ -180,10 +231,12 @@ def test_tf32_split_emulation_rounds_like_cvt_rna():
 
 @pytest.mark.parametrize("case", ["C128 K11 conv", "tiny trio"])
 def test_3xtf32_holds_f32_accuracy_and_1xtf32_does_not(case):
-    """The f32 path's split (3xTF32) stays within 1e-5 of an f64 reference
-    relative to max |ref|, where one TF32 product (1xTF32) does not: the
-    limits of the card's f32 checks (1e-4 of max(1, |ref|) against the
-    plain trio, 2e-5 of max |ref| for the CLIs' waveforms) need the split."""
+    """The method, not the kernel: the f32 path's split (3xTF32), emulated
+    in plain PyTorch, stays within 1e-5 of an f64 reference relative to max
+    |ref|, where one TF32 product (1xTF32) does not. The kernel's own split
+    is held on the card, where chip_smoke.py's f32 trio limit (TRIO_F32_TOL,
+    2e-5 of max(1, |ref|) against the plain trio) passes 3xTF32 and fails
+    1xTF32."""
     rng = np.random.default_rng(11)
     if case == "C128 K11 conv":
         c, k, d = 128, 11, 3
