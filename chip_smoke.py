@@ -476,8 +476,9 @@ def trio_bytes(x, ws) -> int:
 
 
 # The trio's f32 path against trio_plain (TF32 off), of max(1, |ref|): 3xTF32
-# reads at most 5.5e-6 on an H100, one TF32 product a multiply (1xTF32)
-# 5e-5 to 7e-5, which must fail it (trio_one_tf32 in every f32 check).
+# reads at most 2.1e-6 on an H100, a copy of the kernel at one TF32 product a
+# multiply (1xTF32) 5.2e-5 to 6.4e-5, which must fail it, as trio_one_tf32
+# must at every timed shape.
 TRIO_F32_TOL = 2e-5
 
 
