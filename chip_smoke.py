@@ -132,6 +132,7 @@ PEAK_FLOPS = {torch.float32: 67e12,            # FP32, CUDA cores
               torch.bfloat16: 989e12}          # BF16 dense, tensor cores
 TF32_FLOPS = 494.7e12                          # TF32 dense, tensor cores
 MAIN_LENS = (240, 200, 150, 97)                # batch-4 request lengths
+TRAIN_SHAPE = (8, 8, 1200)     # B, H, T of the recipe: 8 x 600 frames, 2 tokens a frame
 
 
 def fail(msg: str) -> None:
@@ -194,7 +195,7 @@ def valid_rows_err(out, ref, lens) -> float:
 # on mma.sync in 3xTF32
 TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd", "rel_attention_bias",
                        "rel_attention_bias_bwd", "attention", "fused_tail")
-TF32_KERNELS = ("fused_tail",)
+TF32_KERNELS = ("rel_attention", "rel_attention_bwd", "fused_tail")
 
 
 def sass_tensor_core_counts(build) -> tuple[dict, dict]:
@@ -263,32 +264,91 @@ def phase_attention(ra, dev) -> dict:
     if failures:
         fail("rel_attention kernel disagrees with its plain version")
     result["train_shape"] = rel_attention_train_shape(ra, dev, gen)
-    result["f32_request"] = rel_attention_f32_request(ra, dev, gen)
+    result["f32"] = rel_attention_f32_times(ra, dev, gen)
     return result
 
 
-def rel_attention_f32_request(ra, dev, gen) -> dict:
-    """Kernel 1's f32 path at the server's default request (f32, B1 x 96
-    frames: B1 H8 T192, all keys valid; 12 launches a request): its time
-    beside the plain version, SDPA in f32 with the position term as a float
-    bias mask, and its f32 bound."""
-    b, h, t, dk, dtype = 1, 8, 192, 64, torch.float32
-    mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
-    q_u, q_v, k, v = (mk(b, h, t, dk) for _ in range(4))
-    p = mk(h, 2 * t - 1, dk)
-    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
-    k_ms = time_ms(lambda: ra.rel_attention_kernel(q_u, q_v, k, v, p, mask))
-    plain_ms = time_ms(lambda: ra.dense_rel_attention(q_u, q_v, k, v, p, mask))
-    bias = ra.rel_position_bias(q_v, p)
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q_u, k, v, attn_mask=bias))
-    n_bytes = 5 * b * h * t * dk * 4 + h * (2 * t - 1) * dk * 4 + b * t + b * h * t * 4
-    bms, by = bound_ms(n_bytes, 3 * 2 * b * h * t * t * dk, dtype)
-    print(f"rel_attention B{b} H{h} T{t} f32 (the f32 request): kernel_ms {k_ms:.4f} "
-          f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA f32, float bias mask) "
-          f"bound_ms {bms:.4f} ({by})", flush=True)
-    return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
-            "bound_by": by}
+def rel_attention_one_tf32(ra, q_u, q_v, k, v, p, mask) -> torch.Tensor:
+    """Kernel 1's forward at one TF32 product a multiply (1xTF32): the plain
+    version with every product's operands rounded to TF32, P included. With
+    TF32 off the products of TF32 values are exact in f32, so only the
+    rounding of the operands differs from the f32 plain version."""
+    r = tf32_round
+    s = (torch.einsum("bhqd,bhkd->bhqk", r(q_u), r(k))
+         + ra.rel_shift(torch.einsum("bhqd,hpd->bhqp", r(q_v), r(p)))) / math.sqrt(q_u.shape[-1])
+    m = mask[:, None, None, :]
+    attn = torch.softmax(s.masked_fill(~m, ra.NEG_INF), dim=-1).masked_fill(~m, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", r(attn), r(v))
+
+
+def rel_attention_bwd_one_tf32(ra, q_u, q_v, k, v, p, mask, lse, out, g) -> tuple:
+    """Kernel 3 at one TF32 product a multiply: rel_attention_bwd_plain's
+    formulas with every product's operands rounded to TF32, P, dS and dG
+    included."""
+    r = tf32_round
+    scale = 1.0 / math.sqrt(q_u.shape[-1])
+    s = (torch.einsum("bhqd,bhkd->bhqk", r(q_u), r(k))
+         + ra.rel_shift(torch.einsum("bhqd,hpd->bhqp", r(q_v), r(p)))) * scale
+    valid = mask[:, None, None, :] & (lse > ra.NEG_INF / 2)[..., None]
+    prob = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    dpr = torch.einsum("bhqd,bhkd->bhqk", r(g), r(v))
+    ds = prob * (dpr - (g * out).sum(-1, keepdim=True)) * scale
+    dg = ra.rel_unshift(ds)
+    return (torch.einsum("bhqk,bhkd->bhqd", r(ds), r(k)), torch.einsum("bhqp,hpd->bhqd", r(dg), r(p)),
+            torch.einsum("bhqk,bhqd->bhkd", r(ds), r(q_u)), torch.einsum("bhqk,bhqd->bhkd", r(prob), r(g)),
+            torch.einsum("bhqp,bhqd->hpd", r(dg), r(q_v)))
+
+
+# f32 shapes of kernels 1 and 3: the server's f32 request (B1 x 96 frames:
+# B1 H8 T192, all keys valid, 12 forwards a request), the serving batch's and
+# the stage-1 recipe's micro-batch (8 x 600 frames: 24 forwards and 24
+# backwards an update through the train_stage1 CLI, which trains in f32)
+REL_F32_FWD_SHAPES = ((1, 8, 192), (4, 8, 480), TRAIN_SHAPE)
+REL_F32_BWD_SHAPES = ((4, 8, 480), TRAIN_SHAPE)
+
+
+def rel_attention_f32_times(ra, dev, gen) -> dict:
+    """Kernel 1's f32 path (3xTF32) at REL_F32_FWD_SHAPES, ragged (a fully
+    masked batch row from batch 4 on): within 1e-4 of its plain version,
+    where the forward at one TF32 product (rel_attention_one_tf32) must
+    not be; timed with all keys valid beside the plain version, f32 SDPA
+    with the position term as a float bias mask, its f32 FMA bound and its
+    3xTF32 bound."""
+    rows, failures = {}, []
+    for b, h, t in REL_F32_FWD_SHAPES:
+        (q_u, q_v, k, v, p), mask, _ = bwd_inputs(gen, b, h, t, torch.float32, dev)
+        lens = mask.sum(1).tolist()
+        out, _ = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask)
+        ref = ra.dense_rel_attention(q_u, q_v, k, v, p, mask)
+        err = valid_rows_err(out, ref, lens)
+        one = valid_rows_err(rel_attention_one_tf32(ra, q_u, q_v, k, v, p, mask), ref, lens)
+        del out, ref
+        full = torch.ones(b, t, dtype=torch.bool, device=dev)
+        big = t >= TRAIN_SHAPE[2]
+        k_ms = time_ms(lambda: ra.rel_attention_kernel(q_u, q_v, k, v, p, full), iters=10 if big else 20)
+        plain_ms = time_ms(lambda: ra.dense_rel_attention(q_u, q_v, k, v, p, full), iters=3 if big else 10)
+        bias = ra.rel_position_bias(q_v, p)
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q_u, k, v, attn_mask=bias), iters=10 if big else 20)
+        n_bytes = 5 * b * h * t * 64 * 4 + h * (2 * t - 1) * 64 * 4 + b * t + b * h * t * 4
+        flops = 3 * 2 * b * h * t * t * 64
+        bms, by = bound_ms(n_bytes, flops, torch.float32)
+        row = {"max_abs_err": err, "one_tf32_err": one, "ms": k_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+               "tf32x3_bound_ms": tf32x3_bound_ms(n_bytes, flops)}
+        line = (f"rel_attention B{b} H{h} T{t} f32 (3xTF32): max_abs_err {err:.3e} (tol 1e-4; "
+                f"1xTF32 {one:.3e}) kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                f"{lib_ms:.4f} (SDPA f32, float bias mask) bound_ms {bms:.4f} ({by}, f32 FMA) "
+                f"3xTF32 bound_ms {row['tf32x3_bound_ms']:.4f}")
+        print(line, flush=True)
+        if not (err <= 1e-4 and one > 1e-4):
+            failures.append(line)
+        rows[f"B{b}H{h}T{t}"] = row
+        del q_u, q_v, k, v, p, bias
+        torch.cuda.empty_cache()
+    if failures:
+        fail(f"rel_attention f32: the kernel exceeds its limit or 1xTF32 passes it: {failures}")
+    return rows
 
 
 def rel_attention_train_shape(ra, dev, gen) -> dict:
@@ -841,9 +901,6 @@ def phase_other_frontends(syn, counters: dict, preset) -> None:
         torch.cuda.empty_cache()
 
 
-TRAIN_SHAPE = (8, 8, 1200)        # B, H, T of the recipe: 8 x 600 frames, 2 tokens a frame
-
-
 def bwd_inputs(gen, b, h, t, dtype, dev):
     """Random inputs of the backward kernels: ragged lengths, batch row 2
     fully masked, the upstream gradient zero on padded query rows."""
@@ -918,23 +975,44 @@ def sdpa_bwd_ms(q, k, v, bias, g) -> float:
     return time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), iters=5)
 
 
-def shear_bwd_times(ra, gen, dev, b, h, t) -> dict:
-    """Kernel 3 (bf16, all keys valid) beside its bound, its plain version
-    and the backward of SDPA with the position term as a float bias mask."""
-    dtype, dk, sz = torch.bfloat16, 64, 2
+def shear_bwd_times(ra, gen, dev, b, h, t, dtype=torch.bfloat16) -> dict:
+    """Kernel 3 (all keys valid) beside its bound, its plain version and the
+    backward of SDPA with the position term as a float bias mask; in f32
+    (3xTF32) the f32 FMA bound and the 3xTF32 bound."""
+    dk, sz = 64, torch.finfo(dtype).bits // 8
     (q_u, q_v, k, v, p), _, g = bwd_inputs(gen, b, h, t, dtype, dev)
     mask = torch.ones(b, t, dtype=torch.bool, device=dev)
     out, lse = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask)
-    k_ms = time_ms(lambda: ra.rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g), iters=10)
+    k_ms = time_ms(lambda: ra.rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g),
+                   iters=5 if dtype == torch.float32 and t >= TRAIN_SHAPE[2] else 10)
     plain_ms = time_ms(lambda: ra.rel_attention_bwd_plain(q_u, q_v, k, v, p, mask, lse, out, g), iters=3)
     lib_ms = sdpa_bwd_ms(q_u, k, v, ra.rel_position_bias(q_v, p).to(dtype), g)
     # inputs q_u q_v k v out dO and p, mask, lse once; outputs dq_u dq_v dk dv and dp once
     n_bytes = 10 * b * h * t * dk * sz + 2 * h * (2 * t - 1) * dk * sz + b * t + b * h * t * 4
-    bms, by = bound_ms(n_bytes, 8 * 2 * b * h * t * t * dk, dtype)
-    print(f"rel_attention_bwd B{b} H{h} T{t} bf16: kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} "
-          f"library_ms {lib_ms:.4f} (SDPA backward, float bias mask) bound_ms {bms:.4f} ({by})",
-          flush=True)
-    return {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+    flops = 8 * 2 * b * h * t * t * dk
+    bms, by = bound_ms(n_bytes, flops, dtype)
+    res = {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+    line = (f"rel_attention_bwd B{b} H{h} T{t} {str(dtype)[6:]}: kernel_ms {k_ms:.4f} plain_ms "
+            f"{plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA backward, float bias mask) bound_ms "
+            f"{bms:.4f} ({by})")
+    if dtype == torch.float32:
+        res["tf32x3_bound_ms"] = tf32x3_bound_ms(n_bytes, flops)
+        line += f" (f32 FMA) 3xTF32 bound_ms {res['tf32x3_bound_ms']:.4f}"
+    print(line, flush=True)
+    return res
+
+
+def shear_bwd_one_tf32_errs(ra, gen, dev, b, h, t) -> tuple[float, float]:
+    """Kernel 3's f32 path and the backward at one TF32 product
+    (rel_attention_bwd_one_tf32) against the plain version on ragged inputs
+    with a fully masked batch row: the largest error over the five
+    gradients, each over max(1, |ref|)."""
+    (q_u, q_v, k, v, p), mask, g = bwd_inputs(gen, b, h, t, torch.float32, dev)
+    out, lse = ra.rel_attention_kernel(q_u, q_v, k, v, p, mask)
+    plain = ra.rel_attention_bwd_plain(q_u, q_v, k, v, p, mask, lse, out, g)
+    got = ra.rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g)
+    one = rel_attention_bwd_one_tf32(ra, q_u, q_v, k, v, p, mask, lse, out, g)
+    return max(grad_errs(got, plain)), max(grad_errs(one, plain))
 
 
 def phase_attention_bwd(ra, dev) -> tuple[dict, dict]:
@@ -990,10 +1068,24 @@ def phase_attention_bwd(ra, dev) -> tuple[dict, dict]:
     if failures:
         fail("a backward kernel disagrees with its plain version")
 
+    # f32 (3xTF32) at its timed shapes: within the limit, where 1xTF32 is not
+    f32 = {}
+    for b, h, t in REL_F32_BWD_SHAPES:
+        err, one = shear_bwd_one_tf32_errs(ra, gen, dev, b, h, t)
+        tol = bwd_tolerance(torch.float32)
+        print(f"rel_attention_bwd B{b} H{h} T{t} float32 (3xTF32): max err / max(1,|ref|) "
+              f"{err:.2e} (tol {tol:g}); 1xTF32 {one:.2e}", flush=True)
+        if not (err <= tol and one > tol):
+            fail(f"rel_attention_bwd B{b} H{h} T{t} f32: the kernel exceeds its limit or 1xTF32 "
+                 "passes it")
+        torch.cuda.empty_cache()
+        f32[f"B{b}H{h}T{t}"] = {"max_abs_err": err, "one_tf32_err": one,
+                                **shear_bwd_times(ra, gen, dev, b, h, t, torch.float32)}
+        torch.cuda.empty_cache()
     # times at the serving shape and at the training shape, bf16, all keys valid
     serving = shear_bwd_times(ra, gen, dev, 4, 8, 480)
     shear = {"max_abs_err": worst["shear"], **shear_bwd_times(ra, gen, dev, *TRAIN_SHAPE),
-             "serving_shape": serving}
+             "serving_shape": serving, "f32": f32}
     bias_serving = bias_bwd_times(ra, gen, dev, 4, 8, 480, serving["ms"])
     bias_res = {"max_abs_err": worst["bias"], **bias_bwd_times(ra, gen, dev, *TRAIN_SHAPE, shear["ms"]),
                 "serving_shape": bias_serving}
@@ -1265,6 +1357,48 @@ def phase_train(s1, counters: dict, preset) -> dict:
     del state, step, before
     torch.cuda.empty_cache()
     return {**{k: counts[k] for k in expected}, **{k: bias_counts[k] for k in bias_expected}}
+
+
+def phase_train_f32(s1, counters: dict, preset) -> dict:
+    """The f32 stage-1 step as the train_stage1 CLI runs it (bf16_compute
+    False; PyTorch's TF32 defaults, which the CLI keeps: matmuls in f32,
+    cuDNN's convs in TF32): multi_target at full width, dropout 0.1, 8 x
+    600 frames, accumulation 2; three optimizer steps with exact launch
+    counts (rel_attention and rel_attention_bwd 24 each, their f32 paths in
+    3xTF32), p50, peak memory, one profiled step with the two kernels' share
+    of its device busy time."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    base, accum = preset("multi_target"), 2
+    cfg = dataclasses.replace(base, stage1=dataclasses.replace(
+        base.stage1, warmup_updates=2, max_updates=10, update_freq=accum, bf16_compute=False))
+    frames, layers = cfg.stage1.max_sample_size, cfg.model.conformer.layers
+    state = s1.create_train_state(cfg, seed=0)
+    step = s1.make_train_step(cfg)
+    expected = {"rel_attention": layers * accum, "rel_attention_bwd": layers * accum}
+    batch = train_batch(cfg, accum, cfg.stage1.batch_size, frames, seed=0)
+    what = f"train multi_target f32 8x{frames}"
+    torch.cuda.reset_peak_memory_stats()
+    times, logs = [], []
+    for i in range(3):
+        lg, ms, counts = counted_step(counters, step, state, batch, expected, f"{what} step {i + 1}")
+        times.append(ms)
+        logs.append(lg["loss"] / lg["sample_size"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not logs[2] < logs[0]:
+        fail(f"{what}: the loss did not fall")
+    by_name: dict = {}
+    busy = profile_call(lambda: step(state, batch), what, top=12, by_name=by_name)
+    rel_ms = sum(ms for name, ms in by_name.items() if "rel_" in name or "row_dot" in name)
+    read = {"step_ms": times, "p50_ms": float(np.median(times)), "peak_gib": peak,
+            "busy_ms": busy, "rel_attention_ms": rel_ms, "rel_attention_share": rel_ms / busy,
+            "launches": {k: counts[k] for k in expected}}
+    print(f"{what}: step_ms {[round(t, 1) for t in times]} p50 {read['p50_ms']:.1f}; peak memory "
+          f"{peak:.2f} GiB; device busy {busy:.1f} ms, of it rel_attention{{,_bwd}} {rel_ms:.1f} "
+          f"ms ({rel_ms / busy:.3f})", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    return read
 
 
 def phase_train_f32_check(s1, preset) -> None:
@@ -2613,6 +2747,7 @@ def main() -> int:
     shear_bwd, bias_bwd = phase_attention_bwd(ra, dev)
     dropout_ms = phase_dropout(ra, dm, dev)
     train_launches = phase_train(s1, counters, preset)
+    rel["train_f32_step"] = phase_train_f32(s1, counters, preset)
     phase_train_f32_check(s1, preset)
     phase_train_flagship(s1, counters, preset)
     trio["gan_f32"] = phase_trio_gan(ft, dev, cfg.vocoder, cfg.stage2.batch_size)

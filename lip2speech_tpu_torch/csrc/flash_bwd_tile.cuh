@@ -1,5 +1,7 @@
-// Building blocks of the flash-attention backward kernels
-// (rel_attention_bwd.cu, rel_attention_bias_bwd.cu). Not compiled on its own.
+// Building blocks of the flash-attention backward kernels: the row-dot
+// pre-pass of rel_attention_bwd.cu and rel_attention_bias_bwd.cu, and the
+// FMA blocks of rel_attention_bias_bwd.cu's f32 path. Not compiled on its
+// own.
 //
 // The TPU backward kernels are one sequential program per (batch, head) that
 // carries dK, dV (and dP) across query blocks in fast memory. On the card
@@ -31,7 +33,7 @@
 namespace flash {
 
 // delta[r] = sum_c d_o[r, c] * o[r, c] over rows of 64; half a warp per row.
-// T is float (the FMA kernels) or bf16 (the tensor-core kernels).
+// T is the input type, float or bf16.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 row_dot_kernel(const T* __restrict__ o, const T* __restrict__ d_o, float* __restrict__ delta,

@@ -1,6 +1,7 @@
-// Building blocks shared by the flash-attention forward kernels
-// (attention.cu, rel_attention.cu, rel_attention_bias.cu) and, through
-// flash_bwd_tile.cuh, by the backward kernels. Not compiled on its own.
+// Building blocks of the FMA flash-attention kernels (the f32 paths of
+// attention.cu and rel_attention_bias.cu and, through flash_bwd_tile.cuh, of
+// rel_attention_bias_bwd.cu); the tensor-core kernels (mma_tile.cuh) take
+// the key-mask flags and scores from here. Not compiled on its own.
 //
 // A block of 256 threads owns 64 query rows of one (batch, head) and walks
 // over key tiles of 64. Thread (ty, tx) = (tid / 16, tid % 16) owns the 4x4
@@ -8,7 +9,7 @@
 // 4ty.. and channels 4tx... The 16 threads that share a row group are half a
 // warp, so row maxima and row sums are four xor-shuffles. Shared tiles are
 // f32 with a padded stride (65); inputs, outputs and all arithmetic are f32
-// (the bf16 paths run on the tensor cores, mma_tile.cuh).
+// (the other paths run on the tensor cores, mma_tile.cuh).
 
 #pragma once
 

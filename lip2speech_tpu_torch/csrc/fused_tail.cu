@@ -554,25 +554,8 @@ struct Buf {
   static __device__ __forceinline__ int at(int row, int col) { return row * Cfg<C>::kS + col; }
 };
 
-// v = hi + lo exactly: hi is v rounded to TF32 (to nearest, ties away, as
-// cvt.rna.tf32.f32 rounds: an integer add of half a TF32 ulp and a mask,
-// 2 instructions where the cvt compiles to 4 with its NaN guard), lo = v -
-// hi is an f32 value of at most 2^-11 |v|, which the tensor core reads
-// truncated to TF32 (~2^-21 |v| lost).
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-// c += a b: A 16x8 row-major, B 8x8 column-major, TF32; C f32. Not volatile,
-// so that the compiler may interleave the products of independent tiles.
-__device__ __forceinline__ void mma1688(float c[4], const uint32_t a[4], uint32_t b0,
-                                        uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using mma::mma1688;
+using mma::split;
 
 // Term t of the 3xTF32 product a b: 0 = lo_a hi_b, 1 = hi_a lo_b, 2 = hi_a
 // hi_b (t is a constant once the loops are unrolled). A tile's three terms

@@ -1,12 +1,12 @@
-// Tensor-core building blocks of the bf16 attention kernels
-// (rel_attention.cu, rel_attention_bwd.cu, attention.cu,
-// rel_attention_bias.cu, rel_attention_bias_bwd.cu); fused_tail.cu uses the
-// primitives (cp.async, ldmatrix, mma, packing). Not compiled on its own.
+// Tensor-core building blocks of the attention kernels (rel_attention.cu,
+// rel_attention_bwd.cu, attention.cu, rel_attention_bias.cu,
+// rel_attention_bias_bwd.cu); fused_tail.cu uses the primitives (cp.async,
+// ldmatrix, mma, packing, the TF32 split). Not compiled on its own.
 //
-// Products run on mma.sync.m16n8k16 (bf16 in, f32 accumulate), written in
-// inline PTX; operands come from shared memory by ldmatrix, or straight from
-// an accumulator (the probabilities and dS as the A operand of the next
-// product). Tiles arrive by 16-byte cp.async.
+// bf16 products run on mma.sync.m16n8k16 (bf16 in, f32 accumulate), written
+// in inline PTX; operands come from shared memory by ldmatrix, or straight
+// from an accumulator (the probabilities and dS as the A operand of the
+// next product). Tiles arrive by 16-byte cp.async.
 //
 // Layouts. A block has 4 warps; warp w owns the 16 query rows 16w.. of the
 // block's 64. Lane l has g = l / 4 and q = l % 4; an m16n8 f32 accumulator
@@ -18,6 +18,25 @@
 // of 64 table rows (`Ring`): consecutive key tiles' windows overlap in 64
 // rows, so each tile loads only the next 64. Key-mask flags and scores come
 // from flash_tile.cuh (`load_mask`, `mask_score`).
+//
+// f32 products (the rel-attention kernels' f32 paths) run in 3xTF32 on
+// mma.sync.m16n8k8: each operand is split into hi (TF32, rounded to
+// nearest) and lo = v - hi, and a product is lo_a hi_b + hi_a lo_b + hi_a
+// hi_b (`mma3`), f32 accumulate; what is dropped is ~2^-21 of |a b|. The
+// m16n8k8 TF32 fragments of lane (g, q): A a0 (g, q), a1 (g+8, q), a2 (g,
+// q+4), a3 (g+8, q+4); B b0 (k q, n g), b1 (k q+4, n g); C as m16n8k16's.
+// An f32 tile holds 64 rows of 64 floats at a row stride of kLd32 = 68
+// floats: ldmatrix (b16, an 8 x 8 of it is 8 rows x 4 floats, lane l
+// receiving row l / 4, float l % 4) then reads A fragments of a [m][k] tile
+// and B fragments of a [n][k] tile, its eight rows on distinct banks (row r
+// starts at bank 4r mod 32). There is no ldmatrix .trans for 32-bit
+// elements, so a [k][n] tile as B is read by single floats. When its A
+// operand is an accumulator (P, dS), lane (g, q) holds columns 2q and 2q+1,
+// not q and q+4; so a k8 step takes its columns in the order 0, 2, 4, 6, 1,
+// 3, 5, 7 (A column t is k 2t, column t + 4 is k 2t + 1) and B's rows in
+// the same order: lane (g, q) reads B rows 2q and 2q + 1, which at the
+// stride of 68 lie on banks 8q + g, all distinct. Tiles the kernels write
+// themselves use the same order where it suits their readers.
 
 #pragma once
 
@@ -131,16 +150,36 @@ __device__ __forceinline__ uint32_t tile_addr(const bf16* tile, RC rc) {
   return smem_u32(tile + swz(rc.r, rc.c));
 }
 
-// The window ring: three swizzled 64-row tiles. Window row r (0..127) of a
-// tile whose window begins with chunk m lives in chunk m + r / 64 (chunk m
-// holds table rows base + 64 m ..), slot (m + r / 64) mod 3.
+// An operand tile of 64 rows: its size in elements and the element offset
+// of (row, col). bf16: swizzled 64-channel rows; f32: rows of kLd32 floats.
+constexpr int kLd32 = 68;
+template <typename T>
+struct Tile;
+template <>
+struct Tile<bf16> {
+  static constexpr int kElems = kTile;
+  static __device__ __forceinline__ int at(int r, int c) { return swz(r, c); }
+};
+template <>
+struct Tile<float> {
+  static constexpr int kElems = kB * kLd32;
+  static __device__ __forceinline__ int at(int r, int c) { return r * kLd32 + c; }
+};
+
+// The window ring: three 64-row tiles. Window row r (0..127) of a tile
+// whose window begins with chunk m lives in chunk m + r / 64 (chunk m holds
+// table rows base + 64 m ..), slot (m + r / 64) mod 3.
+template <typename T>
 struct Ring {
-  bf16* s;
-  __device__ __forceinline__ bf16* chunk(int m) const {
-    return s + (((m % 3) + 3) % 3) * kTile;
+  T* s;
+  __device__ __forceinline__ T* chunk(int m) const {
+    return s + (((m % 3) + 3) % 3) * Tile<T>::kElems;
   }
   __device__ __forceinline__ uint32_t addr(int m, RC rc) const {
-    return smem_u32(chunk(m + (rc.r >> 6)) + swz(rc.r & 63, rc.c));
+    return smem_u32(chunk(m + (rc.r >> 6)) + Tile<T>::at(rc.r & 63, rc.c));
+  }
+  __device__ __forceinline__ const T* row(int m, int r) const {
+    return chunk(m + (r >> 6)) + Tile<T>::at(r & 63, 0);
   }
 };
 
@@ -198,10 +237,30 @@ __device__ __forceinline__ void zero(float acc[8][4]) {
 // goes through the warp's f32 scratch sG (16 x kGld), and
 //   BD[a][j] = q_v[16w+a] . window[63 - (16w+a) + j] = G[a][15 - a + j]
 // is added to the score accumulator s straight in its m16n8 layout.
+__device__ __forceinline__ void store_g(float* sG, const float c[4], int col, int lane) {
+  const int g = lane >> 2;
+  *reinterpret_cast<float2*>(sG + g * kGld + col) = make_float2(c[0], c[1]);
+  *reinterpret_cast<float2*>(sG + (g + 8) * kGld + col) = make_float2(c[2], c[3]);
+}
+
+__device__ __forceinline__ void add_diagonal(float s[8][4], const float* sG, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 8 * n + 2 * q + e;
+      s[n][e] += sG[g * kGld + 15 - g + j];
+      s[n][2 + e] += sG[(g + 8) * kGld + 7 - g + j];
+    }
+  __syncwarp();
+}
+
 __device__ __forceinline__ void add_position_term(float s[8][4], const uint32_t qv[4][4],
-                                                  const Ring& win, int m, int warp, int lane,
-                                                  float* sG) {
-  const int rb = 48 - 16 * warp, g = lane >> 2, q = lane & 3;
+                                                  const Ring<bf16>& win, int m, int warp,
+                                                  int lane, float* sG) {
+  const int rb = 48 - 16 * warp, q = lane & 3;
 #pragma unroll
   for (int np = 0; np < kGRows / 16; ++np) {
     float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -213,22 +272,9 @@ __device__ __forceinline__ void add_position_term(float s[8][4], const uint32_t 
       mma16816(c[1], qv[ks], b[2], b[3]);
     }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = 16 * np + 8 * h + 2 * q;
-      *reinterpret_cast<float2*>(sG + g * kGld + col) = make_float2(c[h][0], c[h][1]);
-      *reinterpret_cast<float2*>(sG + (g + 8) * kGld + col) = make_float2(c[h][2], c[h][3]);
-    }
+    for (int h = 0; h < 2; ++h) store_g(sG, c[h], 16 * np + 8 * h + 2 * q, lane);
   }
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = 8 * n + 2 * q + e;
-      s[n][e] += sG[g * kGld + 15 - g + j];
-      s[n][2 + e] += sG[(g + 8) * kGld + 7 - g + j];
-    }
-  __syncwarp();
+  add_diagonal(s, sG, lane);
 }
 
 // Dropout scales (0 or 1 / (1 - rate)) of the lane's accumulator elements
@@ -340,6 +386,205 @@ __device__ __forceinline__ void red_add_rows(const float c[8][4], float* __restr
     const float4 val = odd ? make_float4(r0, r1, c[n][2], c[n][3])
                            : make_float4(c[n][0], c[n][1], r0, r1);
     if (ok) atomicAdd(reinterpret_cast<float4*>(dst + (size_t)row * kD + 8 * n + 2 * (q & 2)), val);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 operands: 3xTF32 on mma.sync m16n8k8 (layouts in the header comment)
+// ---------------------------------------------------------------------------
+
+// v = hi + lo exactly: hi is v rounded to TF32 (to nearest, ties away, as
+// cvt.rna.tf32.f32 rounds: an integer add of half a TF32 ulp and a mask,
+// 2 instructions where the cvt compiles to 4 with its NaN guard), lo = v -
+// hi is an f32 value of at most 2^-11 |v|, which the tensor core reads
+// truncated to TF32 (~2^-21 |v| lost).
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(const uint32_t v[4], uint32_t hi[4], uint32_t lo[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(__uint_as_float(v[e]), hi[e], lo[e]);
+}
+
+// c += a b: A 16x8 row-major, B 8x8 column-major, TF32; C f32. Not volatile,
+// so that the compiler may interleave the products of independent tiles.
+__device__ __forceinline__ void mma1688(float c[4], const uint32_t a[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32, the small terms first: lo_a hi_b, hi_a lo_b, hi_a hi_b.
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                     const uint32_t bh[2], const uint32_t bl[2]) {
+  mma1688(c, al, bh[0], bh[1]);
+  mma1688(c, ah, bl[0], bl[1]);
+  mma1688(c, ah, bh[0], bh[1]);
+}
+
+// B fragment (b0, b1) from two floats, split
+__device__ __forceinline__ void split_b(float b0, float b1, uint32_t bh[2], uint32_t bl[2]) {
+  split(b0, bh[0], bl[0]);
+  split(b1, bh[1], bl[1]);
+}
+
+// Rows row0 .. row0+63 of a (n_rows, 64) f32 matrix into an f32 tile; rows
+// outside [0, n_rows) are zero.
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
+                                          int n_rows) {
+  for (int e = threadIdx.x; e < kB * 16; e += kThreads) {
+    const int r = e >> 4, c = e & 15, g = row0 + r;
+    const bool ok = g >= 0 && g < n_rows;
+    cp_async16(dst + r * kLd32 + 4 * c, src + (size_t)(ok ? g : 0) * kD + 4 * c, ok);
+  }
+}
+
+// ldmatrix lane addresses in an f32 tile: the A fragment (rows m0.., k0..k0+7)
+// of a [m][k] tile; the B fragments of n-tiles n0 and n0 + 8 (k0..k0+7) of a
+// [n][k] tile, b0 b1 of n0 in r[0..1] and of n0 + 8 in r[2..3].
+__device__ __forceinline__ RC a32_rows(int lane, int m0, int k0) {
+  return {m0 + (lane & 15), k0 + ((lane >> 4) << 2)};
+}
+__device__ __forceinline__ RC b32_rows(int lane, int n0, int k0) {
+  return {n0 + (lane & 7) + ((lane >> 4) << 3), k0 + (((lane >> 3) & 1) << 2)};
+}
+
+// The warp's 16 rows (m0..) of a 64-wide [m][k] operand tile as the A of
+// products. bf16: its fragments held in registers (16 of them). f32: read
+// from the tile and split at each use; held, hi and lo would take 64
+// registers beside the accumulators.
+template <typename T>
+struct RowsA;
+template <>
+struct RowsA<bf16> {
+  uint32_t a[4][4];
+  __device__ __forceinline__ void init(const bf16* tile, int m0, int lane) {
+    load_a(a, tile, m0, lane);
+  }
+};
+template <>
+struct RowsA<float> {
+  const float* tile;
+  int m0;
+  __device__ __forceinline__ void init(const float* t, int m, int) {
+    tile = t;
+    m0 = m;
+  }
+  // k8 step ks, split
+  __device__ __forceinline__ void frag(int ks, int lane, uint32_t ah[4], uint32_t al[4]) const {
+    const RC rc = a32_rows(lane, m0, 8 * ks);
+    uint32_t a[4];
+    ldsm_x4(a, smem_u32(tile + Tile<float>::at(rc.r, rc.c)));
+    split4(a, ah, al);
+  }
+};
+
+__device__ __forceinline__ void product_nt(float acc[8][4], const RowsA<bf16>& a, const bf16* x,
+                                           int lane) {
+  product_nt(acc, a.a, x, lane);
+}
+
+// acc[n] (16 x 64) += A (16 x 64) . X^T for a [n][k] f32 tile X
+__device__ __forceinline__ void product_nt(float acc[8][4], const RowsA<float>& a, const float* x,
+                                           int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t ah[4], al[4];
+    a.frag(ks, lane, ah, al);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      const RC rc = b32_rows(lane, 16 * np, 8 * ks);
+      uint32_t b[4], bh[4], bl[4];
+      ldsm_x4(b, smem_u32(x + Tile<float>::at(rc.r, rc.c)));
+      split4(b, bh, bl);
+      mma3(acc[2 * np], ah, al, bh, bl);
+      mma3(acc[2 * np + 1], ah, al, bh + 2, bl + 2);
+    }
+  }
+}
+
+// acc (16 x 64) += P . X: P the warp's 16 x 64 accumulator (its columns the
+// k of the product), X a [k][n] tile.
+__device__ __forceinline__ void product_acc_nn(float acc[8][4], const float p[8][4],
+                                               const bf16* x, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    to_a(a, p, kk);
+    product_nn_step(acc, a, x, kk, lane);
+  }
+}
+
+__device__ __forceinline__ void product_acc_nn(float acc[8][4], const float p[8][4],
+                                               const float* x, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t av[4] = {__float_as_uint(p[kk][0]), __float_as_uint(p[kk][2]),
+                            __float_as_uint(p[kk][1]), __float_as_uint(p[kk][3])};
+    uint32_t ah[4], al[4];
+    split4(av, ah, al);
+    const float* r0 = x + (8 * kk + 2 * q) * kLd32 + g;   // k rows 2q, 2q + 1 of the step
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t bh[2], bl[2];
+      split_b(r0[8 * n], r0[kLd32 + 8 * n], bh, bl);
+      mma3(acc[n], ah, al, bh, bl);
+    }
+  }
+}
+
+__device__ __forceinline__ void add_position_term(float s[8][4], const RowsA<bf16>& qv,
+                                                  const Ring<bf16>& win, int m, int warp,
+                                                  int lane, float* sG) {
+  add_position_term(s, qv.a, win, m, warp, lane, sG);
+}
+
+// The f32 position term: G (16 x 80) in ten accumulators, k8 step by k8
+// step, so that each A fragment of q_v is loaded and split once.
+__device__ __forceinline__ void add_position_term(float s[8][4], const RowsA<float>& qv,
+                                                  const Ring<float>& win, int m, int warp,
+                                                  int lane, float* sG) {
+  const int rb = 48 - 16 * warp, q = lane & 3;
+  float c[kGRows / 8][4];
+#pragma unroll
+  for (int n = 0; n < kGRows / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t ah[4], al[4];
+    qv.frag(ks, lane, ah, al);
+#pragma unroll
+    for (int np = 0; np < kGRows / 16; ++np) {
+      uint32_t b[4], bh[4], bl[4];
+      ldsm_x4(b, win.addr(m, b32_rows(lane, rb + 16 * np, 8 * ks)));
+      split4(b, bh, bl);
+      mma3(c[2 * np], ah, al, bh, bl);
+      mma3(c[2 * np + 1], ah, al, bh + 2, bl + 2);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kGRows / 8; ++n) store_g(sG, c[n], 8 * n + 2 * q, lane);
+  add_diagonal(s, sG, lane);
+}
+
+// The lane's share of a warp's 16 x 64 accumulator as rows `row` (its g)
+// and row + 8 of a (n_rows, 64) f32 output, times mul[0] and mul[1].
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float acc[8][4],
+                                           int row, int n_rows, const float mul[2], int q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= n_rows) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(dst + (size_t)r * kD + 8 * n + 2 * q) =
+          make_float2(acc[n][2 * h] * mul[h], acc[n][2 * h + 1] * mul[h]);
   }
 }
 

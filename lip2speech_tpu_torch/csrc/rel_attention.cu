@@ -15,7 +15,8 @@
 // so rel_attention_bwd.cu replays it whatever its tiling.
 //
 // What bounds it: three (T x T x 64) products per (batch, head) against
-// O(T) bytes: operations, on the bf16 tensor cores.
+// O(T) bytes: operations, on the tensor cores (bf16; f32 in 3xTF32, three
+// TF32 products for each f32 one).
 //
 // Design. The TPU kernel's whole-row score residency and its log2 roll shear
 // were Mosaic workarounds and are gone. One block owns 64 query rows of one
@@ -24,61 +25,75 @@
 // diagonals touch the 127 position-table rows p[T-1-(i0+63)+j0 ...] (the
 // window), and BD[a, j] = q_v[a].window[63-a+j].
 //
-// bf16 (dtype 1), `rel_attention_mma`: every product on mma.sync m16n8k16
-// with f32 accumulation (mma_tile.cuh). Q_u and Q_v fragments stay in
-// registers for the whole loop. K, V and the window arrive by cp.async into
-// swizzled bf16 tiles, double-buffered: tile j+1 (and the window's next 64
-// rows; the window is a ring of three 64-row chunks) loads while tile j
-// computes. Warp w's 16 rows touch only window rows 48-16w .. 127-16w, so
-// the position term is G = Q_v,w . Win_w^T (16 x 80 x 64) on the tensor
-// cores, stored f32 to a per-warp scratch and read back along the diagonal
-// (BD[a, j] = G[a, 15-a+j]) into the score accumulator: 1.25 content
-// products, no shear. The softmax runs on the accumulator fragments (quad
-// shuffles), with the ex2-based __expf (P's bf16 rounding dominates its
-// error); P is rounded to bf16 in registers and is the A operand of P V.
-// Dropout maps the accumulator layout onto philox.cuh's counter: two lanes
-// share each group of four keys and split one Philox call per row pair.
-// 96.8 KB of shared memory: two blocks per SM.
+// One kernel for both input types, `rel_attention_mma<T>` (the same tile
+// loop; the type picks the tiles, the products and the epilogue's stores).
 //
-// f32 (dtype 0), `rel_attention_kernel`: the first version, kept unchanged on
-// the CUDA cores (FP32 FMAs, f32 shared tiles, rel_tile.cuh), because the
-// f32 path is held to 1e-4 against the CPU and TF32 cannot meet that.
+// bf16 (dtype 1): every product on mma.sync m16n8k16 with f32 accumulation
+// (mma_tile.cuh). Q_u and Q_v fragments stay in registers for the whole
+// loop. K, V and the window arrive by cp.async into swizzled bf16 tiles,
+// double-buffered: tile j+1 (and the window's next 64 rows; the window is a
+// ring of three 64-row chunks) loads while tile j computes. Warp w's 16 rows
+// touch only window rows 48-16w .. 127-16w, so the position term is G =
+// Q_v,w . Win_w^T (16 x 80 x 64) on the tensor cores, stored f32 to a
+// per-warp scratch and read back along the diagonal (BD[a, j] = G[a,
+// 15-a+j]) into the score accumulator: 1.25 content products, no shear. The
+// softmax runs on the accumulator fragments (quad shuffles), with the
+// ex2-based __expf (P's bf16 rounding dominates its error); P is rounded to
+// bf16 in registers and is the A operand of P V. Dropout maps the
+// accumulator layout onto philox.cuh's counter: two lanes share each group
+// of four keys and split one Philox call per row pair. 96.8 KB of shared
+// memory: two blocks per SM.
+//
+// f32 (dtype 0): the same loop in 3xTF32 on mma.sync m16n8k8 (each operand
+// split into a TF32 hi and an f32 lo = v - hi, three products each; about
+// 2^-21 of |a b| dropped, so the f32 path is held to 1e-4 against the plain
+// version, where one TF32 product (~5e-4) would not pass). f32 tiles of 64 x
+// 68 floats (mma_tile.cuh). Q_u and Q_v are read from their tiles and split
+// at each use: held as hi and lo they would take 128 registers. K and the
+// window are B operands by ldmatrix, split after the load, per warp. P
+// stays in registers as the A of P V: the k8 step takes its keys in the
+// order 0, 2, 4, 6, 1, 3, 5, 7, which is where the m16n8 accumulator holds
+// them, and V's rows are read in that order by single floats (conflict-free
+// at the stride of 68). 175.5 KB of shared memory: one block of 4 warps an
+// SM.
 //
 // Bounds are checked, so T need not be a multiple of 64.
 
 #include "mma_tile.cuh"
-#include "rel_tile.cuh"
 
 namespace {
 
-namespace mma_path {
-
 using namespace mma;
 
-// Q_u, Q_v, two stages of K and of V, the window ring, the warps' G
-// scratch, two stages of mask flags
-constexpr size_t kSmem = (size_t)9 * kTile * sizeof(bf16) +
-                         ((size_t)kWarps * 16 * kGld + 2 * kB) * sizeof(float);
+template <typename T>
+struct Fwd {
+  // Q_u, Q_v, two stages of K and of V, the window ring, the warps' G
+  // scratch, two stages of mask flags
+  static constexpr size_t kSmem = (size_t)9 * Tile<T>::kElems * sizeof(T) +
+                                  ((size_t)kWarps * 16 * kGld + 2 * kB) * sizeof(float);
+  static constexpr int kBlocksPerSm = sizeof(T) == 2 ? 2 : 1;
+};
 
-__global__ void __launch_bounds__(kThreads, 2)
-rel_attention_mma(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
-                  const bf16* __restrict__ k, const bf16* __restrict__ v,
-                  const bf16* __restrict__ p, const uint8_t* __restrict__ mask,
-                  bf16* __restrict__ out, float* __restrict__ lse, int H, int T_len,
-                  float scale, philox::Dropout drop) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads, Fwd<T>::kBlocksPerSm)
+rel_attention_mma(const T* __restrict__ qu, const T* __restrict__ qv, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ p,
+                  const uint8_t* __restrict__ mask, T* __restrict__ out, float* __restrict__ lse,
+                  int H, int T_len, float scale, philox::Dropout drop) {
+  constexpr int E = Tile<T>::kElems;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQu = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sQv = sQu + kTile;
-  bf16* sK = sQv + kTile;        // two stages
-  bf16* sV = sK + 2 * kTile;     // two stages
-  const Ring win{sV + 2 * kTile};
-  float* sG = reinterpret_cast<float*>(win.s + 3 * kTile);
+  T* sQu = reinterpret_cast<T*>(smem_raw);
+  T* sQv = sQu + E;
+  T* sK = sQv + E;        // two stages
+  T* sV = sK + 2 * E;     // two stages
+  const Ring<T> win{sV + 2 * E};
+  float* sG = reinterpret_cast<float*>(win.s + 3 * E);
   float* sM = sG + kWarps * 16 * kGld;   // two stages
 
   const int bh = blockIdx.y, h = bh % H, i0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
   const int n_table = 2 * T_len - 1;
-  const bf16* ph = p + (size_t)h * n_table * kD;
+  const T* ph = p + (size_t)h * n_table * kD;
   const int p_base = T_len - 1 - (i0 + kB - 1);   // table row of window chunk 0
   const uint8_t* mask_row = mask + (size_t)(bh / H) * T_len;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
@@ -95,7 +110,7 @@ rel_attention_mma(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
   flash::load_mask(sM, mask_row, 0, T_len);
   cp_async_commit();
 
-  uint32_t aqu[4][4], aqv[4][4];
+  RowsA<T> aqu, aqv;
   float o[8][4];
   zero(o);
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
@@ -104,8 +119,8 @@ rel_attention_mma(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
     const int st = t & 1;
     if (t + 1 < n_tiles) {       // stage t+1 was last read in tile t-1
       const int j1 = (t + 1) * kB;
-      load_tile(sK + (st ^ 1) * kTile, k + base, j1, T_len);
-      load_tile(sV + (st ^ 1) * kTile, v + base, j1, T_len);
+      load_tile(sK + (st ^ 1) * E, k + base, j1, T_len);
+      load_tile(sV + (st ^ 1) * E, v + base, j1, T_len);
       load_tile(win.chunk(t + 2), ph, p_base + (t + 2) * kB, n_table);
       flash::load_mask(sM + (st ^ 1) * kB, mask_row, j1, T_len);
       cp_async_commit();
@@ -115,11 +130,11 @@ rel_attention_mma(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
     }
     __syncthreads();
     if (t == 0) {
-      load_a(aqu, sQu, 16 * warp, lane);
-      load_a(aqv, sQv, 16 * warp, lane);
+      aqu.init(sQu, 16 * warp, lane);
+      aqv.init(sQv, 16 * warp, lane);
     }
-    const bf16* kt = sK + st * kTile;
-    const bf16* vt = sV + st * kTile;
+    const T* kt = sK + st * E;
+    const T* vt = sV + st * E;
     const float* mt = sM + st * kB;
 
     float s[8][4];
@@ -164,12 +179,7 @@ rel_attention_mma(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
         for (int e = 0; e < 4; ++e) s[n][e] *= kf[e];
       }
     }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      to_a(a, s, kk);
-      product_nn_step(o, a, vt, kk, lane);
-    }
+    product_acc_nn(o, s, vt, lane);
     __syncthreads();   // stage st and window chunk t are consumed
   }
 
@@ -187,103 +197,28 @@ rel_attention_mma(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
   store_rows(out + base, o, i_g, T_len, inv, q);
 }
 
+template <typename T>
 cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
                    const uint8_t* mask, void* out, float* lse, int B, int H, int T_len,
                    philox::Dropout drop, cudaStream_t stream) {
   if (!aligned16({qu, qv, k, v, p, out})) return cudaErrorMisalignedAddress;
-  cudaError_t e = cudaFuncSetAttribute(rel_attention_mma,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((T_len + kB - 1) / kB, B * H);
-  rel_attention_mma<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(qu), static_cast<const bf16*>(qv), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(p), mask, static_cast<bf16*>(out),
-      lse, H, T_len, 1.0f / sqrtf((float)kD), drop);
-  return cudaGetLastError();
-}
-
-}  // namespace mma_path
-
-namespace fma_path {
-
-using namespace flash;
-
-// Q_u, Q_v, K (then the probabilities), V tiles, the window, the mask flags
-constexpr size_t kRelSmemBytes = ((size_t)(4 * kB + kWin) * kS + kB) * sizeof(float);
-
-// One block of 256 threads owns 64 query rows; thread (ty, tx) owns a 4x4
-// score tile whose 16 diagonals need only 7 window rows. Shared tiles are f32
-// with a padded stride (65); all arithmetic is f32 FMAs (flash_tile.cuh,
-// rel_tile.cuh).
-__global__ void __launch_bounds__(kThreads)
-rel_attention_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
-                     const float* __restrict__ k, const float* __restrict__ v,
-                     const float* __restrict__ p, const uint8_t* __restrict__ mask,
-                     float* __restrict__ out, float* __restrict__ lse, int H, int T_len,
-                     float scale, philox::Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQu = reinterpret_cast<float*>(smem_raw);
-  float* sQv = sQu + kB * kS;
-  float* sK = sQv + kB * kS;     // key tile, then that tile's probabilities
-  float* sV = sK + kB * kS;
-  float* sP = sV + kB * kS;      // position-table window
-  float* sM = sP + kWin * kS;    // 1 valid, 0 masked, -1 past the sequence
-
-  const int bh = blockIdx.y;
-  const int h = bh % H;
-  const int i0 = blockIdx.x * kB;
-  const size_t base = (size_t)bh * T_len * kD;
-  const float* ph = p + (size_t)h * (2 * T_len - 1) * kD;
-  const uint8_t* mask_row = mask + (size_t)(bh / H) * T_len;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile(sQu, qu + base, i0, T_len);
-  load_tile(sQv, qv + base, i0, T_len);
-  State st;
-  st.init();
-
-  for (int j0 = 0; j0 < T_len; j0 += kB) {
-    __syncthreads();  // the previous tile's probabilities and V are consumed
-    load_tile(sK, k + base, j0, T_len);
-    load_tile(sV, v + base, j0, T_len);
-    load_window(sP, ph, window_start(T_len, i0, j0), T_len);
-    load_mask(sM, mask_row, j0, T_len);
-    __syncthreads();
-
-    float s[4][4];
-    rel_scores(sQu, sQv, sK, sP, ty, tx, scale, s);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[a][j] = mask_score(s[a][j], sM[4 * tx + j]);
-    softmax_step(s, st);
-    pv_product_dropout(sK, sV, ty, tx, s, st, drop, bh, i0, j0);
-  }
-  write_out(out + base, lse + (size_t)bh * T_len, i0, T_len, ty, tx, st);
-}
-
-cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v,
-                   const void* p, const uint8_t* mask, void* out, float* lse, int B, int H,
-                   int T_len, philox::Dropout drop, cudaStream_t stream) {
-  auto kern = rel_attention_kernel;
+  auto kern = rel_attention_mma<T>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kRelSmemBytes);
+                                       (int)Fwd<T>::kSmem);
   if (e != cudaSuccess) return e;
   dim3 grid((T_len + kB - 1) / kB, B * H);
-  kern<<<grid, kThreads, kRelSmemBytes, stream>>>(
-      static_cast<const float*>(qu), static_cast<const float*>(qv), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(p), mask, static_cast<float*>(out),
-      lse, H, T_len, 1.0f / sqrtf((float)kD), drop);
+  kern<<<grid, kThreads, Fwd<T>::kSmem, stream>>>(
+      static_cast<const T*>(qu), static_cast<const T*>(qv), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(p), mask, static_cast<T*>(out), lse, H,
+      T_len, 1.0f / sqrtf((float)kD), drop);
   return cudaGetLastError();
 }
-
-}  // namespace fma_path
 
 }  // namespace
 
 // All tensors contiguous: q_u, q_v, k, v, out (B, H, T, dk); p (H, 2T-1, dk);
-// mask (B, T) uint8; lse (B, H, T) float32. dtype: 0 = float32 (FMA kernel),
-// 1 = bfloat16 (tensor-core kernel; pointers 16-byte aligned). Only dk = 64.
+// mask (B, T) uint8; lse (B, H, T) float32. dtype: 0 = float32 (3xTF32), 1 =
+// bfloat16; pointers 16-byte aligned. Only dk = 64.
 // rate in [0, 1) and seed select the dropout mask (rate 0: no dropout).
 // Returns cudaGetLastError() after the launch.
 extern "C" int l2s_rel_attention(const void* qu, const void* qv, const void* k,
@@ -298,9 +233,9 @@ extern "C" int l2s_rel_attention(const void* qu, const void* qv, const void* k,
   const philox::Dropout drop = philox::make_dropout(rate, seed);
   cudaError_t e;
   if (dtype == 0)
-    e = fma_path::launch(qu, qv, k, v, p, m, out, l, B, H, T_len, drop, s);
+    e = launch<float>(qu, qv, k, v, p, m, out, l, B, H, T_len, drop, s);
   else if (dtype == 1)
-    e = mma_path::launch(qu, qv, k, v, p, m, out, l, B, H, T_len, drop, s);
+    e = launch<bf16>(qu, qv, k, v, p, m, out, l, B, H, T_len, drop, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

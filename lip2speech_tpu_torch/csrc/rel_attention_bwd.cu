@@ -15,7 +15,7 @@
 //
 // What bounds it: eight (T x T x 64) products per (batch, head), plus the
 // recomputation of S and dPr in the second pass, against O(T) bytes:
-// operations, on the bf16 tensor cores.
+// operations, on the tensor cores (bf16; f32 in 3xTF32).
 //
 // Design. The TPU kernel is one sequential program per (batch, head) that
 // carries dK, dV and dP in fast memory across query blocks and un-shears dS
@@ -27,73 +27,95 @@
 // deterministic. The dropout mask is philox.cuh's, a function of
 // (seed, b*h, i, j), so both passes see the forward's mask.
 //
-// bf16 (dtype 1), `rel_bwd_{query,key}_pass_mma`: every product on mma.sync
-// m16n8k16 with f32 accumulation (mma_tile.cuh); 4 warps of 16 query rows;
-// cp.async into swizzled bf16 tiles; the window as a ring of three 64-row
-// chunks, its next chunk loading while the current tile computes; S's
-// position term as in rel_attention.cu (G = Q_v,w . Win_w^T read back along
-// the diagonal). dS and P~ are rounded to bf16 as operands, f32 sums.
-//   query pass  K, V double-buffered; Q_u and dO fragments in registers.
-//               dQ_u += dS K from dS's registers. The position gradients go
-//               through dG, a bf16 64 x 128 tile holding dS un-sheared,
-//               dG[a, 63-a+j] = dS[a, j] (the forward's extraction inverted;
-//               the positions off the band stay zero from the start):
-//               dQ_v += dG_w . Win_w (16 x 80 x 64) and dWin = dG^T . Q_v
-//               (128 x 64 x 64, over the 20 non-zero 16 x 16 blocks of the
-//               band only). Warp w owns window blocks w and w+4 of dWin.
-//               After key tile j, block w (table rows p0 + 16w ..) receives
-//               nothing more from this block and is added to dP in device
-//               memory, four floats per atomic; block w+4 is the next
-//               tile's block w and stays in registers. So every block sends
-//               each table row to memory once, not once per tile pair.
-//               103.5 KB of shared memory: two blocks per SM.
+// Both passes are templates over the input type, `rel_bwd_{query,key}_pass
+// _mma<T>`: one tile loop; the type picks the tiles, the products and the
+// layouts of the tiles the kernels write themselves (dG, P~, dS). Every
+// product runs on the tensor cores, in bf16 on mma.sync m16n8k16 and in f32
+// in 3xTF32 on m16n8k8 (mma_tile.cuh: hi, lo = v - hi, three products each,
+// f32 accumulate; ~2^-21 of |a b| dropped, so the f32 path is held to 1e-4
+// of the plain version, where one TF32 product, ~5e-4, would not pass).
+// 4 warps of 16 query rows; cp.async into operand tiles; the window as a
+// ring of three 64-row chunks, its next chunk loading while the current tile
+// computes. S's position term as in rel_attention.cu (G = Q_v,w . Win_w^T
+// read back along the diagonal). bf16: dS and P~ are rounded to bf16 as
+// operands, f32 sums.
+//   query pass  K, V double-buffered; dQ_u += dS K from dS's registers (f32:
+//               the keys of a k8 step in the order 0, 2, 4, 6, 1, 3, 5, 7,
+//               where the accumulator holds them, K's rows read by single
+//               floats in that order). The position gradients go through
+//               dG, a 64 x 128 tile holding dS un-sheared, dG[a, 63-a+j] =
+//               dS[a, j] (the forward's extraction inverted; the positions
+//               off the band stay zero from the start): dQ_v += dG_w .
+//               Win_w (16 x 80 x 64) and dWin = dG^T . Q_v (128 x 64 x 64,
+//               over the 20 non-zero 16 x 16 blocks of the band only). Warp
+//               w owns window blocks w and w+4 of dWin. After key tile j,
+//               block w (table rows p0 + 16w ..) receives nothing more from
+//               this block and is added to dP in device memory, four floats
+//               per atomic; block w+4 is the next tile's block w and stays
+//               in registers. So every block sends each table row to memory
+//               once, not once per tile pair. bf16: Q_u, dO and Q_v
+//               fragments in registers (Q_u and dO staged through dG);
+//               103.5 KB of shared memory, two blocks per SM. f32: Q_u, dO
+//               and Q_v in tiles of their own, read and split at each use
+//               (the registers go to dQ_u, dQ_v and the carried block); dG
+//               f32 with a row stride of 136 floats, read as A by float2
+//               (dQ_v, the window rows in the k8 order above) and by single
+//               floats (dWin^T); 226.5 KB, one block per SM.
 //   key pass    K and V fixed; Q_u, Q_v, dO per query tile. Warps compute
-//               dS and P~ of their 16 query rows and store them as bf16
-//               tiles; then warp w accumulates dK and dV of keys 16w ..
-//               from their transposes (ldmatrix .trans). 102.3 KB: two
-//               blocks per SM. Only the window ring overlaps compute here:
-//               Q_u, Q_v and dO of tile t+1 are single-buffered, issued
-//               after tile t's last barrier and waited for at the top of
-//               tile t+1, so each query tile waits on device memory. A
-//               second stage of the three would add 24 KB (126.3 KB) and
-//               leave one block per SM.
-//
-// f32 (dtype 0), `rel_bwd_{query,key}_pass`: the first version, kept
-// unchanged on the CUDA cores (FP32 FMAs, f32 tiles, rel_tile.cuh; dP by one
-// f32 atomic per element and tile pair), because the f32 path is held to
-// 1e-4 against the CPU and TF32 cannot meet that.
+//               dS and P~ of their 16 query rows and store them to tiles;
+//               then warp w accumulates dK and dV of keys 16w .. from their
+//               transposes: bf16 tiles [query][key] read by ldmatrix
+//               .trans; f32 tiles stored transposed, [key][query] at a row
+//               stride of 72, read as A by float2 in the k8 order above,
+//               with dO's and Q_u's rows read to match. Only the window
+//               ring overlaps compute here: Q_u, Q_v and dO of tile t+1 are
+//               single-buffered, issued after tile t's last barrier and
+//               waited for at the top of tile t+1, so each query tile waits
+//               on device memory. bf16: 102.3 KB, two blocks per SM (a
+//               second stage of the three would add 24 KB and leave one);
+//               f32: 194.3 KB, one block per SM.
 //
 // Bounds are checked: any T.
 
 #include "flash_bwd_tile.cuh"
 #include "mma_tile.cuh"
-#include "rel_tile.cuh"
 
 namespace {
 
-namespace mma_path {
-
 using namespace mma;
 
-constexpr int kDgLd = 136;   // row stride (bf16) of the dG tile: ldmatrix without conflicts
-// query pass: Q_v, two stages of K and of V, the window ring, dG, the
-// warps' G scratch, two stages of mask flags
-constexpr size_t kQPassSmem = ((size_t)8 * kTile + (size_t)kB * kDgLd) * sizeof(bf16) +
-                              ((size_t)kWarps * 16 * kGld + 2 * kB) * sizeof(float);
-// key pass: K, V, Q_u, Q_v, dO, the window ring, P~, dS, the G scratch, the mask flags
-constexpr size_t kKPassSmem =
-    (size_t)10 * kTile * sizeof(bf16) + ((size_t)kWarps * 16 * kGld + kB) * sizeof(float);
+constexpr int kDgLd = 136;   // row stride of the dG tile (bf16: ldmatrix without conflicts)
+constexpr int kPtLd = 72;    // row stride of the f32 P~^T and dS^T tiles
 
+template <typename T>
+struct Pass {
+  static constexpr bool kHeld = sizeof(T) == 2;   // query pass: Q_u, dO fragments in registers
+  static constexpr int E = Tile<T>::kElems;
+  // query pass: Q_v (f32: then Q_u and dO), two stages of K and of V, the
+  // window ring, dG, the warps' G scratch, two stages of mask flags
+  static constexpr size_t kQSmem = ((size_t)(kHeld ? 8 : 10) * E + (size_t)kB * kDgLd) * sizeof(T) +
+                                   ((size_t)kWarps * 16 * kGld + 2 * kB) * sizeof(float);
+  // key pass: K, V, Q_u, Q_v, dO, the window ring, P~, dS, the G scratch, the mask flags
+  static constexpr int kPdElems = kHeld ? kTile : kD * kPtLd;
+  static constexpr size_t kKSmem = ((size_t)8 * E + 2 * (size_t)kPdElems) * sizeof(T) +
+                                   ((size_t)kWarps * 16 * kGld + kB) * sizeof(float);
+  static constexpr int kBlocksPerSm = kHeld ? 2 : 1;
+};
+
+template <typename T>
 struct Args {
-  const bf16 *qu, *qv, *k, *v, *p, *d_o;
+  const T *qu, *qv, *k, *v, *p, *d_o;
   const uint8_t* mask;
   const float *lse, *delta;
-  bf16 *dqu, *dqv, *dk, *dv;
+  T *dqu, *dqv, *dk, *dv;
   float* dp;
   int H, T_len;
   float scale;
   philox::Dropout drop;
 };
+
+__device__ __forceinline__ void put(bf16* dst, float v) { *dst = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void put(float* dst, float v) { *dst = v; }
 
 __device__ __forceinline__ uint32_t dg_addr(const bf16* sDg, RC rc) {
   return smem_u32(sDg + rc.r * kDgLd + rc.c);
@@ -101,7 +123,8 @@ __device__ __forceinline__ uint32_t dg_addr(const bf16* sDg, RC rc) {
 
 // The lane's two rows' log-sum-exp and D; rows past the sequence get
 // lse = -inf (probabilities 0).
-__device__ __forceinline__ void row_stats(const Args& g, int bh, int i_g, float lse[2],
+template <typename T>
+__device__ __forceinline__ void row_stats(const Args<T>& g, int bh, int i_g, float lse[2],
                                           float delta[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -115,8 +138,9 @@ __device__ __forceinline__ void row_stats(const Args& g, int bh, int i_g, float 
 // warp's 16 x 64 pair tile: ds = P o (dpr * keep - D) * scale, and with pd
 // != nullptr also pd = P * keep. Rows whose lse is below -1e30 / 2 had no
 // valid key and get P = 0. kj0: the tile's first key.
+template <typename T>
 __device__ __forceinline__ void backward_frag(float s[8][4], const float dpr[8][4],
-                                              float (*pd)[4], const float* sM, const Args& g,
+                                              float (*pd)[4], const float* sM, const Args<T>& g,
                                               int bh, int i_g, int kj0, const float lse[2],
                                               const float delta[2], int q) {
 #pragma unroll
@@ -134,20 +158,105 @@ __device__ __forceinline__ void backward_frag(float s[8][4], const float dpr[8][
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2) rel_bwd_query_pass_mma(const Args g) {
+// dQ_v += dG_w . Win_w: the warp's rows, window rows rb .. rb+79.
+__device__ __forceinline__ void band_dqv(float dqv[8][4], const bf16* sDg, const Ring<bf16>& win,
+                                         int m, int warp, int lane) {
+  const int rb = 48 - 16 * warp;
+#pragma unroll
+  for (int ks = 0; ks < kGRows / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, dg_addr(sDg, a_rows(lane, 16 * warp, rb + 16 * ks)));
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, win.addr(m, b_cols(lane, 16 * np, rb + 16 * ks)));
+      mma16816(dqv[2 * np], a, b[0], b[1]);
+      mma16816(dqv[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void band_dqv(float dqv[8][4], const float* sDg,
+                                         const Ring<float>& win, int m, int warp, int lane) {
+  const int rb = 48 - 16 * warp, g = lane >> 2, q = lane & 3;
+  const float* d0 = sDg + (16 * warp + g) * kDgLd + rb + 2 * q;
+#pragma unroll 2
+  for (int ks = 0; ks < kGRows / 8; ++ks) {
+    const float2 x0 = *reinterpret_cast<const float2*>(d0 + 8 * ks);
+    const float2 x1 = *reinterpret_cast<const float2*>(d0 + 8 * kDgLd + 8 * ks);
+    const uint32_t av[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x), __float_as_uint(x0.y),
+                            __float_as_uint(x1.y)};
+    uint32_t ah[4], al[4];
+    split4(av, ah, al);
+    const float* r0 = win.row(m, rb + 8 * ks + 2 * q) + g;   // rows 2q, 2q + 1 of the step
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t bh[2], bl[2];
+      split_b(r0[8 * n], r0[kLd32 + 8 * n], bh, bl);
+      mma3(dqv[n], ah, al, bh, bl);
+    }
+  }
+}
+
+// c += dWin of window block b (rows 16b..16b+15) = dG[:, block b]^T . Q_v;
+// block b meets query k-steps s with 3 <= b + s <= 7 only.
+__device__ __forceinline__ void band_dwin(float c[8][4], const bf16* sDg, const bf16* sQv, int b,
+                                          int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if (b + ks < 3 || b + ks > 7) continue;
+    uint32_t a[4];
+    ldsm_x4_t(a, dg_addr(sDg, a_cols(lane, 16 * b, 16 * ks)));
+    product_nn_step(c, a, sQv, ks, lane);
+  }
+}
+
+__device__ __forceinline__ void band_dwin(float c[8][4], const float* sDg, const float* sQv,
+                                          int b, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if (b + ks < 3 || b + ks > 7) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k0 = 16 * ks + 8 * h;   // queries k0 + 2q, k0 + 2q + 1
+      const float* d0 = sDg + (k0 + 2 * q) * kDgLd + 16 * b + g;
+      const uint32_t av[4] = {__float_as_uint(d0[0]), __float_as_uint(d0[8]),
+                              __float_as_uint(d0[kDgLd]), __float_as_uint(d0[kDgLd + 8])};
+      uint32_t ah[4], al[4];
+      split4(av, ah, al);
+      const float* r0 = sQv + (k0 + 2 * q) * kLd32 + g;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        uint32_t bh[2], bl[2];
+        split_b(r0[8 * n], r0[kLd32 + 8 * n], bh, bl);
+        mma3(c[n], ah, al, bh, bl);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, Pass<T>::kBlocksPerSm)
+rel_bwd_query_pass_mma(const Args<T> g) {
+  constexpr int E = Pass<T>::E;
+  constexpr bool kHeld = Pass<T>::kHeld;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQv = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQv + kTile;        // two stages
-  bf16* sV = sK + 2 * kTile;     // two stages
-  const Ring win{sV + 2 * kTile};
-  bf16* sDg = win.s + 3 * kTile;                  // [query row][window row]
+  T* sQv = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQv + (kHeld ? 1 : 3) * E;   // two stages
+  T* sV = sK + 2 * E;                    // two stages
+  const Ring<T> win{sV + 2 * E};
+  T* sDg = win.s + 3 * E;                // [query row][window row]
+  // bf16: Q_u and dO pass through the dG tile on their way to registers
+  T* sQu = kHeld ? sDg : sQv + E;
+  T* sdO = kHeld ? sDg + E : sQv + 2 * E;
   float* sG = reinterpret_cast<float*>(sDg + kB * kDgLd);
-  float* sM = sG + kWarps * 16 * kGld;            // two stages
+  float* sM = sG + kWarps * 16 * kGld;   // two stages
 
   const int T_len = g.T_len, bh = blockIdx.y, h = bh % g.H, i0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
   const int n_table = 2 * T_len - 1;
-  const bf16* ph = g.p + (size_t)h * n_table * kD;
+  const T* ph = g.p + (size_t)h * n_table * kD;
   float* dp_h = g.dp + (size_t)h * n_table * kD;
   const int p_base = T_len - 1 - (i0 + kB - 1);   // table row of window chunk 0
   const uint8_t* mask_row = g.mask + (size_t)(bh / g.H) * T_len;
@@ -155,11 +264,9 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_query_pass_mma(const Args
   const int i_g = i0 + 16 * warp + (lane >> 2);
   float* G = sG + warp * 16 * kGld;
   const int n_tiles = (T_len + kB - 1) / kB;
-  const int rb = 48 - 16 * warp;                  // first window row of the warp's rows
 
-  // Q_u and dO pass through the dG tile on their way to registers
-  load_tile(sDg, g.qu + base, i0, T_len);
-  load_tile(sDg + kTile, g.d_o + base, i0, T_len);
+  load_tile(sQu, g.qu + base, i0, T_len);
+  load_tile(sdO, g.d_o + base, i0, T_len);
   load_tile(sQv, g.qv + base, i0, T_len);
   load_tile(sK, g.k + base, 0, T_len);
   load_tile(sV, g.v + base, 0, T_len);
@@ -169,12 +276,12 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_query_pass_mma(const Args
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t aqu[4][4], ado[4][4], aqv[4][4];
-  load_a(aqu, sDg, 16 * warp, lane);
-  load_a(ado, sDg + kTile, 16 * warp, lane);
-  load_a(aqv, sQv, 16 * warp, lane);
+  RowsA<T> aqu, ado, aqv;
+  aqu.init(sQu, 16 * warp, lane);
+  ado.init(sdO, 16 * warp, lane);
+  aqv.init(sQv, 16 * warp, lane);
   __syncthreads();
-  for (int e = threadIdx.x; e < kB * kDgLd / 2; e += kThreads)
+  for (int e = threadIdx.x; e < kB * kDgLd * (int)sizeof(T) / 4; e += kThreads)
     reinterpret_cast<uint32_t*>(sDg)[e] = 0u;
 
   float lse[2], delta[2];
@@ -188,8 +295,8 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_query_pass_mma(const Args
     const int st = t & 1;
     if (t + 1 < n_tiles) {       // stage t+1 was last read in tile t-1
       const int j1 = (t + 1) * kB;
-      load_tile(sK + (st ^ 1) * kTile, g.k + base, j1, T_len);
-      load_tile(sV + (st ^ 1) * kTile, g.v + base, j1, T_len);
+      load_tile(sK + (st ^ 1) * E, g.k + base, j1, T_len);
+      load_tile(sV + (st ^ 1) * E, g.v + base, j1, T_len);
       load_tile(win.chunk(t + 2), ph, p_base + (t + 2) * kB, n_table);
       flash::load_mask(sM + (st ^ 1) * kB, mask_row, j1, T_len);
       cp_async_commit();
@@ -198,8 +305,8 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_query_pass_mma(const Args
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* kt = sK + st * kTile;
-    const bf16* vt = sV + st * kTile;
+    const T* kt = sK + st * E;
+    const T* vt = sV + st * E;
 
     float s[8][4], dpr[8][4];
     zero(s);
@@ -219,31 +326,13 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_query_pass_mma(const Args
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int a = 16 * warp + (lane >> 2) + 8 * (e >> 1), j = 8 * n + 2 * q + (e & 1);
-        sDg[a * kDgLd + kB - 1 - a + j] = __float2bfloat16_rn(s[n][e]);
+        put(sDg + a * kDgLd + kB - 1 - a + j, s[n][e]);
       }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      to_a(a, s, kk);
-      product_nn_step(dqu, a, kt, kk, lane);
-    }
+    product_acc_nn(dqu, s, kt, lane);
     __syncthreads();   // dG is complete
 
-    // dQ_v += dG_w . Win_w: the warp's rows, window rows rb .. rb+79
-#pragma unroll
-    for (int ks = 0; ks < kGRows / 16; ++ks) {
-      uint32_t a[4];
-      ldsm_x4(a, dg_addr(sDg, a_rows(lane, 16 * warp, rb + 16 * ks)));
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        ldsm_x4_t(b, win.addr(t, b_cols(lane, 16 * np, rb + 16 * ks)));
-        mma16816(dqv[2 * np], a, b[0], b[1]);
-        mma16816(dqv[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    // dWin = dG^T . Q_v on window blocks w (done: to dP) and w+4 (carried);
-    // block b meets query k-steps s with 3 <= b + s <= 7 only
+    band_dqv(dqv, sDg, win, t, warp, lane);
+    // dWin on window blocks w (done: to dP) and w+4 (carried)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int b = warp + 4 * half;
@@ -252,13 +341,7 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_query_pass_mma(const Args
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) c[n][e] = half == 0 ? carry[n][e] : 0.f;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        if (b + ks < 3 || b + ks > 7) continue;
-        uint32_t a[4];
-        ldsm_x4_t(a, dg_addr(sDg, a_cols(lane, 16 * b, 16 * ks)));
-        product_nn_step(c, a, sQv, ks, lane);
-      }
+      band_dwin(c, sDg, sQv, b, lane);
       if (half == 0) {
         red_add_rows(c, dp_h, p_base + t * kB + 16 * b, n_table, lane);
       } else {
@@ -276,23 +359,105 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_query_pass_mma(const Args
   store_rows(g.dqv + base, dqv, i_g, T_len, one, q);
 }
 
-__global__ void __launch_bounds__(kThreads, 2) rel_bwd_key_pass_mma(const Args g) {
+// P~ and dS of the warp's rows into the pair's tiles: bf16 [query][key]
+// (swizzled), f32 transposed, [key][query] at a row stride of kPtLd.
+__device__ __forceinline__ void store_pair(bf16* sPd, bf16* sdS, const float pd[8][4],
+                                           const float ds[8][4], int warp, int lane) {
+  const int q = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = 16 * warp + (lane >> 2) + 8 * h2, c = 8 * n + 2 * q;
+      *reinterpret_cast<uint32_t*>(sPd + swz(r, c)) = pack_bf16(pd[n][2 * h2], pd[n][2 * h2 + 1]);
+      *reinterpret_cast<uint32_t*>(sdS + swz(r, c)) = pack_bf16(ds[n][2 * h2], ds[n][2 * h2 + 1]);
+    }
+}
+
+__device__ __forceinline__ void store_pair(float* sPd, float* sdS, const float pd[8][4],
+                                           const float ds[8][4], int warp, int lane) {
+  const int q = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * warp + (lane >> 2) + 8 * (e >> 1), c = 8 * n + 2 * q + (e & 1);
+      sPd[c * kPtLd + r] = pd[n][e];
+      sdS[c * kPtLd + r] = ds[n][e];
+    }
+}
+
+// warp w: keys 16w ..; dV += P~^T dO, dK += dS^T Q_u over the 64 query rows
+__device__ __forceinline__ void key_products(float dv[8][4], float dk[8][4], const bf16* sPd,
+                                             const bf16* sdS, const bf16* sdO, const bf16* sQu,
+                                             int warp, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t a[4];
+    ldsm_x4_t(a, tile_addr(sPd, a_cols(lane, 16 * warp, 16 * ks)));
+    product_nn_step(dv, a, sdO, ks, lane);
+    ldsm_x4_t(a, tile_addr(sdS, a_cols(lane, 16 * warp, 16 * ks)));
+    product_nn_step(dk, a, sQu, ks, lane);
+  }
+}
+
+// The A of the warp's 16 keys x queries k0 + 2q, k0 + 2q + 1 (k8 order) of
+// a transposed f32 tile, split.
+__device__ __forceinline__ void key_rows_a(const float* tile, int warp, int k0, int lane,
+                                           uint32_t ah[4], uint32_t al[4]) {
+  const float* r = tile + (16 * warp + (lane >> 2)) * kPtLd + k0 + 2 * (lane & 3);
+  const float2 x0 = *reinterpret_cast<const float2*>(r);
+  const float2 x1 = *reinterpret_cast<const float2*>(r + 8 * kPtLd);
+  const uint32_t av[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x), __float_as_uint(x0.y),
+                          __float_as_uint(x1.y)};
+  split4(av, ah, al);
+}
+
+__device__ __forceinline__ void key_products(float dv[8][4], float dk[8][4], const float* sPd,
+                                             const float* sdS, const float* sdO,
+                                             const float* sQu, int warp, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll 2
+  for (int ks = 0; ks < 8; ++ks) {
+    const int row = (8 * ks + 2 * q) * kLd32 + g;   // query rows 2q, 2q + 1 of the step
+    uint32_t ah[4], al[4];
+    key_rows_a(sPd, warp, 8 * ks, lane, ah, al);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t bh[2], bl[2];
+      split_b(sdO[row + 8 * n], sdO[row + kLd32 + 8 * n], bh, bl);
+      mma3(dv[n], ah, al, bh, bl);
+    }
+    key_rows_a(sdS, warp, 8 * ks, lane, ah, al);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t bh[2], bl[2];
+      split_b(sQu[row + 8 * n], sQu[row + kLd32 + 8 * n], bh, bl);
+      mma3(dk[n], ah, al, bh, bl);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, Pass<T>::kBlocksPerSm)
+rel_bwd_key_pass_mma(const Args<T> g) {
+  constexpr int E = Pass<T>::E;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kTile;
-  bf16* sQu = sV + kTile;
-  bf16* sQv = sQu + kTile;
-  bf16* sdO = sQv + kTile;
-  const Ring win{sdO + kTile};
-  bf16* sPd = win.s + 3 * kTile;  // P~ of the pair, [query][key]
-  bf16* sdS = sPd + kTile;        // dS of the pair, [query][key]
-  float* sG = reinterpret_cast<float*>(sdS + kTile);
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + E;
+  T* sQu = sV + E;
+  T* sQv = sQu + E;
+  T* sdO = sQv + E;
+  const Ring<T> win{sdO + E};
+  T* sPd = win.s + 3 * E;                 // P~ of the pair
+  T* sdS = sPd + Pass<T>::kPdElems;       // dS of the pair
+  float* sG = reinterpret_cast<float*>(sdS + Pass<T>::kPdElems);
   float* sM = sG + kWarps * 16 * kGld;
 
   const int T_len = g.T_len, bh = blockIdx.y, h = bh % g.H, j0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
   const int n_table = 2 * T_len - 1;
-  const bf16* ph = g.p + (size_t)h * n_table * kD;
+  const T* ph = g.p + (size_t)h * n_table * kD;
   // window of query tile t: chunks -t, -t+1, chunk m at table row p_base + 64m
   const int p_base = T_len - 1 - (kB - 1) + j0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
@@ -328,12 +493,12 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_key_pass_mma(const Args g
     zero(s);
     zero(dpr);
     {
-      uint32_t a[4][4];
-      load_a(a, sQu, 16 * warp, lane);
+      RowsA<T> a;
+      a.init(sQu, 16 * warp, lane);
       product_nt(s, a, sK, lane);
-      load_a(a, sQv, 16 * warp, lane);
+      a.init(sQv, 16 * warp, lane);
       add_position_term(s, a, win, -t, warp, lane, G);
-      load_a(a, sdO, 16 * warp, lane);
+      a.init(sdO, 16 * warp, lane);
       product_nt(dpr, a, sV, lane);
     }
 #pragma unroll
@@ -341,24 +506,9 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_key_pass_mma(const Args g
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] *= g.scale;
     backward_frag(s, dpr, pd, sM, g, bh, i_g, j0, lse, delta, q);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int r = 16 * warp + (lane >> 2) + 8 * h2, c = 8 * n + 2 * q;
-        *reinterpret_cast<uint32_t*>(sPd + swz(r, c)) = pack_bf16(pd[n][2 * h2], pd[n][2 * h2 + 1]);
-        *reinterpret_cast<uint32_t*>(sdS + swz(r, c)) = pack_bf16(s[n][2 * h2], s[n][2 * h2 + 1]);
-      }
+    store_pair(sPd, sdS, pd, s, warp, lane);
     __syncthreads();
-    // warp w: keys 16w ..; dV += P~^T dO, dK += dS^T Q_u over the 64 query rows
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t a[4];
-      ldsm_x4_t(a, tile_addr(sPd, a_cols(lane, 16 * warp, 16 * ks)));
-      product_nn_step(dv, a, sdO, ks, lane);
-      ldsm_x4_t(a, tile_addr(sdS, a_cols(lane, 16 * warp, 16 * ks)));
-      product_nn_step(dk, a, sQu, ks, lane);
-    }
+    key_products(dv, dk, sPd, sdS, sdO, sQu, warp, lane);
     __syncthreads();   // Q_u, Q_v, dO, P~ and dS are consumed
     if (t + 1 < n_tiles) {
       const int i1 = (t + 1) * kB;
@@ -374,226 +524,48 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bwd_key_pass_mma(const Args g
   store_rows(g.dv + base, dv, j_g, T_len, one, q);
 }
 
+template <typename T>
 cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
                    const uint8_t* mask, const float* lse, const void* out, const void* d_o,
                    void* dqu, void* dqv, void* dk, void* dv, float* dp, float* delta, int B,
                    int H, int T_len, philox::Dropout drop, cudaStream_t stream) {
-  if (!aligned16({qu, qv, k, v, p, d_o, dp})) return cudaErrorMisalignedAddress;
-  cudaError_t e = flash::launch_row_dot<bf16>(out, d_o, delta, (size_t)B * H * T_len, stream);
+  if (!aligned16({qu, qv, k, v, p, d_o, dp, dqu, dqv, dk, dv})) return cudaErrorMisalignedAddress;
+  cudaError_t e = flash::launch_row_dot<T>(out, d_o, delta, (size_t)B * H * T_len, stream);
   if (e != cudaSuccess) return e;
-  Args g;
-  g.qu = static_cast<const bf16*>(qu);
-  g.qv = static_cast<const bf16*>(qv);
-  g.k = static_cast<const bf16*>(k);
-  g.v = static_cast<const bf16*>(v);
-  g.p = static_cast<const bf16*>(p);
-  g.d_o = static_cast<const bf16*>(d_o);
+  Args<T> g;
+  g.qu = static_cast<const T*>(qu);
+  g.qv = static_cast<const T*>(qv);
+  g.k = static_cast<const T*>(k);
+  g.v = static_cast<const T*>(v);
+  g.p = static_cast<const T*>(p);
+  g.d_o = static_cast<const T*>(d_o);
   g.mask = mask;
   g.lse = lse;
   g.delta = delta;
-  g.dqu = static_cast<bf16*>(dqu);
-  g.dqv = static_cast<bf16*>(dqv);
-  g.dk = static_cast<bf16*>(dk);
-  g.dv = static_cast<bf16*>(dv);
+  g.dqu = static_cast<T*>(dqu);
+  g.dqv = static_cast<T*>(dqv);
+  g.dk = static_cast<T*>(dk);
+  g.dv = static_cast<T*>(dv);
   g.dp = dp;
   g.H = H;
   g.T_len = T_len;
   g.scale = 1.0f / sqrtf((float)kD);
   g.drop = drop;
   dim3 grid((T_len + kB - 1) / kB, B * H);
-  e = cudaFuncSetAttribute(rel_bwd_query_pass_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kQPassSmem);
-  if (e != cudaSuccess) return e;
-  rel_bwd_query_pass_mma<<<grid, kThreads, kQPassSmem, stream>>>(g);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(rel_bwd_key_pass_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kKPassSmem);
-  if (e != cudaSuccess) return e;
-  rel_bwd_key_pass_mma<<<grid, kThreads, kKPassSmem, stream>>>(g);
-  return cudaGetLastError();
-}
-
-}  // namespace mma_path
-
-namespace fma_path {
-
-using namespace flash;
-
-// query pass: Q_u, Q_v, dO, K, V, dS tiles, the window, the mask flags
-constexpr size_t kQPassSmem = ((size_t)(6 * kB + kWin) * kS + kB) * sizeof(float);
-// key pass: K, V, Q_u, Q_v, dO, dS, P~ tiles, the window, the mask flags
-constexpr size_t kKPassSmem = ((size_t)(7 * kB + kWin) * kS + kB) * sizeof(float);
-
-struct Args {
-  const float *qu, *qv, *k, *v, *p, *d_o;
-  const uint8_t* mask;
-  const float *lse, *delta;
-  float *dqu, *dqv, *dk, *dv;
-  float* dp;
-  int H, T_len;
-  float scale;
-  philox::Dropout drop;
-};
-
-__global__ void __launch_bounds__(kThreads) rel_bwd_query_pass(const Args g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQu = reinterpret_cast<float*>(smem_raw);
-  float* sQv = sQu + kB * kS;
-  float* sdO = sQv + kB * kS;
-  float* sK = sdO + kB * kS;
-  float* sV = sK + kB * kS;
-  float* sS = sV + kB * kS;      // dS of the pair
-  float* sP = sS + kB * kS;      // position-table window
-  float* sM = sP + kWin * kS;
-
-  const int T_len = g.T_len;
-  const int bh = blockIdx.y;
-  const int h = bh % g.H;
-  const int i0 = blockIdx.x * kB;
-  const size_t base = (size_t)bh * T_len * kD;
-  const float* ph = g.p + (size_t)h * (2 * T_len - 1) * kD;
-  float* dp_h = g.dp + (size_t)h * (2 * T_len - 1) * kD;
-  const uint8_t* mask_row = g.mask + (size_t)(bh / g.H) * T_len;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile(sQu, g.qu + base, i0, T_len);
-  load_tile(sQv, g.qv + base, i0, T_len);
-  load_tile(sdO, g.d_o + base, i0, T_len);
-  float lse[4], delta[4];
-  load_row_stats(g.lse + (size_t)bh * T_len, g.delta + (size_t)bh * T_len, i0, T_len, ty, lse,
-                 delta);
-  float dqu[4][4], dqv[4][4];
-  zero_tile(dqu);
-  zero_tile(dqv);
-
-  for (int j0 = 0; j0 < T_len; j0 += kB) {
-    const int p0 = window_start(T_len, i0, j0);
-    __syncthreads();  // the previous pair's dS, keys and window are consumed
-    load_tile(sK, g.k + base, j0, T_len);
-    load_tile(sV, g.v + base, j0, T_len);
-    load_window(sP, ph, p0, T_len);
-    load_mask(sM, mask_row, j0, T_len);
-    __syncthreads();
-
-    float s[4][4], dpr[4][4], keep[4][4], ds[4][4], pd[4][4];
-    rel_scores(sQu, sQv, sK, sP, ty, tx, g.scale, s);
-    qk_product(sdO, sV, ty, tx, dpr);
-    keep_tile(g.drop, bh, i0, j0, ty, tx, keep);
-    backward_tile(s, sM, tx, lse, delta, keep, dpr, ds, pd);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ds[a][j] *= g.scale;
-    store_tile(sS, ty, tx, ds);
-    __syncthreads();
-    rows_product(sS, sK, ty, tx, dqu);
-    band_rows_product(sS, sP, ty, tx, dqv);
-    band_scatter(sS, sQv, ty, tx, dp_h, p0, T_len);
-  }
-  write_grad(g.dqu + base, i0, T_len, ty, tx, dqu);
-  write_grad(g.dqv + base, i0, T_len, ty, tx, dqv);
-}
-
-__global__ void __launch_bounds__(kThreads) rel_bwd_key_pass(const Args g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + kB * kS;
-  float* sQu = sV + kB * kS;
-  float* sQv = sQu + kB * kS;
-  float* sdO = sQv + kB * kS;
-  float* sS = sdO + kB * kS;     // dS of the pair
-  float* sPd = sS + kB * kS;     // dropped probabilities of the pair
-  float* sP = sPd + kB * kS;     // position-table window
-  float* sM = sP + kWin * kS;
-
-  const int T_len = g.T_len;
-  const int bh = blockIdx.y;
-  const int h = bh % g.H;
-  const int j0 = blockIdx.x * kB;
-  const size_t base = (size_t)bh * T_len * kD;
-  const float* ph = g.p + (size_t)h * (2 * T_len - 1) * kD;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile(sK, g.k + base, j0, T_len);
-  load_tile(sV, g.v + base, j0, T_len);
-  load_mask(sM, g.mask + (size_t)(bh / g.H) * T_len, j0, T_len);
-  float dk[4][4], dv[4][4];
-  zero_tile(dk);
-  zero_tile(dv);
-
-  for (int i0 = 0; i0 < T_len; i0 += kB) {
-    __syncthreads();  // the previous pair's tiles are consumed
-    load_tile(sQu, g.qu + base, i0, T_len);
-    load_tile(sQv, g.qv + base, i0, T_len);
-    load_tile(sdO, g.d_o + base, i0, T_len);
-    load_window(sP, ph, window_start(T_len, i0, j0), T_len);
-    float lse[4], delta[4];
-    load_row_stats(g.lse + (size_t)bh * T_len, g.delta + (size_t)bh * T_len, i0, T_len, ty,
-                   lse, delta);
-    __syncthreads();
-
-    float s[4][4], dpr[4][4], keep[4][4], ds[4][4], pd[4][4];
-    rel_scores(sQu, sQv, sK, sP, ty, tx, g.scale, s);
-    qk_product(sdO, sV, ty, tx, dpr);
-    keep_tile(g.drop, bh, i0, j0, ty, tx, keep);
-    backward_tile(s, sM, tx, lse, delta, keep, dpr, ds, pd);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ds[a][j] *= g.scale;
-    store_tile(sS, ty, tx, ds);
-    store_tile(sPd, ty, tx, pd);
-    __syncthreads();
-    cols_product(sS, sQu, ty, tx, dk);
-    cols_product(sPd, sdO, ty, tx, dv);
-  }
-  write_grad(g.dk + base, j0, T_len, ty, tx, dk);
-  write_grad(g.dv + base, j0, T_len, ty, tx, dv);
-}
-
-cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
-                   const uint8_t* mask, const float* lse, const void* out, const void* d_o,
-                   void* dqu, void* dqv, void* dk, void* dv, float* dp, float* delta, int B,
-                   int H, int T_len, philox::Dropout drop, cudaStream_t stream) {
-  cudaError_t e = launch_row_dot<float>(out, d_o, delta, (size_t)B * H * T_len, stream);
-  if (e != cudaSuccess) return e;
-  Args g;
-  g.qu = static_cast<const float*>(qu);
-  g.qv = static_cast<const float*>(qv);
-  g.k = static_cast<const float*>(k);
-  g.v = static_cast<const float*>(v);
-  g.p = static_cast<const float*>(p);
-  g.d_o = static_cast<const float*>(d_o);
-  g.mask = mask;
-  g.lse = lse;
-  g.delta = delta;
-  g.dqu = static_cast<float*>(dqu);
-  g.dqv = static_cast<float*>(dqv);
-  g.dk = static_cast<float*>(dk);
-  g.dv = static_cast<float*>(dv);
-  g.dp = dp;
-  g.H = H;
-  g.T_len = T_len;
-  g.scale = 1.0f / sqrtf((float)kD);
-  g.drop = drop;
-  dim3 grid((T_len + kB - 1) / kB, B * H);
-  auto q_pass = rel_bwd_query_pass;
+  auto q_pass = rel_bwd_query_pass_mma<T>;
   e = cudaFuncSetAttribute(q_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kQPassSmem);
+                           (int)Pass<T>::kQSmem);
   if (e != cudaSuccess) return e;
-  q_pass<<<grid, kThreads, kQPassSmem, stream>>>(g);
+  q_pass<<<grid, kThreads, Pass<T>::kQSmem, stream>>>(g);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto k_pass = rel_bwd_key_pass;
+  auto k_pass = rel_bwd_key_pass_mma<T>;
   e = cudaFuncSetAttribute(k_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kKPassSmem);
+                           (int)Pass<T>::kKSmem);
   if (e != cudaSuccess) return e;
-  k_pass<<<grid, kThreads, kKPassSmem, stream>>>(g);
+  k_pass<<<grid, kThreads, Pass<T>::kKSmem, stream>>>(g);
   return cudaGetLastError();
 }
-
-}  // namespace fma_path
 
 }  // namespace
 
@@ -601,8 +573,8 @@ cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v,
 // dq_v, dk, dv: (B, H, T, dk) of the input type; p (H, 2T-1, dk); mask (B, T)
 // uint8; lse (B, H, T) float32 from the forward. dp: float32 (H, 2T-1, dk),
 // zeroed by the caller, receives the position table's gradient. delta:
-// float32 (B, H, T) scratch. dtype: 0 = float32 (FMA kernels), 1 = bfloat16
-// (tensor-core kernels; pointers 16-byte aligned). Only dk = 64.
+// float32 (B, H, T) scratch. dtype: 0 = float32 (3xTF32), 1 = bfloat16;
+// pointers 16-byte aligned. Only dk = 64.
 // rate and seed as given to the forward. Returns cudaGetLastError() after
 // the launches.
 extern "C" int l2s_rel_attention_bwd(const void* qu, const void* qv, const void* k,
@@ -621,11 +593,11 @@ extern "C" int l2s_rel_attention_bwd(const void* qu, const void* qv, const void*
   const philox::Dropout drop = philox::make_dropout(rate, seed);
   cudaError_t e;
   if (dtype == 0)
-    e = fma_path::launch(qu, qv, k, v, p, m, l, out, d_out, dqu, dqv, dk_out, dv_out, dpf, dl,
-                         B, H, T_len, drop, s);
+    e = launch<float>(qu, qv, k, v, p, m, l, out, d_out, dqu, dqv, dk_out, dv_out, dpf, dl, B, H,
+                      T_len, drop, s);
   else if (dtype == 1)
-    e = mma_path::launch(qu, qv, k, v, p, m, l, out, d_out, dqu, dqv, dk_out, dv_out, dpf, dl, B,
-                         H, T_len, drop, s);
+    e = launch<bf16>(qu, qv, k, v, p, m, l, out, d_out, dqu, dqv, dk_out, dv_out, dpf, dl, B, H,
+                     T_len, drop, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -206,7 +206,10 @@ def _qkv(what: str, q_u, others: dict, extra=()):
 
 def rel_attention_kernel(q_u, q_v, k, v, p, mask, dropout_rate: float = 0.0, seed: int = 0):
     """Launch csrc/rel_attention.cu; returns (out (B,H,T,dk), lse (B,H,T) f32).
-    Rows with no valid key stay finite (a uniform average of V)."""
+    Rows with no valid key stay finite (a uniform average of V). f32 inputs
+    take the kernel's 3xTF32 path (three TF32 tensor-core products for each
+    f32 one, f32 sums), bf16 ones its bf16 path, which rounds P to bf16
+    before P V. Every pointer must be 16-byte aligned."""
     b, h, t, dk = q_u.shape
     _check_dropout(dropout_rate, seed)
     _check_inputs("rel_attention", _qkv("rel_attention", q_u, {"q_v": q_v, "k": k, "v": v},
@@ -227,8 +230,9 @@ def rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g,
                              dropout_rate: float = 0.0, seed: int = 0):
     """Launch csrc/rel_attention_bwd.cu; returns (dq_u, dq_v, dk, dv, dp) in
     the input type. lse and out come from rel_attention_kernel with the same
-    dropout_rate and seed. dp is accumulated with f32 atomics, so its last
-    bits may differ between runs."""
+    dropout_rate and seed. f32 inputs take the kernels' 3xTF32 path, bf16
+    ones their bf16 path, which rounds dS and P to bf16 as operands. dp is
+    accumulated with f32 atomics, so its last bits may differ between runs."""
     b, h, t, dk = q_u.shape
     dev, dt = q_u.device, q_u.dtype
     _check_dropout(dropout_rate, seed)

@@ -1,0 +1,141 @@
+"""The method of the f32 paths of csrc/rel_attention.cu and
+csrc/rel_attention_bwd.cu, checked on the CPU: every product in 3xTF32
+(each operand split into hi, rounded to TF32 as cvt.rna rounds, and lo =
+v - hi, which the tensor core reads truncated to TF32; lo_a hi_b + hi_a
+lo_b + hi_a hi_b in f32), emulated in plain PyTorch at the kernels'
+rounding points, against the JAX package's f32 forward (`dense_rel_attention`)
+and backward (`_rel_flash_bwd_impl` in interpret mode), within the limits
+that chip_smoke.py holds the kernels to on the card: 1e-4 absolute forward
+(phase 3), 1e-4 of max(1, |ref|) a gradient backward (phases 11 and 12).
+One TF32 product (1xTF32: hi_a hi_b), in every product or in any one of
+them, must fall outside those limits, so that they tell the method from
+the cheaper one. This checks the method, not the kernels, which run only
+on the card. T = 130 (three key tiles of 64, the last one ragged) with a
+fully masked batch row; head dim 64, the kernels' only one."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from lip2speech_tpu.ops import pallas_rel_attention as jra
+from lip2speech_tpu_torch.ops import rel_attention as tra
+
+FWD_TOL = 1e-4              # chip_smoke.py phase 3, absolute
+BWD_TOL = 1e-4              # chip_smoke.bwd_tolerance(f32), of max(1, |ref|)
+FWD_PRODUCTS = ("qk", "pos", "pv")
+BWD_PRODUCTS = ("qk", "pos", "dpr", "dqu", "dqv", "dk", "dv", "dp")
+LENS = (130, 97, 0)
+H, T, DK = 2, 130, 64
+
+
+def _tf32(t):
+    """cvt.rna.tf32.f32 on the f32 bits, as the kernels' split computes it."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tc(t):
+    """An f32 register as the tensor core reads it for a TF32 product."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm(eq, a, b, terms):
+    """einsum of f32 operands at the kernels' rounding: terms 3 = lo_a hi_b +
+    hi_a lo_b + hi_a hi_b (3xTF32), 1 = hi_a hi_b (1xTF32). Products of two
+    TF32 values are exact in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if terms == 3:
+        out = torch.einsum(eq, _tc(a - ah), bh) + torch.einsum(eq, ah, _tc(b - bh)) + out
+    return out
+
+
+def _terms(products, one=None):
+    """Every product in 3xTF32; `one` ("all" or a product's name) in 1xTF32."""
+    return {name: 1 if one in ("all", name) else 3 for name in products}
+
+
+def _scores(q_u, q_v, k, p, terms):
+    return (_mm("bhqd,bhkd->bhqk", q_u, k, terms["qk"])
+            + tra.rel_shift(_mm("bhqd,hpd->bhqp", q_v, p, terms["pos"]))) / math.sqrt(DK)
+
+
+def _forward(q_u, q_v, k, v, p, mask, terms):
+    """The forward kernel's arithmetic: S in f32 from the split products, the
+    row's exp(S - max) unnormalised times V, divided by the row sum."""
+    m = mask[:, None, None, :]
+    s = _scores(q_u, q_v, k, p, terms).masked_fill(~m, tra.NEG_INF)
+    e = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill(~m, 0.0)
+    return _mm("bhqk,bhkd->bhqd", e, v, terms["pv"]) / e.sum(-1, keepdim=True).clamp_min(1e-20)
+
+
+def _backward(q_u, q_v, k, v, p, mask, lse, out, g, terms):
+    """The backward kernels' arithmetic (rel_attention_bwd_plain's formulas),
+    each product at its rounding: the recomputed S, dPr = dO V^T, dQ_u = dS
+    K, dQ_v = dG p, dK = dS^T Q_u, dV = P^T dO, dP = dG^T Q_v."""
+    valid = mask[:, None, None, :] & (lse > tra.NEG_INF / 2)[..., None]
+    prob = torch.where(valid, torch.exp(_scores(q_u, q_v, k, p, terms) - lse[..., None]), 0.0)
+    dpr = _mm("bhqd,bhkd->bhqk", g, v, terms["dpr"])
+    ds = prob * (dpr - (g * out).sum(-1, keepdim=True)) / math.sqrt(DK)
+    dg = tra.rel_unshift(ds)
+    return (_mm("bhqk,bhkd->bhqd", ds, k, terms["dqu"]), _mm("bhqp,hpd->bhqd", dg, p, terms["dqv"]),
+            _mm("bhqk,bhqd->bhkd", ds, q_u, terms["dk"]), _mm("bhqk,bhqd->bhkd", prob, g, terms["dv"]),
+            _mm("bhqp,bhqd->hpd", dg, q_v, terms["dp"]))
+
+
+@pytest.fixture(scope="module")
+def case():
+    """Inputs as chip_smoke.py makes them (randn, the position table too),
+    the JAX f32 forward, and the JAX backward kernel in interpret mode from
+    its own forward's residuals."""
+    rng = np.random.default_rng(7)
+    b = len(LENS)
+    q_u, q_v, k, v = (rng.standard_normal((b, H, T, DK)).astype(np.float32) for _ in range(4))
+    p = rng.standard_normal((H, 2 * T - 1, DK)).astype(np.float32)
+    mask = np.arange(T)[None, :] < np.asarray(LENS)[:, None]
+    g = rng.standard_normal((b, H, T, DK)).astype(np.float32) * mask[:, None, :, None]
+    j = [jnp.asarray(x) for x in (q_u, q_v, k, v, p)]
+    jmask = jnp.asarray(mask)
+    out_j, lse_j = jra._rel_flash_impl(*j, jmask, block=64, interpret=True, return_lse=True)
+    grads_j = jra._rel_flash_bwd_impl(*j, jmask, lse_j, out_j, jnp.asarray(g), block=64,
+                                      interpret=True)
+    to_t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    return {"args": [to_t(x) for x in (q_u, q_v, k, v, p)], "mask": torch.from_numpy(mask),
+            "g": to_t(g), "lse": to_t(lse_j), "out": to_t(out_j),
+            "fwd_ref": to_t(jra.dense_rel_attention(*j, jmask)),
+            "bwd_ref": [to_t(x) for x in grads_j]}
+
+
+def _fwd_err(case, terms):
+    """Max abs error over the valid rows (a fully masked row is a uniform
+    average in the kernel and 0 in the dense reference)."""
+    got = _forward(*case["args"], case["mask"], terms)
+    rows = case["mask"][:, None, :, None]
+    return float(((got - case["fwd_ref"]) * rows).abs().max())
+
+
+def _bwd_err(case, terms):
+    got = _backward(*case["args"], case["mask"], case["lse"], case["out"], case["g"], terms)
+    return max(float((a - r).abs().max()) / max(1.0, float(r.abs().max()))
+               for a, r in zip(got, case["bwd_ref"]))
+
+
+def test_3xtf32_forward_is_within_the_f32_limit(case):
+    assert _fwd_err(case, _terms(FWD_PRODUCTS)) <= FWD_TOL / 10
+
+
+def test_3xtf32_backward_is_within_the_f32_limit(case):
+    assert _bwd_err(case, _terms(BWD_PRODUCTS)) <= BWD_TOL / 10
+
+
+@pytest.mark.parametrize("one", ("all",) + FWD_PRODUCTS)
+def test_one_tf32_product_fails_the_forward_limit(case, one):
+    assert _fwd_err(case, _terms(FWD_PRODUCTS, one)) > FWD_TOL
+
+
+@pytest.mark.parametrize("one", ("all",) + BWD_PRODUCTS)
+def test_one_tf32_product_fails_the_backward_limit(case, one):
+    assert _bwd_err(case, _terms(BWD_PRODUCTS, one)) > BWD_TOL
