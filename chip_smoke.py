@@ -10,11 +10,15 @@ Phases, in order; any failure exits non-zero before the last line:
      instructions in each library's SASS, the TF32 ones apart: none in
      rel_attention, rel_attention_bwd, rel_attention_bias,
      rel_attention_bias_bwd, attention or fused_tail (bf16 on mma.sync), or
-     no TF32 one in fused_tail (f32 in 3xTF32), fails;
+     no TF32 one in rel_attention, rel_attention_bwd or fused_tail (f32 in
+     3xTF32), fails;
   3. rel-position attention kernel against its plain version, f32 and bf16;
-     times at B4 H8 T480 and at the train step's B8 H8 T1200, each beside
-     SDPA with the position term as a float bias mask, and the f32 path's
-     at the f32 request's B1 H8 T192 beside SDPA in f32;
+     bf16 times at B4 H8 T480 and at the train step's B8 H8 T1200, each
+     beside SDPA with the position term as a float bias mask; the f32 path
+     (3xTF32) within 1e-4 of its plain version at the f32 request's B1 H8
+     T192, B4 H8 T480 and B8 H8 T1200, where the forward at one TF32
+     product (rel_attention_one_tf32) must not be, and timed there beside
+     f32 SDPA, the plain version, its f32 FMA bound and its 3xTF32 bound;
   4. fused resblock-trio kernel against its plain version, per stage width,
      bf16 and f32 (3xTF32, TRIO_F32_TOL = 2e-5 of max(1, |ref|) with TF32
      off, which the trio at one TF32 product, trio_one_tf32, must fail); each
@@ -47,7 +51,11 @@ Phases, in order; any failure exits non-zero before the last line:
      two faulty dbias made from the kernel's must fail; both kernels' bf16
      times at B4 H8 T480 and B8 H8 T1200 beside their plain versions, SDPA's
      backward and the bound (bytes and operations), the bias route's also
-     beside the autograd of the bias construction;
+     beside the autograd of the bias construction; the shear backward's f32
+     path (3xTF32) at B4 H8 T480 and B8 H8 T1200 within 1e-4 of max(1,
+     |ref|) of its plain version, where the backward at one TF32 product
+     (rel_attention_bwd_one_tf32) must not be, and timed there beside f32
+     SDPA's backward, the plain version and both bounds;
  12. in-kernel attention dropout, both routes, forward and backward, against
      the plain versions under the identical keep mask (dbias by DBIAS_TOL);
      the kernel's mask against ops/dropout_mask.py; determinism, keep rate,
@@ -55,9 +63,13 @@ Phases, in order; any failure exits non-zero before the last line:
  13. stage-1 training of multi_target at full width (no depth cut): bf16
      compute, dropout 0.1, micro-batch 8 x 600 frames, accumulation 2, three
      optimizer steps with exact launch counts, one profiled step, one step
-     with the bias route; then two f32 steps on the card against the CPU
-     plain path; then one step of the flagship multi_target_avhubert
-     (frozen frontend: no gradient, no update);
+     with the bias route; then the f32 step as the train_stage1 CLI runs it
+     (the same recipe with bf16_compute off, TF32 in cuDNN only): three
+     steps with exact launch counts, p50, peak memory and a profiled step
+     with the rel-attention kernels' share; then two f32 steps at 2 x 32
+     frames on the card against the CPU plain path; then one step of the
+     flagship multi_target_avhubert (frozen frontend: no gradient, no
+     update);
  14. the trio's f32 path at the stage-2 GAN shapes (B16 x one 8,960-sample
      segment: C128 M1,120 ... C16 M8,960) against its plain version at
      TRIO_F32_TOL (which trio_one_tf32 must fail), timed

@@ -46,6 +46,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "flash_tile.cuh"
 
@@ -86,9 +87,10 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Rows row0 .. row0+63 of a (n_rows, 64) bf16 matrix into a swizzled tile;
 // rows outside [0, n_rows) are zero.
+template <int NTHREADS = kThreads>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int row0,
                                           int n_rows) {
-  for (int e = threadIdx.x; e < kB * 8; e += kThreads) {
+  for (int e = threadIdx.x; e < kB * 8; e += NTHREADS) {
     const int r = e >> 3, c = e & 7, g = row0 + r;
     const bool ok = g >= 0 && g < n_rows;
     cp_async16(dst + r * kD + ((c ^ r) & 7) * 8, src + (size_t)(ok ? g : 0) * kD + c * 8, ok);
@@ -224,43 +226,48 @@ __device__ __forceinline__ void to_a(uint32_t a[4], const float s[8][4], int kk)
   a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 }
 
-__device__ __forceinline__ void zero(float acc[8][4]) {
+template <int NT = 8>
+__device__ __forceinline__ void zero(float acc[][4]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 }
 
-// Position term of the warp's 16 query rows against a key tile. With window
-// rows rb = 48 - 16w .. rb + 79 (the only ones its rows touch),
-//   G[a][r] = q_v[16w+a] . window[rb + r]    (16 x 80, tensor cores)
-// goes through the warp's f32 scratch sG (16 x kGld), and
-//   BD[a][j] = q_v[16w+a] . window[63 - (16w+a) + j] = G[a][15 - a + j]
+// Position term of a warp's 16 query rows (16w..) against its keys of a key
+// tile (kw.., 8 NT of them: the whole tile, or half of it where two warps
+// share the rows). With window rows rb = 48 - 16w + kw .. rb + 15 + 8 NT
+// (the only ones they touch),
+//   G[a][r] = q_v[16w+a] . window[rb + r]    (16 x (16 + 8 NT), tensor cores)
+// goes through the warp's f32 scratch sG (16 rows of LD floats), and
+//   BD[a][j] = q_v[16w+a] . window[63 - (16w+a) + kw + j] = G[a][15 - a + j]
 // is added to the score accumulator s straight in its m16n8 layout.
+template <int LD = kGld>
 __device__ __forceinline__ void store_g(float* sG, const float c[4], int col, int lane) {
   const int g = lane >> 2;
-  *reinterpret_cast<float2*>(sG + g * kGld + col) = make_float2(c[0], c[1]);
-  *reinterpret_cast<float2*>(sG + (g + 8) * kGld + col) = make_float2(c[2], c[3]);
+  *reinterpret_cast<float2*>(sG + g * LD + col) = make_float2(c[0], c[1]);
+  *reinterpret_cast<float2*>(sG + (g + 8) * LD + col) = make_float2(c[2], c[3]);
 }
 
-__device__ __forceinline__ void add_diagonal(float s[8][4], const float* sG, int lane) {
+template <int NT = 8, int LD = kGld>
+__device__ __forceinline__ void add_diagonal(float s[][4], const float* sG, int lane) {
   const int g = lane >> 2, q = lane & 3;
   __syncwarp();
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int j = 8 * n + 2 * q + e;
-      s[n][e] += sG[g * kGld + 15 - g + j];
-      s[n][2 + e] += sG[(g + 8) * kGld + 7 - g + j];
+      s[n][e] += sG[g * LD + 15 - g + j];
+      s[n][2 + e] += sG[(g + 8) * LD + 7 - g + j];
     }
   __syncwarp();
 }
 
 __device__ __forceinline__ void add_position_term(float s[8][4], const uint32_t qv[4][4],
-                                                  const Ring<bf16>& win, int m, int warp,
+                                                  const Ring<bf16>& win, int m, int rb,
                                                   int lane, float* sG) {
-  const int rb = 48 - 16 * warp, q = lane & 3;
+  const int q = lane & 3;
 #pragma unroll
   for (int np = 0; np < kGRows / 16; ++np) {
     float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -302,14 +309,15 @@ __device__ __forceinline__ void keep_frag(const philox::Dropout& d, uint32_t bh,
 
 // The lane's share of a warp's 16 x 64 accumulator as rows `row` (its g)
 // and row + 8 of a (n_rows, 64) bf16 output, times mul[0] and mul[1].
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float acc[8][4],
+template <int NT = 8>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float acc[][4],
                                            int row, int n_rows, const float mul[2], int q) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
     if (r >= n_rows) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(dst + (size_t)r * kD + 8 * n + 2 * q) =
           pack_bf16(acc[n][2 * h] * mul[h], acc[n][2 * h + 1] * mul[h]);
   }
@@ -373,14 +381,15 @@ __device__ __forceinline__ void store_frag_f32(float* __restrict__ dst, const fl
 // of an (n_rows, 64) f32 matrix, four floats per atomic: lanes q and q^1
 // swap halves so that the even one holds four consecutive floats of row g
 // and the odd one of row g + 8. Rows outside [0, n_rows) are skipped.
-__device__ __forceinline__ void red_add_rows(const float c[8][4], float* __restrict__ dst,
+template <int NT = 8>
+__device__ __forceinline__ void red_add_rows(const float c[][4], float* __restrict__ dst,
                                              int row0, int n_rows, int lane) {
   const int g = lane >> 2, q = lane & 3;
   const bool odd = q & 1;
   const int row = row0 + g + (odd ? 8 : 0);
   const bool ok = row >= 0 && row < n_rows;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < NT; ++n) {
     const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[n][0] : c[n][2], 1);
     const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[n][1] : c[n][3], 1);
     const float4 val = odd ? make_float4(r0, r1, c[n][2], c[n][3])
@@ -434,9 +443,10 @@ __device__ __forceinline__ void split_b(float b0, float b1, uint32_t bh[2], uint
 
 // Rows row0 .. row0+63 of a (n_rows, 64) f32 matrix into an f32 tile; rows
 // outside [0, n_rows) are zero.
+template <int NTHREADS = kThreads>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
                                           int n_rows) {
-  for (int e = threadIdx.x; e < kB * 16; e += kThreads) {
+  for (int e = threadIdx.x; e < kB * 16; e += NTHREADS) {
     const int r = e >> 4, c = e & 15, g = row0 + r;
     const bool ok = g >= 0 && g < n_rows;
     cp_async16(dst + r * kLd32 + 4 * c, src + (size_t)(ok ? g : 0) * kD + 4 * c, ok);
@@ -454,9 +464,8 @@ __device__ __forceinline__ RC b32_rows(int lane, int n0, int k0) {
 }
 
 // The warp's 16 rows (m0..) of a 64-wide [m][k] operand tile as the A of
-// products. bf16: its fragments held in registers (16 of them). f32: read
-// from the tile and split at each use; held, hi and lo would take 64
-// registers beside the accumulators.
+// products, held in registers: bf16 fragments (16 registers); f32 values (32
+// registers), split at each use (hi and lo held would take 64).
 template <typename T>
 struct RowsA;
 template <>
@@ -468,13 +477,29 @@ struct RowsA<bf16> {
 };
 template <>
 struct RowsA<float> {
+  uint32_t a[8][4];
+  __device__ __forceinline__ void init(const float* tile, int m0, int lane) {
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const RC rc = a32_rows(lane, m0, 8 * ks);
+      ldsm_x4(a[ks], smem_u32(tile + Tile<float>::at(rc.r, rc.c)));
+    }
+  }
+  // k8 step ks, split
+  __device__ __forceinline__ void frag(int ks, int, uint32_t ah[4], uint32_t al[4]) const {
+    split4(a[ks], ah, al);
+  }
+};
+
+// The same f32 rows read from their tile and split at each use, where the
+// registers are short (the backward passes).
+struct TileRowsA {
   const float* tile;
   int m0;
   __device__ __forceinline__ void init(const float* t, int m, int) {
     tile = t;
     m0 = m;
   }
-  // k8 step ks, split
   __device__ __forceinline__ void frag(int ks, int lane, uint32_t ah[4], uint32_t al[4]) const {
     const RC rc = a32_rows(lane, m0, 8 * ks);
     uint32_t a[4];
@@ -483,20 +508,27 @@ struct RowsA<float> {
   }
 };
 
-__device__ __forceinline__ void product_nt(float acc[8][4], const RowsA<bf16>& a, const bf16* x,
+// Rows as the backward passes take them: bf16 held, f32 read from the tile.
+template <typename T>
+using PassRowsA = std::conditional_t<sizeof(T) == 2, RowsA<bf16>, TileRowsA>;
+
+template <int NT = 8>
+__device__ __forceinline__ void product_nt(float acc[][4], const RowsA<bf16>& a, const bf16* x,
                                            int lane) {
+  static_assert(NT == 8, "bf16: a warp's rows against the whole tile");
   product_nt(acc, a.a, x, lane);
 }
 
-// acc[n] (16 x 64) += A (16 x 64) . X^T for a [n][k] f32 tile X
-__device__ __forceinline__ void product_nt(float acc[8][4], const RowsA<float>& a, const float* x,
-                                           int lane) {
+// acc[n] (16 x 8 NT) += A (16 x 64: RowsA<float> or TileRowsA) . X^T for
+// the 8 NT rows of a [n][k] f32 tile at X
+template <int NT = 8, class A>
+__device__ __forceinline__ void product_nt(float acc[][4], const A& a, const float* x, int lane) {
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) {
     uint32_t ah[4], al[4];
     a.frag(ks, lane, ah, al);
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < NT / 2; ++np) {
       const RC rc = b32_rows(lane, 16 * np, 8 * ks);
       uint32_t b[4], bh[4], bl[4];
       ldsm_x4(b, smem_u32(x + Tile<float>::at(rc.r, rc.c)));
@@ -538,51 +570,63 @@ __device__ __forceinline__ void product_acc_nn(float acc[8][4], const float p[8]
   }
 }
 
-__device__ __forceinline__ void add_position_term(float s[8][4], const RowsA<bf16>& qv,
-                                                  const Ring<bf16>& win, int m, int warp,
-                                                  int lane, float* sG) {
-  add_position_term(s, qv.a, win, m, warp, lane, sG);
+template <int NT = 8, int LD = kGld>
+__device__ __forceinline__ void add_position_term(float s[][4], const RowsA<bf16>& qv,
+                                                  const Ring<bf16>& win, int m, int rb, int lane,
+                                                  float* sG) {
+  static_assert(NT == 8 && LD == kGld, "bf16: a warp's rows against the whole tile");
+  add_position_term(s, qv.a, win, m, rb, lane, sG);
 }
 
-// The f32 position term: G (16 x 80) in ten accumulators, k8 step by k8
-// step, so that each A fragment of q_v is loaded and split once.
-__device__ __forceinline__ void add_position_term(float s[8][4], const RowsA<float>& qv,
-                                                  const Ring<float>& win, int m, int warp,
-                                                  int lane, float* sG) {
-  const int rb = 48 - 16 * warp, q = lane & 3;
-  float c[kGRows / 8][4];
+// The f32 position term: G (16 x (16 + 8 NT)) in blocks of at most 48
+// window rows (24 accumulators), k8 step by k8 step, so that an A fragment
+// of q_v is loaded and split once a block.
+template <int NT = 8, int LD = kGld, class A>
+__device__ __forceinline__ void add_position_term(float s[][4], const A& qv,
+                                                  const Ring<float>& win, int m, int rb, int lane,
+                                                  float* sG) {
+  constexpr int kPairs = (16 + 8 * NT) / 16;   // n8 tile pairs of G
+  const int q = lane & 3;
 #pragma unroll
-  for (int n = 0; n < kGRows / 8; ++n)
+  for (int p0 = 0; p0 < kPairs; p0 += 3) {
+    float c[6][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+    for (int n = 0; n < 6; ++n)
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    uint32_t ah[4], al[4];
-    qv.frag(ks, lane, ah, al);
+      for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
 #pragma unroll
-    for (int np = 0; np < kGRows / 16; ++np) {
-      uint32_t b[4], bh[4], bl[4];
-      ldsm_x4(b, win.addr(m, b32_rows(lane, rb + 16 * np, 8 * ks)));
-      split4(b, bh, bl);
-      mma3(c[2 * np], ah, al, bh, bl);
-      mma3(c[2 * np + 1], ah, al, bh + 2, bl + 2);
+    for (int ks = 0; ks < 8; ++ks) {
+      uint32_t ah[4], al[4];
+      qv.frag(ks, lane, ah, al);
+#pragma unroll
+      for (int np = 0; np < 3; ++np) {
+        if (p0 + np >= kPairs) break;
+        uint32_t b[4], bh[4], bl[4];
+        ldsm_x4(b, win.addr(m, b32_rows(lane, rb + 16 * (p0 + np), 8 * ks)));
+        split4(b, bh, bl);
+        mma3(c[2 * np], ah, al, bh, bl);
+        mma3(c[2 * np + 1], ah, al, bh + 2, bl + 2);
+      }
     }
-  }
 #pragma unroll
-  for (int n = 0; n < kGRows / 8; ++n) store_g(sG, c[n], 8 * n + 2 * q, lane);
-  add_diagonal(s, sG, lane);
+    for (int n = 0; n < 6; ++n)
+      if (2 * p0 + n < 2 * kPairs) store_g<LD>(sG, c[n], 16 * p0 + 8 * n + 2 * q, lane);
+  }
+  add_diagonal<NT, LD>(s, sG, lane);
 }
 
-// The lane's share of a warp's 16 x 64 accumulator as rows `row` (its g)
-// and row + 8 of a (n_rows, 64) f32 output, times mul[0] and mul[1].
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float acc[8][4],
+// The lane's share of a warp's 16 x 8 NT accumulator as rows `row` (its g)
+// and row + 8 of a (n_rows, 64) f32 output (dst: the first column), times
+// mul[0] and mul[1].
+template <int NT = 8>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float acc[][4],
                                            int row, int n_rows, const float mul[2], int q) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
     if (r >= n_rows) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NT; ++n)
       *reinterpret_cast<float2*>(dst + (size_t)r * kD + 8 * n + 2 * q) =
           make_float2(acc[n][2 * h] * mul[h], acc[n][2 * h + 1] * mul[h]);
   }

@@ -67,28 +67,32 @@ using namespace mma;
 
 template <typename T>
 struct Fwd {
-  // Q_u, Q_v, two stages of K and of V, the window ring, the warps' G
-  // scratch, two stages of mask flags
-  static constexpr size_t kSmem = (size_t)9 * Tile<T>::kElems * sizeof(T) +
-                                  ((size_t)kWarps * 16 * kGld + 2 * kB) * sizeof(float);
-  static constexpr int kBlocksPerSm = sizeof(T) == 2 ? 2 : 1;
+  // bf16: K and V double-buffered, Q_u and Q_v in tiles of their own; f32:
+  // one stage of K and of V, Q_u and Q_v staged through the G scratch and V
+  // (so that two blocks fit an SM)
+  static constexpr int kStages = sizeof(T) == 2 ? 2 : 1;
+  static constexpr int kQTiles = sizeof(T) == 2 ? 2 : 0;
+  // Q tiles, K and V stages, the window ring, the warps' G scratch, the mask flags
+  static constexpr size_t kSmem =
+      (size_t)(kQTiles + 2 * kStages + 3) * Tile<T>::kElems * sizeof(T) +
+      ((size_t)kWarps * 16 * kGld + kStages * kB) * sizeof(float);
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, Fwd<T>::kBlocksPerSm)
+__global__ void __launch_bounds__(kThreads, 2)
 rel_attention_mma(const T* __restrict__ qu, const T* __restrict__ qv, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ p,
                   const uint8_t* __restrict__ mask, T* __restrict__ out, float* __restrict__ lse,
                   int H, int T_len, float scale, philox::Dropout drop) {
-  constexpr int E = Tile<T>::kElems;
+  constexpr int E = Tile<T>::kElems, kStages = Fwd<T>::kStages;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* sQu = reinterpret_cast<T*>(smem_raw);
-  T* sQv = sQu + E;
-  T* sK = sQv + E;        // two stages
-  T* sV = sK + 2 * E;     // two stages
-  const Ring<T> win{sV + 2 * E};
+  T* sK = reinterpret_cast<T*>(smem_raw) + Fwd<T>::kQTiles * E;   // kStages stages
+  T* sV = sK + kStages * E;                                        // kStages stages
+  const Ring<T> win{sV + kStages * E};
   float* sG = reinterpret_cast<float*>(win.s + 3 * E);
-  float* sM = sG + kWarps * 16 * kGld;   // two stages
+  float* sM = sG + kWarps * 16 * kGld;                             // kStages stages
+  T* sQu = kStages == 2 ? reinterpret_cast<T*>(smem_raw) : reinterpret_cast<T*>(sG);
+  T* sQv = kStages == 2 ? sQu + E : sV;
 
   const int bh = blockIdx.y, h = bh % H, i0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
@@ -104,20 +108,31 @@ rel_attention_mma(const T* __restrict__ qu, const T* __restrict__ qv, const T* _
   load_tile(sQu, qu + base, i0, T_len);
   load_tile(sQv, qv + base, i0, T_len);
   load_tile(sK, k + base, 0, T_len);
-  load_tile(sV, v + base, 0, T_len);
+  if (kStages == 2) load_tile(sV, v + base, 0, T_len);
   load_tile(win.chunk(0), ph, p_base, n_table);
   load_tile(win.chunk(1), ph, p_base + kB, n_table);
   flash::load_mask(sM, mask_row, 0, T_len);
   cp_async_commit();
 
   RowsA<T> aqu, aqv;
+  if (kStages == 1) {   // Q into registers, then V over Q_v's staging
+    cp_async_wait<0>();
+    __syncthreads();
+    aqu.init(sQu, 16 * warp, lane);
+    aqv.init(sQv, 16 * warp, lane);
+    __syncthreads();
+    load_tile(sV, v + base, 0, T_len);
+    cp_async_commit();
+  }
   float o[8][4];
   zero(o);
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {       // stage t+1 was last read in tile t-1
+    const int st = kStages == 2 ? t & 1 : 0;
+    if (kStages == 1) {
+      cp_async_wait<0>();          // tile t's K, V, mask and window chunk t + 1
+    } else if (t + 1 < n_tiles) {  // stage t+1 was last read in tile t-1
       const int j1 = (t + 1) * kB;
       load_tile(sK + (st ^ 1) * E, k + base, j1, T_len);
       load_tile(sV + (st ^ 1) * E, v + base, j1, T_len);
@@ -129,7 +144,7 @@ rel_attention_mma(const T* __restrict__ qu, const T* __restrict__ qv, const T* _
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
+    if (kStages == 2 && t == 0) {
       aqu.init(sQu, 16 * warp, lane);
       aqv.init(sQv, 16 * warp, lane);
     }
@@ -140,7 +155,15 @@ rel_attention_mma(const T* __restrict__ qu, const T* __restrict__ qv, const T* _
     float s[8][4];
     zero(s);
     product_nt(s, aqu, kt, lane);
-    add_position_term(s, aqv, win, t, warp, lane, G);
+    add_position_term(s, aqv, win, t, 48 - 16 * warp, lane, G);
+    if (kStages == 1) {
+      __syncthreads();   // K and window chunk t are consumed
+      if (t + 1 < n_tiles) {
+        load_tile(sK, k + base, (t + 1) * kB, T_len);
+        load_tile(win.chunk(t + 2), ph, p_base + (t + 2) * kB, n_table);
+        cp_async_commit();
+      }
+    }
 
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -181,6 +204,11 @@ rel_attention_mma(const T* __restrict__ qu, const T* __restrict__ qv, const T* _
     }
     product_acc_nn(o, s, vt, lane);
     __syncthreads();   // stage st and window chunk t are consumed
+    if (kStages == 1 && t + 1 < n_tiles) {   // tile t+1's V and mask
+      load_tile(sV, v + base, (t + 1) * kB, T_len);
+      flash::load_mask(sM, mask_row, (t + 1) * kB, T_len);
+      cp_async_commit();
+    }
   }
 
   float inv[2];

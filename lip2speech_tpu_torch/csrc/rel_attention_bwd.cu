@@ -87,19 +87,29 @@ using namespace mma;
 constexpr int kDgLd = 136;   // row stride of the dG tile (bf16: ldmatrix without conflicts)
 constexpr int kPtLd = 72;    // row stride of the f32 P~^T and dS^T tiles
 
+// bf16: 4 warps, each owning 16 query rows (query pass) or keys (key pass)
+// against the whole tile. f32: 8 warps, two to each 16 rows, each taking
+// half the tile's keys (kw = 0 or 32) and, in the products that follow,
+// half the channels: the 3xTF32 products leave one 4-warp block of ~200 KB
+// an SM latency-bound, and two warps a scheduler hide each other's waits.
 template <typename T>
 struct Pass {
-  static constexpr bool kHeld = sizeof(T) == 2;   // query pass: Q_u, dO fragments in registers
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int kWarps = kBf16 ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int NT = kBf16 ? 8 : 4;         // n8 tiles of keys (and channels) a warp
+  static constexpr int kGLd = kBf16 ? kGld : 56;   // row stride of a warp's G scratch
   static constexpr int E = Tile<T>::kElems;
-  // query pass: Q_v (f32: then Q_u and dO), two stages of K and of V, the
-  // window ring, dG, the warps' G scratch, two stages of mask flags
-  static constexpr size_t kQSmem = ((size_t)(kHeld ? 8 : 10) * E + (size_t)kB * kDgLd) * sizeof(T) +
-                                   ((size_t)kWarps * 16 * kGld + 2 * kB) * sizeof(float);
+  // query pass: Q_v, two stages of K and of V, the window ring, dG (Q_u
+  // and dO pass through it on their way to registers), the warps' G
+  // scratch, two stages of mask flags
+  static constexpr size_t kQSmem = ((size_t)8 * E + (size_t)kB * kDgLd) * sizeof(T) +
+                                   ((size_t)kWarps * 16 * kGLd + 2 * kB) * sizeof(float);
   // key pass: K, V, Q_u, Q_v, dO, the window ring, P~, dS, the G scratch, the mask flags
-  static constexpr int kPdElems = kHeld ? kTile : kD * kPtLd;
+  static constexpr int kPdElems = kBf16 ? kTile : kD * kPtLd;
   static constexpr size_t kKSmem = ((size_t)8 * E + 2 * (size_t)kPdElems) * sizeof(T) +
-                                   ((size_t)kWarps * 16 * kGld + kB) * sizeof(float);
-  static constexpr int kBlocksPerSm = kHeld ? 2 : 1;
+                                   ((size_t)kWarps * 16 * kGLd + kB) * sizeof(float);
+  static constexpr int kBlocksPerSm = kBf16 ? 2 : 1;
 };
 
 template <typename T>
@@ -135,16 +145,16 @@ __device__ __forceinline__ void row_stats(const Args<T>& g, int bh, int i_g, flo
 }
 
 // From the scores s (scaled, mask not applied) and dpr = dO V^T of the
-// warp's 16 x 64 pair tile: ds = P o (dpr * keep - D) * scale, and with pd
-// != nullptr also pd = P * keep. Rows whose lse is below -1e30 / 2 had no
-// valid key and get P = 0. kj0: the tile's first key.
-template <typename T>
-__device__ __forceinline__ void backward_frag(float s[8][4], const float dpr[8][4],
-                                              float (*pd)[4], const float* sM, const Args<T>& g,
-                                              int bh, int i_g, int kj0, const float lse[2],
-                                              const float delta[2], int q) {
+// warp's 16 x 8 NT pair tile: ds = P o (dpr * keep - D) * scale, and with
+// pd != nullptr also pd = P * keep. Rows whose lse is below -1e30 / 2 had
+// no valid key and get P = 0. kj0: the warp's first key; sM: its flags.
+template <int NT, typename T>
+__device__ __forceinline__ void backward_frag(float s[][4], const float dpr[][4], float (*pd)[4],
+                                              const float* sM, const Args<T>& g, int bh, int i_g,
+                                              int kj0, const float lse[2], const float delta[2],
+                                              int q) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < NT; ++n) {
     float kf[4] = {1.f, 1.f, 1.f, 1.f};
     if (g.drop.thresh != 0u) keep_frag(g.drop, (uint32_t)bh, i_g, kj0 + 8 * n + 2 * q, q, kf);
 #pragma unroll
@@ -158,14 +168,19 @@ __device__ __forceinline__ void backward_frag(float s[8][4], const float dpr[8][
   }
 }
 
-// dQ_v += dG_w . Win_w: the warp's rows, window rows rb .. rb+79.
+// The query pass's products after dG is complete, for the warp's 16 query
+// rows 16w.. (its window rows rb .. rb+79):
+//   dQ_v += dG_w . Win_w,  dWin on window blocks w (done: to dP) and w+4
+//   (carried); block b meets query k-steps s with 3 <= b + s <= 7 only.
+// bf16: all 64 channels (cc = 0), dQ_u already added from dS's registers;
+// f32: channels 32 cc .., and dQ_u += dS K from dS read back out of dG.
 __device__ __forceinline__ void band_dqv(float dqv[8][4], const bf16* sDg, const Ring<bf16>& win,
-                                         int m, int warp, int lane) {
-  const int rb = 48 - 16 * warp;
+                                         int m, int w, int, int lane) {
+  const int rb = 48 - 16 * w;
 #pragma unroll
   for (int ks = 0; ks < kGRows / 16; ++ks) {
     uint32_t a[4];
-    ldsm_x4(a, dg_addr(sDg, a_rows(lane, 16 * warp, rb + 16 * ks)));
+    ldsm_x4(a, dg_addr(sDg, a_rows(lane, 16 * w, rb + 16 * ks)));
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       uint32_t b[4];
@@ -176,10 +191,10 @@ __device__ __forceinline__ void band_dqv(float dqv[8][4], const bf16* sDg, const
   }
 }
 
-__device__ __forceinline__ void band_dqv(float dqv[8][4], const float* sDg,
-                                         const Ring<float>& win, int m, int warp, int lane) {
-  const int rb = 48 - 16 * warp, g = lane >> 2, q = lane & 3;
-  const float* d0 = sDg + (16 * warp + g) * kDgLd + rb + 2 * q;
+__device__ __forceinline__ void band_dqv(float dqv[4][4], const float* sDg,
+                                         const Ring<float>& win, int m, int w, int cc, int lane) {
+  const int rb = 48 - 16 * w, g = lane >> 2, q = lane & 3;
+  const float* d0 = sDg + (16 * w + g) * kDgLd + rb + 2 * q;
 #pragma unroll 2
   for (int ks = 0; ks < kGRows / 8; ++ks) {
     const float2 x0 = *reinterpret_cast<const float2*>(d0 + 8 * ks);
@@ -188,9 +203,10 @@ __device__ __forceinline__ void band_dqv(float dqv[8][4], const float* sDg,
                             __float_as_uint(x1.y)};
     uint32_t ah[4], al[4];
     split4(av, ah, al);
-    const float* r0 = win.row(m, rb + 8 * ks + 2 * q) + g;   // rows 2q, 2q + 1 of the step
+    // window rows 2q, 2q + 1 of the step, channels 32 cc ..
+    const float* r0 = win.row(m, rb + 8 * ks + 2 * q) + 32 * cc + g;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < 4; ++n) {
       uint32_t bh[2], bl[2];
       split_b(r0[8 * n], r0[kLd32 + 8 * n], bh, bl);
       mma3(dqv[n], ah, al, bh, bl);
@@ -198,10 +214,34 @@ __device__ __forceinline__ void band_dqv(float dqv[8][4], const float* sDg,
   }
 }
 
-// c += dWin of window block b (rows 16b..16b+15) = dG[:, block b]^T . Q_v;
-// block b meets query k-steps s with 3 <= b + s <= 7 only.
+// f32: dQ_u (rows 16w.., channels 32 cc ..) += dS K, with dS[a][j] =
+// dG[a][63 - a + j] (the keys of a k8 step in the order 0, 2, 4, 6, 1, 3,
+// 5, 7, K's rows read to match)
+__device__ __forceinline__ void dqu_from_dg(float dqu[4][4], const float* sDg, const float* kt,
+                                            int w, int cc, int lane) {
+  const int g = lane >> 2, q = lane & 3, a = 16 * w + g;
+  const float* d0 = sDg + a * kDgLd + kB - 1 - a + 2 * q;             // row a, key 2q
+  const float* d1 = sDg + (a + 8) * kDgLd + kB - 1 - (a + 8) + 2 * q;   // row a + 8
+#pragma unroll 2
+  for (int ks = 0; ks < 8; ++ks) {
+    const uint32_t av[4] = {__float_as_uint(d0[8 * ks]), __float_as_uint(d1[8 * ks]),
+                            __float_as_uint(d0[8 * ks + 1]), __float_as_uint(d1[8 * ks + 1])};
+    uint32_t ah[4], al[4];
+    split4(av, ah, al);
+    const float* r0 = kt + (8 * ks + 2 * q) * kLd32 + 32 * cc + g;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      uint32_t bh[2], bl[2];
+      split_b(r0[8 * n], r0[kLd32 + 8 * n], bh, bl);
+      mma3(dqu[n], ah, al, bh, bl);
+    }
+  }
+}
+
+// c += dWin of window block b (rows 16b..16b+15) = dG[:, block b]^T . Q_v
+// (f32: channels 32 cc ..)
 __device__ __forceinline__ void band_dwin(float c[8][4], const bf16* sDg, const bf16* sQv, int b,
-                                          int lane) {
+                                          int, int lane) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
     if (b + ks < 3 || b + ks > 7) continue;
@@ -211,8 +251,8 @@ __device__ __forceinline__ void band_dwin(float c[8][4], const bf16* sDg, const 
   }
 }
 
-__device__ __forceinline__ void band_dwin(float c[8][4], const float* sDg, const float* sQv,
-                                          int b, int lane) {
+__device__ __forceinline__ void band_dwin(float c[4][4], const float* sDg, const float* sQv,
+                                          int b, int cc, int lane) {
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
@@ -225,9 +265,9 @@ __device__ __forceinline__ void band_dwin(float c[8][4], const float* sDg, const
                               __float_as_uint(d0[kDgLd]), __float_as_uint(d0[kDgLd + 8])};
       uint32_t ah[4], al[4];
       split4(av, ah, al);
-      const float* r0 = sQv + (k0 + 2 * q) * kLd32 + g;
+      const float* r0 = sQv + (k0 + 2 * q) * kLd32 + 32 * cc + g;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < 4; ++n) {
         uint32_t bh[2], bl[2];
         split_b(r0[8 * n], r0[kLd32 + 8 * n], bh, bl);
         mma3(c[n], ah, al, bh, bl);
@@ -237,21 +277,18 @@ __device__ __forceinline__ void band_dwin(float c[8][4], const float* sDg, const
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, Pass<T>::kBlocksPerSm)
+__global__ void __launch_bounds__(Pass<T>::kThreads, Pass<T>::kBlocksPerSm)
 rel_bwd_query_pass_mma(const Args<T> g) {
-  constexpr int E = Pass<T>::E;
-  constexpr bool kHeld = Pass<T>::kHeld;
+  using P = Pass<T>;
+  constexpr int E = P::E, NT = P::NT;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sQv = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQv + (kHeld ? 1 : 3) * E;   // two stages
-  T* sV = sK + 2 * E;                    // two stages
+  T* sK = sQv + E;               // two stages
+  T* sV = sK + 2 * E;            // two stages
   const Ring<T> win{sV + 2 * E};
-  T* sDg = win.s + 3 * E;                // [query row][window row]
-  // bf16: Q_u and dO pass through the dG tile on their way to registers
-  T* sQu = kHeld ? sDg : sQv + E;
-  T* sdO = kHeld ? sDg + E : sQv + 2 * E;
+  T* sDg = win.s + 3 * E;        // [query row][window row]
   float* sG = reinterpret_cast<float*>(sDg + kB * kDgLd);
-  float* sM = sG + kWarps * 16 * kGld;   // two stages
+  float* sM = sG + P::kWarps * 16 * P::kGLd;   // two stages
 
   const int T_len = g.T_len, bh = blockIdx.y, h = bh % g.H, i0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
@@ -261,43 +298,46 @@ rel_bwd_query_pass_mma(const Args<T> g) {
   const int p_base = T_len - 1 - (i0 + kB - 1);   // table row of window chunk 0
   const uint8_t* mask_row = g.mask + (size_t)(bh / g.H) * T_len;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
-  const int i_g = i0 + 16 * warp + (lane >> 2);
-  float* G = sG + warp * 16 * kGld;
+  const int w = warp & 3, cc = warp >> 2, kw = 8 * NT * cc;   // rows 16w..; keys kw..
+  const int i_g = i0 + 16 * w + (lane >> 2);
+  float* G = sG + warp * 16 * P::kGLd;
   const int n_tiles = (T_len + kB - 1) / kB;
 
-  load_tile(sQu, g.qu + base, i0, T_len);
-  load_tile(sdO, g.d_o + base, i0, T_len);
-  load_tile(sQv, g.qv + base, i0, T_len);
-  load_tile(sK, g.k + base, 0, T_len);
-  load_tile(sV, g.v + base, 0, T_len);
-  load_tile(win.chunk(0), ph, p_base, n_table);
-  load_tile(win.chunk(1), ph, p_base + kB, n_table);
+  // Q_u and dO pass through the dG tile on their way to registers
+  load_tile<P::kThreads>(sDg, g.qu + base, i0, T_len);
+  load_tile<P::kThreads>(sDg + E, g.d_o + base, i0, T_len);
+  load_tile<P::kThreads>(sQv, g.qv + base, i0, T_len);
+  load_tile<P::kThreads>(sK, g.k + base, 0, T_len);
+  load_tile<P::kThreads>(sV, g.v + base, 0, T_len);
+  load_tile<P::kThreads>(win.chunk(0), ph, p_base, n_table);
+  load_tile<P::kThreads>(win.chunk(1), ph, p_base + kB, n_table);
   flash::load_mask(sM, mask_row, 0, T_len);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  RowsA<T> aqu, ado, aqv;
-  aqu.init(sQu, 16 * warp, lane);
-  ado.init(sdO, 16 * warp, lane);
-  aqv.init(sQv, 16 * warp, lane);
+  RowsA<T> aqu, ado;
+  PassRowsA<T> aqv;
+  aqu.init(sDg, 16 * w, lane);
+  ado.init(sDg + E, 16 * w, lane);
+  aqv.init(sQv, 16 * w, lane);
   __syncthreads();
-  for (int e = threadIdx.x; e < kB * kDgLd * (int)sizeof(T) / 4; e += kThreads)
+  for (int e = threadIdx.x; e < kB * kDgLd * (int)sizeof(T) / 4; e += P::kThreads)
     reinterpret_cast<uint32_t*>(sDg)[e] = 0u;
 
   float lse[2], delta[2];
   row_stats(g, bh, i_g, lse, delta);
-  float dqu[8][4], dqv[8][4], carry[8][4];
-  zero(dqu);
-  zero(dqv);
-  zero(carry);
+  float dqu[NT][4], dqv[NT][4], carry[NT][4];
+  zero<NT>(dqu);
+  zero<NT>(dqv);
+  zero<NT>(carry);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
     if (t + 1 < n_tiles) {       // stage t+1 was last read in tile t-1
       const int j1 = (t + 1) * kB;
-      load_tile(sK + (st ^ 1) * E, g.k + base, j1, T_len);
-      load_tile(sV + (st ^ 1) * E, g.v + base, j1, T_len);
-      load_tile(win.chunk(t + 2), ph, p_base + (t + 2) * kB, n_table);
+      load_tile<P::kThreads>(sK + (st ^ 1) * E, g.k + base, j1, T_len);
+      load_tile<P::kThreads>(sV + (st ^ 1) * E, g.v + base, j1, T_len);
+      load_tile<P::kThreads>(win.chunk(t + 2), ph, p_base + (t + 2) * kB, n_table);
       flash::load_mask(sM + (st ^ 1) * kB, mask_row, j1, T_len);
       cp_async_commit();
       cp_async_wait<1>();
@@ -308,104 +348,106 @@ rel_bwd_query_pass_mma(const Args<T> g) {
     const T* kt = sK + st * E;
     const T* vt = sV + st * E;
 
-    float s[8][4], dpr[8][4];
-    zero(s);
-    zero(dpr);
-    product_nt(s, aqu, kt, lane);
-    add_position_term(s, aqv, win, t, warp, lane, G);
+    float s[NT][4], dpr[NT][4];
+    zero<NT>(s);
+    zero<NT>(dpr);
+    product_nt<NT>(s, aqu, kt + Tile<T>::at(kw, 0), lane);
+    add_position_term<NT, P::kGLd>(s, aqv, win, t, 48 - 16 * w + kw, lane, G);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] *= g.scale;
-    product_nt(dpr, ado, vt, lane);
-    backward_frag(s, dpr, nullptr, sM + st * kB, g, bh, i_g, t * kB, lse, delta, q);
+    product_nt<NT>(dpr, ado, vt + Tile<T>::at(kw, 0), lane);
+    backward_frag<NT>(s, dpr, nullptr, sM + st * kB + kw, g, bh, i_g, t * kB + kw, lse, delta, q);
 
-    // dS un-sheared into dG, then dQ_u += dS K
+    // dS un-sheared into dG (bf16: and dQ_u += dS K from the registers)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int a = 16 * warp + (lane >> 2) + 8 * (e >> 1), j = 8 * n + 2 * q + (e & 1);
+        const int a = 16 * w + (lane >> 2) + 8 * (e >> 1), j = kw + 8 * n + 2 * q + (e & 1);
         put(sDg + a * kDgLd + kB - 1 - a + j, s[n][e]);
       }
-    product_acc_nn(dqu, s, kt, lane);
+    if constexpr (P::kBf16) product_acc_nn(dqu, s, kt, lane);
     __syncthreads();   // dG is complete
 
-    band_dqv(dqv, sDg, win, t, warp, lane);
-    // dWin on window blocks w (done: to dP) and w+4 (carried)
+    if constexpr (!P::kBf16) dqu_from_dg(dqu, sDg, kt, w, cc, lane);
+    band_dqv(dqv, sDg, win, t, w, cc, lane);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int b = warp + 4 * half;
-      float c[8][4];
+      const int b = w + 4 * half;
+      float c[NT][4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) c[n][e] = half == 0 ? carry[n][e] : 0.f;
-      band_dwin(c, sDg, sQv, b, lane);
+      band_dwin(c, sDg, sQv, b, cc, lane);
       if (half == 0) {
-        red_add_rows(c, dp_h, p_base + t * kB + 16 * b, n_table, lane);
+        red_add_rows<NT>(c, dp_h + 8 * NT * cc, p_base + t * kB + 16 * b, n_table, lane);
       } else {
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) carry[n][e] = c[n][e];
       }
     }
     __syncthreads();   // stage st, window chunk t and dG are consumed
   }
-  red_add_rows(carry, dp_h, p_base + n_tiles * kB + 16 * warp, n_table, lane);
+  red_add_rows<NT>(carry, dp_h + 8 * NT * cc, p_base + n_tiles * kB + 16 * w, n_table, lane);
   const float one[2] = {1.f, 1.f};
-  store_rows(g.dqu + base, dqu, i_g, T_len, one, q);
-  store_rows(g.dqv + base, dqv, i_g, T_len, one, q);
+  store_rows<NT>(g.dqu + base + 8 * NT * cc, dqu, i_g, T_len, one, q);
+  store_rows<NT>(g.dqv + base + 8 * NT * cc, dqv, i_g, T_len, one, q);
 }
 
-// P~ and dS of the warp's rows into the pair's tiles: bf16 [query][key]
-// (swizzled), f32 transposed, [key][query] at a row stride of kPtLd.
+// P~ and dS of the warp's rows (16w..) and keys (kw..) into the pair's
+// tiles: bf16 [query][key] (swizzled), f32 transposed, [key][query] at a
+// row stride of kPtLd.
 __device__ __forceinline__ void store_pair(bf16* sPd, bf16* sdS, const float pd[8][4],
-                                           const float ds[8][4], int warp, int lane) {
+                                           const float ds[8][4], int w, int, int lane) {
   const int q = lane & 3;
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
-      const int r = 16 * warp + (lane >> 2) + 8 * h2, c = 8 * n + 2 * q;
+      const int r = 16 * w + (lane >> 2) + 8 * h2, c = 8 * n + 2 * q;
       *reinterpret_cast<uint32_t*>(sPd + swz(r, c)) = pack_bf16(pd[n][2 * h2], pd[n][2 * h2 + 1]);
       *reinterpret_cast<uint32_t*>(sdS + swz(r, c)) = pack_bf16(ds[n][2 * h2], ds[n][2 * h2 + 1]);
     }
 }
 
-__device__ __forceinline__ void store_pair(float* sPd, float* sdS, const float pd[8][4],
-                                           const float ds[8][4], int warp, int lane) {
+__device__ __forceinline__ void store_pair(float* sPd, float* sdS, const float pd[4][4],
+                                           const float ds[4][4], int w, int kw, int lane) {
   const int q = lane & 3;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < 4; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = 16 * warp + (lane >> 2) + 8 * (e >> 1), c = 8 * n + 2 * q + (e & 1);
+      const int r = 16 * w + (lane >> 2) + 8 * (e >> 1), c = kw + 8 * n + 2 * q + (e & 1);
       sPd[c * kPtLd + r] = pd[n][e];
       sdS[c * kPtLd + r] = ds[n][e];
     }
 }
 
-// warp w: keys 16w ..; dV += P~^T dO, dK += dS^T Q_u over the 64 query rows
+// dV += P~^T dO, dK += dS^T Q_u over the 64 query rows, for keys 16w ..
+// (f32: and channels 32 cc ..)
 __device__ __forceinline__ void key_products(float dv[8][4], float dk[8][4], const bf16* sPd,
                                              const bf16* sdS, const bf16* sdO, const bf16* sQu,
-                                             int warp, int lane) {
+                                             int w, int, int lane) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
     uint32_t a[4];
-    ldsm_x4_t(a, tile_addr(sPd, a_cols(lane, 16 * warp, 16 * ks)));
+    ldsm_x4_t(a, tile_addr(sPd, a_cols(lane, 16 * w, 16 * ks)));
     product_nn_step(dv, a, sdO, ks, lane);
-    ldsm_x4_t(a, tile_addr(sdS, a_cols(lane, 16 * warp, 16 * ks)));
+    ldsm_x4_t(a, tile_addr(sdS, a_cols(lane, 16 * w, 16 * ks)));
     product_nn_step(dk, a, sQu, ks, lane);
   }
 }
 
 // The A of the warp's 16 keys x queries k0 + 2q, k0 + 2q + 1 (k8 order) of
 // a transposed f32 tile, split.
-__device__ __forceinline__ void key_rows_a(const float* tile, int warp, int k0, int lane,
+__device__ __forceinline__ void key_rows_a(const float* tile, int w, int k0, int lane,
                                            uint32_t ah[4], uint32_t al[4]) {
-  const float* r = tile + (16 * warp + (lane >> 2)) * kPtLd + k0 + 2 * (lane & 3);
+  const float* r = tile + (16 * w + (lane >> 2)) * kPtLd + k0 + 2 * (lane & 3);
   const float2 x0 = *reinterpret_cast<const float2*>(r);
   const float2 x1 = *reinterpret_cast<const float2*>(r + 8 * kPtLd);
   const uint32_t av[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x), __float_as_uint(x0.y),
@@ -413,24 +455,25 @@ __device__ __forceinline__ void key_rows_a(const float* tile, int warp, int k0, 
   split4(av, ah, al);
 }
 
-__device__ __forceinline__ void key_products(float dv[8][4], float dk[8][4], const float* sPd,
+__device__ __forceinline__ void key_products(float dv[4][4], float dk[4][4], const float* sPd,
                                              const float* sdS, const float* sdO,
-                                             const float* sQu, int warp, int lane) {
+                                             const float* sQu, int w, int cc, int lane) {
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll 2
   for (int ks = 0; ks < 8; ++ks) {
-    const int row = (8 * ks + 2 * q) * kLd32 + g;   // query rows 2q, 2q + 1 of the step
+    // query rows 2q, 2q + 1 of the step, channels 32 cc ..
+    const int row = (8 * ks + 2 * q) * kLd32 + 32 * cc + g;
     uint32_t ah[4], al[4];
-    key_rows_a(sPd, warp, 8 * ks, lane, ah, al);
+    key_rows_a(sPd, w, 8 * ks, lane, ah, al);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < 4; ++n) {
       uint32_t bh[2], bl[2];
       split_b(sdO[row + 8 * n], sdO[row + kLd32 + 8 * n], bh, bl);
       mma3(dv[n], ah, al, bh, bl);
     }
-    key_rows_a(sdS, warp, 8 * ks, lane, ah, al);
+    key_rows_a(sdS, w, 8 * ks, lane, ah, al);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < 4; ++n) {
       uint32_t bh[2], bl[2];
       split_b(sQu[row + 8 * n], sQu[row + kLd32 + 8 * n], bh, bl);
       mma3(dk[n], ah, al, bh, bl);
@@ -439,9 +482,10 @@ __device__ __forceinline__ void key_products(float dv[8][4], float dk[8][4], con
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, Pass<T>::kBlocksPerSm)
+__global__ void __launch_bounds__(Pass<T>::kThreads, Pass<T>::kBlocksPerSm)
 rel_bwd_key_pass_mma(const Args<T> g) {
-  constexpr int E = Pass<T>::E;
+  using P = Pass<T>;
+  constexpr int E = P::E, NT = P::NT;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);
   T* sV = sK + E;
@@ -449,10 +493,10 @@ rel_bwd_key_pass_mma(const Args<T> g) {
   T* sQv = sQu + E;
   T* sdO = sQv + E;
   const Ring<T> win{sdO + E};
-  T* sPd = win.s + 3 * E;                 // P~ of the pair
-  T* sdS = sPd + Pass<T>::kPdElems;       // dS of the pair
-  float* sG = reinterpret_cast<float*>(sdS + Pass<T>::kPdElems);
-  float* sM = sG + kWarps * 16 * kGld;
+  T* sPd = win.s + 3 * E;           // P~ of the pair
+  T* sdS = sPd + P::kPdElems;       // dS of the pair
+  float* sG = reinterpret_cast<float*>(sdS + P::kPdElems);
+  float* sM = sG + P::kWarps * 16 * P::kGLd;
 
   const int T_len = g.T_len, bh = blockIdx.y, h = bh % g.H, j0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
@@ -461,67 +505,68 @@ rel_bwd_key_pass_mma(const Args<T> g) {
   // window of query tile t: chunks -t, -t+1, chunk m at table row p_base + 64m
   const int p_base = T_len - 1 - (kB - 1) + j0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
-  float* G = sG + warp * 16 * kGld;
+  const int w = warp & 3, cc = warp >> 2, kw = 8 * NT * cc;   // rows (keys) 16w..; keys kw..
+  float* G = sG + warp * 16 * P::kGLd;
   const int n_tiles = (T_len + kB - 1) / kB;
 
-  load_tile(sK, g.k + base, j0, T_len);
-  load_tile(sV, g.v + base, j0, T_len);
+  load_tile<P::kThreads>(sK, g.k + base, j0, T_len);
+  load_tile<P::kThreads>(sV, g.v + base, j0, T_len);
   flash::load_mask(sM, g.mask + (size_t)(bh / g.H) * T_len, j0, T_len);
-  load_tile(win.chunk(0), ph, p_base, n_table);
-  load_tile(win.chunk(1), ph, p_base + kB, n_table);
-  load_tile(sQu, g.qu + base, 0, T_len);
-  load_tile(sQv, g.qv + base, 0, T_len);
-  load_tile(sdO, g.d_o + base, 0, T_len);
+  load_tile<P::kThreads>(win.chunk(0), ph, p_base, n_table);
+  load_tile<P::kThreads>(win.chunk(1), ph, p_base + kB, n_table);
+  load_tile<P::kThreads>(sQu, g.qu + base, 0, T_len);
+  load_tile<P::kThreads>(sQv, g.qv + base, 0, T_len);
+  load_tile<P::kThreads>(sdO, g.d_o + base, 0, T_len);
   cp_async_commit();
 
-  float dk[8][4], dv[8][4];
-  zero(dk);
-  zero(dv);
+  float dk[NT][4], dv[NT][4];
+  zero<NT>(dk);
+  zero<NT>(dv);
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int i_g = t * kB + 16 * warp + (lane >> 2);
+    const int i_g = t * kB + 16 * w + (lane >> 2);
     cp_async_wait<0>();
     __syncthreads();
     if (t + 1 < n_tiles) {       // chunk -(t+1) shares its slot with -t+2, last read in tile t-1
-      load_tile(win.chunk(-(t + 1)), ph, p_base - (t + 1) * kB, n_table);
+      load_tile<P::kThreads>(win.chunk(-(t + 1)), ph, p_base - (t + 1) * kB, n_table);
       cp_async_commit();
     }
     float lse[2], delta[2];
     row_stats(g, bh, i_g, lse, delta);
 
-    float s[8][4], dpr[8][4], pd[8][4];
-    zero(s);
-    zero(dpr);
+    float s[NT][4], dpr[NT][4], pd[NT][4];
+    zero<NT>(s);
+    zero<NT>(dpr);
     {
-      RowsA<T> a;
-      a.init(sQu, 16 * warp, lane);
-      product_nt(s, a, sK, lane);
-      a.init(sQv, 16 * warp, lane);
-      add_position_term(s, a, win, -t, warp, lane, G);
-      a.init(sdO, 16 * warp, lane);
-      product_nt(dpr, a, sV, lane);
+      PassRowsA<T> a;
+      a.init(sQu, 16 * w, lane);
+      product_nt<NT>(s, a, sK + Tile<T>::at(kw, 0), lane);
+      a.init(sQv, 16 * w, lane);
+      add_position_term<NT, P::kGLd>(s, a, win, -t, 48 - 16 * w + kw, lane, G);
+      a.init(sdO, 16 * w, lane);
+      product_nt<NT>(dpr, a, sV + Tile<T>::at(kw, 0), lane);
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] *= g.scale;
-    backward_frag(s, dpr, pd, sM, g, bh, i_g, j0, lse, delta, q);
-    store_pair(sPd, sdS, pd, s, warp, lane);
+    backward_frag<NT>(s, dpr, pd, sM + kw, g, bh, i_g, j0 + kw, lse, delta, q);
+    store_pair(sPd, sdS, pd, s, w, kw, lane);
     __syncthreads();
-    key_products(dv, dk, sPd, sdS, sdO, sQu, warp, lane);
+    key_products(dv, dk, sPd, sdS, sdO, sQu, w, cc, lane);
     __syncthreads();   // Q_u, Q_v, dO, P~ and dS are consumed
     if (t + 1 < n_tiles) {
       const int i1 = (t + 1) * kB;
-      load_tile(sQu, g.qu + base, i1, T_len);
-      load_tile(sQv, g.qv + base, i1, T_len);
-      load_tile(sdO, g.d_o + base, i1, T_len);
+      load_tile<P::kThreads>(sQu, g.qu + base, i1, T_len);
+      load_tile<P::kThreads>(sQv, g.qv + base, i1, T_len);
+      load_tile<P::kThreads>(sdO, g.d_o + base, i1, T_len);
       cp_async_commit();
     }
   }
   const float one[2] = {1.f, 1.f};
-  const int j_g = j0 + 16 * warp + (lane >> 2);
-  store_rows(g.dk + base, dk, j_g, T_len, one, q);
-  store_rows(g.dv + base, dv, j_g, T_len, one, q);
+  const int j_g = j0 + 16 * w + (lane >> 2);
+  store_rows<NT>(g.dk + base + 8 * NT * cc, dk, j_g, T_len, one, q);
+  store_rows<NT>(g.dv + base + 8 * NT * cc, dv, j_g, T_len, one, q);
 }
 
 template <typename T>
@@ -556,14 +601,14 @@ cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v,
   e = cudaFuncSetAttribute(q_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)Pass<T>::kQSmem);
   if (e != cudaSuccess) return e;
-  q_pass<<<grid, kThreads, Pass<T>::kQSmem, stream>>>(g);
+  q_pass<<<grid, Pass<T>::kThreads, Pass<T>::kQSmem, stream>>>(g);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   auto k_pass = rel_bwd_key_pass_mma<T>;
   e = cudaFuncSetAttribute(k_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)Pass<T>::kKSmem);
   if (e != cudaSuccess) return e;
-  k_pass<<<grid, kThreads, Pass<T>::kKSmem, stream>>>(g);
+  k_pass<<<grid, Pass<T>::kThreads, Pass<T>::kKSmem, stream>>>(g);
   return cudaGetLastError();
 }
 
