@@ -68,8 +68,8 @@ using namespace mma;
 template <typename T>
 struct Fwd {
   // bf16: K and V double-buffered, Q_u and Q_v in tiles of their own; f32:
-  // one stage of K and of V, Q_u and Q_v staged through the G scratch and V
-  // (so that two blocks fit an SM)
+  // one stage of K and of V, Q_u and Q_v staged through the G scratch and
+  // the window ring's third slot (so that two blocks fit an SM)
   static constexpr int kStages = sizeof(T) == 2 ? 2 : 1;
   static constexpr int kQTiles = sizeof(T) == 2 ? 2 : 0;
   // Q tiles, K and V stages, the window ring, the warps' G scratch, the mask flags
@@ -92,7 +92,7 @@ rel_attention_mma(const T* __restrict__ qu, const T* __restrict__ qv, const T* _
   float* sG = reinterpret_cast<float*>(win.s + 3 * E);
   float* sM = sG + kWarps * 16 * kGld;                             // kStages stages
   T* sQu = kStages == 2 ? reinterpret_cast<T*>(smem_raw) : reinterpret_cast<T*>(sG);
-  T* sQv = kStages == 2 ? sQu + E : sV;
+  T* sQv = kStages == 2 ? sQu + E : win.chunk(2);
 
   const int bh = blockIdx.y, h = bh % H, i0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
@@ -108,21 +108,19 @@ rel_attention_mma(const T* __restrict__ qu, const T* __restrict__ qv, const T* _
   load_tile(sQu, qu + base, i0, T_len);
   load_tile(sQv, qv + base, i0, T_len);
   load_tile(sK, k + base, 0, T_len);
-  if (kStages == 2) load_tile(sV, v + base, 0, T_len);
+  load_tile(sV, v + base, 0, T_len);
   load_tile(win.chunk(0), ph, p_base, n_table);
   load_tile(win.chunk(1), ph, p_base + kB, n_table);
   flash::load_mask(sM, mask_row, 0, T_len);
   cp_async_commit();
 
   RowsA<T> aqu, aqv;
-  if (kStages == 1) {   // Q into registers, then V over Q_v's staging
+  if (kStages == 1) {   // Q into registers before the G scratch and chunk 2 are written
     cp_async_wait<0>();
     __syncthreads();
     aqu.init(sQu, 16 * warp, lane);
     aqv.init(sQv, 16 * warp, lane);
     __syncthreads();
-    load_tile(sV, v + base, 0, T_len);
-    cp_async_commit();
   }
   float o[8][4];
   zero(o);
