@@ -21,9 +21,9 @@
 //
 // f32 products (the rel-attention kernels' f32 paths) run in 3xTF32 on
 // mma.sync.m16n8k8: each operand is split into hi (TF32, rounded to
-// nearest) and lo = v - hi, and a product is lo_a hi_b + hi_a lo_b + hi_a
-// hi_b (`mma3`), f32 accumulate; what is dropped is ~2^-21 of |a b|. The
-// m16n8k8 TF32 fragments of lane (g, q): A a0 (g, q), a1 (g+8, q), a2 (g,
+// nearest) and lo = v - hi, and a product is lo_a hi_b + hi_a lo_b +
+// hi_a hi_b (`mma3_tiles`), f32 accumulate; what is dropped is ~2^-21 of
+// |a b|. The m16n8k8 TF32 fragments of lane (g, q): A a0 (g, q), a1 (g+8, q), a2 (g,
 // q+4), a3 (g+8, q+4); B b0 (k q, n g), b1 (k q+4, n g); C as m16n8k16's.
 // An f32 tile holds 64 rows of 64 floats at a row stride of kLd32 = 68
 // floats: ldmatrix (b16, an 8 x 8 of it is 8 rows x 4 floats, lane l
@@ -427,18 +427,41 @@ __device__ __forceinline__ void mma1688(float c[4], const uint32_t a[4], uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c += a b in 3xTF32, the small terms first: lo_a hi_b, hi_a lo_b, hi_a hi_b.
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
-                                     const uint32_t bh[2], const uint32_t bl[2]) {
-  mma1688(c, al, bh[0], bh[1]);
-  mma1688(c, ah, bl[0], bl[1]);
-  mma1688(c, ah, bh[0], bh[1]);
-}
-
 // B fragment (b0, b1) from two floats, split
 __device__ __forceinline__ void split_b(float b0, float b1, uint32_t bh[2], uint32_t bl[2]) {
   split(b0, bh[0], bl[0]);
   split(b1, bh[1], bl[1]);
+}
+
+// c[n] += A B_n for the N n8 tiles of a k8 step in 3xTF32, the small terms
+// first (lo_a hi_b, hi_a lo_b, then hi_a hi_b), term by term over the tiles
+// so that consecutive mma.sync write different accumulators
+template <int N>
+__device__ __forceinline__ void mma3_tiles(float c[][4], const uint32_t ah[4],
+                                           const uint32_t al[4], const uint32_t bh[][2],
+                                           const uint32_t bl[][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma1688(c[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma1688(c[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma1688(c[n], ah, bh[n][0], bh[n][1]);
+}
+
+// The B fragments of n8 tiles 2np and 2np + 1 from one ldmatrix.x4, split
+__device__ __forceinline__ void split_b4(const uint32_t b[4], int np, uint32_t bh[][2],
+                                         uint32_t bl[][2]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    split(__uint_as_float(b[e]), bh[2 * np + (e >> 1)][e & 1], bl[2 * np + (e >> 1)][e & 1]);
+}
+
+// The B fragments of N n8 tiles (columns 8n + g of `row`, rows 2q and 2q + 1
+// of the k8 step) of a [k][n] tile by single floats, split
+template <int N>
+__device__ __forceinline__ void load_b_cols(uint32_t bh[][2], uint32_t bl[][2], const float* row) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) split_b(row[8 * n], row[kLd32 + 8 * n], bh[n], bl[n]);
 }
 
 // Rows row0 .. row0+63 of a (n_rows, 64) f32 matrix into an f32 tile; rows
@@ -525,17 +548,16 @@ template <int NT = 8, class A>
 __device__ __forceinline__ void product_nt(float acc[][4], const A& a, const float* x, int lane) {
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) {
-    uint32_t ah[4], al[4];
+    uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
     a.frag(ks, lane, ah, al);
 #pragma unroll
     for (int np = 0; np < NT / 2; ++np) {
       const RC rc = b32_rows(lane, 16 * np, 8 * ks);
-      uint32_t b[4], bh[4], bl[4];
+      uint32_t b[4];
       ldsm_x4(b, smem_u32(x + Tile<float>::at(rc.r, rc.c)));
-      split4(b, bh, bl);
-      mma3(acc[2 * np], ah, al, bh, bl);
-      mma3(acc[2 * np + 1], ah, al, bh + 2, bl + 2);
+      split_b4(b, np, bh, bl);
     }
+    mma3_tiles<NT>(acc, ah, al, bh, bl);
   }
 }
 
@@ -558,15 +580,10 @@ __device__ __forceinline__ void product_acc_nn(float acc[8][4], const float p[8]
   for (int kk = 0; kk < 8; ++kk) {
     const uint32_t av[4] = {__float_as_uint(p[kk][0]), __float_as_uint(p[kk][2]),
                             __float_as_uint(p[kk][1]), __float_as_uint(p[kk][3])};
-    uint32_t ah[4], al[4];
+    uint32_t ah[4], al[4], bh[8][2], bl[8][2];
     split4(av, ah, al);
-    const float* r0 = x + (8 * kk + 2 * q) * kLd32 + g;   // k rows 2q, 2q + 1 of the step
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      uint32_t bh[2], bl[2];
-      split_b(r0[8 * n], r0[kLd32 + 8 * n], bh, bl);
-      mma3(acc[n], ah, al, bh, bl);
-    }
+    load_b_cols<8>(bh, bl, x + (8 * kk + 2 * q) * kLd32 + g);   // k rows 2q, 2q + 1 of the step
+    mma3_tiles<8>(acc, ah, al, bh, bl);
   }
 }
 
@@ -578,40 +595,42 @@ __device__ __forceinline__ void add_position_term(float s[][4], const RowsA<bf16
   add_position_term(s, qv.a, win, m, rb, lane, sG);
 }
 
+// NP n8 tile pairs of the f32 G (window rows r0 ..) into the scratch's
+// columns from col0: c[n] over the 8 k8 steps, an A fragment of q_v loaded
+// and split once a step
+template <int NP, int LD, class A>
+__device__ __forceinline__ void g_pairs(const A& qv, const Ring<float>& win, int m, int r0,
+                                        int col0, int lane, float* sG) {
+  float c[2 * NP][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NP; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t ah[4], al[4], bh[2 * NP][2], bl[2 * NP][2];
+    qv.frag(ks, lane, ah, al);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, win.addr(m, b32_rows(lane, r0 + 16 * np, 8 * ks)));
+      split_b4(b, np, bh, bl);
+    }
+    mma3_tiles<2 * NP>(c, ah, al, bh, bl);
+  }
+#pragma unroll
+  for (int n = 0; n < 2 * NP; ++n) store_g<LD>(sG, c[n], col0 + 8 * n + 2 * (lane & 3), lane);
+}
+
 // The f32 position term: G (16 x (16 + 8 NT)) in blocks of at most 48
-// window rows (24 accumulators), k8 step by k8 step, so that an A fragment
-// of q_v is loaded and split once a block.
+// window rows (24 accumulators).
 template <int NT = 8, int LD = kGld, class A>
 __device__ __forceinline__ void add_position_term(float s[][4], const A& qv,
                                                   const Ring<float>& win, int m, int rb, int lane,
                                                   float* sG) {
   constexpr int kPairs = (16 + 8 * NT) / 16;   // n8 tile pairs of G
-  const int q = lane & 3;
-#pragma unroll
-  for (int p0 = 0; p0 < kPairs; p0 += 3) {
-    float c[6][4];
-#pragma unroll
-    for (int n = 0; n < 6; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      uint32_t ah[4], al[4];
-      qv.frag(ks, lane, ah, al);
-#pragma unroll
-      for (int np = 0; np < 3; ++np) {
-        if (p0 + np >= kPairs) break;
-        uint32_t b[4], bh[4], bl[4];
-        ldsm_x4(b, win.addr(m, b32_rows(lane, rb + 16 * (p0 + np), 8 * ks)));
-        split4(b, bh, bl);
-        mma3(c[2 * np], ah, al, bh, bl);
-        mma3(c[2 * np + 1], ah, al, bh + 2, bl + 2);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 6; ++n)
-      if (2 * p0 + n < 2 * kPairs) store_g<LD>(sG, c[n], 16 * p0 + 8 * n + 2 * q, lane);
-  }
+  g_pairs<(kPairs < 3 ? kPairs : 3), LD>(qv, win, m, rb, 0, lane, sG);
+  if constexpr (kPairs > 3) g_pairs<kPairs - 3, LD>(qv, win, m, rb + 48, 48, lane, sG);
   add_diagonal<NT, LD>(s, sG, lane);
 }
 

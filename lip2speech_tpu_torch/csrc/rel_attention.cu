@@ -47,15 +47,19 @@
 // f32 (dtype 0): the same loop in 3xTF32 on mma.sync m16n8k8 (each operand
 // split into a TF32 hi and an f32 lo = v - hi, three products each; about
 // 2^-21 of |a b| dropped, so the f32 path is held to 1e-4 against the plain
-// version, where one TF32 product (~5e-4) would not pass). f32 tiles of 64 x
-// 68 floats (mma_tile.cuh). Q_u and Q_v are read from their tiles and split
-// at each use: held as hi and lo they would take 128 registers. K and the
-// window are B operands by ldmatrix, split after the load, per warp. P
-// stays in registers as the A of P V: the k8 step takes its keys in the
-// order 0, 2, 4, 6, 1, 3, 5, 7, which is where the m16n8 accumulator holds
-// them, and V's rows are read in that order by single floats (conflict-free
-// at the stride of 68). 175.5 KB of shared memory: one block of 4 warps an
-// SM.
+// version, where one TF32 product, ~1e-3 off, would not pass). f32 tiles of
+// 64 x 68 floats (mma_tile.cuh). Every operand is split after it is read,
+// per warp; the kernel is bound by latency and issue (the split and three
+// products for each f32 product), not by the tensor cores, so it keeps two
+// blocks an SM: 107.3 KB of shared memory with one stage of K and of V (the
+// other block hides the loads; the next K tile loads once this tile's
+// scores are done) and Q_u and Q_v staged through the G scratch and the
+// ring's third slot into registers, held unsplit (64 registers; split,
+// 128). The position term's G is built in blocks of at most 48 window rows
+// (24 accumulators). P stays in registers as the A of P V: the k8 step
+// takes its keys in the order 0, 2, 4, 6, 1, 3, 5, 7, which is where the
+// m16n8 accumulator holds them, and V's rows are read in that order by
+// single floats (conflict-free at the stride of 68).
 //
 // Bounds are checked, so T need not be a multiple of 64.
 

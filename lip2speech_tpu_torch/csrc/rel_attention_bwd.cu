@@ -28,43 +28,46 @@
 // (seed, b*h, i, j), so both passes see the forward's mask.
 //
 // Both passes are templates over the input type, `rel_bwd_{query,key}_pass
-// _mma<T>`: one tile loop; the type picks the tiles, the products and the
-// layouts of the tiles the kernels write themselves (dG, P~, dS). Every
-// product runs on the tensor cores, in bf16 on mma.sync m16n8k16 and in f32
-// in 3xTF32 on m16n8k8 (mma_tile.cuh: hi, lo = v - hi, three products each,
-// f32 accumulate; ~2^-21 of |a b| dropped, so the f32 path is held to 1e-4
-// of the plain version, where one TF32 product, ~5e-4, would not pass).
-// 4 warps of 16 query rows; cp.async into operand tiles; the window as a
-// ring of three 64-row chunks, its next chunk loading while the current tile
-// computes. S's position term as in rel_attention.cu (G = Q_v,w . Win_w^T
-// read back along the diagonal). bf16: dS and P~ are rounded to bf16 as
-// operands, f32 sums.
-//   query pass  K, V double-buffered; dQ_u += dS K from dS's registers (f32:
-//               the keys of a k8 step in the order 0, 2, 4, 6, 1, 3, 5, 7,
-//               where the accumulator holds them, K's rows read by single
-//               floats in that order). The position gradients go through
+// _mma<T>`: one tile loop; the type picks the tiles, the products, the warp
+// layout and the layouts of the tiles the kernels write themselves (dG, P~,
+// dS). Every product runs on the tensor cores, in bf16 on mma.sync
+// m16n8k16 and in f32 in 3xTF32 on m16n8k8 (mma_tile.cuh: hi, lo = v - hi,
+// three products each, f32 accumulate; ~2^-21 of |a b| dropped, so the f32
+// path is held to 1e-4 of the plain version, where one TF32 product, ~1e-3
+// off, would not pass). cp.async into operand tiles; the window as a ring
+// of three 64-row chunks, its next chunk loading while the current tile
+// computes. S's position term as in rel_attention.cu (G = Q_v . Win^T read
+// back along the diagonal). bf16: 4 warps of 16 query rows (keys, in the
+// key pass), each against the whole tile; dS and P~ are rounded to bf16 as
+// operands, f32 sums. f32: 8 warps, two to each 16 rows, each taking half
+// the tile's keys (S, dPr, dS, P~) and then half the channels of the
+// products that follow: one f32 block fills an SM's shared memory, and a
+// block of 4 warps left the schedulers one warp each, bound by latency.
+//   query pass  K, V double-buffered. The position gradients go through
 //               dG, a 64 x 128 tile holding dS un-sheared, dG[a, 63-a+j] =
 //               dS[a, j] (the forward's extraction inverted; the positions
 //               off the band stay zero from the start): dQ_v += dG_w .
 //               Win_w (16 x 80 x 64) and dWin = dG^T . Q_v (128 x 64 x 64,
-//               over the 20 non-zero 16 x 16 blocks of the band only). Warp
-//               w owns window blocks w and w+4 of dWin. After key tile j,
-//               block w (table rows p0 + 16w ..) receives nothing more from
-//               this block and is added to dP in device memory, four floats
-//               per atomic; block w+4 is the next tile's block w and stays
-//               in registers. So every block sends each table row to memory
-//               once, not once per tile pair. bf16: Q_u, dO and Q_v
-//               fragments in registers (Q_u and dO staged through dG);
-//               103.5 KB of shared memory, two blocks per SM. f32: Q_u, dO
-//               and Q_v in tiles of their own, read and split at each use
-//               (the registers go to dQ_u, dQ_v and the carried block); dG
-//               f32 with a row stride of 136 floats, read as A by float2
-//               (dQ_v, the window rows in the k8 order above) and by single
-//               floats (dWin^T); 226.5 KB, one block per SM.
+//               over the 20 non-zero 16 x 16 blocks of the band only).
+//               Rows 16w own window blocks w and w+4 of dWin. After key
+//               tile j, block w (table rows p0 + 16w ..) receives nothing
+//               more from this block and is added to dP in device memory,
+//               four floats per atomic; block w+4 is the next tile's block
+//               w and stays in registers. So every block sends each table
+//               row to memory once, not once per tile pair. Q_u and dO are
+//               staged through dG into registers. bf16: dQ_u += dS K from
+//               dS's registers; Q_v fragments in registers; 103.5 KB, two
+//               blocks per SM. f32: dQ_u += dS K with dS read back out of
+//               dG (the keys of a k8 step in the order 0, 2, 4, 6, 1, 3, 5,
+//               7, K's rows read by single floats to match); dG f32 with a
+//               row stride of 136 floats, read as A by float2 (dQ_v, the
+//               window rows in that order) and by single floats (dWin^T);
+//               Q_u and dO held unsplit, Q_v read from its tile at each
+//               use; 198.5 KB, one block of 8 warps per SM.
 //   key pass    K and V fixed; Q_u, Q_v, dO per query tile. Warps compute
-//               dS and P~ of their 16 query rows and store them to tiles;
-//               then warp w accumulates dK and dV of keys 16w .. from their
-//               transposes: bf16 tiles [query][key] read by ldmatrix
+//               dS and P~ of their rows and keys and store them to tiles;
+//               then the warps of keys 16w .. accumulate dK and dV from
+//               their transposes: bf16 tiles [query][key] read by ldmatrix
 //               .trans; f32 tiles stored transposed, [key][query] at a row
 //               stride of 72, read as A by float2 in the k8 order above,
 //               with dO's and Q_u's rows read to match. Only the window
@@ -73,7 +76,7 @@
 //               waited for at the top of tile t+1, so each query tile waits
 //               on device memory. bf16: 102.3 KB, two blocks per SM (a
 //               second stage of the three would add 24 KB and leave one);
-//               f32: 194.3 KB, one block per SM.
+//               f32: 200.3 KB, one block of 8 warps per SM.
 //
 // Bounds are checked: any T.
 
@@ -201,16 +204,11 @@ __device__ __forceinline__ void band_dqv(float dqv[4][4], const float* sDg,
     const float2 x1 = *reinterpret_cast<const float2*>(d0 + 8 * kDgLd + 8 * ks);
     const uint32_t av[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x), __float_as_uint(x0.y),
                             __float_as_uint(x1.y)};
-    uint32_t ah[4], al[4];
+    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
     split4(av, ah, al);
     // window rows 2q, 2q + 1 of the step, channels 32 cc ..
-    const float* r0 = win.row(m, rb + 8 * ks + 2 * q) + 32 * cc + g;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      uint32_t bh[2], bl[2];
-      split_b(r0[8 * n], r0[kLd32 + 8 * n], bh, bl);
-      mma3(dqv[n], ah, al, bh, bl);
-    }
+    load_b_cols<4>(bh, bl, win.row(m, rb + 8 * ks + 2 * q) + 32 * cc + g);
+    mma3_tiles<4>(dqv, ah, al, bh, bl);
   }
 }
 
@@ -226,15 +224,10 @@ __device__ __forceinline__ void dqu_from_dg(float dqu[4][4], const float* sDg, c
   for (int ks = 0; ks < 8; ++ks) {
     const uint32_t av[4] = {__float_as_uint(d0[8 * ks]), __float_as_uint(d1[8 * ks]),
                             __float_as_uint(d0[8 * ks + 1]), __float_as_uint(d1[8 * ks + 1])};
-    uint32_t ah[4], al[4];
+    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
     split4(av, ah, al);
-    const float* r0 = kt + (8 * ks + 2 * q) * kLd32 + 32 * cc + g;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      uint32_t bh[2], bl[2];
-      split_b(r0[8 * n], r0[kLd32 + 8 * n], bh, bl);
-      mma3(dqu[n], ah, al, bh, bl);
-    }
+    load_b_cols<4>(bh, bl, kt + (8 * ks + 2 * q) * kLd32 + 32 * cc + g);
+    mma3_tiles<4>(dqu, ah, al, bh, bl);
   }
 }
 
@@ -263,15 +256,10 @@ __device__ __forceinline__ void band_dwin(float c[4][4], const float* sDg, const
       const float* d0 = sDg + (k0 + 2 * q) * kDgLd + 16 * b + g;
       const uint32_t av[4] = {__float_as_uint(d0[0]), __float_as_uint(d0[8]),
                               __float_as_uint(d0[kDgLd]), __float_as_uint(d0[kDgLd + 8])};
-      uint32_t ah[4], al[4];
+      uint32_t ah[4], al[4], bh[4][2], bl[4][2];
       split4(av, ah, al);
-      const float* r0 = sQv + (k0 + 2 * q) * kLd32 + 32 * cc + g;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        uint32_t bh[2], bl[2];
-        split_b(r0[8 * n], r0[kLd32 + 8 * n], bh, bl);
-        mma3(c[n], ah, al, bh, bl);
-      }
+      load_b_cols<4>(bh, bl, sQv + (k0 + 2 * q) * kLd32 + 32 * cc + g);
+      mma3_tiles<4>(c, ah, al, bh, bl);
     }
   }
 }
@@ -463,21 +451,13 @@ __device__ __forceinline__ void key_products(float dv[4][4], float dk[4][4], con
   for (int ks = 0; ks < 8; ++ks) {
     // query rows 2q, 2q + 1 of the step, channels 32 cc ..
     const int row = (8 * ks + 2 * q) * kLd32 + 32 * cc + g;
-    uint32_t ah[4], al[4];
+    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
     key_rows_a(sPd, w, 8 * ks, lane, ah, al);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      uint32_t bh[2], bl[2];
-      split_b(sdO[row + 8 * n], sdO[row + kLd32 + 8 * n], bh, bl);
-      mma3(dv[n], ah, al, bh, bl);
-    }
+    load_b_cols<4>(bh, bl, sdO + row);
+    mma3_tiles<4>(dv, ah, al, bh, bl);
     key_rows_a(sdS, w, 8 * ks, lane, ah, al);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      uint32_t bh[2], bl[2];
-      split_b(sQu[row + 8 * n], sQu[row + kLd32 + 8 * n], bh, bl);
-      mma3(dk[n], ah, al, bh, bl);
-    }
+    load_b_cols<4>(bh, bl, sQu + row);
+    mma3_tiles<4>(dk, ah, al, bh, bl);
   }
 }
 
