@@ -306,8 +306,10 @@ def rel_attention_bwd_one_tf32(ra, q_u, q_v, k, v, p, mask, lse, out, g) -> tupl
     dpr = torch.einsum("bhqd,bhkd->bhqk", r(g), r(v))
     ds = prob * (dpr - (g * out).sum(-1, keepdim=True)) * scale
     dg = ra.rel_unshift(ds)
-    return (torch.einsum("bhqk,bhkd->bhqd", r(ds), r(k)), torch.einsum("bhqp,hpd->bhqd", r(dg), r(p)),
-            torch.einsum("bhqk,bhqd->bhkd", r(ds), r(q_u)), torch.einsum("bhqk,bhqd->bhkd", r(prob), r(g)),
+    return (torch.einsum("bhqk,bhkd->bhqd", r(ds), r(k)),
+            torch.einsum("bhqp,hpd->bhqd", r(dg), r(p)),
+            torch.einsum("bhqk,bhqd->bhkd", r(ds), r(q_u)),
+            torch.einsum("bhqk,bhqd->bhkd", r(prob), r(g)),
             torch.einsum("bhqp,bhqd->hpd", r(dg), r(q_v)))
 
 
@@ -337,8 +339,10 @@ def rel_attention_f32_times(ra, dev, gen) -> dict:
         del out, ref
         full = torch.ones(b, t, dtype=torch.bool, device=dev)
         big = t >= TRAIN_SHAPE[2]
-        k_ms = time_ms(lambda: ra.rel_attention_kernel(q_u, q_v, k, v, p, full), iters=10 if big else 20)
-        plain_ms = time_ms(lambda: ra.dense_rel_attention(q_u, q_v, k, v, p, full), iters=3 if big else 10)
+        k_ms = time_ms(lambda: ra.rel_attention_kernel(q_u, q_v, k, v, p, full),
+                       iters=10 if big else 20)
+        plain_ms = time_ms(lambda: ra.dense_rel_attention(q_u, q_v, k, v, p, full),
+                           iters=3 if big else 10)
         bias = ra.rel_position_bias(q_v, p)
         lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q_u, k, v, attn_mask=bias), iters=10 if big else 20)

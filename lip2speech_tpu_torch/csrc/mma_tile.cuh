@@ -23,20 +23,23 @@
 // mma.sync.m16n8k8: each operand is split into hi (TF32, rounded to
 // nearest) and lo = v - hi, and a product is lo_a hi_b + hi_a lo_b +
 // hi_a hi_b (`mma3_tiles`), f32 accumulate; what is dropped is ~2^-21 of
-// |a b|. The m16n8k8 TF32 fragments of lane (g, q): A a0 (g, q), a1 (g+8, q), a2 (g,
-// q+4), a3 (g+8, q+4); B b0 (k q, n g), b1 (k q+4, n g); C as m16n8k16's.
-// An f32 tile holds 64 rows of 64 floats at a row stride of kLd32 = 68
-// floats: ldmatrix (b16, an 8 x 8 of it is 8 rows x 4 floats, lane l
-// receiving row l / 4, float l % 4) then reads A fragments of a [m][k] tile
-// and B fragments of a [n][k] tile, its eight rows on distinct banks (row r
-// starts at bank 4r mod 32). There is no ldmatrix .trans for 32-bit
-// elements, so a [k][n] tile as B is read by single floats. When its A
-// operand is an accumulator (P, dS), lane (g, q) holds columns 2q and 2q+1,
-// not q and q+4; so a k8 step takes its columns in the order 0, 2, 4, 6, 1,
-// 3, 5, 7 (A column t is k 2t, column t + 4 is k 2t + 1) and B's rows in
-// the same order: lane (g, q) reads B rows 2q and 2q + 1, which at the
-// stride of 68 lie on banks 8q + g, all distinct. Tiles the kernels write
-// themselves use the same order where it suits their readers.
+// |a b|. The m16n8k8 TF32 fragments of lane (g, q): A a0 (g, q), a1 (g+8,
+// q), a2 (g, q+4), a3 (g+8, q+4); B b0 (k q, n g), b1 (k q+4, n g); C as
+// m16n8k16's. An f32 tile holds 64 rows of 64 floats at a row stride of
+// kLd32 = 68 floats: ldmatrix (b16, an 8 x 8 of it is 8 rows x 4 floats,
+// lane l receiving row l / 4, float l % 4) then reads A fragments of a
+// [m][k] tile and B fragments of a [n][k] tile, its eight rows on distinct
+// banks (row r starts at bank 4r mod 32). There is no ldmatrix .trans for
+// 32-bit elements, so a [k][n] tile as B is read by single floats. When
+// its A operand is an accumulator (P, dS), lane (g, q) holds columns 2q
+// and 2q+1, not q and q+4; so a k8 step takes its columns in the order 0,
+// 2, 4, 6, 1, 3, 5, 7 (A column t is k 2t, column t + 4 is k 2t + 1) and
+// B's rows in the same order: lane (g, q) reads B rows 2q and 2q + 1,
+// which at the stride of 68 lie on banks 8q + g, all distinct. Tiles the
+// kernels write themselves use the same order where it suits their
+// readers. The f32 helpers take a warp's share of a tile's keys as NT n8
+// tiles: all 64 keys (NT = 8) or half of them where two warps share 16
+// rows (the f32 backward passes' 8 warps).
 
 #pragma once
 
