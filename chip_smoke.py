@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero before the last line:
      instructions in each library's SASS, the TF32 ones apart: none in
      rel_attention, rel_attention_bwd, rel_attention_bias,
      rel_attention_bias_bwd, attention or fused_tail (bf16 on mma.sync), or
-     no TF32 one in rel_attention, rel_attention_bwd or fused_tail (f32 in
-     3xTF32), fails;
+     no TF32 one in rel_attention, rel_attention_bwd, attention or
+     fused_tail (f32 in 3xTF32), fails;
   3. rel-position attention kernel against its plain version, f32 and bf16;
      bf16 times at B4 H8 T480 and at the train step's B8 H8 T1200, each
      beside SDPA with the position term as a float bias mask; the f32 path
@@ -30,16 +30,25 @@ Phases, in order; any failure exits non-zero before the last line:
      the f32 kernel path against the same weights' plain path on the CPU;
   6. masked flash attention kernel against its plain version (the AV-HuBERT
      and HuBERT shapes, a fully masked batch row), f32 and bf16; bf16 times
-     at B4 H16 T240 and at the flagship train step's B8 H16 T600, f32 at
-     unit extraction's B1 H12 T500, beside SDPA and the bound;
+     at B4 H16 T240 and at the flagship train step's B8 H16 T600, beside SDPA
+     and the bound; the f32 path (3xTF32) within ATTENTION_F32_TOL = 3e-5 of
+     its plain version in every f32 case, where the attention at one TF32
+     product (attention_one_tf32) must not be, and timed at the flagship's
+     f32 request B1 H16 T96, B4 H16 T240, unit extraction's B1 H12 T500 and
+     a full chunk's B1 H12 T4999 beside f32 SDPA, the plain version, its f32
+     FMA bound and its 3xTF32 bound;
   7. bias-flash rel-position attention kernel against its plain version
      (T 480 / 470, f32 and bf16), and its time plus the bias construction
      beside the shear kernel of phase 3; bf16 times at B4 H8 T480 and at the
      train step's B8 H8 T1200, each beside its plain version, SDPA with the
-     same bias and the bound (bytes and operations);
+     same bias and the bound (bytes and operations); the f32 path (FMA) timed
+     at the same shapes beside f32 SDPA with the same bias and both bounds;
   8. the full-width multi_target_avhubert pipeline as in 5, with both
      rel-attention implementations (LIP2SPEECH_FLASH_IMPL shear | bias), and
-     multi_target's batch-4 p50 under both;
+     multi_target's batch-4 p50 under both; then its f32 request (the
+     server's default dtype, TF32 off) at B1 x 96 and B4 x 240: exact launch
+     counts (24 attention), p50, device busy ms and the attention kernel's
+     share;
   9. HuBERT unit extraction at full width: a 10 s waveform -> layer-6
      features -> 200 k-means units, against the CPU plain path;
  10. one request each through the multi_target_auto_avsr and
@@ -55,7 +64,9 @@ Phases, in order; any failure exits non-zero before the last line:
      path (3xTF32) at B4 H8 T480 and B8 H8 T1200 within 1e-4 of max(1,
      |ref|) of its plain version, where the backward at one TF32 product
      (rel_attention_bwd_one_tf32) must not be, and timed there beside f32
-     SDPA's backward, the plain version and both bounds;
+     SDPA's backward, the plain version and both bounds; the bias route's
+     f32 backward (FMA) timed at the same shapes beside f32 SDPA's backward
+     with the same bias and both bounds;
  12. in-kernel attention dropout, both routes, forward and backward, against
      the plain versions under the identical keep mask (dbias by DBIAS_TOL);
      the kernel's mask against ops/dropout_mask.py; determinism, keep rate,
@@ -207,7 +218,7 @@ def valid_rows_err(out, ref, lens) -> float:
 # on mma.sync in 3xTF32
 TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd", "rel_attention_bias",
                        "rel_attention_bias_bwd", "attention", "fused_tail")
-TF32_KERNELS = ("rel_attention", "rel_attention_bwd", "fused_tail")
+TF32_KERNELS = ("rel_attention", "rel_attention_bwd", "attention", "fused_tail")
 
 
 def sass_tensor_core_counts(build) -> tuple[dict, dict]:
@@ -394,27 +405,49 @@ def rel_attention_train_shape(ra, dev, gen) -> dict:
             "bound_ms": bms, "bound_by": by}
 
 
+# f32 limit of the masked attention kernel (3xTF32) on valid rows, absolute:
+# ~30x above the CPU emulation of the method (tests/test_torch_attention_tf32.py),
+# below one TF32 product (attention_one_tf32), which must fail it
+ATTENTION_F32_TOL = 3e-5
+
+
+def attention_one_tf32(att, q, k, v, mask) -> torch.Tensor:
+    """Kernel 6's f32 path at one TF32 product a multiply (1xTF32): the plain
+    version with both products' operands rounded to TF32, P included."""
+    r = tf32_round
+    s = torch.einsum("bhqd,bhkd->bhqk", r(q), r(k)) / math.sqrt(q.shape[-1])
+    if mask is not None:
+        s = s.masked_fill(~mask[:, None, None, :], -1e9)
+    return torch.einsum("bhqk,bhkd->bhqd", r(torch.softmax(s, dim=-1)), r(v))
+
+
 def phase_plain_attention(att, dev) -> dict:
     """The masked attention kernel at the AV-HuBERT trunk's shape (B4 H16 T240 dk64, ragged), at a
     T that is not a tile multiple (also with a fully masked batch row, held
     whole against the plain version's uniform average), at the shape the
-    flagship's train step gives it (B8 H16 T600), and at HuBERT's (B1 H12,
-    no mask, up to the 4999 frames of a full extraction chunk). bf16 times
-    at B4 H16 T240 and B8 H16 T600."""
+    flagship's train step gives it (B8 H16 T600), at the flagship's f32
+    request (B1 H16 T96) and at HuBERT's (B1 H12, no mask, up to the 4999
+    frames of a full extraction chunk). bf16 times at B4 H16 T240 and B8 H16
+    T600; the f32 path (3xTF32) within ATTENTION_F32_TOL of the plain
+    version in every f32 case, where attention_one_tf32 must not be (read
+    over the same rows), and timed at B1 H16 T96, B4 H16 T240, B1 H12 T500
+    and B1 H12 T4999 beside f32 SDPA, the plain version, its f32 FMA bound
+    and its 3xTF32 bound."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dk = 64
-    result, failures = None, []
-    cases = [(4, 16, 240, "ragged", torch.bfloat16, True), (4, 16, 240, "ragged", torch.float32, False),
+    result, f32, failures = None, {}, []
+    cases = [(4, 16, 240, "ragged", torch.bfloat16, True), (4, 16, 240, "ragged", torch.float32, True),
              (4, 16, 235, "ragged", torch.bfloat16, False), (4, 16, 235, "ragged", torch.float32, False),
              (4, 16, 235, "empty row", torch.bfloat16, False),
              (4, 16, 235, "empty row", torch.float32, False),
              (8, 16, 600, "ragged", torch.bfloat16, True), (8, 16, 600, "ragged", torch.float32, False),
+             (1, 16, 96, "ragged", torch.float32, True),        # the flagship's f32 request
              (1, 12, 1499, "no mask", torch.bfloat16, False),
              (1, 12, 1499, "no mask", torch.float32, False),
-             (1, 12, 4999, "no mask", torch.float32, False),    # one 1.6 M-sample chunk
-             (1, 12, 500, "no mask", torch.float32, True)]
+             (1, 12, 4999, "no mask", torch.float32, True),     # one 1.6 M-sample chunk
+             (1, 12, 500, "no mask", torch.float32, True)]      # a 10 s waveform
     for b, h, t, masking, dtype, timed in cases:
         q, k, v = (torch.randn(b, h, t, dk, generator=gen).to(dev, dtype) for _ in range(3))
         if masking == "ragged":
@@ -430,42 +463,60 @@ def phase_plain_attention(att, dev) -> dict:
         torch.cuda.synchronize()
         err = valid_rows_err(out, ref, lens)
         finite = bool(torch.isfinite(out.float()).all())
-        tol = 1e-4 if dtype == torch.float32 else 2e-2      # bf16: P and output rounding
+        is_f32 = dtype == torch.float32
+        tol = ATTENTION_F32_TOL if is_f32 else 2e-2      # bf16: P and output rounding
         name = str(dtype).replace("torch.", "")
-        line = (f"attention B{b} H{h} T{t} {masking} {name}: "
+        line = (f"attention B{b} H{h} T{t} {masking} {name}{' (3xTF32)' if is_f32 else ''}: "
                 f"max_abs_err {err:.3e} (tol {tol:g}) finite {finite}")
+        ok = err <= tol and finite
+        if is_f32:
+            one = valid_rows_err(attention_one_tf32(att, q, k, v, mask), ref, lens)
+            line += f"; 1xTF32 {one:.3e} (must exceed the tol)"
+            ok = ok and one > tol
+        del out, ref
         if timed:
             k_ms = time_ms(lambda: att.attention_kernel(q, k, v, mask))
-            plain_ms = time_ms(lambda: att.reference_attention(q, k, v, mask))
+            plain_ms = time_ms(lambda: att.reference_attention(q, k, v, mask),
+                               iters=5 if t > 2000 else 20)
             lib_mask = None if mask is None else mask[:, None, None, :]
             lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=lib_mask))
             n_bytes = 4 * b * h * t * dk * q.element_size() + (b * t if mask is not None else 0)
-            bms, by = bound_ms(n_bytes, 4 * b * h * t * t * dk, dtype)
+            flops = 4 * b * h * t * t * dk
+            bms, by = bound_ms(n_bytes, flops, dtype)
             line += (f" kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f}"
-                     f" bound_ms {bms:.4f} ({by})")
+                     f"{' (SDPA f32)' if is_f32 else ''} bound_ms {bms:.4f} ({by}"
+                     f"{', f32 FMA' if is_f32 else ''})")
             numbers = {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                        "library_ms": lib_ms}
-            if dtype == torch.bfloat16 and result is None:
+            if is_f32:
+                numbers.update(max_abs_err=err, one_tf32_err=one,
+                               tf32x3_bound_ms=tf32x3_bound_ms(n_bytes, flops))
+                line += f" 3xTF32 bound_ms {numbers['tf32x3_bound_ms']:.4f}"
+                f32[f"B{b}H{h}T{t}"] = numbers
+            elif result is None:
                 result = {"max_abs_err": err, **numbers}
-            elif dtype == torch.bfloat16:
+            else:
                 result["train_shape"] = numbers
-            else:                       # HuBERT's shape in unit extraction, f32
-                result["f32_unit_extraction"] = numbers
         if dtype == torch.bfloat16 and result is not None:
             result["max_abs_err"] = max(result["max_abs_err"], err)
         print(line, flush=True)
-        if not (err <= tol and finite):
+        if not ok:
             failures.append(line)
+        del q, k, v
+        torch.cuda.empty_cache()
     if failures:
-        fail("attention kernel disagrees with its plain version")
+        fail(f"attention kernel disagrees with its plain version, or 1xTF32 passes the f32 "
+             f"limit: {failures}")
+    result["f32"] = f32
     return result
 
 
-def bias_fwd_times(ra, gen, dev, b, h, t, mask=None) -> dict:
-    """Kernel 4 in bf16 beside its plain version, SDPA with the same bias
-    (cast to bf16, masked keys at -1e30) and its bound; the bias
-    construction apart. mask None: all keys valid."""
-    dtype, dk = torch.bfloat16, 64
+def bias_fwd_times(ra, gen, dev, b, h, t, mask=None, dtype=torch.bfloat16) -> dict:
+    """Kernel 4 beside its plain version, SDPA with the same bias (cast to
+    the input type, masked keys at -1e30) and its bound (f32: the f32 FMA
+    bound and the 3xTF32 bound); the bias construction apart. mask None: all
+    keys valid."""
+    dk, sz = 64, torch.finfo(dtype).bits // 8
     mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
     q_u, q_v, k, v = (mk(b, h, t, dk) for _ in range(4))
     p = mk(h, 2 * t - 1, dk)
@@ -480,12 +531,17 @@ def bias_fwd_times(ra, gen, dev, b, h, t, mask=None) -> dict:
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q_u, k, v, attn_mask=lib_bias), iters=iters)
     # q_u k v in and out written once, the f32 bias, the mask, the f32 LSE
-    n_bytes = 4 * b * h * t * dk * 2 + 4 * b * h * t * t + b * t + b * h * t * 4
-    bounds = both_bounds_ms(n_bytes, 2 * 2 * b * h * t * t * dk, dtype)
-    print(f"rel_attention_bias B{b} H{h} T{t} bf16: kernel_ms {k_ms:.4f} bias_build_ms {build_ms:.4f} "
-          f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA, the same bias) bound_ms "
-          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']}; bytes {bounds['bytes_bound_ms']:.4f}, "
-          f"operations {bounds['operations_bound_ms']:.4f})", flush=True)
+    n_bytes = 4 * b * h * t * dk * sz + 4 * b * h * t * t + b * t + b * h * t * 4
+    flops = 2 * 2 * b * h * t * t * dk
+    bounds = both_bounds_ms(n_bytes, flops, dtype)
+    line = (f"rel_attention_bias B{b} H{h} T{t} {str(dtype)[6:]}: kernel_ms {k_ms:.4f} bias_build_ms "
+            f"{build_ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA, the same bias) "
+            f"bound_ms {bounds['bound_ms']:.4f} ({bounds['bound_by']}; bytes "
+            f"{bounds['bytes_bound_ms']:.4f}, operations {bounds['operations_bound_ms']:.4f})")
+    if dtype == torch.float32:
+        bounds["tf32x3_bound_ms"] = tf32x3_bound_ms(n_bytes, flops)
+        line += f" (f32 FMA) 3xTF32 bound_ms {bounds['tf32x3_bound_ms']:.4f}"
+    print(line, flush=True)
     return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bias_build_ms": build_ms,
             **bounds}
 
@@ -528,6 +584,9 @@ def phase_bias_attention(ra, dev, shear_ms: float) -> dict:
         fail("rel_attention_bias kernel disagrees with its plain version")
     result = {"max_abs_err": worst, **bias_fwd_times(ra, gen, dev, b, h, 480, ragged_mask(480, dev)[1]),
               "train_shape": bias_fwd_times(ra, gen, dev, *TRAIN_SHAPE)}
+    # the f32 path (FMA) at the serving batch's and the train step's shapes, all keys valid
+    result["f32"] = {f"B{b_}H{h_}T{t_}": bias_fwd_times(ra, gen, dev, b_, h_, t_, dtype=torch.float32)
+                     for b_, h_, t_ in REL_F32_BWD_SHAPES}
     print(f"rel-position attention B{b} H{h} T480 bf16: shear kernel_ms {shear_ms:.4f} | bias "
           f"build+kernel_ms {result['bias_build_ms'] + result['ms']:.4f}", flush=True)
     return result
@@ -857,6 +916,34 @@ def phase_pipeline(syn, counters: dict, name: str, cfg, expected: dict) -> dict:
     return launches
 
 
+def phase_f32_request(syn, counters: dict, name: str, cfg, expected: dict) -> dict:
+    """The full-width preset `name` in f32 (the server's default dtype, TF32
+    off), PCM16 out, at both request shapes: exact launch counts per
+    forward, results checked, p50 of 10 calls, one profiled request each
+    with the masked attention kernel's share of the device's busy time."""
+    set_tf32(False)
+    pipe = syn.Lip2SpeechPipeline.initialize_random(cfg, seed=0, emit_int16=True)
+    pipe.warmup(buckets=(240,), batch_sizes=(4,))
+    pipe.warmup(buckets=(96,), batch_sizes=(1,))
+    read = {}
+    for b, frames, lens in ((1, 96, (96,)), (4, 240, MAIN_LENS)):
+        what = f"{name} B{b}x{frames} f32"
+        req = request(cfg, b, frames, lens, seed=b)
+        check_results(counted_request(counters, pipe, req, expected, what), lens, what)
+        p50, lo, hi = p50_ms(pipe, req)
+        by_name: dict = {}
+        busy = profile_call(lambda: pipe.synthesise_batch(*req), what, top=8, by_name=by_name)
+        att_ms = sum(ms for k, ms in by_name.items() if "attention_mma" in k and "rel_" not in k)
+        read[f"B{b}x{frames}"] = {"p50_ms": p50, "min_ms": lo, "max_ms": hi, "busy_ms": busy,
+                                  "attention_ms": att_ms, "attention_share": att_ms / busy}
+        print(f"{what} pcm16: p50_ms {p50:.3f} min_ms {lo:.3f} max_ms {hi:.3f} (10 calls); "
+              f"device_busy_ms {busy:.3f}, attention kernel {att_ms:.3f} ms "
+              f"({100 * att_ms / busy:.1f}%)", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return read
+
+
 def phase_units(ue, km, counters: dict) -> None:
     """HuBERT unit extraction at full width (12 heads, d 768, layer 6), f32:
     a 10 s waveform and 200 random centroids, against the CPU plain path."""
@@ -1104,20 +1191,24 @@ def phase_attention_bwd(ra, dev) -> tuple[dict, dict]:
              "serving_shape": serving, "f32": f32}
     bias_serving = bias_bwd_times(ra, gen, dev, 4, 8, 480, serving["ms"])
     bias_res = {"max_abs_err": worst["bias"], **bias_bwd_times(ra, gen, dev, *TRAIN_SHAPE, shear["ms"]),
-                "serving_shape": bias_serving}
+                "serving_shape": bias_serving,
+                "f32": {shape: bias_bwd_times(ra, gen, dev, *REL_F32_BWD_SHAPES[i], f32[shape]["ms"],
+                                              dtype=torch.float32)
+                        for i, shape in enumerate(f32)}}
     return shear, bias_res
 
 
-def bias_bwd_times(ra, gen, dev, b, h, t, shear_ms: float) -> dict:
-    """Kernel 5 (bf16, all keys valid) beside its bound, its plain version,
-    the backward of SDPA with the same bias as a float mask, and the autograd
-    of the bias construction that follows it in the route."""
-    dtype, dk, sz = torch.bfloat16, 64, 2
+def bias_bwd_times(ra, gen, dev, b, h, t, shear_ms: float, dtype=torch.bfloat16) -> dict:
+    """Kernel 5 (all keys valid) beside its bound (f32: the f32 FMA bound and
+    the 3xTF32 bound), its plain version, the backward of SDPA with the same
+    bias as a float mask, and the autograd of the bias construction that
+    follows it in the route."""
+    dk, sz = 64, torch.finfo(dtype).bits // 8
     (q_u, q_v, k, v, p), _, g = bwd_inputs(gen, b, h, t, dtype, dev)
     mask = torch.ones(b, t, dtype=torch.bool, device=dev)
     bias = ra.rel_position_bias(q_v, p)
     out, lse = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask)
-    iters = 20 if t < 1000 else 5
+    iters = 20 if t < 1000 and dtype == torch.bfloat16 else 5
     k_ms = time_ms(lambda: ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse, out, g),
                    iters=iters)
     plain_ms = time_ms(lambda: ra.bias_attention_bwd_plain(q_u, k, v, bias, mask, lse, out, g),
@@ -1130,13 +1221,18 @@ def bias_bwd_times(ra, gen, dev, b, h, t, shear_ms: float) -> dict:
                                                       retain_graph=True), iters=5)
     # inputs q_u k v out dO, bias, mask, lse once; outputs dq_u dk dv and dbias once
     n_bytes = 8 * b * h * t * dk * sz + 2 * 4 * b * h * t * t + b * t + b * h * t * 4
-    bounds = both_bounds_ms(n_bytes, 5 * 2 * b * h * t * t * dk, dtype)
-    print(f"rel_attention_bias_bwd B{b} H{h} T{t} bf16: kernel_ms {k_ms:.4f} plain_ms {plain_ms:.4f} "
-          f"library_ms {lib_ms:.4f} (SDPA backward, the same bias) bound_ms {bounds['bound_ms']:.4f} "
-          f"({bounds['bound_by']}; bytes {bounds['bytes_bound_ms']:.4f}, operations "
-          f"{bounds['operations_bound_ms']:.4f}); autograd of rel_position_bias {bias_bwd_ms:.4f} ms: "
-          f"bias route backward {k_ms + bias_bwd_ms:.4f} ms | shear route backward {shear_ms:.4f} ms",
-          flush=True)
+    flops = 5 * 2 * b * h * t * t * dk
+    bounds = both_bounds_ms(n_bytes, flops, dtype)
+    tf32x3 = ""
+    if dtype == torch.float32:
+        bounds["tf32x3_bound_ms"] = tf32x3_bound_ms(n_bytes, flops)
+        tf32x3 = f" (f32 FMA) 3xTF32 bound_ms {bounds['tf32x3_bound_ms']:.4f}"
+    print(f"rel_attention_bias_bwd B{b} H{h} T{t} {str(dtype)[6:]}: kernel_ms {k_ms:.4f} plain_ms "
+          f"{plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA backward, the same bias) bound_ms "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']}; bytes {bounds['bytes_bound_ms']:.4f}, "
+          f"operations {bounds['operations_bound_ms']:.4f}){tf32x3}; autograd of rel_position_bias "
+          f"{bias_bwd_ms:.4f} ms: bias route backward {k_ms + bias_bwd_ms:.4f} ms | shear route "
+          f"backward {shear_ms:.4f} ms", flush=True)
     return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bounds,
             "bias_autograd_ms": bias_bwd_ms}
 
@@ -2754,10 +2850,12 @@ def main() -> int:
     phase_pipeline(syn, counters, "multi_target", cfg,
                    {"rel_attention": cfg.model.conformer.layers, "fused_resblock_trio": n_trio})
     flagship = preset("multi_target_avhubert")
-    launches = phase_pipeline(
-        syn, counters, "multi_target_avhubert", flagship,
-        {"attention": flagship.model.frontend.encoder_layers,
-         "rel_attention": flagship.model.conformer.layers, "fused_resblock_trio": n_trio})
+    flagship_launches = {"attention": flagship.model.frontend.encoder_layers,
+                         "rel_attention": flagship.model.conformer.layers,
+                         "fused_resblock_trio": n_trio}
+    launches = phase_pipeline(syn, counters, "multi_target_avhubert", flagship, flagship_launches)
+    plain["flagship_f32_request"] = phase_f32_request(syn, counters, "multi_target_avhubert",
+                                                      flagship, flagship_launches)
     phase_units(ue, km, counters)
     phase_other_frontends(syn, counters, preset)
     shear_bwd, bias_bwd = phase_attention_bwd(ra, dev)

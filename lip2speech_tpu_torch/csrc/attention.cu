@@ -16,71 +16,124 @@
 // block's latency: its loads, its four tile steps and the launch.
 //
 // Design. The TPU kernel holds a head's whole K and V in VMEM and pads T to
-// a block multiple; here one block owns 64 query rows of one (batch, head)
-// and loops over key tiles of 64 with an online softmax, so shared memory
-// does not grow with T (the unit extractor calls it at T = 5000) and nothing
-// quadratic reaches device memory. Bounds are checked, so T needs no padded
-// copy. The key mask is read as the (B, T) bytes it is, shared by the heads
-// of a batch row; a null mask means every key is valid.
+// a block multiple; here one block owns a run of query rows of one (batch,
+// head) and loops over key tiles of 64 with an online softmax, so shared
+// memory does not grow with T (the unit extractor calls it at T = 5000) and
+// nothing quadratic reaches device memory. Bounds are checked, so T needs no
+// padded copy. The key mask is read as the (B, T) bytes it is, shared by the
+// heads of a batch row; a null mask means every key is valid.
 //
-// bf16 (dtype 1), `attention_mma`: rel_attention.cu's tensor-core forward
-// without the position term (mma_tile.cuh). 4 warps x 16 query rows; the Q
-// fragments stay in registers; K and V tiles arrive by 16-byte cp.async into
-// swizzled tiles, double-buffered, so tile j+1 loads while tile j computes;
-// S = Q K^T and O += P V on mma.sync m16n8k16 (bf16 in, f32 accumulate); the
-// mask and the online softmax run on the accumulator fragments, P is rounded
-// to bf16 in registers as the A operand of P V. 41.5 KB of shared memory and
-// at most 128 registers: four blocks (16 warps) per SM.
+// One kernel for both input types, `attention_mma<T>`: rel_attention.cu's
+// tensor-core loop without the position term (mma_tile.cuh); the type picks
+// the tiles, the products and the epilogue's stores. 4 warps x 16 query
+// rows; the Q fragments stay in registers; K and V tiles arrive by 16-byte
+// cp.async, double-buffered, so tile j+1 loads while tile j computes; the
+// mask and the online softmax run on the accumulator fragments, and P is the
+// A operand of P V straight from its accumulator.
 //
-// f32 (dtype 0), `attention_kernel`: the first version, unchanged on
-// the CUDA cores (FP32 FMAs on f32 shared tiles, flash_tile.cuh), because
-// the f32 path is held to 1e-4 against the CPU and TF32 cannot meet that.
+// bf16 (dtype 1): S = Q K^T and O += P V on mma.sync m16n8k16 (bf16 in, f32
+// accumulate) from swizzled tiles; P is rounded to bf16 in registers. 41.5
+// KB of shared memory and at most 128 registers: four blocks (16 warps) per
+// SM.
+//
+// f32 (dtype 0): the same loop in 3xTF32 on mma.sync m16n8k8 (each operand
+// split into a TF32 hi, rounded as cvt.rna rounds, and an f32 lo = v - hi;
+// lo_a hi_b + hi_a lo_b + hi_a hi_b with f32 accumulation, about 2^-21 of
+// |a b| dropped), so the path is held to 3e-5 against the plain version,
+// which one TF32 product (~1e-4 to 1e-3 off) does not meet. f32 tiles of 64
+// x 68 floats. Q is staged through the second V stage and held unsplit in
+// registers (split at each use); K and V are split after they are read. P
+// stays in registers as the A of P V: a k8 step takes its keys in the order
+// 0, 2, 4, 6, 1, 3, 5, 7, which is where the m16n8 accumulator holds them,
+// and V's rows are read in that order by single floats (conflict-free at
+// the stride of 68). kF32Split warps share a group of 16 query rows, each
+// taking 64 / kF32Split keys of every tile with its own online softmax, and
+// combine their (max, sum, output) through shared memory at the end: a block
+// owns 64 / kF32Split query rows, so small grids (the flagship's B1 H16
+// T96: 32 blocks of 64 rows) spread over more SMs, and each warp's serial
+// path is kF32Split times shorter. 68.5 KB of shared memory: three blocks
+// per SM.
 
 #include "mma_tile.cuh"
 
 namespace {
 
-namespace mma_path {
-
 using namespace mma;
 
-// Q, two stages of K and of V, two stages of mask flags
-constexpr size_t kSmem = (size_t)5 * kTile * sizeof(bf16) + (size_t)2 * kB * sizeof(float);
+constexpr int kF32Split = 1;
 
-__global__ void __launch_bounds__(kThreads, 4)
-attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-              const uint8_t* __restrict__ mask, bf16* __restrict__ out, int H, int T_len,
+template <typename T>
+struct Fwd {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  // warps that share 16 query rows, each on its share of a tile's keys
+  static constexpr int kSplit = kBf16 ? 1 : kF32Split;
+  static constexpr int kRows = kB / kSplit;        // query rows a block
+  static constexpr int kNT = 8 / kSplit;           // n8 key tiles a warp
+  static constexpr int kMinBlocks = kBf16 ? 4 : 3;
+  // bf16: a Q tile of its own; f32: Q staged through the second V stage
+  static constexpr int kQTiles = kBf16 ? 1 : 0;
+  // the Q tile, two stages of K and of V, two stages of mask flags
+  static constexpr size_t kSmem =
+      (size_t)(kQTiles + 4) * Tile<T>::kElems * sizeof(T) + (size_t)2 * kB * sizeof(float);
+  // a warp's partial result in the combine: 16 x 64 output, max and sum of 16 rows
+  static constexpr int kPart = 16 * kLd32 + 32;
+  static_assert(kSplit == 1 || (size_t)(kSplit - 1) * (4 / kSplit) * kPart <=
+                                   (size_t)2 * Tile<T>::kElems,
+                "the combine's partials fit the two K stages");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, Fwd<T>::kMinBlocks)
+attention_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int T_len,
               float scale) {
+  using F = Fwd<T>;
+  constexpr int E = Tile<T>::kElems, kNT = F::kNT, kSplit = F::kSplit;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kTile;         // two stages
-  bf16* sV = sK + 2 * kTile;     // two stages
-  float* sM = reinterpret_cast<float*>(sV + 2 * kTile);   // two stages
+  T* sK = reinterpret_cast<T*>(smem_raw) + F::kQTiles * E;   // two stages
+  T* sV = sK + 2 * E;                                         // two stages
+  float* sM = reinterpret_cast<float*>(sV + 2 * E);           // two stages
+  T* sQ = F::kBf16 ? reinterpret_cast<T*>(smem_raw) : sV + E;
 
-  const int bh = blockIdx.y, i0 = blockIdx.x * kB;
+  const int bh = blockIdx.y, i0 = blockIdx.x * F::kRows;
   const size_t base = (size_t)bh * T_len * kD;
   const uint8_t* mask_row = mask == nullptr ? nullptr : mask + (size_t)(bh / H) * T_len;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q4 = lane & 3;
-  const int i_g = i0 + 16 * warp + (lane >> 2);   // the lane's first row
+  const int rg = warp % (kWarps / kSplit);           // the warp's group of 16 rows
+  const int share = warp / (kWarps / kSplit);        // its share of each tile's keys
+  const int kw = 8 * kNT * share;                    // the share's first key in a tile
+  const int i_g = i0 + 16 * rg + (lane >> 2);        // the lane's first row
   const int n_tiles = (T_len + kB - 1) / kB;
 
-  load_tile(sQ, q + base, i0, T_len);
+  if constexpr (F::kBf16)
+    load_tile(sQ, q + base, i0, T_len);
+  else
+    load_tile<kThreads, F::kRows>(sQ, q + base, i0, T_len);
   load_tile(sK, k + base, 0, T_len);
   load_tile(sV, v + base, 0, T_len);
   flash::load_mask(sM, mask_row, 0, T_len);
   cp_async_commit();
 
-  uint32_t aq[4][4];
+  RowsA<T> aq;
+  if constexpr (!F::kBf16) {   // Q into registers before the second V stage is written
+    cp_async_wait<0>();
+    __syncthreads();
+    aq.init(sQ, 16 * rg, lane);
+    __syncthreads();
+  }
   float o[8][4];
   zero(o);
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  // a warp's share of a tile may lie past the sequence (scores -inf): its
+  // running maximum starts at the masked score so that it stays finite
+  const float m0 = kSplit == 1 ? -INFINITY : flash::kMasked;
+  float m_run[2] = {m0, m0}, l_run[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
     if (t + 1 < n_tiles) {       // stage t+1 was last read in tile t-1
       const int j1 = (t + 1) * kB;
-      load_tile(sK + (st ^ 1) * kTile, k + base, j1, T_len);
-      load_tile(sV + (st ^ 1) * kTile, v + base, j1, T_len);
+      load_tile(sK + (st ^ 1) * E, k + base, j1, T_len);
+      load_tile(sV + (st ^ 1) * E, v + base, j1, T_len);
       flash::load_mask(sM + (st ^ 1) * kB, mask_row, j1, T_len);
       cp_async_commit();
       cp_async_wait<1>();
@@ -88,18 +141,20 @@ attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) load_a(aq, sQ, 16 * warp, lane);
-    const bf16* kt = sK + st * kTile;
-    const bf16* vt = sV + st * kTile;
-    const float* mt = sM + st * kB;
+    if constexpr (F::kBf16) {
+      if (t == 0) aq.init(sQ, 16 * warp, lane);
+    }
+    const T* kt = sK + st * E + Tile<T>::at(kw, 0);
+    const T* vt = sV + st * E + Tile<T>::at(kw, 0);
+    const float* mt = sM + st * kB + kw;
 
-    float s[8][4];
-    zero(s);
-    product_nt(s, aq, kt, lane);
+    float s[kNT][4];
+    zero<kNT>(s);
+    product_nt<kNT>(s, aq, kt, lane);
 
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kNT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[n][e] = flash::mask_score(s[n][e] * scale, mt[8 * n + 2 * q4 + (e & 1)]);
@@ -110,122 +165,109 @@ attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);   // finite: key j0 lies in the sequence
+      // finite: key j0 lies in the sequence, or the maximum starts finite
+      const float m_new = fmaxf(m_run[r], mx[r]);
       alpha[r] = __expf(m_run[r] - m_new);
       m_run[r] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kNT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[n][e] = __expf(s[n][e] - m_run[e >> 1]);
         rs[e >> 1] += s[n][e];
         o[n][e] *= alpha[e >> 1];
       }
+#pragma unroll
+    for (int n = kNT; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
     // the lane's share of the row sums; the quad adds them up at the end
     l_run[0] = l_run[0] * alpha[0] + rs[0];
     l_run[1] = l_run[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      to_a(a, s, kk);
-      product_nn_step(o, a, vt, kk, lane);
-    }
+    if constexpr (F::kBf16)
+      product_acc_nn(o, s, vt, lane);
+    else
+      product_acc_nn<kNT>(o, s, vt, lane);
     __syncthreads();   // stage st is consumed
   }
 
-  float inv[2];
+  float l[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / fmaxf(l, 1e-20f);
+    l[r] = l_run[r];
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if constexpr (kSplit > 1) {
+    // the other shares' partials through the (consumed) K stages; the first
+    // share rescales them to the common maximum and adds them to its own
+    float* part = reinterpret_cast<float*>(sK);
+    const int g = lane >> 2;
+    if (share > 0) {
+      float* x = part + ((share - 1) * (kWarps / kSplit) + rg) * F::kPart;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(x + (g + 8 * h) * kLd32 + 8 * n + 2 * q4) =
+              make_float2(o[n][2 * h], o[n][2 * h + 1]);
+      if (q4 == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          x[16 * kLd32 + g + 8 * h] = m_run[h];
+          x[16 * kLd32 + 16 + g + 8 * h] = l[h];
+        }
+      }
+    }
+    __syncthreads();
+    if (share > 0) return;
+#pragma unroll
+    for (int j = 1; j < kSplit; ++j) {
+      const float* x = part + ((j - 1) * (kWarps / kSplit) + rg) * F::kPart;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mj = x[16 * kLd32 + g + 8 * h], lj = x[16 * kLd32 + 16 + g + 8 * h];
+        const float m_new = fmaxf(m_run[h], mj);
+        const float a = __expf(m_run[h] - m_new), b = __expf(mj - m_new);
+        m_run[h] = m_new;
+        l[h] = l[h] * a + lj * b;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 y = *reinterpret_cast<const float2*>(x + (g + 8 * h) * kLd32 + 8 * n + 2 * q4);
+          o[n][2 * h] = o[n][2 * h] * a + y.x * b;
+          o[n][2 * h + 1] = o[n][2 * h + 1] * a + y.y * b;
+        }
+      }
+    }
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(l[r], 1e-20f);
   store_rows(out + base, o, i_g, T_len, inv, q4);
 }
 
+template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* mask, void* out,
                    int B, int H, int T_len, cudaStream_t stream) {
   if (!aligned16({q, k, v, out})) return cudaErrorMisalignedAddress;
-  cudaError_t e = cudaFuncSetAttribute(attention_mma,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((T_len + kB - 1) / kB, B * H);
-  attention_mma<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      mask, static_cast<bf16*>(out), H, T_len, 1.0f / sqrtf((float)kD));
-  return cudaGetLastError();
-}
-
-}  // namespace mma_path
-
-namespace fma_path {
-
-using namespace flash;
-
-// One block of 256 threads owns 64 query rows; thread (ty, tx) owns a 4x4
-// score tile and a 4x4 output tile; f32 shared tiles with a padded stride.
-__global__ void __launch_bounds__(kThreads)
-attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                 float* __restrict__ out, int H, int T_len, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sK = sQ + kB * kS;     // key tile, then that tile's probabilities
-  float* sV = sK + kB * kS;
-  float* sM = sV + kB * kS;
-
-  const int bh = blockIdx.y;
-  const int i0 = blockIdx.x * kB;
-  const size_t base = (size_t)bh * T_len * kD;
-  const uint8_t* mask_row = mask == nullptr ? nullptr : mask + (size_t)(bh / H) * T_len;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile(sQ, q + base, i0, T_len);
-  State st;
-  st.init();
-
-  for (int j0 = 0; j0 < T_len; j0 += kB) {
-    __syncthreads();  // the previous tile's probabilities and V are consumed
-    load_tile(sK, k + base, j0, T_len);
-    load_tile(sV, v + base, j0, T_len);
-    load_mask(sM, mask_row, j0, T_len);
-    __syncthreads();
-
-    float s[4][4];
-    qk_product(sQ, sK, ty, tx, s);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[a][j] = mask_score(s[a][j] * scale, sM[4 * tx + j]);
-    softmax_step(s, st);
-    pv_product(sK, sV, ty, tx, s, st);
-  }
-  write_out(out + base, nullptr, i0, T_len, ty, tx, st);
-}
-
-cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* mask, void* out,
-                   int B, int H, int T_len, cudaStream_t stream) {
-  auto kern = attention_kernel;
+  auto kern = attention_mma<T>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kSmemBytes);
+                                       (int)Fwd<T>::kSmem);
   if (e != cudaSuccess) return e;
-  dim3 grid((T_len + kB - 1) / kB, B * H);
-  kern<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      mask, static_cast<float*>(out), H, T_len, 1.0f / sqrtf((float)kD));
+  dim3 grid((T_len + Fwd<T>::kRows - 1) / Fwd<T>::kRows, B * H);
+  kern<<<grid, kThreads, Fwd<T>::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
+      static_cast<T*>(out), H, T_len, 1.0f / sqrtf((float)kD));
   return cudaGetLastError();
 }
-
-}  // namespace fma_path
 
 }  // namespace
 
 // All tensors contiguous: q, k, v, out (B, H, T, dk); mask (B, T) uint8 or
-// null (every key valid). dtype: 0 = float32 (FMA kernel), 1 = bfloat16
-// (tensor-core kernel; pointers 16-byte aligned). Only dk = 64. Returns
-// cudaGetLastError() after the launch.
+// null (every key valid). dtype: 0 = float32 (3xTF32), 1 = bfloat16;
+// pointers 16-byte aligned. Only dk = 64. Returns cudaGetLastError() after
+// the launch.
 extern "C" int l2s_attention(const void* q, const void* k, const void* v, const void* mask,
                              void* out, int B, int H, int T_len, int dk, int dtype,
                              void* stream) {
@@ -234,9 +276,9 @@ extern "C" int l2s_attention(const void* q, const void* k, const void* v, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = fma_path::launch(q, k, v, m, out, B, H, T_len, s);
+    e = launch<float>(q, k, v, m, out, B, H, T_len, s);
   else if (dtype == 1)
-    e = mma_path::launch(q, k, v, m, out, B, H, T_len, s);
+    e = launch<bf16>(q, k, v, m, out, B, H, T_len, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -467,12 +467,12 @@ __device__ __forceinline__ void load_b_cols(uint32_t bh[][2], uint32_t bl[][2], 
   for (int n = 0; n < N; ++n) split_b(row[8 * n], row[kLd32 + 8 * n], bh[n], bl[n]);
 }
 
-// Rows row0 .. row0+63 of a (n_rows, 64) f32 matrix into an f32 tile; rows
-// outside [0, n_rows) are zero.
-template <int NTHREADS = kThreads>
+// Rows row0 .. row0+ROWS-1 of a (n_rows, 64) f32 matrix into an f32 tile;
+// rows outside [0, n_rows) are zero.
+template <int NTHREADS = kThreads, int ROWS = kB>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
                                           int n_rows) {
-  for (int e = threadIdx.x; e < kB * 16; e += NTHREADS) {
+  for (int e = threadIdx.x; e < ROWS * 16; e += NTHREADS) {
     const int r = e >> 4, c = e & 15, g = row0 + r;
     const bool ok = g >= 0 && g < n_rows;
     cp_async16(dst + r * kLd32 + 4 * c, src + (size_t)(ok ? g : 0) * kD + 4 * c, ok);
@@ -564,8 +564,8 @@ __device__ __forceinline__ void product_nt(float acc[][4], const A& a, const flo
   }
 }
 
-// acc (16 x 64) += P . X: P the warp's 16 x 64 accumulator (its columns the
-// k of the product), X a [k][n] tile.
+// acc (16 x 64) += P . X: P the warp's 16 x 8 NK accumulator (its columns
+// the k of the product), X the NK k8 steps of a [k][n] tile from its row x.
 __device__ __forceinline__ void product_acc_nn(float acc[8][4], const float p[8][4],
                                                const bf16* x, int lane) {
 #pragma unroll
@@ -576,11 +576,12 @@ __device__ __forceinline__ void product_acc_nn(float acc[8][4], const float p[8]
   }
 }
 
-__device__ __forceinline__ void product_acc_nn(float acc[8][4], const float p[8][4],
+template <int NK = 8>
+__device__ __forceinline__ void product_acc_nn(float acc[8][4], const float p[][4],
                                                const float* x, int lane) {
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < NK; ++kk) {
     const uint32_t av[4] = {__float_as_uint(p[kk][0]), __float_as_uint(p[kk][2]),
                             __float_as_uint(p[kk][1]), __float_as_uint(p[kk][3])};
     uint32_t ah[4], al[4], bh[8][2], bl[8][2];
