@@ -46,13 +46,18 @@
 // stays in registers as the A of P V: a k8 step takes its keys in the order
 // 0, 2, 4, 6, 1, 3, 5, 7, which is where the m16n8 accumulator holds them,
 // and V's rows are read in that order by single floats (conflict-free at
-// the stride of 68). kF32Split warps share a group of 16 query rows, each
-// taking 64 / kF32Split keys of every tile with its own online softmax, and
-// combine their (max, sum, output) through shared memory at the end: a block
-// owns 64 / kF32Split query rows, so small grids (the flagship's B1 H16
-// T96: 32 blocks of 64 rows) spread over more SMs, and each warp's serial
-// path is kF32Split times shorter. 68.5 KB of shared memory: three blocks
-// per SM.
+// the stride of 68). 68.5 KB of shared memory: three blocks per SM.
+//
+// Small grids. Where blocks of 64 query rows would leave SMs idle (the
+// flagship's f32 request B1 H16 T96: 32 blocks; unit extraction's B1 H12
+// T500: 96, on 132 SMs), the f32 launch takes 32 rows a block (kSplit 2):
+// two warps share each 16 rows, each takes 32 keys of every tile with its
+// own online softmax, and the pair combine their (max, sum, output) through
+// shared memory at the end, so the grid doubles and each warp's serial
+// path halves. On full grids that costs 4-23% (K and V read by twice the
+// blocks, the combine), so they keep 64 rows a block. (NVIDIA H100 80GB
+// HBM3, 700 W: 0.0124 -> 0.0095 ms at T96, 0.0301 -> 0.0277 at T500;
+// 0.0304 -> 0.0369 at B4 H16 T240, 1.501 -> 1.568 at B1 H12 T4999.)
 
 #include "mma_tile.cuh"
 
@@ -60,13 +65,11 @@ namespace {
 
 using namespace mma;
 
-constexpr int kF32Split = 1;
-
-template <typename T>
+// kSplit: warps that share 16 query rows, each on its share of a tile's keys
+template <typename T, int kSplit>
 struct Fwd {
   static constexpr bool kBf16 = sizeof(T) == 2;
-  // warps that share 16 query rows, each on its share of a tile's keys
-  static constexpr int kSplit = kBf16 ? 1 : kF32Split;
+  static_assert(kSplit == 1 || (!kBf16 && kSplit == 2), "bf16: 64 rows a block");
   static constexpr int kRows = kB / kSplit;        // query rows a block
   static constexpr int kNT = 8 / kSplit;           // n8 key tiles a warp
   static constexpr int kMinBlocks = kBf16 ? 4 : 3;
@@ -77,18 +80,15 @@ struct Fwd {
       (size_t)(kQTiles + 4) * Tile<T>::kElems * sizeof(T) + (size_t)2 * kB * sizeof(float);
   // a warp's partial result in the combine: 16 x 64 output, max and sum of 16 rows
   static constexpr int kPart = 16 * kLd32 + 32;
-  static_assert(kSplit == 1 || (size_t)(kSplit - 1) * (4 / kSplit) * kPart <=
-                                   (size_t)2 * Tile<T>::kElems,
-                "the combine's partials fit the two K stages");
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, Fwd<T>::kMinBlocks)
+template <typename T, int kSplit>
+__global__ void __launch_bounds__(kThreads, Fwd<T, kSplit>::kMinBlocks)
 attention_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int T_len,
               float scale) {
-  using F = Fwd<T>;
-  constexpr int E = Tile<T>::kElems, kNT = F::kNT, kSplit = F::kSplit;
+  using F = Fwd<T, kSplit>;
+  constexpr int E = Tile<T>::kElems, kNT = F::kNT;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw) + F::kQTiles * E;   // two stages
   T* sV = sK + 2 * E;                                         // two stages
@@ -199,13 +199,12 @@ attention_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  if constexpr (kSplit > 1) {
-    // the other shares' partials through the (consumed) K stages; the first
-    // share rescales them to the common maximum and adds them to its own
-    float* part = reinterpret_cast<float*>(sK);
+  if constexpr (kSplit == 2) {
+    // the second share's partial through the (consumed) K stages; the first
+    // rescales both to the common maximum and adds them up
+    float* x = reinterpret_cast<float*>(sK) + rg * F::kPart;
     const int g = lane >> 2;
-    if (share > 0) {
-      float* x = part + ((share - 1) * (kWarps / kSplit) + rg) * F::kPart;
+    if (share == 1) {
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -221,23 +220,18 @@ attention_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       }
     }
     __syncthreads();
-    if (share > 0) return;
+    if (share == 1) return;
 #pragma unroll
-    for (int j = 1; j < kSplit; ++j) {
-      const float* x = part + ((j - 1) * (kWarps / kSplit) + rg) * F::kPart;
+    for (int h = 0; h < 2; ++h) {
+      const float m1 = x[16 * kLd32 + g + 8 * h], l1 = x[16 * kLd32 + 16 + g + 8 * h];
+      const float m_new = fmaxf(m_run[h], m1);
+      const float a = __expf(m_run[h] - m_new), b = __expf(m1 - m_new);
+      l[h] = l[h] * a + l1 * b;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float mj = x[16 * kLd32 + g + 8 * h], lj = x[16 * kLd32 + 16 + g + 8 * h];
-        const float m_new = fmaxf(m_run[h], mj);
-        const float a = __expf(m_run[h] - m_new), b = __expf(mj - m_new);
-        m_run[h] = m_new;
-        l[h] = l[h] * a + lj * b;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const float2 y = *reinterpret_cast<const float2*>(x + (g + 8 * h) * kLd32 + 8 * n + 2 * q4);
-          o[n][2 * h] = o[n][2 * h] * a + y.x * b;
-          o[n][2 * h + 1] = o[n][2 * h + 1] * a + y.y * b;
-        }
+      for (int n = 0; n < 8; ++n) {
+        const float2 y = *reinterpret_cast<const float2*>(x + (g + 8 * h) * kLd32 + 8 * n + 2 * q4);
+        o[n][2 * h] = o[n][2 * h] * a + y.x * b;
+        o[n][2 * h + 1] = o[n][2 * h + 1] * a + y.y * b;
       }
     }
   }
@@ -247,16 +241,17 @@ attention_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   store_rows(out + base, o, i_g, T_len, inv, q4);
 }
 
-template <typename T>
+template <typename T, int kSplit>
 cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* mask, void* out,
                    int B, int H, int T_len, cudaStream_t stream) {
+  using F = Fwd<T, kSplit>;
   if (!aligned16({q, k, v, out})) return cudaErrorMisalignedAddress;
-  auto kern = attention_mma<T>;
+  auto kern = attention_mma<T, kSplit>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)Fwd<T>::kSmem);
+                                       (int)F::kSmem);
   if (e != cudaSuccess) return e;
-  dim3 grid((T_len + Fwd<T>::kRows - 1) / Fwd<T>::kRows, B * H);
-  kern<<<grid, kThreads, Fwd<T>::kSmem, stream>>>(
+  dim3 grid((T_len + F::kRows - 1) / F::kRows, B * H);
+  kern<<<grid, kThreads, F::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
       static_cast<T*>(out), H, T_len, 1.0f / sqrtf((float)kD));
   return cudaGetLastError();
@@ -275,11 +270,18 @@ extern "C" int l2s_attention(const void* q, const void* k, const void* v, const 
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (dtype == 0)
-    e = launch<float>(q, k, v, m, out, B, H, T_len, s);
-  else if (dtype == 1)
-    e = launch<bf16>(q, k, v, m, out, B, H, T_len, s);
-  else
+  if (dtype == 0) {
+    int dev, n_sm;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+    const long blocks = (long)(T_len + kB - 1) / kB * B * H;   // at 64 rows a block
+    e = blocks < n_sm ? launch<float, 2>(q, k, v, m, out, B, H, T_len, s)
+                      : launch<float, 1>(q, k, v, m, out, B, H, T_len, s);
+  } else if (dtype == 1) {
+    e = launch<bf16, 1>(q, k, v, m, out, B, H, T_len, s);
+  } else {
     e = cudaErrorInvalidValue;
+  }
   return (int)e;
 }

@@ -1,38 +1,54 @@
 #!/usr/bin/env bash
-# One-off A/B driver of scripts/attention_f32_ab.py: the parent commit and
-# variants of this tree's csrc/attention.cu, in turns, on one GPU.
+# One-off A/B driver of scripts/attention_f32_ab.py on one GPU: trees of the
+# port (lip2speech_tpu_torch/ and chip_smoke.py) under scratch_checkout/,
+# run in turns.
 #
-#   bash scripts/attention_f32_ab.sh make    # here, in a git checkout: the trees
-#   bash scripts/attention_f32_ab.sh run     # on the card, from the repo root
+#   bash scripts/attention_f32_ab.sh make-variants   # in a git checkout
+#   bash scripts/attention_f32_ab.sh make-final REV  # in a git checkout
+#   bash scripts/attention_f32_ab.sh run TREE[:e2e] ...   # on the card
 #
-# make: scratch_checkout/parent (git archive HEAD~1 of the port and
-# chip_smoke.py), scratch_checkout/s1 (this tree: kF32Split 1, three blocks
-# an SM), s1b2 (kF32Split 1, two blocks an SM), s2 and s4 (kF32Split 2 and
-# 4: 32 and 16 query rows a block). run: parent s1 s1b2 s2 s4 s4 s2 s1b2 s1
-# parent, with --e2e for parent, s1 and s2; logs in chiprun_out/ab_<tree>.log.
+# make-variants (at the commit that has kF32Split): parent (HEAD~1), s1
+# (HEAD: 64 query rows a block, three blocks an SM), s1b2 (two blocks an
+# SM), s2 and s4 (kF32Split 2 and 4: 32 and 16 rows a block). make-final:
+# parent (REV) and change (HEAD). run: each TREE in the order given, with
+# --e2e where marked; logs in chiprun_out/ab_<tree>.log, then every run's
+# JSON line. The variants ran as
+#   run parent:e2e s1:e2e s1b2 s2:e2e s4 s4 s2:e2e s1b2 s1:e2e parent:e2e
+# and the final A/B as
+#   run parent:e2e change:e2e change:e2e parent:e2e
 set -euo pipefail
 root=scratch_checkout
-if [ "${1:-}" = make ]; then
-  rm -rf "$root"
-  mkdir -p "$root/parent"
-  git archive HEAD~1 lip2speech_tpu_torch chip_smoke.py | tar -x -C "$root/parent"
-  for v in s1 s1b2 s2 s4; do
-    mkdir -p "$root/$v"
-    git archive HEAD lip2speech_tpu_torch chip_smoke.py | tar -x -C "$root/$v"
-  done
-  src=lip2speech_tpu_torch/csrc/attention.cu
-  sed -i 's/kMinBlocks = kBf16 ? 4 : 3;/kMinBlocks = kBf16 ? 4 : 2;/' "$root/s1b2/$src"
-  sed -i 's/constexpr int kF32Split = 1;/constexpr int kF32Split = 2;/' "$root/s2/$src"
-  sed -i 's/constexpr int kF32Split = 1;/constexpr int kF32Split = 4;/' "$root/s4/$src"
-  exit 0
-fi
-mkdir -p chiprun_out
-nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-for spec in parent:e2e s1:e2e s1b2: s2:e2e s4: s4: s2:e2e s1b2: s1:e2e parent:e2e; do
-  v=${spec%%:*}
-  e=${spec#*:}
-  timeout 400 python3 scripts/attention_f32_ab.py --repo "$root/$v" --tag "$v" ${e:+--e2e} \
-    >> "chiprun_out/ab_$v.log" 2>&1 || echo "$v failed"
-done
-nvidia-smi --query-gpu=name,power.limit,clocks.sm,temperature.gpu --format=csv,noheader
-grep -h '^{' chiprun_out/ab_*.log | cut -c1-1500
+tree() { mkdir -p "$root/$1"; git archive "$2" lip2speech_tpu_torch chip_smoke.py | tar -x -C "$root/$1"; }
+case "${1:-}" in
+  make-variants)
+    rm -rf "$root"
+    tree parent HEAD~1
+    for v in s1 s1b2 s2 s4; do tree "$v" HEAD; done
+    src=lip2speech_tpu_torch/csrc/attention.cu
+    sed -i 's/kMinBlocks = kBf16 ? 4 : 3;/kMinBlocks = kBf16 ? 4 : 2;/' "$root/s1b2/$src"
+    sed -i 's/constexpr int kF32Split = 1;/constexpr int kF32Split = 2;/' "$root/s2/$src"
+    sed -i 's/constexpr int kF32Split = 1;/constexpr int kF32Split = 4;/' "$root/s4/$src"
+    ;;
+  make-final)
+    rm -rf "$root"
+    tree parent "$2"
+    tree change HEAD
+    ;;
+  run)
+    shift
+    mkdir -p chiprun_out
+    nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+    for spec in "$@"; do
+      v=${spec%%:*}
+      e=${spec#"$v"}
+      timeout 400 python3 scripts/attention_f32_ab.py --repo "$root/$v" --tag "$v" \
+        ${e:+--e2e} >> "chiprun_out/ab_$v.log" 2>&1 || echo "$v failed"
+    done
+    nvidia-smi --query-gpu=name,power.limit,clocks.sm,temperature.gpu --format=csv,noheader
+    grep -h '^{' chiprun_out/ab_*.log | cut -c1-1500
+    ;;
+  *)
+    echo "usage: $0 make-variants | make-final REV | run TREE[:e2e] ..." >&2
+    exit 2
+    ;;
+esac

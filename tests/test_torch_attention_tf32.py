@@ -2,7 +2,8 @@
 products (S = Q K^T and O = P V) in 3xTF32 (each operand split into hi,
 rounded to TF32 as cvt.rna rounds, and lo = v - hi, which the tensor core
 reads truncated to TF32; lo_a hi_b + hi_a lo_b + hi_a hi_b in f32), with the
-kernel's online softmax over key tiles of 64, emulated in plain PyTorch at
+kernel's online softmax over key tiles of 64 (its blocks of 64 query rows),
+emulated in plain PyTorch at
 the kernel's rounding points, against the JAX package's Pallas kernel
 (`flash_attention` in interpret mode) and its `reference_attention`, in
 f32, within the limit that chip_smoke.py holds the kernel to on the card:
