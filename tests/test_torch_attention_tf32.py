@@ -2,17 +2,16 @@
 products (S = Q K^T and O = P V) in 3xTF32 (each operand split into hi,
 rounded to TF32 as cvt.rna rounds, and lo = v - hi, which the tensor core
 reads truncated to TF32; lo_a hi_b + hi_a lo_b + hi_a hi_b in f32), with the
-kernel's online softmax over key tiles of 64 (its blocks of 64 query rows),
-emulated in plain PyTorch at
-the kernel's rounding points, against the JAX package's Pallas kernel
-(`flash_attention` in interpret mode) and its `reference_attention`, in
-f32, within the limit that chip_smoke.py holds the kernel to on the card:
-3e-5 absolute on valid rows (phase 6). One TF32 product (1xTF32: hi_a
-hi_b), in both products or in either one, must fall outside that limit, so
-that it tells the method from the cheaper one. This checks the method, not
-the kernel, which runs only on the card. T = 130 (three key tiles, the last
-one ragged) with a fully masked batch row; head dim 64, the kernel's only
-one."""
+kernel's online softmax over key tiles of 64 (as its blocks of 64 query
+rows run it), emulated in plain PyTorch at the kernel's rounding points,
+against the JAX package's Pallas kernel (`flash_attention` in interpret
+mode) and its `reference_attention`, in f32, within the limit that
+chip_smoke.py holds the kernel to on the card: 3e-5 absolute on valid rows
+(phase 6). One TF32 product (1xTF32: hi_a hi_b), in both products or in
+either one, must fall outside that limit, so that it tells the method from
+the cheaper one. This checks the method, not the kernel, which runs only on
+the card. T = 130 (three key tiles, the last one ragged) with a fully
+masked batch row; head dim 64, the kernel's only one."""
 
 import math
 
