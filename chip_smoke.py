@@ -585,8 +585,8 @@ def phase_bias_attention(ra, dev, shear_ms: float) -> dict:
     result = {"max_abs_err": worst, **bias_fwd_times(ra, gen, dev, b, h, 480, ragged_mask(480, dev)[1]),
               "train_shape": bias_fwd_times(ra, gen, dev, *TRAIN_SHAPE)}
     # the f32 path (FMA) at the serving batch's and the train step's shapes, all keys valid
-    result["f32"] = {f"B{b_}H{h_}T{t_}": bias_fwd_times(ra, gen, dev, b_, h_, t_, dtype=torch.float32)
-                     for b_, h_, t_ in REL_F32_BWD_SHAPES}
+    result["f32"] = {f"B{b}H{h}T{t}": bias_fwd_times(ra, gen, dev, b, h, t, dtype=torch.float32)
+                     for b, h, t in REL_F32_BWD_SHAPES}
     print(f"rel-position attention B{b} H{h} T480 bf16: shear kernel_ms {shear_ms:.4f} | bias "
           f"build+kernel_ms {result['bias_build_ms'] + result['ms']:.4f}", flush=True)
     return result
@@ -1191,10 +1191,11 @@ def phase_attention_bwd(ra, dev) -> tuple[dict, dict]:
              "serving_shape": serving, "f32": f32}
     bias_serving = bias_bwd_times(ra, gen, dev, 4, 8, 480, serving["ms"])
     bias_res = {"max_abs_err": worst["bias"], **bias_bwd_times(ra, gen, dev, *TRAIN_SHAPE, shear["ms"]),
-                "serving_shape": bias_serving,
-                "f32": {shape: bias_bwd_times(ra, gen, dev, *REL_F32_BWD_SHAPES[i], f32[shape]["ms"],
-                                              dtype=torch.float32)
-                        for i, shape in enumerate(f32)}}
+                "serving_shape": bias_serving, "f32": {}}
+    for b, h, t in REL_F32_BWD_SHAPES:     # the bias route's f32 path (FMA), all keys valid
+        shape = f"B{b}H{h}T{t}"
+        bias_res["f32"][shape] = bias_bwd_times(ra, gen, dev, b, h, t, f32[shape]["ms"],
+                                                dtype=torch.float32)
     return shear, bias_res
 
 

@@ -54,7 +54,7 @@
 // two warps share each 16 rows, each takes 32 keys of every tile with its
 // own online softmax, and the pair combine their (max, sum, output) through
 // shared memory at the end, so the grid doubles and each warp's serial
-// path halves. On full grids that costs 4-23% (K and V read by twice the
+// path halves. On full grids that costs 4-21% (K and V read by twice the
 // blocks, the combine), so they keep 64 rows a block. (NVIDIA H100 80GB
 // HBM3, 700 W: 0.0124 -> 0.0095 ms at T96, 0.0301 -> 0.0277 at T500;
 // 0.0304 -> 0.0369 at B4 H16 T240, 1.501 -> 1.568 at B1 H12 T4999.)
@@ -125,8 +125,8 @@ attention_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   zero(o);
   // a warp's share of a tile may lie past the sequence (scores -inf): its
   // running maximum starts at the masked score so that it stays finite
-  const float m0 = kSplit == 1 ? -INFINITY : flash::kMasked;
-  float m_run[2] = {m0, m0}, l_run[2] = {0.f, 0.f};
+  const float m_init = kSplit == 1 ? -INFINITY : flash::kMasked;
+  float m_run[2] = {m_init, m_init}, l_run[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;

@@ -1,5 +1,5 @@
 // Building blocks of the FMA flash-attention kernels (the f32 paths of
-// attention.cu and rel_attention_bias.cu and, through flash_bwd_tile.cuh, of
+// rel_attention_bias.cu and, through flash_bwd_tile.cuh, of
 // rel_attention_bias_bwd.cu); the tensor-core kernels (mma_tile.cuh) take
 // the key-mask flags and scores from here. Not compiled on its own.
 //

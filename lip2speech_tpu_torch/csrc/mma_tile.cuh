@@ -19,9 +19,10 @@
 // rows, so each tile loads only the next 64. Key-mask flags and scores come
 // from flash_tile.cuh (`load_mask`, `mask_score`).
 //
-// f32 products (the rel-attention kernels' f32 paths) run in 3xTF32 on
-// mma.sync.m16n8k8: each operand is split into hi (TF32, rounded to
-// nearest) and lo = v - hi, and a product is lo_a hi_b + hi_a lo_b +
+// f32 products (the f32 paths of the shear rel-attention kernels and of
+// attention.cu) run in 3xTF32 on mma.sync.m16n8k8: each operand is split
+// into hi (TF32, rounded to nearest) and lo = v - hi, and a product is
+// lo_a hi_b + hi_a lo_b +
 // hi_a hi_b (`mma3_tiles`), f32 accumulate; what is dropped is ~2^-21 of
 // |a b|. The m16n8k8 TF32 fragments of lane (g, q): A a0 (g, q), a1 (g+8,
 // q), a2 (g, q+4), a3 (g+8, q+4); B b0 (k q, n g), b1 (k q+4, n g); C as
@@ -39,7 +40,8 @@
 // kernels write themselves use the same order where it suits their
 // readers. The f32 helpers take a warp's share of a tile's keys as NT n8
 // tiles: all 64 keys (NT = 8) or half of them where two warps share 16
-// rows (the f32 backward passes' 8 warps).
+// rows (the f32 backward passes' 8 warps, attention.cu's f32 blocks of 32
+// rows).
 
 #pragma once
 
