@@ -6,12 +6,12 @@
 Phases, in order; any failure exits non-zero before the last line:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels from lip2speech_tpu_torch/csrc (nvcc, in parallel);
-     print ptxas's registers and spills, and count the tensor-core (HMMA)
-     instructions in each library's SASS, the TF32 ones apart: none in
-     rel_attention, rel_attention_bwd, rel_attention_bias,
-     rel_attention_bias_bwd, attention or fused_tail (bf16 on mma.sync), or
-     no TF32 one in rel_attention, rel_attention_bwd, attention or
-     fused_tail (f32 in 3xTF32), fails;
+     print ptxas's registers and spills of every kernel (each f32 and bf16
+     instantiation), and count the tensor-core (HMMA) instructions in each
+     library's SASS, the TF32 ones apart: none in any of rel_attention,
+     rel_attention_bwd, rel_attention_bias, rel_attention_bias_bwd,
+     attention and fused_tail (bf16 on mma.sync), or no TF32 one in any of
+     them (f32 in 3xTF32), fails;
   3. rel-position attention kernel against its plain version, f32 and bf16;
      bf16 times at B4 H8 T480 and at the train step's B8 H8 T1200, each
      beside SDPA with the position term as a float bias mask; the f32 path
@@ -38,11 +38,16 @@ Phases, in order; any failure exits non-zero before the last line:
      a full chunk's B1 H12 T4999 beside f32 SDPA, the plain version, its f32
      FMA bound and its 3xTF32 bound;
   7. bias-flash rel-position attention kernel against its plain version
-     (T 480 / 470, f32 and bf16), and its time plus the bias construction
-     beside the shear kernel of phase 3; bf16 times at B4 H8 T480 and at the
-     train step's B8 H8 T1200, each beside its plain version, SDPA with the
-     same bias and the bound (bytes and operations); the f32 path (FMA) timed
-     at the same shapes beside f32 SDPA with the same bias and both bounds;
+     (T 480 / 470 ragged, T 470 with a fully masked batch row; f32 and
+     bf16), and its time plus the bias construction beside the shear kernel
+     of phase 3; bf16 times at B4 H8 T480 and at the train step's B8 H8
+     T1200, each beside its plain version, SDPA with the same bias and the
+     bound (bytes and operations); the f32 path (3xTF32) within 1e-4 of its
+     plain version in every f32 case and at B4 H8 T480 and B8 H8 T1200
+     (ragged, a fully masked batch row), where the forward at one TF32
+     product (bias_attention_one_tf32) must not be, and timed there beside
+     f32 SDPA with the same bias, the plain version, its f32 FMA bound and
+     its 3xTF32 bound;
   8. the full-width multi_target_avhubert pipeline as in 5, with both
      rel-attention implementations (LIP2SPEECH_FLASH_IMPL shear | bias), and
      multi_target's batch-4 p50 under both; then its f32 request (the
@@ -65,8 +70,10 @@ Phases, in order; any failure exits non-zero before the last line:
      |ref|) of its plain version, where the backward at one TF32 product
      (rel_attention_bwd_one_tf32) must not be, and timed there beside f32
      SDPA's backward, the plain version and both bounds; the bias route's
-     f32 backward (FMA) timed at the same shapes beside f32 SDPA's backward
-     with the same bias and both bounds;
+     f32 backward (3xTF32) at the same shapes within 1e-4 of max(1, |ref|)
+     a gradient and DBIAS_TOL, where the backward at one TF32 product
+     (bias_attention_bwd_one_tf32) must not be, and timed there beside f32
+     SDPA's backward with the same bias, the plain version and both bounds;
  12. in-kernel attention dropout, both routes, forward and backward, against
      the plain versions under the identical keep mask (dbias by DBIAS_TOL);
      the kernel's mask against ops/dropout_mask.py; determinism, keep rate,
@@ -77,7 +84,10 @@ Phases, in order; any failure exits non-zero before the last line:
      with the bias route; then the f32 step as the train_stage1 CLI runs it
      (the same recipe with bf16_compute off, TF32 in cuDNN only): three
      steps with exact launch counts, p50, peak memory and a profiled step
-     with the rel-attention kernels' share; then two f32 steps at 2 x 32
+     with the rel-attention kernels' share, then the same under the bias
+     route (rel_attention_bias and rel_attention_bias_bwd 24 launches a
+     step), with the bias construction's forward and autograd beside the
+     kernels; then two f32 steps at 2 x 32
      frames on the card against the CPU plain path; then one step of the
      flagship multi_target_avhubert (frozen frontend: no gradient, no
      update);
@@ -215,10 +225,10 @@ def valid_rows_err(out, ref, lens) -> float:
 
 
 # libraries whose bf16 path runs on mma.sync, and those whose f32 path runs
-# on mma.sync in 3xTF32
+# on mma.sync in 3xTF32: all six
 TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd", "rel_attention_bias",
                        "rel_attention_bias_bwd", "attention", "fused_tail")
-TF32_KERNELS = ("rel_attention", "rel_attention_bwd", "attention", "fused_tail")
+TF32_KERNELS = TENSOR_CORE_KERNELS
 
 
 def sass_tensor_core_counts(build) -> tuple[dict, dict]:
@@ -410,6 +420,11 @@ def rel_attention_train_shape(ra, dev, gen) -> dict:
 # below one TF32 product (attention_one_tf32), which must fail it
 ATTENTION_F32_TOL = 3e-5
 
+# f32 limit of the bias route's forward (3xTF32) on valid rows, absolute: its
+# CPU emulation reads 0.7e-6 to 1.9e-6 at T 128-1200, one TF32 product 3.3e-4
+# to 8e-4 (tests/test_torch_rel_attention_bias_tf32.py), which must fail it
+BIAS_F32_TOL = 1e-4
+
 
 def attention_one_tf32(att, q, k, v, mask) -> torch.Tensor:
     """Kernel 6's f32 path at one TF32 product a multiply (1xTF32): the plain
@@ -511,11 +526,39 @@ def phase_plain_attention(att, dev) -> dict:
     return result
 
 
+def bias_attention_one_tf32(ra, q_u, k, v, bias, mask) -> torch.Tensor:
+    """Kernel 4's f32 path at one TF32 product a multiply (1xTF32): the plain
+    version with both products' operands rounded to TF32, P included, and
+    the f32 bias added unrounded."""
+    r = tf32_round
+    s = torch.einsum("bhqd,bhkd->bhqk", r(q_u), r(k)) / math.sqrt(q_u.shape[-1]) + bias
+    m = mask[:, None, None, :]
+    attn = torch.softmax(s.masked_fill(~m, ra.NEG_INF), dim=-1).masked_fill(~m, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", r(attn), r(v))
+
+
+def bias_attention_bwd_one_tf32(ra, q_u, k, v, bias, mask, lse, out, g) -> tuple:
+    """Kernel 5 at one TF32 product a multiply: bias_attention_bwd_plain's
+    formulas with every product's operands rounded to TF32, P and dS
+    included, and the f32 bias added unrounded: (dq_u, dk, dv, dbias)."""
+    r = tf32_round
+    scale = 1.0 / math.sqrt(q_u.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", r(q_u), r(k)) * scale + bias
+    valid = mask[:, None, None, :] & (lse > ra.NEG_INF / 2)[..., None]
+    prob = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    dpr = torch.einsum("bhqd,bhkd->bhqk", r(g), r(v))
+    dbias = prob * (dpr - (g * out).sum(-1, keepdim=True))
+    ds = dbias * scale
+    return (torch.einsum("bhqk,bhkd->bhqd", r(ds), r(k)),
+            torch.einsum("bhqk,bhqd->bhkd", r(ds), r(q_u)),
+            torch.einsum("bhqk,bhqd->bhkd", r(prob), r(g)), dbias)
+
+
 def bias_fwd_times(ra, gen, dev, b, h, t, mask=None, dtype=torch.bfloat16) -> dict:
     """Kernel 4 beside its plain version, SDPA with the same bias (cast to
     the input type, masked keys at -1e30) and its bound (f32: the f32 FMA
-    bound and the 3xTF32 bound); the bias construction apart. mask None: all
-    keys valid."""
+    bound and the 3xTF32 bound, the kernel in 3xTF32); the bias construction
+    apart. mask None: all keys valid."""
     dk, sz = 64, torch.finfo(dtype).bits // 8
     mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
     q_u, q_v, k, v = (mk(b, h, t, dk) for _ in range(4))
@@ -540,7 +583,7 @@ def bias_fwd_times(ra, gen, dev, b, h, t, mask=None, dtype=torch.bfloat16) -> di
             f"{bounds['bytes_bound_ms']:.4f}, operations {bounds['operations_bound_ms']:.4f})")
     if dtype == torch.float32:
         bounds["tf32x3_bound_ms"] = tf32x3_bound_ms(n_bytes, flops)
-        line += f" (f32 FMA) 3xTF32 bound_ms {bounds['tf32x3_bound_ms']:.4f}"
+        line += f" (f32 FMA) 3xTF32 bound_ms {bounds['tf32x3_bound_ms']:.4f} (3xTF32 kernel)"
     print(line, flush=True)
     return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bias_build_ms": build_ms,
             **bounds}
@@ -548,19 +591,27 @@ def bias_fwd_times(ra, gen, dev, b, h, t, mask=None, dtype=torch.bfloat16) -> di
 
 def phase_bias_attention(ra, dev, shear_ms: float) -> dict:
     """The bias-flash kernel at the conformer's shape (B4 H8 T480 dk64, ragged) and at
-    T=470, f32 and bf16, against its plain version; bf16 times there and at
-    the train step's B8 H8 T1200, with the bias construction's beside the
-    shear kernel's."""
+    T=470 (ragged; a fully masked batch row), f32 and bf16, against its plain
+    version, the f32 path (3xTF32) within 1e-4 where the forward at one TF32
+    product must not be; bf16 times there and at the train step's B8 H8
+    T1200, with the bias construction's beside the shear kernel's; the f32
+    path checked the same way at B4 H8 T480 and B8 H8 T1200 (ragged, a fully
+    masked batch row) and timed there."""
     set_tf32(False)
     gen = torch.Generator().manual_seed(4)
     b, h, dk = 4, 8, 64
     worst, failures = 0.0, []
-    for t, dtype in ((480, torch.bfloat16), (480, torch.float32),
-                     (470, torch.bfloat16), (470, torch.float32)):
+    for t, dtype, masking in ((480, torch.bfloat16, "ragged"), (480, torch.float32, "ragged"),
+                              (470, torch.bfloat16, "ragged"), (470, torch.float32, "ragged"),
+                              (470, torch.bfloat16, "empty row"), (470, torch.float32, "empty row")):
         mk = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa: E731
         q_u, q_v, k, v = (mk(b, h, t, dk) for _ in range(4))
         p = mk(h, 2 * t - 1, dk)
-        lens, mask = ragged_mask(t, dev)
+        if masking == "ragged":
+            lens, mask = ragged_mask(t, dev)
+        else:                                                # batch row 2 has no valid key
+            lens = [t, round(0.83 * t), 0, round(0.4 * t)]
+            mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
         bias = ra.rel_position_bias(q_v, p)                  # f32 whatever the input type
         out, lse = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask)
         ref = ra.dense_bias_attention(q_u.float(), k.float(), v.float(), bias, mask)
@@ -570,23 +621,46 @@ def phase_bias_attention(ra, dev, shear_ms: float) -> dict:
         err = valid_rows_err(out, ref, lens)
         lse_err = valid_rows_err(lse[..., None], lse_ref[..., None], lens)
         finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all())
-        tol = 1e-4 if dtype == torch.float32 else 2e-2      # bf16: P and output rounding
+        is_f32 = dtype == torch.float32
+        tol = BIAS_F32_TOL if is_f32 else 2e-2              # bf16: P and output rounding
         ok = err <= tol and lse_err <= 1e-3 and finite      # the LSE is f32 for both types
         if dtype == torch.bfloat16:
             worst = max(worst, err)
         name = str(dtype).replace("torch.", "")
-        line = (f"rel_attention_bias B{b} H{h} T{t} {name}: max_abs_err {err:.3e} (tol {tol:g}) "
+        line = (f"rel_attention_bias B{b} H{h} T{t} {masking} {name}"
+                f"{' (3xTF32)' if is_f32 else ''}: max_abs_err {err:.3e} (tol {tol:g}) "
                 f"lse_err {lse_err:.3e} (tol 0.001) finite {finite}")
+        if is_f32:
+            one = valid_rows_err(bias_attention_one_tf32(ra, q_u, k, v, bias, mask), ref, lens)
+            line += f"; 1xTF32 {one:.3e} (must exceed the tol)"
+            ok = ok and one > tol
         print(line, flush=True)
         if not ok:
             failures.append(line)
     if failures:
-        fail("rel_attention_bias kernel disagrees with its plain version")
+        fail("rel_attention_bias kernel disagrees with its plain version, or 1xTF32 passes the "
+             "f32 limit")
     result = {"max_abs_err": worst, **bias_fwd_times(ra, gen, dev, b, h, 480, ragged_mask(480, dev)[1]),
               "train_shape": bias_fwd_times(ra, gen, dev, *TRAIN_SHAPE)}
-    # the f32 path (FMA) at the serving batch's and the train step's shapes, all keys valid
-    result["f32"] = {f"B{b}H{h}T{t}": bias_fwd_times(ra, gen, dev, b, h, t, dtype=torch.float32)
-                     for b, h, t in REL_F32_BWD_SHAPES}
+    # the f32 path (3xTF32) at the serving batch's and the train step's shapes:
+    # checked on ragged inputs with a fully masked batch row, timed with all keys valid
+    result["f32"] = {}
+    for b, h, t in REL_F32_BWD_SHAPES:
+        (q_u, q_v, k, v, p), mask, _ = bwd_inputs(gen, b, h, t, torch.float32, dev)
+        lens, bias = mask.sum(1).tolist(), ra.rel_position_bias(q_v, p)
+        ref = ra.dense_bias_attention(q_u, k, v, bias, mask)
+        err = valid_rows_err(ra.rel_attention_bias_kernel(q_u, k, v, bias, mask)[0], ref, lens)
+        one = valid_rows_err(bias_attention_one_tf32(ra, q_u, k, v, bias, mask), ref, lens)
+        print(f"rel_attention_bias B{b} H{h} T{t} ragged float32 (3xTF32): max_abs_err {err:.3e} "
+              f"(tol {BIAS_F32_TOL:g}); 1xTF32 {one:.3e} (must exceed the tol)", flush=True)
+        if not (err <= BIAS_F32_TOL < one):
+            fail(f"rel_attention_bias B{b} H{h} T{t} f32: the kernel exceeds its limit or 1xTF32 "
+                 "passes it")
+        del q_u, q_v, k, v, p, bias, ref
+        torch.cuda.empty_cache()
+        result["f32"][f"B{b}H{h}T{t}"] = {"max_abs_err": err, "one_tf32_err": one,
+                                          **bias_fwd_times(ra, gen, dev, b, h, t, dtype=torch.float32)}
+        torch.cuda.empty_cache()
     print(f"rel-position attention B{b} H{h} T480 bf16: shear kernel_ms {shear_ms:.4f} | bias "
           f"build+kernel_ms {result['bias_build_ms'] + result['ms']:.4f}", flush=True)
     return result
@@ -1192,16 +1266,46 @@ def phase_attention_bwd(ra, dev) -> tuple[dict, dict]:
     bias_serving = bias_bwd_times(ra, gen, dev, 4, 8, 480, serving["ms"])
     bias_res = {"max_abs_err": worst["bias"], **bias_bwd_times(ra, gen, dev, *TRAIN_SHAPE, shear["ms"]),
                 "serving_shape": bias_serving, "f32": {}}
-    for b, h, t in REL_F32_BWD_SHAPES:     # the bias route's f32 path (FMA), all keys valid
-        shape = f"B{b}H{h}T{t}"
-        bias_res["f32"][shape] = bias_bwd_times(ra, gen, dev, b, h, t, f32[shape]["ms"],
-                                                dtype=torch.float32)
+    for b, h, t in REL_F32_BWD_SHAPES:     # the bias route's f32 path (3xTF32)
+        shape, tol = f"B{b}H{h}T{t}", bwd_tolerance(torch.float32)
+        errs = bias_bwd_one_tf32_errs(ra, gen, dev, b, h, t)
+        print(f"rel_attention_bias_bwd B{b} H{h} T{t} float32 (3xTF32): max err / max(1,|ref|) "
+              f"{errs['max_abs_err']:.2e} (tol {tol:g}), dbias {fmt_errs(errs['dbias_err'])}; "
+              f"1xTF32 {errs['one_tf32_err']:.2e}, dbias {fmt_errs(errs['one_tf32_dbias_err'])} "
+              f"(must fail a limit)", flush=True)
+        if not (errs["max_abs_err"] <= tol and dbias_ok(errs["dbias_err"])) or (
+                errs["one_tf32_err"] <= tol and dbias_ok(errs["one_tf32_dbias_err"])):
+            fail(f"rel_attention_bias_bwd B{b} H{h} T{t} f32: the kernel exceeds its limits or "
+                 "1xTF32 passes them")
+        torch.cuda.empty_cache()
+        bias_res["f32"][shape] = {**errs, **bias_bwd_times(ra, gen, dev, b, h, t, f32[shape]["ms"],
+                                                           dtype=torch.float32)}
+        torch.cuda.empty_cache()
     return shear, bias_res
+
+
+def bias_bwd_one_tf32_errs(ra, gen, dev, b, h, t) -> dict:
+    """Kernel 5's f32 path and the backward at one TF32 product
+    (bias_attention_bwd_one_tf32) against the plain version on ragged inputs
+    with a fully masked batch row: the largest error over dq_u, dk and dv,
+    each over max(1, |ref|), and dbias's errors (dbias_errs)."""
+    (q_u, q_v, k, v, p), mask, g = bwd_inputs(gen, b, h, t, torch.float32, dev)
+    bias = ra.rel_position_bias(q_v, p)
+    out, lse = ra.rel_attention_bias_kernel(q_u, k, v, bias, mask)
+    plain = ra.bias_attention_bwd_plain(q_u, k, v, bias, mask, lse, out, g)
+    got = ra.rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse, out, g)
+    errs = {"max_abs_err": max(grad_errs(got[:3], plain[:3])),
+            "dbias_err": dbias_errs(got[3], plain[3])}
+    del got
+    one = bias_attention_bwd_one_tf32(ra, q_u, k, v, bias, mask, lse, out, g)
+    errs.update(one_tf32_err=max(grad_errs(one[:3], plain[:3])),
+                one_tf32_dbias_err=dbias_errs(one[3], plain[3]))
+    return errs
 
 
 def bias_bwd_times(ra, gen, dev, b, h, t, shear_ms: float, dtype=torch.bfloat16) -> dict:
     """Kernel 5 (all keys valid) beside its bound (f32: the f32 FMA bound and
-    the 3xTF32 bound), its plain version, the backward of SDPA with the same
+    the 3xTF32 bound, the kernel in 3xTF32), its plain version, the backward of SDPA with the same
     bias as a float mask, and the autograd of the bias construction that
     follows it in the route."""
     dk, sz = 64, torch.finfo(dtype).bits // 8
@@ -1472,14 +1576,17 @@ def phase_train(s1, counters: dict, preset) -> dict:
     return {**{k: counts[k] for k in expected}, **{k: bias_counts[k] for k in bias_expected}}
 
 
-def phase_train_f32(s1, counters: dict, preset) -> dict:
+def phase_train_f32(s1, counters: dict, preset, bias_construction_ms: float) -> dict:
     """The f32 stage-1 step as the train_stage1 CLI runs it (bf16_compute
     False; PyTorch's TF32 defaults, which the CLI keeps: matmuls in f32,
     cuDNN's convs in TF32): multi_target at full width, dropout 0.1, 8 x
-    600 frames, accumulation 2; three optimizer steps with exact launch
-    counts (rel_attention and rel_attention_bwd 24 each, their f32 paths in
-    3xTF32), p50, peak memory, one profiled step with the two kernels' share
-    of its device busy time."""
+    600 frames, accumulation 2; for each rel-position attention route, the
+    shear route (default) and then the bias route, three optimizer steps
+    with exact launch counts (24 forwards and 24 backwards, their f32 paths
+    in 3xTF32), p50, peak memory, one profiled step with the route's kernels'
+    share of its device busy time. bias_construction_ms: the bias route's
+    24 constructions of the f32 bias and their autograd at B8 H8 T1200, read
+    apart in phases 7 and 11, printed beside its kernels."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
     base, accum = preset("multi_target"), 2
@@ -1488,30 +1595,40 @@ def phase_train_f32(s1, counters: dict, preset) -> dict:
     frames, layers = cfg.stage1.max_sample_size, cfg.model.conformer.layers
     state = s1.create_train_state(cfg, seed=0)
     step = s1.make_train_step(cfg)
-    expected = {"rel_attention": layers * accum, "rel_attention_bwd": layers * accum}
     batch = train_batch(cfg, accum, cfg.stage1.batch_size, frames, seed=0)
-    what = f"train multi_target f32 8x{frames}"
-    torch.cuda.reset_peak_memory_stats()
-    times, logs = [], []
-    for i in range(3):
-        lg, ms, counts = counted_step(counters, step, state, batch, expected, f"{what} step {i + 1}")
-        times.append(ms)
-        logs.append(lg["loss"] / lg["sample_size"])
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if not logs[2] < logs[0]:
-        fail(f"{what}: the loss did not fall")
-    by_name: dict = {}
-    busy = profile_call(lambda: step(state, batch), what, top=12, by_name=by_name)
-    rel_ms = sum(ms for name, ms in by_name.items() if "rel_" in name or "row_dot" in name)
-    read = {"step_ms": times, "p50_ms": float(np.median(times)), "peak_gib": peak,
-            "busy_ms": busy, "rel_attention_ms": rel_ms, "rel_attention_share": rel_ms / busy,
-            "launches": {k: counts[k] for k in expected}}
-    print(f"{what}: step_ms {[round(t, 1) for t in times]} p50 {read['p50_ms']:.1f}; peak memory "
-          f"{peak:.2f} GiB; device busy {busy:.1f} ms, of it rel_attention{{,_bwd}} {rel_ms:.1f} "
-          f"ms ({rel_ms / busy:.3f})", flush=True)
+    reads = {}
+    for impl, lib in (("shear", "rel_attention"), ("bias", "rel_attention_bias")):
+        expected = {lib: layers * accum, f"{lib}_bwd": layers * accum}
+        what = f"train multi_target f32 8x{frames} impl={impl}"
+        with flash_impl(impl):
+            torch.cuda.reset_peak_memory_stats()
+            times, logs = [], []
+            for i in range(3):
+                lg, ms, counts = counted_step(counters, step, state, batch, expected,
+                                              f"{what} step {i + 1}")
+                times.append(ms)
+                logs.append(lg["loss"] / lg["sample_size"])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if impl == "shear" and not logs[2] < logs[0]:
+                fail(f"{what}: the loss did not fall")
+            by_name: dict = {}
+            busy = profile_call(lambda: step(state, batch), what, top=12, by_name=by_name)
+        rel_ms = sum(ms for name, ms in by_name.items() if "rel_" in name or "row_dot" in name)
+        read = {"step_ms": times, "p50_ms": float(np.median(times)), "peak_gib": peak,
+                "busy_ms": busy, "rel_attention_ms": rel_ms, "rel_attention_share": rel_ms / busy,
+                "launches": {k: counts[k] for k in expected}}
+        line = (f"{what}: step_ms {[round(t, 1) for t in times]} p50 {read['p50_ms']:.1f}; peak "
+                f"memory {peak:.2f} GiB; device busy {busy:.1f} ms, of it {lib}{{,_bwd}} "
+                f"{rel_ms:.1f} ms ({rel_ms / busy:.3f})")
+        if impl == "bias":
+            read["bias_construction_ms"] = bias_construction_ms
+            line += (f"; beside them the bias construction and its autograd, 24 x at B8 H8 T1200 "
+                     f"read apart: {bias_construction_ms:.1f} ms")
+        print(line, flush=True)
+        reads[impl] = read
     del state, step
     torch.cuda.empty_cache()
-    return read
+    return reads
 
 
 def phase_train_f32_check(s1, preset) -> None:
@@ -2862,7 +2979,10 @@ def main() -> int:
     shear_bwd, bias_bwd = phase_attention_bwd(ra, dev)
     dropout_ms = phase_dropout(ra, dm, dev)
     train_launches = phase_train(s1, counters, preset)
-    rel["train_f32_step"] = phase_train_f32(s1, counters, preset)
+    train_shape = "B{}H{}T{}".format(*TRAIN_SHAPE)
+    f32_steps = phase_train_f32(s1, counters, preset, 2 * cfg.model.conformer.layers * (
+        bias["f32"][train_shape]["bias_build_ms"] + bias_bwd["f32"][train_shape]["bias_autograd_ms"]))
+    rel["train_f32_step"], bias["train_f32_step"] = f32_steps["shear"], f32_steps["bias"]
     phase_train_f32_check(s1, preset)
     phase_train_flagship(s1, counters, preset)
     trio["gan_f32"] = phase_trio_gan(ft, dev, cfg.vocoder, cfg.stage2.batch_size)

@@ -330,22 +330,22 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float a
 
 // An f32 (n_rows, n_cols) matrix of row stride ld (the bias or dbias of one
 // (batch, head)) read or written straight in the m16n8 accumulator layout of
-// a warp's 16 x 64 tile: lane (g, q) holds row i_g (its g) in c[n][0..1] and
+// a warp's 16 x 8 NT tile: lane (g, q) holds row i_g (its g) in c[n][0..1] and
 // row i_g + 8 in c[n][2..3], columns j0 + 8n + 2q and + 1. A quad of lanes
 // covers 8 adjacent floats of a row, one 32-byte sector. kVec2: float2
 // accesses, which need an even ld and 8-byte aligned rows; else single
 // floats, twice the instructions for the same sectors (10-16% slower in the
 // bias kernels on an H100). Elements outside the matrix read 0 and are not written. The
 // accesses are streaming (evict-first): each element is touched once.
-template <bool kVec2>
-__device__ __forceinline__ void load_frag_f32(float c[8][4], const float* __restrict__ src, int ld,
+template <bool kVec2, int NT = 8>
+__device__ __forceinline__ void load_frag_f32(float c[][4], const float* __restrict__ src, int ld,
                                               int i_g, int j0, int n_rows, int n_cols, int q) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = i_g + 8 * h;
     const float* row = src + (size_t)(r < n_rows ? r : 0) * ld;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NT; ++n) {
       const int j = j0 + 8 * n + 2 * q;
       if (kVec2) {
         float2 x = make_float2(0.f, 0.f);
@@ -360,8 +360,8 @@ __device__ __forceinline__ void load_frag_f32(float c[8][4], const float* __rest
   }
 }
 
-template <bool kVec2>
-__device__ __forceinline__ void store_frag_f32(float* __restrict__ dst, const float c[8][4], int ld,
+template <bool kVec2, int NT = 8>
+__device__ __forceinline__ void store_frag_f32(float* __restrict__ dst, const float c[][4], int ld,
                                                int i_g, int j0, int n_rows, int n_cols, int q) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -369,7 +369,7 @@ __device__ __forceinline__ void store_frag_f32(float* __restrict__ dst, const fl
     if (r >= n_rows) continue;
     float* row = dst + (size_t)r * ld;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NT; ++n) {
       const int j = j0 + 8 * n + 2 * q;
       if (kVec2) {
         if (j < n_cols)
@@ -654,6 +654,87 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst, const float 
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<float2*>(dst + (size_t)r * kD + 8 * n + 2 * q) =
           make_float2(acc[n][2 * h] * mul[h], acc[n][2 * h + 1] * mul[h]);
+  }
+}
+
+// The key-major backward's transposed products (rel_attention_bwd.cu's key
+// pass, rel_attention_bias_bwd.cu): P~ and dS of a query tile against the
+// block's 64 keys go to tiles, and the warps of keys 16w.. then take dV +=
+// P~^T dO and dK += dS^T Q_u over the tile's 64 query rows (f32: channels
+// 32 cc ..).
+constexpr int kPtLd = 72;    // row stride of the f32 P~^T and dS^T tiles
+
+// n8 tile n of the warp's P~ or dS (rows 16w.., keys kw..) into the pair's
+// tile: bf16 [query][key] (swizzled), f32 transposed, [key][query] at a row
+// stride of kPtLd.
+__device__ __forceinline__ void store_pair_tile(bf16* dst, const float c[4], int w, int, int n,
+                                                int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    *reinterpret_cast<uint32_t*>(dst + swz(16 * w + (lane >> 2) + 8 * h, 8 * n + 2 * (lane & 3))) =
+        pack_bf16(c[2 * h], c[2 * h + 1]);
+}
+
+__device__ __forceinline__ void store_pair_tile(float* dst, const float c[4], int w, int kw, int n,
+                                                int lane) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    dst[(kw + 8 * n + 2 * (lane & 3) + (e & 1)) * kPtLd + 16 * w + (lane >> 2) + 8 * (e >> 1)] = c[e];
+}
+
+// P~ and dS of the warp's rows and keys (NT n8 tiles) into the pair's tiles
+template <int NT, typename T>
+__device__ __forceinline__ void store_pair(T* sPd, T* sdS, const float pd[][4], const float ds[][4],
+                                           int w, int kw, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    store_pair_tile(sPd, pd[n], w, kw, n, lane);
+    store_pair_tile(sdS, ds[n], w, kw, n, lane);
+  }
+}
+
+// dV += P~^T dO, dK += dS^T Q_u over the 64 query rows, for keys 16w ..
+// (f32: and channels 32 cc ..)
+__device__ __forceinline__ void key_products(float dv[8][4], float dk[8][4], const bf16* sPd,
+                                             const bf16* sdS, const bf16* sdO, const bf16* sQu,
+                                             int w, int, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t a[4];
+    ldsm_x4_t(a, tile_addr(sPd, a_cols(lane, 16 * w, 16 * ks)));
+    product_nn_step(dv, a, sdO, ks, lane);
+    ldsm_x4_t(a, tile_addr(sdS, a_cols(lane, 16 * w, 16 * ks)));
+    product_nn_step(dk, a, sQu, ks, lane);
+  }
+}
+
+// The A of the warp's 16 keys x queries k0 + 2q, k0 + 2q + 1 (k8 order) of
+// a transposed f32 tile, split.
+__device__ __forceinline__ void key_rows_a(const float* tile, int w, int k0, int lane,
+                                           uint32_t ah[4], uint32_t al[4]) {
+  const float* r = tile + (16 * w + (lane >> 2)) * kPtLd + k0 + 2 * (lane & 3);
+  const float2 x0 = *reinterpret_cast<const float2*>(r);
+  const float2 x1 = *reinterpret_cast<const float2*>(r + 8 * kPtLd);
+  const uint32_t av[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x), __float_as_uint(x0.y),
+                          __float_as_uint(x1.y)};
+  split4(av, ah, al);
+}
+
+__device__ __forceinline__ void key_products(float dv[4][4], float dk[4][4], const float* sPd,
+                                             const float* sdS, const float* sdO,
+                                             const float* sQu, int w, int cc, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll 2
+  for (int ks = 0; ks < 8; ++ks) {
+    // query rows 2q, 2q + 1 of the step, channels 32 cc ..
+    const int row = (8 * ks + 2 * q) * kLd32 + 32 * cc + g;
+    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+    key_rows_a(sPd, w, 8 * ks, lane, ah, al);
+    load_b_cols<4>(bh, bl, sdO + row);
+    mma3_tiles<4>(dv, ah, al, bh, bl);
+    key_rows_a(sdS, w, 8 * ks, lane, ah, al);
+    load_b_cols<4>(bh, bl, sQu + row);
+    mma3_tiles<4>(dk, ah, al, bh, bl);
   }
 }
 

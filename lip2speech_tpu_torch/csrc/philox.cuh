@@ -6,10 +6,10 @@
 // rely on the order in which they draw, which ties the mask to the tiling.
 // Here the bits of element (i, j) of slice b*h are a pure function of
 // (seed, b*h, i, j): Philox4x32-10 with key = the 64-bit seed and counter
-// (i, j / 4, b*h, 0); word j % 4 of the result belongs to key j. A thread's
-// 4x4 score tile starts at a key that is a multiple of 4, so one call covers
-// one of its rows. Forward and backward agree whatever their tiles, and
-// ops/dropout_mask.py recomputes the same mask with integer tensor ops.
+// (i, j / 4, b*h, 0); word j % 4 of the result belongs to key j (mma_tile.cuh's
+// `keep_frag` maps one call onto the accumulator fragments). Forward and
+// backward agree whatever their tiles, and ops/dropout_mask.py recomputes the
+// same mask with integer tensor ops.
 //
 // keep iff bits >= thresh, thresh = min(uint32(rate * 2^32), 2^32 - 1);
 // kept probabilities are scaled by 1 / (1 - rate). thresh == 0 turns dropout
@@ -51,21 +51,6 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
     k1 += 0xBB67AE85u;
   }
   return c;
-}
-
-// Scale of the probabilities of keys 4*j4 .. 4*j4+3 in row i of slice bh:
-// 0 where dropped, 1 / (1 - rate) where kept; all 1 without dropout.
-__device__ __forceinline__ void keep_scale4(const Dropout& d, uint32_t bh, uint32_t i,
-                                            uint32_t j4, float out[4]) {
-  if (d.thresh == 0u) {
-    out[0] = out[1] = out[2] = out[3] = 1.f;
-    return;
-  }
-  const uint4 r = philox4x32_10(make_uint4(i, j4, bh, 0u), d.k0, d.k1);
-  out[0] = r.x >= d.thresh ? d.inv_keep : 0.f;
-  out[1] = r.y >= d.thresh ? d.inv_keep : 0.f;
-  out[2] = r.z >= d.thresh ? d.inv_keep : 0.f;
-  out[3] = r.w >= d.thresh ? d.inv_keep : 0.f;
 }
 
 }  // namespace philox

@@ -63,36 +63,73 @@
 
 namespace {
 
-namespace mma_path {
-
 using namespace mma;
 
-// K, V, two stages of Q_u and of dO, the P~ and dS tiles, the key-mask flags
-constexpr size_t kSmem = (size_t)8 * kTile * sizeof(bf16) + (size_t)kB * sizeof(float);
+// bf16: 4 warps, each owning 16 query rows of a tile against the block's
+// 64 keys, and then 16 keys; Q_u and dO double-buffered. f32: 8 warps, two
+// to each 16 rows, each taking half the keys (kw = 0 or 32) and then half
+// the channels (32 cc ..); Q_u and dO single-buffered, so that two blocks
+// fit an SM.
+template <typename T>
+struct Bwd {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int kWarps = kBf16 ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int NT = kBf16 ? 8 : 4;         // n8 tiles of keys (and channels) a warp
+  static constexpr int kStages = kBf16 ? 2 : 1;    // of Q_u and dO
+  static constexpr int kMinBlocks = 2;
+  static constexpr int E = Tile<T>::kElems;
+  static constexpr int kPdElems = kBf16 ? kTile : kD * kPtLd;
+  // K, V, the stages of Q_u and of dO, the P~ and dS tiles, the key-mask flags
+  static constexpr size_t kSmem = ((size_t)(2 + 2 * kStages) * E + 2 * (size_t)kPdElems) * sizeof(T) +
+                                  (size_t)kB * sizeof(float);
+};
 
+template <typename T>
 struct Args {
-  const bf16 *qu, *k, *v, *d_o;
+  const T *qu, *k, *v, *d_o;
   const float* bias;
   const uint8_t* mask;
   const float *lse, *delta;
   float* dqu;                    // f32, zeroed: the reductions' target
-  bf16 *dk, *dv;
+  T *dk, *dv;
   float* dbias;
   int H, T_len;
   float scale;
   philox::Dropout drop;
 };
 
-template <bool kVec2>
-__global__ void __launch_bounds__(kThreads, 2) rel_bias_bwd_mma(const Args g) {
+// f32: dQ_u (rows 16w.., channels 32 cc ..) += dS K over the block's 64
+// keys, dS read from its transposed tile (the keys of a k8 step in the
+// order 0, 2, 4, 6, 1, 3, 5, 7, K's rows read to match).
+__device__ __forceinline__ void dqu_from_ds(float dq[4][4], const float* sdS, const float* sK,
+                                            int w, int cc, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll 2
+  for (int ks = 0; ks < 8; ++ks) {
+    const float* d0 = sdS + (8 * ks + 2 * q) * kPtLd + 16 * w + g;   // key 2q, query g
+    const uint32_t av[4] = {__float_as_uint(d0[0]), __float_as_uint(d0[8]),
+                            __float_as_uint(d0[kPtLd]), __float_as_uint(d0[kPtLd + 8])};
+    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+    split4(av, ah, al);
+    load_b_cols<4>(bh, bl, sK + (8 * ks + 2 * q) * kLd32 + 32 * cc + g);
+    mma3_tiles<4>(dq, ah, al, bh, bl);
+  }
+}
+
+template <typename T, bool kVec2>
+__global__ void __launch_bounds__(Bwd<T>::kThreads, Bwd<T>::kMinBlocks)
+rel_bias_bwd_mma(const Args<T> g) {
+  using P = Bwd<T>;
+  constexpr int E = P::E, NT = P::NT;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kTile;
-  bf16* sQu = sV + kTile;         // two stages
-  bf16* sdO = sQu + 2 * kTile;    // two stages
-  bf16* sPd = sdO + 2 * kTile;    // P~ of the pair, [query][key]
-  bf16* sdS = sPd + kTile;        // dS of the pair, [query][key]
-  float* sM = reinterpret_cast<float*>(sdS + kTile);
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + E;
+  T* sQu = sV + E;                  // kStages stages
+  T* sdO = sQu + P::kStages * E;    // kStages stages
+  T* sPd = sdO + P::kStages * E;    // P~ of the pair
+  T* sdS = sPd + P::kPdElems;       // dS of the pair
+  float* sM = reinterpret_cast<float*>(sdS + P::kPdElems);
 
   const int T_len = g.T_len, bh = blockIdx.y, j0 = blockIdx.x * kB;
   const size_t base = (size_t)bh * T_len * kD;
@@ -101,33 +138,36 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bias_bwd_mma(const Args g) {
   const float* lse_bh = g.lse + (size_t)bh * T_len;
   const float* delta_bh = g.delta + (size_t)bh * T_len;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
-  const int row_w = 16 * warp + (lane >> 2);      // the lane's first row within a tile
+  const int w = warp & 3, cc = warp >> 2, kw = 8 * NT * cc;   // rows (keys) 16w..; keys kw..
+  const int row_w = 16 * w + (lane >> 2);         // the lane's first row within a tile
   const int n_tiles = (T_len + kB - 1) / kB;
 
-  load_tile(sK, g.k + base, j0, T_len);
-  load_tile(sV, g.v + base, j0, T_len);
+  load_tile<P::kThreads>(sK, g.k + base, j0, T_len);
+  load_tile<P::kThreads>(sV, g.v + base, j0, T_len);
   flash::load_mask(sM, g.mask + (size_t)(bh / g.H) * T_len, j0, T_len);
-  load_tile(sQu, g.qu + base, 0, T_len);
-  load_tile(sdO, g.d_o + base, 0, T_len);
+  load_tile<P::kThreads>(sQu, g.qu + base, 0, T_len);
+  load_tile<P::kThreads>(sdO, g.d_o + base, 0, T_len);
   cp_async_commit();
-  float bt[8][4];                 // the bias of the lane's pair elements, a tile ahead
-  load_frag_f32<kVec2>(bt, bias_bh, T_len, row_w, j0, T_len, T_len, q);
+  float bt[NT][4];                // the bias of the lane's pair elements, a tile ahead
+  load_frag_f32<kVec2, NT>(bt, bias_bh, T_len, row_w, j0 + kw, T_len, T_len, q);
 
-  float dk[8][4], dv[8][4];
-  zero(dk);
-  zero(dv);
+  float dk[NT][4], dv[NT][4];
+  zero<NT>(dk);
+  zero<NT>(dv);
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1, i_g = t * kB + row_w;
+    const int st = P::kStages == 2 ? t & 1 : 0, i_g = t * kB + row_w;
     cp_async_wait<0>();
     __syncthreads();              // tile t has landed; tile t-1's tiles are consumed
-    if (t + 1 < n_tiles) {        // stage st^1 was last read in tile t-1
-      load_tile(sQu + (st ^ 1) * kTile, g.qu + base, (t + 1) * kB, T_len);
-      load_tile(sdO + (st ^ 1) * kTile, g.d_o + base, (t + 1) * kB, T_len);
-      cp_async_commit();
+    if constexpr (P::kStages == 2) {
+      if (t + 1 < n_tiles) {      // stage st^1 was last read in tile t-1
+        load_tile<P::kThreads>(sQu + (st ^ 1) * E, g.qu + base, (t + 1) * kB, T_len);
+        load_tile<P::kThreads>(sdO + (st ^ 1) * E, g.d_o + base, (t + 1) * kB, T_len);
+        cp_async_commit();
+      }
     }
-    const bf16* qt = sQu + st * kTile;
-    const bf16* dot = sdO + st * kTile;
+    const T* qt = sQu + st * E;
+    const T* dot = sdO + st * E;
     float lse[2], delta[2];       // rows past the sequence: P = 0
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -136,326 +176,130 @@ __global__ void __launch_bounds__(kThreads, 2) rel_bias_bwd_mma(const Args g) {
       delta[r] = i < T_len ? delta_bh[i] : 0.f;
     }
 
-    float s[8][4], dpr[8][4];
-    zero(s);
-    zero(dpr);
+    float s[NT][4], dpr[NT][4];
+    zero<NT>(s);
+    zero<NT>(dpr);
     {
-      uint32_t a[4][4];
-      load_a(a, dot, 16 * warp, lane);
-      product_nt(dpr, a, sV, lane);
-      load_a(a, qt, 16 * warp, lane);
-      product_nt(s, a, sK, lane);
+      PassRowsA<T> a;
+      a.init(dot, 16 * w, lane);
+      product_nt<NT>(dpr, a, sV + Tile<T>::at(kw, 0), lane);
+      a.init(qt, 16 * w, lane);
+      product_nt<NT>(s, a, sK + Tile<T>::at(kw, 0), lane);
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = fmaf(s[n][e], g.scale, bt[n][e]);
     if (t + 1 < n_tiles)          // lands during the rest of this tile
-      load_frag_f32<kVec2>(bt, bias_bh, T_len, i_g + kB, j0, T_len, T_len, q);
+      load_frag_f32<kVec2, NT>(bt, bias_bh, T_len, i_g + kB, j0 + kw, T_len, T_len, q);
 
-    // P, P~ (to its bf16 tile) and dS = P o (dPr o keep - D), unscaled, in s
+    // P, P~ (to its tile) and dS = P o (dPr o keep - D), unscaled, in s
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NT; ++n) {
       float kf[4] = {1.f, 1.f, 1.f, 1.f};
-      if (g.drop.thresh != 0u) keep_frag(g.drop, (uint32_t)bh, i_g, j0 + 8 * n + 2 * q, q, kf);
+      if (g.drop.thresh != 0u)
+        keep_frag(g.drop, (uint32_t)bh, i_g, j0 + kw + 8 * n + 2 * q, q, kf);
       float pd[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const bool ok = lse[r] > 0.5f * flash::kMasked && sM[8 * n + 2 * q + (e & 1)] > 0.f;
+        const bool ok = lse[r] > 0.5f * flash::kMasked && sM[kw + 8 * n + 2 * q + (e & 1)] > 0.f;
         const float prob = ok ? expf(s[n][e] - lse[r]) : 0.f;
         pd[e] = prob * kf[e];
         s[n][e] = prob * (dpr[n][e] * kf[e] - delta[r]);
       }
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(sPd + swz(row_w + 8 * h, 8 * n + 2 * q)) =
-            pack_bf16(pd[2 * h], pd[2 * h + 1]);
+      store_pair_tile(sPd, pd, w, kw, n, lane);
     }
-    store_frag_f32<kVec2>(dbias_bh, s, T_len, i_g, j0, T_len, T_len, q);
+    store_frag_f32<kVec2, NT>(dbias_bh, s, T_len, i_g, j0 + kw, T_len, T_len, q);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] *= g.scale;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(sdS + swz(row_w + 8 * h, 8 * n + 2 * q)) =
-            pack_bf16(s[n][2 * h], s[n][2 * h + 1]);
+      store_pair_tile(sdS, s[n], w, kw, n, lane);
     }
-    {                             // dQ_u of the warp's rows += dS K, to device memory
+    if constexpr (P::kBf16) {     // dQ_u of the warp's rows += dS K, to device memory
       float dq[8][4];
       zero(dq);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[4];
-        to_a(a, s, kk);
-        product_nn_step(dq, a, sK, kk, lane);
-      }
-      red_add_rows(dq, g.dqu + base, t * kB + 16 * warp, T_len, lane);
+      product_acc_nn(dq, s, sK, lane);
+      red_add_rows(dq, g.dqu + base, t * kB + 16 * w, T_len, lane);
     }
     __syncthreads();              // P~ and dS are complete
-    // warp w: keys 16w ..; dV += P~^T dO, dK += dS^T Q_u over the 64 query rows
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t a[4];
-      ldsm_x4_t(a, tile_addr(sPd, a_cols(lane, 16 * warp, 16 * ks)));
-      product_nn_step(dv, a, dot, ks, lane);
-      ldsm_x4_t(a, tile_addr(sdS, a_cols(lane, 16 * warp, 16 * ks)));
-      product_nn_step(dk, a, qt, ks, lane);
+    key_products(dv, dk, sPd, sdS, dot, qt, w, cc, lane);
+    if constexpr (!P::kBf16) {    // dQ_u (rows 16w.., channels 32 cc ..) += dS K
+      float dq[4][4];
+      zero<4>(dq);
+      dqu_from_ds(dq, sdS, sK, w, cc, lane);
+      red_add_rows<4>(dq, g.dqu + base + 32 * cc, t * kB + 16 * w, T_len, lane);
+    }
+    if constexpr (P::kStages == 1) {
+      if (t + 1 < n_tiles) {
+        __syncthreads();          // Q_u, dO, P~ and dS are consumed
+        load_tile<P::kThreads>(sQu, g.qu + base, (t + 1) * kB, T_len);
+        load_tile<P::kThreads>(sdO, g.d_o + base, (t + 1) * kB, T_len);
+        cp_async_commit();
+      }
     }
   }
   const float one[2] = {1.f, 1.f};
   const int j_g = j0 + row_w;
-  store_rows(g.dk + base, dk, j_g, T_len, one, q);
-  store_rows(g.dv + base, dv, j_g, T_len, one, q);
+  store_rows<NT>(g.dk + base + 8 * NT * cc, dk, j_g, T_len, one, q);
+  store_rows<NT>(g.dv + base + 8 * NT * cc, dv, j_g, T_len, one, q);
 }
 
-template <bool kVec2>
-cudaError_t launch_as(const Args& g, int B, int H, cudaStream_t stream) {
-  auto kern = rel_bias_bwd_mma<kVec2>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+template <typename T, bool kVec2>
+cudaError_t launch_as(const Args<T>& g, int B, int H, cudaStream_t stream) {
+  auto kern = rel_bias_bwd_mma<T, kVec2>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)Bwd<T>::kSmem);
   if (e != cudaSuccess) return e;
   dim3 grid((g.T_len + kB - 1) / kB, B * H);
-  kern<<<grid, kThreads, kSmem, stream>>>(g);
+  kern<<<grid, Bwd<T>::kThreads, Bwd<T>::kSmem, stream>>>(g);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t launch(const void* qu, const void* k, const void* v, const float* bias,
                    const uint8_t* mask, const float* lse, const void* out, const void* d_o,
                    float* dqu, void* dk, void* dv, float* dbias, float* delta, int B, int H,
                    int T_len, philox::Dropout drop, cudaStream_t stream) {
   const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
-  if (!aligned16({qu, k, v, d_o, dqu}) || addr(bias) % 4 != 0 || addr(dbias) % 4 != 0)
+  if (!aligned16({qu, k, v, d_o, dqu, dk, dv}) || addr(bias) % 4 != 0 || addr(dbias) % 4 != 0)
     return cudaErrorMisalignedAddress;
-  cudaError_t e = flash::launch_row_dot<bf16>(out, d_o, delta, (size_t)B * H * T_len, stream);
+  cudaError_t e = flash::launch_row_dot<T>(out, d_o, delta, (size_t)B * H * T_len, stream);
   if (e != cudaSuccess) return e;
-  Args g;
-  g.qu = static_cast<const bf16*>(qu);
-  g.k = static_cast<const bf16*>(k);
-  g.v = static_cast<const bf16*>(v);
-  g.d_o = static_cast<const bf16*>(d_o);
+  Args<T> g;
+  g.qu = static_cast<const T*>(qu);
+  g.k = static_cast<const T*>(k);
+  g.v = static_cast<const T*>(v);
+  g.d_o = static_cast<const T*>(d_o);
   g.bias = bias;
   g.mask = mask;
   g.lse = lse;
   g.delta = delta;
   g.dqu = dqu;
-  g.dk = static_cast<bf16*>(dk);
-  g.dv = static_cast<bf16*>(dv);
+  g.dk = static_cast<T*>(dk);
+  g.dv = static_cast<T*>(dv);
   g.dbias = dbias;
   g.H = H;
   g.T_len = T_len;
   g.scale = 1.0f / sqrtf((float)kD);
   g.drop = drop;
   if (T_len % 2 == 0 && addr(bias) % 8 == 0 && addr(dbias) % 8 == 0)
-    return launch_as<true>(g, B, H, stream);
-  return launch_as<false>(g, B, H, stream);
+    return launch_as<T, true>(g, B, H, stream);
+  return launch_as<T, false>(g, B, H, stream);
 }
-
-}  // namespace mma_path
-
-namespace fma_path {
-
-using namespace flash;
-
-// query pass: Q_u, dO, K, V, dS tiles and the mask flags
-constexpr size_t kQPassSmem = ((size_t)5 * kB * kS + kB) * sizeof(float);
-// key pass: K, V, Q_u, dO, dS, P~ tiles and the mask flags
-constexpr size_t kKPassSmem = ((size_t)6 * kB * kS + kB) * sizeof(float);
-
-struct Args {
-  const float *qu, *k, *v, *d_o;
-  const float* bias;
-  const uint8_t* mask;
-  const float *lse, *delta;
-  float *dqu, *dk, *dv;
-  float* dbias;
-  int H, T_len;
-  float scale;
-  philox::Dropout drop;
-};
-
-// The pair's scaled scores plus the thread's 4x4 bias tile.
-__device__ __forceinline__ void bias_scores(const float* sQ, const float* sK,
-                                            const float* __restrict__ bias_bh, int i0, int j0,
-                                            int T_len, int ty, int tx, float scale,
-                                            float s[4][4]) {
-  float bt[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + 4 * ty + a;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int jj = j0 + 4 * tx + j;
-      bt[a][j] = (i < T_len && jj < T_len) ? bias_bh[(size_t)i * T_len + jj] : 0.f;
-    }
-  }
-  qk_product(sQ, sK, ty, tx, s);
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[a][j] = fmaf(s[a][j], scale, bt[a][j]);
-}
-
-__global__ void __launch_bounds__(kThreads) bias_bwd_query_pass(const Args g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sdO = sQ + kB * kS;
-  float* sK = sdO + kB * kS;
-  float* sV = sK + kB * kS;
-  float* sS = sV + kB * kS;      // scaled dS of the pair
-  float* sM = sS + kB * kS;
-
-  const int T_len = g.T_len;
-  const int bh = blockIdx.y;
-  const int i0 = blockIdx.x * kB;
-  const size_t base = (size_t)bh * T_len * kD;
-  const float* bias_bh = g.bias + (size_t)bh * T_len * T_len;
-  float* dbias_bh = g.dbias + (size_t)bh * T_len * T_len;
-  const uint8_t* mask_row = g.mask + (size_t)(bh / g.H) * T_len;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile(sQ, g.qu + base, i0, T_len);
-  load_tile(sdO, g.d_o + base, i0, T_len);
-  float lse[4], delta[4];
-  load_row_stats(g.lse + (size_t)bh * T_len, g.delta + (size_t)bh * T_len, i0, T_len, ty, lse,
-                 delta);
-  float dqu[4][4];
-  zero_tile(dqu);
-
-  for (int j0 = 0; j0 < T_len; j0 += kB) {
-    __syncthreads();  // the previous pair's dS and keys are consumed
-    load_tile(sK, g.k + base, j0, T_len);
-    load_tile(sV, g.v + base, j0, T_len);
-    load_mask(sM, mask_row, j0, T_len);
-    __syncthreads();
-
-    float s[4][4], dpr[4][4], keep[4][4], ds[4][4], pd[4][4];
-    bias_scores(sQ, sK, bias_bh, i0, j0, T_len, ty, tx, g.scale, s);
-    qk_product(sdO, sV, ty, tx, dpr);
-    keep_tile(g.drop, bh, i0, j0, ty, tx, keep);
-    backward_tile(s, sM, tx, lse, delta, keep, dpr, ds, pd);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = i0 + 4 * ty + a;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int jj = j0 + 4 * tx + j;
-        if (i < T_len && jj < T_len) dbias_bh[(size_t)i * T_len + jj] = ds[a][j];
-        ds[a][j] *= g.scale;
-      }
-    }
-    store_tile(sS, ty, tx, ds);
-    __syncthreads();
-    rows_product(sS, sK, ty, tx, dqu);
-  }
-  write_grad(g.dqu + base, i0, T_len, ty, tx, dqu);
-}
-
-__global__ void __launch_bounds__(kThreads) bias_bwd_key_pass(const Args g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + kB * kS;
-  float* sQ = sV + kB * kS;
-  float* sdO = sQ + kB * kS;
-  float* sS = sdO + kB * kS;     // scaled dS of the pair
-  float* sPd = sS + kB * kS;     // dropped probabilities of the pair
-  float* sM = sPd + kB * kS;
-
-  const int T_len = g.T_len;
-  const int bh = blockIdx.y;
-  const int j0 = blockIdx.x * kB;
-  const size_t base = (size_t)bh * T_len * kD;
-  const float* bias_bh = g.bias + (size_t)bh * T_len * T_len;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile(sK, g.k + base, j0, T_len);
-  load_tile(sV, g.v + base, j0, T_len);
-  load_mask(sM, g.mask + (size_t)(bh / g.H) * T_len, j0, T_len);
-  float dk[4][4], dv[4][4];
-  zero_tile(dk);
-  zero_tile(dv);
-
-  for (int i0 = 0; i0 < T_len; i0 += kB) {
-    __syncthreads();  // the previous pair's tiles are consumed
-    load_tile(sQ, g.qu + base, i0, T_len);
-    load_tile(sdO, g.d_o + base, i0, T_len);
-    float lse[4], delta[4];
-    load_row_stats(g.lse + (size_t)bh * T_len, g.delta + (size_t)bh * T_len, i0, T_len, ty,
-                   lse, delta);
-    __syncthreads();
-
-    float s[4][4], dpr[4][4], keep[4][4], ds[4][4], pd[4][4];
-    bias_scores(sQ, sK, bias_bh, i0, j0, T_len, ty, tx, g.scale, s);
-    qk_product(sdO, sV, ty, tx, dpr);
-    keep_tile(g.drop, bh, i0, j0, ty, tx, keep);
-    backward_tile(s, sM, tx, lse, delta, keep, dpr, ds, pd);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ds[a][j] *= g.scale;
-    store_tile(sS, ty, tx, ds);
-    store_tile(sPd, ty, tx, pd);
-    __syncthreads();
-    cols_product(sS, sQ, ty, tx, dk);
-    cols_product(sPd, sdO, ty, tx, dv);
-  }
-  write_grad(g.dk + base, j0, T_len, ty, tx, dk);
-  write_grad(g.dv + base, j0, T_len, ty, tx, dv);
-}
-
-cudaError_t launch(const void* qu, const void* k, const void* v, const float* bias,
-                   const uint8_t* mask, const float* lse, const void* out, const void* d_o,
-                   void* dqu, void* dk, void* dv, float* dbias, float* delta, int B, int H,
-                   int T_len, philox::Dropout drop, cudaStream_t stream) {
-  cudaError_t e = launch_row_dot<float>(out, d_o, delta, (size_t)B * H * T_len, stream);
-  if (e != cudaSuccess) return e;
-  Args g;
-  g.qu = static_cast<const float*>(qu);
-  g.k = static_cast<const float*>(k);
-  g.v = static_cast<const float*>(v);
-  g.d_o = static_cast<const float*>(d_o);
-  g.bias = bias;
-  g.mask = mask;
-  g.lse = lse;
-  g.delta = delta;
-  g.dqu = static_cast<float*>(dqu);
-  g.dk = static_cast<float*>(dk);
-  g.dv = static_cast<float*>(dv);
-  g.dbias = dbias;
-  g.H = H;
-  g.T_len = T_len;
-  g.scale = 1.0f / sqrtf((float)kD);
-  g.drop = drop;
-  dim3 grid((T_len + kB - 1) / kB, B * H);
-  auto q_pass = bias_bwd_query_pass;
-  e = cudaFuncSetAttribute(q_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kQPassSmem);
-  if (e != cudaSuccess) return e;
-  q_pass<<<grid, kThreads, kQPassSmem, stream>>>(g);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  auto k_pass = bias_bwd_key_pass;
-  e = cudaFuncSetAttribute(k_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kKPassSmem);
-  if (e != cudaSuccess) return e;
-  k_pass<<<grid, kThreads, kKPassSmem, stream>>>(g);
-  return cudaGetLastError();
-}
-
-}  // namespace fma_path
 
 }  // namespace
 
 // All tensors contiguous. q_u, k, v, out, d_out and the gradients dk, dv:
 // (B, H, T, dk) of the input type; bias and dbias (B, H, T, T) float32
 // (dbias need not be zeroed); mask (B, T) uint8; lse (B, H, T) float32 from
-// the forward; delta: float32 (B, H, T) scratch. dq_u: (B, H, T, dk) of the
-// input type for dtype 0 (FMA kernels); for dtype 1 (tensor-core kernel) a
-// float32 buffer, zeroed by the caller, that receives dq_u by reductions
-// (the caller rounds it); q_u, k, v, d_out and that buffer 16-byte aligned,
-// bias and dbias 4-byte. Only dk = 64. rate and seed as given to the
-// forward. Returns cudaGetLastError() after the launches.
+// the forward; delta: float32 (B, H, T) scratch. dq_u: a float32 (B, H, T,
+// dk) buffer, zeroed by the caller, that receives dq_u by reductions (for
+// bf16 the caller rounds it). dtype: 0 = float32 (3xTF32), 1 = bfloat16.
+// q_u, k, v, d_out, dk, dv and dq_u 16-byte aligned, bias and dbias 4-byte.
+// Only dk = 64. rate and seed as given to the forward. Returns
+// cudaGetLastError() after the launches.
 extern "C" int l2s_rel_attention_bias_bwd(const void* qu, const void* k, const void* v,
                                           const void* bias, const void* mask, const void* lse,
                                           const void* out, const void* d_out, void* dqu,
@@ -472,12 +316,13 @@ extern "C" int l2s_rel_attention_bias_bwd(const void* qu, const void* k, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const philox::Dropout drop = philox::make_dropout(rate, seed);
   cudaError_t e;
+  float* dq = static_cast<float*>(dqu);
   if (dtype == 0)
-    e = fma_path::launch(qu, k, v, bi, m, l, out, d_out, dqu, dk_out, dv_out, db, dl, B, H,
-                         T_len, drop, s);
+    e = launch<float>(qu, k, v, bi, m, l, out, d_out, dq, dk_out, dv_out, db, dl, B, H, T_len,
+                      drop, s);
   else if (dtype == 1)
-    e = mma_path::launch(qu, k, v, bi, m, l, out, d_out, static_cast<float*>(dqu), dk_out,
-                         dv_out, db, dl, B, H, T_len, drop, s);
+    e = launch<bf16>(qu, k, v, bi, m, l, out, d_out, dq, dk_out, dv_out, db, dl, B, H, T_len,
+                     drop, s);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -88,7 +88,6 @@ namespace {
 using namespace mma;
 
 constexpr int kDgLd = 136;   // row stride of the dG tile (bf16: ldmatrix without conflicts)
-constexpr int kPtLd = 72;    // row stride of the f32 P~^T and dS^T tiles
 
 // bf16: 4 warps, each owning 16 query rows (query pass) or keys (key pass)
 // against the whole tile. f32: 8 warps, two to each 16 rows, each taking
@@ -387,80 +386,6 @@ rel_bwd_query_pass_mma(const Args<T> g) {
   store_rows<NT>(g.dqv + base + 8 * NT * cc, dqv, i_g, T_len, one, q);
 }
 
-// P~ and dS of the warp's rows (16w..) and keys (kw..) into the pair's
-// tiles: bf16 [query][key] (swizzled), f32 transposed, [key][query] at a
-// row stride of kPtLd.
-__device__ __forceinline__ void store_pair(bf16* sPd, bf16* sdS, const float pd[8][4],
-                                           const float ds[8][4], int w, int, int lane) {
-  const int q = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int r = 16 * w + (lane >> 2) + 8 * h2, c = 8 * n + 2 * q;
-      *reinterpret_cast<uint32_t*>(sPd + swz(r, c)) = pack_bf16(pd[n][2 * h2], pd[n][2 * h2 + 1]);
-      *reinterpret_cast<uint32_t*>(sdS + swz(r, c)) = pack_bf16(ds[n][2 * h2], ds[n][2 * h2 + 1]);
-    }
-}
-
-__device__ __forceinline__ void store_pair(float* sPd, float* sdS, const float pd[4][4],
-                                           const float ds[4][4], int w, int kw, int lane) {
-  const int q = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 16 * w + (lane >> 2) + 8 * (e >> 1), c = kw + 8 * n + 2 * q + (e & 1);
-      sPd[c * kPtLd + r] = pd[n][e];
-      sdS[c * kPtLd + r] = ds[n][e];
-    }
-}
-
-// dV += P~^T dO, dK += dS^T Q_u over the 64 query rows, for keys 16w ..
-// (f32: and channels 32 cc ..)
-__device__ __forceinline__ void key_products(float dv[8][4], float dk[8][4], const bf16* sPd,
-                                             const bf16* sdS, const bf16* sdO, const bf16* sQu,
-                                             int w, int, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    uint32_t a[4];
-    ldsm_x4_t(a, tile_addr(sPd, a_cols(lane, 16 * w, 16 * ks)));
-    product_nn_step(dv, a, sdO, ks, lane);
-    ldsm_x4_t(a, tile_addr(sdS, a_cols(lane, 16 * w, 16 * ks)));
-    product_nn_step(dk, a, sQu, ks, lane);
-  }
-}
-
-// The A of the warp's 16 keys x queries k0 + 2q, k0 + 2q + 1 (k8 order) of
-// a transposed f32 tile, split.
-__device__ __forceinline__ void key_rows_a(const float* tile, int w, int k0, int lane,
-                                           uint32_t ah[4], uint32_t al[4]) {
-  const float* r = tile + (16 * w + (lane >> 2)) * kPtLd + k0 + 2 * (lane & 3);
-  const float2 x0 = *reinterpret_cast<const float2*>(r);
-  const float2 x1 = *reinterpret_cast<const float2*>(r + 8 * kPtLd);
-  const uint32_t av[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x), __float_as_uint(x0.y),
-                          __float_as_uint(x1.y)};
-  split4(av, ah, al);
-}
-
-__device__ __forceinline__ void key_products(float dv[4][4], float dk[4][4], const float* sPd,
-                                             const float* sdS, const float* sdO,
-                                             const float* sQu, int w, int cc, int lane) {
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll 2
-  for (int ks = 0; ks < 8; ++ks) {
-    // query rows 2q, 2q + 1 of the step, channels 32 cc ..
-    const int row = (8 * ks + 2 * q) * kLd32 + 32 * cc + g;
-    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
-    key_rows_a(sPd, w, 8 * ks, lane, ah, al);
-    load_b_cols<4>(bh, bl, sdO + row);
-    mma3_tiles<4>(dv, ah, al, bh, bl);
-    key_rows_a(sdS, w, 8 * ks, lane, ah, al);
-    load_b_cols<4>(bh, bl, sQu + row);
-    mma3_tiles<4>(dk, ah, al, bh, bl);
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(Pass<T>::kThreads, Pass<T>::kBlocksPerSm)
 rel_bwd_key_pass_mma(const Args<T> g) {
@@ -531,7 +456,7 @@ rel_bwd_key_pass_mma(const Args<T> g) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] *= g.scale;
     backward_frag<NT>(s, dpr, pd, sM + kw, g, bh, i_g, j0 + kw, lse, delta, q);
-    store_pair(sPd, sdS, pd, s, w, kw, lane);
+    store_pair<NT>(sPd, sdS, pd, s, w, kw, lane);
     __syncthreads();
     key_products(dv, dk, sPd, sdS, sdO, sQu, w, cc, lane);
     __syncthreads();   // Q_u, Q_v, dO, P~ and dS are consumed

@@ -256,10 +256,11 @@ rel_attention_bwd_kernel.launches = 0   # kernel launches since the last reset
 
 def rel_attention_bias_kernel(q_u, k, v, bias, mask, dropout_rate: float = 0.0, seed: int = 0):
     """Launch csrc/rel_attention_bias.cu; returns (out (B,H,T,dk), lse (B,H,T)
-    f32). bias is (B, H, T, T) float32 whatever the type of q_u, k, v. Rows
-    with no valid key stay finite. f32 inputs take the FMA kernel, bf16 ones
-    the tensor-core kernel, which adds the bias in f32 and rounds P to bf16
-    before P V. Deterministic."""
+    f32). bias is (B, H, T, T) float32 whatever the type of q_u, k, v, and
+    is added to the f32 scores unrounded. Rows with no valid key stay
+    finite. One tensor-core kernel for both types: f32 inputs run both
+    products in 3xTF32 (each operand split into a TF32 hi and an f32 lo),
+    bf16 ones in bf16 with P rounded to bf16 before P V. Deterministic."""
     b, h, t, dk = q_u.shape
     _check_dropout(dropout_rate, seed)
     _check_inputs("rel_attention_bias",
@@ -281,11 +282,12 @@ rel_attention_bias_kernel.launches = 0   # kernel launches since the last reset
 def rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse, out, g,
                                   dropout_rate: float = 0.0, seed: int = 0):
     """Launch csrc/rel_attention_bias_bwd.cu; returns (dq_u, dk, dv, dbias)
-    with dbias (B, H, T, T) f32, the unscaled dS. f32 inputs take the FMA
-    kernels, which are deterministic. bf16 inputs take the tensor-core kernel:
-    it sums dq_u over key blocks by f32 reductions into a zeroed f32 buffer
-    allocated here and rounded to bf16 after the launch, so the last bits of
-    dq_u may differ between runs; dk, dv and dbias are deterministic."""
+    with dbias (B, H, T, T) f32, the unscaled dS. One key-major tensor-core
+    kernel for both types (f32 inputs: every product in 3xTF32; bf16: dS and
+    P rounded to bf16 as operands). It sums dq_u over key blocks by f32
+    reductions into a zeroed f32 buffer allocated here (rounded to bf16
+    after the launch for bf16 inputs), so the last bits of dq_u may differ
+    between runs in either type; dk, dv and dbias are deterministic."""
     b, h, t, dk = q_u.shape
     dev, dt = q_u.device, q_u.dtype
     _check_dropout(dropout_rate, seed)
@@ -294,10 +296,7 @@ def rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse, out, g,
                        [("bias", bias, (b, h, t, t), torch.float32),
                         ("lse", lse, (b, h, t), torch.float32)]), mask, b, t)
     mask_u8 = mask.to(torch.uint8).contiguous()
-    if dt == torch.bfloat16:
-        dq_u = torch.zeros(q_u.shape, dtype=torch.float32, device=dev)
-    else:
-        dq_u = torch.empty_like(q_u)
+    dq_u = torch.zeros(q_u.shape, dtype=torch.float32, device=dev)
     dk_, dv = torch.empty_like(q_u), torch.empty_like(q_u)
     dbias = torch.empty_like(bias)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=dev)

@@ -6,6 +6,9 @@ the spectral u), the per-epoch rate, validation_mel_l1, the state's
 construction, and the dataset's batches on a small dataset on disk."""
 
 import dataclasses
+import fcntl
+import os
+import pickle
 import time
 
 import numpy as np
@@ -94,44 +97,89 @@ def _first_moments(state) -> dict:
     return out
 
 
-@pytest.fixture(scope="module")
-def two_steps():
-    """Two GAN steps of both implementations from the same weights on two
-    batches, the second after next_epoch; the generator's dropout
-    neutralised on both sides (flax.linen.intercept_methods on Dropout; the
-    port's code_dropout). The JAX step is compiled once, here."""
-    t0 = time.perf_counter()
-    jc, tc = _cfg(jcfg), _cfg(tcfg)
-    batches = [_batch(10), _batch(11)]
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.numpy() if isinstance(tree, torch.Tensor) else tree
+
+
+def _to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    return torch.from_numpy(tree) if isinstance(tree, np.ndarray) else tree
+
+
+def _jax_two_steps(batches) -> dict:
+    """The JAX half of two_steps, all numpy: the starting weights (as port
+    state_dicts), both steps' logs with the generator's dropout neutralised
+    (flax.linen.intercept_methods on Dropout), the first step's gradients
+    (the Adam first moments, (1 - b1) x the gradients, by port name), the
+    final weights, the injected rate and validation_mel_l1 after next_epoch.
+    The JAX step is compiled once, here."""
+    jc = _cfg(jcfg)
     models, txs, jstate = _jax_state(jc, batches[0])
     start = _port_dicts(jstate)
-    tstate = tstage2.create_gan_state(tc, device="cpu", state_dicts=start)
-    tstate.generator.code_dropout = 0.0
-    jstep, tstep = jstage2.make_gan_step(models, txs, jc), tstage2.make_gan_step(tc)
-    jlogs, tlogs = [], []
+    jstep = jstage2.make_gan_step(models, txs, jc)
+    jlogs = []
     for i, batch in enumerate(batches):
         with nn.intercept_methods(_no_dropout):
             jstate, lg = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
                                jax.random.PRNGKey(5))
         jlogs.append({k: float(v) for k, v in lg.items()})
+        if i == 0:
+            grads = {**from_jax.jax_tree_to_state_dict(_np_tree(jstate.gen_opt.inner_state[0].mu)),
+                     **from_jax.jax_tree_to_state_dict(_np_tree(jstate.disc_opt.inner_state[0].mu))}
+            jstate = jstage2.next_epoch(jstate)
+    val = jax.jit(lambda p, b: jstage2.validation_mel_l1(models[0], p, b, jc))(
+        jstate.gen_params, {k: jnp.asarray(v) for k, v in batches[1].items()})
+    return _to_numpy({"start": start, "jlogs": jlogs, "grads": grads,
+                      "final": _port_dicts(jstate),
+                      "jax_rate": float(jstate.gen_opt.hyperparams["learning_rate"]),
+                      "jax_val": float(val)})
+
+
+def _jax_two_steps_once(tmp_path_factory, batches) -> dict:
+    """_jax_two_steps once per test run: under pytest-xdist the first worker
+    to get here computes it and leaves it in the workers' common temporary
+    directory, behind a file lock; the others read it."""
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return _jax_two_steps(batches)
+    path = tmp_path_factory.getbasetemp().parent / "stage2_jax_two_steps.pkl"
+    with open(path.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.is_file():
+            tmp = path.with_suffix(f".{os.getpid()}")
+            tmp.write_bytes(pickle.dumps(_jax_two_steps(batches)))
+            tmp.replace(path)
+        return pickle.loads(path.read_bytes())
+
+
+@pytest.fixture(scope="module")
+def two_steps(tmp_path_factory):
+    """Two GAN steps of both implementations from the same weights on two
+    batches, the second after next_epoch; the generator's dropout
+    neutralised on both sides (flax.linen.intercept_methods on Dropout; the
+    port's code_dropout). The JAX half runs once per test run
+    (_jax_two_steps_once), the port's here."""
+    t0 = time.perf_counter()
+    tc = _cfg(tcfg)
+    batches = [_batch(10), _batch(11)]
+    ref = _to_torch(_jax_two_steps_once(tmp_path_factory, batches))
+    tstate = tstage2.create_gan_state(tc, device="cpu", state_dicts=ref["start"])
+    tstate.generator.code_dropout = 0.0
+    tstep = tstage2.make_gan_step(tc)
+    tlogs = []
+    for i, batch in enumerate(batches):
         tstate, lg = tstep(tstate, batch)
         tlogs.append({k: float(v) for k, v in lg.items()})
         if i == 0:
             # the Adam first moments after one step are (1 - b1) x the gradients
-            grads = {"jax": {**from_jax.jax_tree_to_state_dict(
-                                 _np_tree(jstate.gen_opt.inner_state[0].mu)),
-                             **from_jax.jax_tree_to_state_dict(
-                                 _np_tree(jstate.disc_opt.inner_state[0].mu))},
-                     "port": _first_moments(tstate)}
-            jstate, tstate = jstage2.next_epoch(jstate), tstage2.next_epoch(tstate)
-    final = _port_dicts(jstate)
-    rate = float(jstate.gen_opt.hyperparams["learning_rate"])
-    val = jax.jit(lambda p, b: jstage2.validation_mel_l1(models[0], p, b, jc))(
-        jstate.gen_params, {k: jnp.asarray(v) for k, v in batches[1].items()})
+            grads = {"jax": ref["grads"], "port": _first_moments(tstate)}
+            tstate = tstage2.next_epoch(tstate)
     print(f"two GAN steps, both implementations: {time.perf_counter() - t0:.1f} s")
-    return {"cfg": tc, "batches": batches, "jlogs": jlogs, "tlogs": tlogs, "grads": grads,
-            "start": start, "final": final, "tstate": tstate, "jax_rate": rate,
-            "jax_val": float(val)}
+    return {"cfg": tc, "batches": batches, "jlogs": ref["jlogs"], "tlogs": tlogs, "grads": grads,
+            "start": ref["start"], "final": ref["final"], "tstate": tstate,
+            "jax_rate": ref["jax_rate"], "jax_val": ref["jax_val"]}
 
 
 def test_gan_step_logs_match_jax(two_steps):
