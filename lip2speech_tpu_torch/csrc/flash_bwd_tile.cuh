@@ -15,9 +15,16 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include "flash_tile.cuh"
 
 namespace flash {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // delta[r] = sum_c d_o[r, c] * o[r, c] over rows of 64; half a warp per row.
 // T is the input type, float or bf16.

@@ -4,7 +4,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -15,11 +14,7 @@ namespace flash {
 
 constexpr int kB = 64;        // query rows per block = keys per tile
 constexpr int kD = 64;        // head dim
-constexpr int kThreads = 256; // threads of the row-dot pre-pass (flash_bwd_tile.cuh)
 constexpr float kMasked = -1e30f;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // Mask flags of keys j0 .. j0+63: 1 valid, 0 masked, -1 past the sequence.
 // mask_row is the batch row's (T,) uint8 key mask, or nullptr for all valid.

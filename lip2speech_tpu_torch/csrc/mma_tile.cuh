@@ -19,7 +19,7 @@
 // rows, so each tile loads only the next 64. Key-mask flags and scores come
 // from flash_tile.cuh (`load_mask`, `mask_score`).
 //
-// f32 products (the f32 paths of the shear rel-attention kernels and of
+// f32 products (the f32 paths of the four rel-attention kernels and of
 // attention.cu) run in 3xTF32 on mma.sync.m16n8k8: each operand is split
 // into hi (TF32, rounded to nearest) and lo = v - hi, and a product is
 // lo_a hi_b + hi_a lo_b +
@@ -40,7 +40,7 @@
 // kernels write themselves use the same order where it suits their
 // readers. The f32 helpers take a warp's share of a tile's keys as NT n8
 // tiles: all 64 keys (NT = 8) or half of them where two warps share 16
-// rows (the f32 backward passes' 8 warps, attention.cu's f32 blocks of 32
+// rows (the f32 backward kernels' 8 warps, attention.cu's f32 blocks of 32
 // rows).
 
 #pragma once

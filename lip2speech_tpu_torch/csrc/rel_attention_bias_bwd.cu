@@ -18,45 +18,59 @@
 // What bounds it: the f32 bias read and dbias written, 8 T^2 bytes per
 // (batch, head), against five (T x T x 64) products, 640 T^2 operations:
 // 80 operations a byte, below the bf16 tensor cores' balance of ~295, so
-// bytes, as long as the bias is read once.
+// bf16 is bound by bytes, as long as the bias is read once; f32 in 3xTF32
+// does three TF32 products for each, 1920 T^2 at the TF32 rate: operations
+// (B8 H8 T1200: 0.358 ms against 0.267 of bytes on an H100).
 //
 // Design. The TPU kernel is one sequential program per (batch, head) that
 // carries dK and dV across query blocks and wants bias and dbias re-tiled to
 // (key block, row, 128 lanes). Here bias and dbias stay (T, T) rows, and a
 // row-dot pre-pass (flash_bwd_tile.cuh) writes D from the forward's output.
 //
-// bf16 (dtype 1), `rel_bias_bwd_mma`: one key-major pass, every product on
-// mma.sync m16n8k16 with f32 accumulation (mma_tile.cuh). A block owns 64
-// keys of one (batch, head): K, V and the key mask stay in shared memory, dK
-// and dV in registers. It loops over query tiles of 64, their Q_u and dO
-// double-buffered by 16-byte cp.async. Per tile, warp w takes its 16 query
-// rows against the 64 keys: S = Q_u K^T * scale + bias (f32, the bias
-// streamed one tile ahead straight into the accumulator layout, as in the
-// forward), dPr = dO V^T, P from the LSE, dS = P o (dPr o keep - D). dbias is
-// that f32 dS, written from the fragments (float2, a 32-byte sector per
-// quad) before dS is scaled and rounded to bf16; every (i, j) is written by
-// exactly one block and tile, so dbias needs no zeroing and nothing past T
-// is written. dQ_u = dS K comes from dS's registers and goes to an f32
-// buffer by four-float reductions (`red_add_rows`), one per lane and n-tile
-// per tile pair. P~ and dS go to bf16 tiles; after a barrier warp w adds
-// dV += P~^T dO and dK += dS^T Q_u for keys 16w .. (ldmatrix .trans).
-//   So the bias is read once and dbias written once, the byte floor. The
-// cost: dQ_u's f32 sums arrive in an order that changes from run to run, so
-// its last bits may differ between runs (then rounded to bf16); dK, dV and
-// dbias are deterministic. The alternative, the query pass / key pass split
-// of rel_attention_bwd.cu, is deterministic but reads the bias twice
-// (12 T^2 bytes). 64.3 KB of shared memory and at most 255 registers: two
-// blocks per SM, with 32 KB of bias in flight.
+// One key-major pass for both input types, `rel_bias_bwd_mma<T>`
+// (mma_tile.cuh). A block owns 64 keys of one (batch, head): K, V and the
+// key mask stay in shared memory, dK and dV in registers. It loops over
+// query tiles of 64, their Q_u and dO arriving by 16-byte cp.async. Per
+// tile each warp takes its 16 query rows against its keys: S = Q_u K^T *
+// scale + bias (f32, the bias streamed one tile ahead straight into the
+// accumulator layout, as in the forward), dPr = dO V^T, P from the LSE, dS =
+// P o (dPr o keep - D). dbias is that f32 dS, written from the fragments
+// (float2, a 32-byte sector per quad) before dS is scaled or rounded; every
+// (i, j) is written by exactly one block and tile, so dbias needs no zeroing
+// and nothing past T is written. P~ and dS go to tiles; after a barrier the
+// warps of keys 16w .. add dV += P~^T dO and dK += dS^T Q_u
+// (`key_products`). dQ_u = dS K goes to an f32 buffer by four-float
+// reductions (`red_add_rows`).
+//   So the bias is read once and dbias written once, the byte floor, and
+// five products run where the two-pass split of rel_attention_bwd.cu would
+// run seven (S and dPr recomputed by both passes) and read the bias twice
+// (12 T^2 bytes). The cost: dQ_u's f32 sums arrive in an order that changes
+// from run to run, so its last bits may differ between runs (in bf16 then
+// rounded); dK, dV and dbias are deterministic.
+//   bf16 (dtype 1): mma.sync m16n8k16; 4 warps, each 16 query rows against
+// the 64 keys, then keys 16w ..; Q_u and dO double-buffered; dQ_u from dS's
+// registers, one reduction per lane and n-tile a tile; P~ and dS as
+// swizzled bf16 [query][key] tiles read by ldmatrix .trans. 64.3 KB of
+// shared memory and at most 255 registers: two blocks per SM, 32 KB of bias
+// in flight.
+//   f32 (dtype 0): every product in 3xTF32 on mma.sync m16n8k8 (as in the
+// forward; held to 1e-4 of max(1, |ref|) a gradient and to DBIAS_TOL, which
+// one TF32 product fails). 8 warps, two to each 16 query rows, each taking
+// half the keys (S, dPr, dS, P~: 16 accumulators each a lane) and then half
+// the channels of dK, dV and dQ_u; P~ and dS stored transposed, [key][query]
+// at a row stride of 72, and read as A by float2 in the k8 order, with dO's
+// and Q_u's rows read to match (rel_attention_bwd.cu's key pass); dQ_u =
+// dS K reads dS back out of its transposed tile (keys 2q, 2q + 1 of a k8
+// step, K's rows by single floats). Q_u and dO single-buffered: issued
+// after a tile's last barrier, so each tile waits on device memory, and a
+// second block on the SM hides it. 104.3 KB of shared memory and at most
+// 128 registers (a 16-28 byte spill): two blocks of 8 warps per SM. One
+// block with 255 registers took 1.84 ms at B8 H8 T1200 against 1.42 (NVIDIA
+// H100 80GB HBM3, 700 W).
 //   Alignment as in the forward: float2 accesses of bias and dbias for even
-// T, single floats for odd T, chosen by the launcher (float2 is 15% faster at
-// B8 H8 T1200 and B4 H8 T480 on an H100); Q_u, K, V, dO and the dQ_u buffer
-// must be 16-byte aligned, bias and dbias 4-byte.
-//
-// f32 (dtype 0), `bias_bwd_{query,key}_pass`: the first version,
-// unchanged on the CUDA cores: two passes in parallel blocks (FP32 FMAs,
-// f32 shared tiles, flash_bwd_tile.cuh; the query pass writes dbias and dQ_u
-// once, so everything is deterministic), because the f32 path is held to
-// 1e-4 against the CPU and TF32 cannot meet that.
+// T, single floats for odd T, chosen by the launcher (float2 is 15% faster
+// in bf16 at B8 H8 T1200 and B4 H8 T480 on an H100); Q_u, K, V, dO, dK, dV
+// and the dQ_u buffer must be 16-byte aligned, bias and dbias 4-byte.
 
 #include "flash_bwd_tile.cuh"
 #include "mma_tile.cuh"
