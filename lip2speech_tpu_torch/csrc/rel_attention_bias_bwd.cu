@@ -152,7 +152,8 @@ rel_bias_bwd_mma(const Args<T> g) {
   const float* lse_bh = g.lse + (size_t)bh * T_len;
   const float* delta_bh = g.delta + (size_t)bh * T_len;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
-  const int w = warp & 3, cc = warp >> 2, kw = 8 * NT * cc;   // rows (keys) 16w..; keys kw..
+  // rows (keys) 16w..; keys kw..; bf16: constants of the warp, so that no offset is computed
+  const int w = P::kBf16 ? warp : warp & 3, cc = P::kBf16 ? 0 : warp >> 2, kw = 8 * NT * cc;
   const int row_w = 16 * w + (lane >> 2);         // the lane's first row within a tile
   const int n_tiles = (T_len + kB - 1) / kB;
 
