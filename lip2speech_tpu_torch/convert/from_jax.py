@@ -109,3 +109,21 @@ def speaker_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:
     sd["linear.weight"] = torch.tensor(np.ascontiguousarray(np.asarray(params["linear"]["weight"]).T))
     sd["linear.bias"] = torch.tensor(np.asarray(params["linear"]["bias"]))
     return sd
+
+
+def asr_state_dict(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """{"encoder": {"params", "batch_stats"}, "decoder": {"params"}} of
+    AVHubertSeq2Seq or RavenASR -> the port model's state_dict (encoder.*,
+    decoder.*; the decoder's bare embed_tokens / output_proj unchanged)."""
+    sd = {}
+    for part in ("encoder", "decoder"):
+        tree = variables[part]
+        sd.update({f"{part}.{k}": v for k, v in stage1_state_dict(
+            {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}).items()})
+    return sd
+
+
+def lm_state_dict(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """{"params": ...} of TransformerLM -> state_dict (the bare embed
+    unchanged)."""
+    return jax_tree_to_state_dict(variables["params"])

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Convert a checkpoint of the JAX package (an orbax s1_* or g_* directory)
-into a checkpoint file of the PyTorch port.
+"""Convert a checkpoint of the JAX package (an orbax s1_* or g_* directory,
+or the variables of an ASR model or LM) into a checkpoint file of the
+PyTorch port.
 
     python scripts/orbax_to_torch.py --input ckpt/s1_00010000 \
         --output torch_ckpt/s1_00010000.pt [--preset multi_target]
     python scripts/orbax_to_torch.py --input ckpt/g_00100000 --output torch_ckpt/g_00100000
+    python scripts/orbax_to_torch.py --input asr_vars --output asr.pt
 
 The one tool that imports both packages: the JAX package restores the tree
 (lip2speech_tpu.train.checkpoint.load_pytree) and the port's
@@ -19,6 +21,12 @@ convert/from_jax.py moves it into the port's names and layouts.
            on whatever device it runs.
   g_*   -> a port g_ file holding the generator ({"generator": state_dict}),
            which `vocode --checkpoint` reads.
+  asr   -> the {"encoder", "decoder"} variables of an AVHubertSeq2Seq or a
+           RavenASR (what the JAX infer_asr --checkpoint reads) -> a port
+           file {"model": state_dict}, which the port's infer_asr
+           --checkpoint reads.
+  lm    -> the {"params"} variables of a TransformerLM -> {"model":
+           state_dict}, for infer_asr --lm-checkpoint.
 """
 
 from __future__ import annotations
@@ -90,20 +98,27 @@ def convert_stage1(tree: dict, cfg) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--input", required=True, help="orbax s1_* or g_* directory")
+    p.add_argument("--input", required=True,
+                   help="orbax s1_* or g_* directory, or ASR / LM variables")
     p.add_argument("--output", required=True, help="port checkpoint file to write")
     p.add_argument("--preset", default="multi_target", help="s1_ only: the model's preset")
     args = p.parse_args(argv)
 
     tree = load_pytree(args.input)
-    if "params" in tree:
+    if {"encoder", "decoder"} <= set(tree):
+        content = {"model": from_jax.asr_state_dict(tree)}
+        kind = "asr"
+    elif "params" in tree and "step" not in tree and "embed" in tree["params"]:
+        content = {"model": from_jax.lm_state_dict(tree)}
+        kind = "lm"
+    elif "params" in tree:
         content = convert_stage1(tree, preset(args.preset))
         kind = "stage1"
     elif "generator" in tree:
         content = {"generator": from_jax.vocoder_state_dict(tree["generator"])}
         kind = "vocoder_g"
     else:
-        raise SystemExit(f"{args.input}: neither an s1_ nor a g_ checkpoint "
+        raise SystemExit(f"{args.input}: not an s1_, g_, ASR or LM checkpoint "
                          f"(keys {sorted(tree)})")
     path = checkpoint.save(args.output, content)
     print(json.dumps({"kind": kind, "output": str(path)}))
