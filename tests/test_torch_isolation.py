@@ -45,9 +45,14 @@ def test_port_has_the_slice_modules():
                 "cli/vocode", "cli/convert", "pipeline/db", "utils/email_client", "eval/asr",
                 "ops/denoise", "models/speaker", "pipeline/mouth_crop", "pipeline/haar",
                 "pipeline/ert", "pipeline/landmarks", "ops/warp", "pipeline/batcher",
-                "pipeline/server", "pipeline/streaming"):
+                "pipeline/server", "pipeline/streaming", "data/text", "native/__init__",
+                "eval/metrics", "eval/pesq_p862", "models/transformer_decoder", "decode/beam",
+                "models/avhubert_asr", "models/lm", "decode/ctc_joint", "models/raven_asr",
+                "eval/asr_eval", "cli/infer_asr", "eval/harness"):
         assert f"lip2speech_tpu_torch/{mod}.py" in names
     csrc = {p.name for p in (REPO / "lip2speech_tpu_torch" / "csrc").iterdir()}
+    native = {p.name for p in (REPO / "lip2speech_tpu_torch" / "native").iterdir()}
+    assert {"editdistance.c", "ctc_beam.c"} <= native
     assert {"rel_attention.cu", "fused_tail.cu", "attention.cu", "rel_attention_bias.cu",
             "flash_tile.cuh", "rel_attention_bwd.cu", "rel_attention_bias_bwd.cu",
             "flash_bwd_tile.cuh", "philox.cuh", "mma_tile.cuh"} <= csrc
@@ -136,9 +141,26 @@ def test_unit_extraction_without_cuda_raises_unless_cpu_requested(monkeypatch):
     assert kmeans.kmeans_apply(x, x, device="cpu").shape == (3,)
 
 
+def test_asr_without_cuda_raises_unless_cpu_requested(monkeypatch, tmp_path):
+    """infer_asr and evaluate_asr run on the card unless device="cpu"."""
+    from lip2speech_tpu_torch.cli import infer_asr
+    from lip2speech_tpu_torch.eval.asr_eval import evaluate_asr
+    from lip2speech_tpu_torch.models.avhubert_asr import AVHubertSeq2Seq, Seq2SeqConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer_asr.main(["--tsv", str(tmp_path / "none.tsv"), "--out-dir", str(tmp_path)])
+    model = AVHubertSeq2Seq(Seq2SeqConfig(vocab_size=39, encoder_dim=16, encoder_heads=2,
+                                          encoder_ffn_dim=16, encoder_layers=1, decoder_dim=16,
+                                          decoder_heads=2, decoder_ffn_dim=16, decoder_layers=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_asr(model, tmp_path / "none.tsv", {})
+
+
 def test_import_and_cpu_path_need_no_nvcc(tmp_path):
     """Importing the kernel modules and running their CPU paths builds and
-    loads nothing (nvcc is unreachable in the child process)."""
+    loads nothing (nvcc is unreachable in the child process); importing the
+    recognition path builds no native helper."""
     code = (
         "import torch\n"
         "from lip2speech_tpu_torch.kernels import build\n"
@@ -162,7 +184,11 @@ def test_import_and_cpu_path_need_no_nvcc(tmp_path):
         "from lip2speech_tpu_torch.pipeline import server, streaming, batcher, landmarks\n"
         "from lip2speech_tpu_torch.ops import denoise, warp\n"
         "from lip2speech_tpu_torch.models import speaker\n"
-        "assert not build._libs\n"
+        "from lip2speech_tpu_torch import native\n"
+        "from lip2speech_tpu_torch.cli import infer_asr\n"
+        "from lip2speech_tpu_torch.eval import asr_eval, harness, metrics\n"
+        "from lip2speech_tpu_torch.models import avhubert_asr, lm, raven_asr\n"
+        "assert not build._libs and not native._LIBS\n"
         "assert rel_attention.rel_attention_bwd_kernel.launches == 0\n"
         "assert rel_attention.rel_attention_bias_bwd_kernel.launches == 0\n"
         "assert rel_attention.rel_attention_kernel.launches == 0\n"

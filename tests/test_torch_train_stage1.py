@@ -24,6 +24,7 @@ from lip2speech_tpu_torch.core import config as tcfg
 from lip2speech_tpu_torch.ops import nn as tops
 from lip2speech_tpu_torch.train import stage1 as tstage1
 
+from test_torch_asr import run_once
 from test_torch_modules import _np_tree
 
 PAD = 1
@@ -148,11 +149,33 @@ def test_dequantize_video_matches_jax():
 
 # --------------------------------------------------------------- train step
 
-@functools.lru_cache(maxsize=None)
-def _three_steps(kind):
-    """Three optimizer steps of both implementations from the same weights
-    on the same three batches. Returns per-step logs, the starting and the
+def _jax_three_steps(kind):
+    """The JAX half of three_steps: the starting variables, the logs of three
+    steps and the final variables, as numpy."""
+    jc = _cfg(jcfg, kind, adam_eps=1e-3)
+    batches = [_batch(seed) for seed in (0, 1, 2)]
+    micro0 = {k: v[0] for k, v in batches[0].items()}
+    model, tx, jstate = jstage1.create_train_state(jc, jax.random.PRNGKey(0), micro0)
+    start = {"params": _np_tree(jstate.params), "batch_stats": _np_tree(jstate.batch_stats)}
+    jstep = jstage1.make_train_step(model, tx, jc, mesh=None)
+    jlogs = []
+    for i, batch in enumerate(batches):
+        jstate, lg = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+                           jax.random.PRNGKey(10 + i))
+        jlogs.append({k: float(v) for k, v in lg.items()})
+    return {"jlogs": jlogs, "start": start,
+            "final": {"params": _np_tree(jstate.params),
+                      "batch_stats": _np_tree(jstate.batch_stats)}}
+
+
+@pytest.fixture(scope="module")
+def three_steps(tmp_path_factory):
+    """kind -> three optimizer steps of both implementations from the same
+    weights on the same three batches: per-step logs, the starting and the
     JAX package's final variables by the port's names, and the port's state.
+    The JAX half runs once per test run (run_once: under pytest-xdist the
+    first worker to need it leaves it in the workers' common temporary
+    directory, behind a file lock), the port's once per worker.
 
     Adam's eps is 1e-3 here, not the recipe's 1e-8: a gradient that is zero
     in exact arithmetic (a bias in front of a BatchNorm, the key bias under
@@ -162,32 +185,29 @@ def _three_steps(kind):
     1e-3, the size of the smaller real gradient elements, the update follows
     the same formula and the noise moves nothing. The recipe's eps is held
     against JAX in test_recipe_eps_update_matches_jax_where_conditioned."""
-    jc, tc = _cfg(jcfg, kind, adam_eps=1e-3), _cfg(tcfg, kind, adam_eps=1e-3)
-    batches = [_batch(seed) for seed in (0, 1, 2)]
-    micro0 = {k: v[0] for k, v in batches[0].items()}
-    model, tx, jstate = jstage1.create_train_state(jc, jax.random.PRNGKey(0), micro0)
-    start = {"params": _np_tree(jstate.params), "batch_stats": _np_tree(jstate.batch_stats)}
-    sd = from_jax.stage1_state_dict(start)
-    tstate = tstage1.create_train_state(tc, device="cpu", state_dict=sd)
-    jstep = jstage1.make_train_step(model, tx, jc, mesh=None)
-    tstep = tstage1.make_train_step(tc)
-    jlogs, tlogs = [], []
-    for i, batch in enumerate(batches):
-        jstate, lg = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
-                           jax.random.PRNGKey(10 + i))
-        jlogs.append({k: float(v) for k, v in lg.items()})
-        tstate, lg = tstep(tstate, batch)
-        tlogs.append({k: float(v) for k, v in lg.items()})
-    final = from_jax.stage1_state_dict({"params": _np_tree(jstate.params),
-                                        "batch_stats": _np_tree(jstate.batch_stats)})
-    return jlogs, tlogs, sd, final, tstate
+
+    @functools.lru_cache(maxsize=None)
+    def run(kind):
+        ref = run_once(tmp_path_factory, f"stage1_three_steps_{kind}",
+                       lambda shared: _jax_three_steps(kind))[1]
+        tc = _cfg(tcfg, kind, adam_eps=1e-3)
+        sd = from_jax.stage1_state_dict(ref["start"])
+        tstate = tstage1.create_train_state(tc, device="cpu", state_dict=sd)
+        tstep = tstage1.make_train_step(tc)
+        tlogs = []
+        for batch in [_batch(seed) for seed in (0, 1, 2)]:
+            tstate, lg = tstep(tstate, batch)
+            tlogs.append({k: float(v) for k, v in lg.items()})
+        return ref["jlogs"], tlogs, sd, from_jax.stage1_state_dict(ref["final"]), tstate
+
+    return run
 
 
 @pytest.mark.parametrize("kind", ["resnet3d", "avhubert"])
-def test_train_step_logs_match_jax(kind):
+def test_train_step_logs_match_jax(kind, three_steps):
     """1e-4 relative: f32 losses summed over ~10^3 terms and a gradient norm
     over ~10^5 elements, in another order."""
-    jlogs, tlogs, _, _, tstate = _three_steps(kind)
+    jlogs, tlogs, _, _, tstate = three_steps(kind)
     assert tstate.step == 3
     for ref, got in zip(jlogs, tlogs):
         assert set(got) == set(ref)
@@ -197,10 +217,10 @@ def test_train_step_logs_match_jax(kind):
 
 
 @pytest.mark.parametrize("kind", ["resnet3d", "avhubert"])
-def test_train_step_running_statistics_match_jax(kind):
+def test_train_step_running_statistics_match_jax(kind, three_steps):
     """BatchNorm statistics after 3 steps x 2 micro-batches carried one
     into the next; 1e-4 absolute."""
-    _, _, start, final, tstate = _three_steps(kind)
+    _, _, start, final, tstate = three_steps(kind)
     got = tstate.model.state_dict()
     stats = [k for k in final if k.endswith(("running_mean", "running_var"))]
     assert stats
@@ -213,10 +233,10 @@ def test_train_step_running_statistics_match_jax(kind):
 
 
 @pytest.mark.parametrize("kind", ["resnet3d", "avhubert"])
-def test_train_step_parameters_match_jax(kind):
+def test_train_step_parameters_match_jax(kind, three_steps):
     """Parameters after three AdamW updates (rates 0, 5e-4, 1e-3): 2e-5
     absolute, a fiftieth of the last step."""
-    _, _, start, final, tstate = _three_steps(kind)
+    _, _, start, final, tstate = three_steps(kind)
     got = tstate.model.state_dict()
     assert set(got) == set(final)
     moved = 0
@@ -267,8 +287,8 @@ def test_recipe_eps_update_matches_jax_where_conditioned():
     assert compared >= total // 10 and moved > 20
 
 
-def test_frozen_frontend_is_unchanged_and_without_gradient():
-    _, _, start, final, tstate = _three_steps("avhubert")
+def test_frozen_frontend_is_unchanged_and_without_gradient(three_steps):
+    _, _, start, final, tstate = three_steps("avhubert")
     got = tstate.model.state_dict()
     frontend = [k for k in start if k.startswith("frontend")]
     assert len(frontend) > 50

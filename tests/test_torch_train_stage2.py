@@ -6,9 +6,6 @@ the spectral u), the per-epoch rate, validation_mel_l1, the state's
 construction, and the dataset's batches on a small dataset on disk."""
 
 import dataclasses
-import fcntl
-import os
-import pickle
 import time
 
 import numpy as np
@@ -28,6 +25,7 @@ from lip2speech_tpu_torch.core import config as tcfg
 from lip2speech_tpu_torch.data import stage2 as tdata
 from lip2speech_tpu_torch.train import stage2 as tstage2
 
+from test_torch_asr import run_once
 from test_torch_modules import _np_tree
 
 SEG = 1_280
@@ -138,33 +136,20 @@ def _jax_two_steps(batches) -> dict:
                       "jax_val": float(val)})
 
 
-def _jax_two_steps_once(tmp_path_factory, batches) -> dict:
-    """_jax_two_steps once per test run: under pytest-xdist the first worker
-    to get here computes it and leaves it in the workers' common temporary
-    directory, behind a file lock; the others read it."""
-    if "PYTEST_XDIST_WORKER" not in os.environ:
-        return _jax_two_steps(batches)
-    path = tmp_path_factory.getbasetemp().parent / "stage2_jax_two_steps.pkl"
-    with open(path.with_suffix(".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not path.is_file():
-            tmp = path.with_suffix(f".{os.getpid()}")
-            tmp.write_bytes(pickle.dumps(_jax_two_steps(batches)))
-            tmp.replace(path)
-        return pickle.loads(path.read_bytes())
-
-
 @pytest.fixture(scope="module")
 def two_steps(tmp_path_factory):
     """Two GAN steps of both implementations from the same weights on two
     batches, the second after next_epoch; the generator's dropout
     neutralised on both sides (flax.linen.intercept_methods on Dropout; the
-    port's code_dropout). The JAX half runs once per test run
-    (_jax_two_steps_once), the port's here."""
+    port's code_dropout). The JAX half runs once per test run (run_once:
+    under pytest-xdist the first worker to get here computes it and leaves
+    it in the workers' common temporary directory, behind a file lock; the
+    others read it), the port's here."""
     t0 = time.perf_counter()
     tc = _cfg(tcfg)
     batches = [_batch(10), _batch(11)]
-    ref = _to_torch(_jax_two_steps_once(tmp_path_factory, batches))
+    ref = _to_torch(run_once(tmp_path_factory, "stage2_jax_two_steps",
+                             lambda shared: _jax_two_steps(batches))[1])
     tstate = tstage2.create_gan_state(tc, device="cpu", state_dicts=ref["start"])
     tstate.generator.code_dropout = 0.0
     tstep = tstage2.make_gan_step(tc)
