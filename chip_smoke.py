@@ -136,6 +136,19 @@ Phases, in order; any failure exits non-zero before the last line:
      HTTP requests beside the direct call's p50 and device busy ms (bf16 and
      f32, with the two kernels' share); a bad video_path gives 400 and the
      next request 200. Prints one "serving" JSON line.
+ 20. lip-reading recognition at the CLI's full width, random weights, f32
+     (TF32 off), beam 10, 50 steps, char vocabulary: AV-HuBERT seq2seq
+     (encoder 1024 x 24, decoder 1024 x 6) at B1 x 96 and B4 ragged
+     (96/80/64/50), alone and with a 6-layer LM (512 / 8 / 2048) fused at
+     0.3; RAVEn (conformer 1024 x 24) with the joint CTC/attention search at
+     CTC weight 0.1 at both shapes. Each decode: exact launches (attention
+     24 or rel_attention 24 a decode, every other kernel 0), the encoder
+     states against the same weights' CPU run (ASR_ENC_TOL), the card's
+     n-best teacher-forced on the CPU (ASR_SCORE_TOL), p50 of 5 calls, one
+     profiled call (busy ms and share, launches a decode), and at B1 whether
+     the n-best equals the CPU search's (printed, not gated). Then infer_asr
+     in both modes on 4 synthetic clips, hypo.json against the direct decode
+     of the same batch on the card. Prints one "asr" JSON line.
 Kernel times are device time (CUDA events, host enqueue hidden behind a
 device sleep). Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -834,15 +847,19 @@ def check_results(results, lens, what):
                  f"mel {r.mel.shape} {r.mel.dtype}")
 
 
-def profile_call(fn, what: str, top: int = 12, by_name: dict | None = None) -> float:
+def profile_call(fn, what: str, top: int = 12, by_name: dict | None = None,
+                 stats: dict | None = None, host_ops: bool = True) -> float:
     """Device time by kernel over one call of fn, and the device's busy share
     of the call's wall time (torch.profiler, CUPTI). Returns the device's
-    busy milliseconds; by_name, when given, gets each kernel's ms by name."""
+    busy milliseconds; by_name, when given, gets each kernel's ms by name,
+    stats the profiled wall ms and the number of device launches. Without
+    host_ops only the device is traced (a call of ~10^4 launches is
+    summarised in seconds, not minutes)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA], acc_events=True) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -856,6 +873,8 @@ def profile_call(fn, what: str, top: int = 12, by_name: dict | None = None) -> f
                    and not getattr(e, "is_user_annotation", False)
                    and e.key != "Activity Buffer Request"), key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    if stats is not None:
+        stats.update(wall_ms=wall_ms, launches=sum(e.count for e in rows))
     if by_name is not None:
         by_name.update({e.key: dev_us(e) / 1e3 for e in rows})
     notes = [f"{e.key} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in prof.key_averages()
@@ -2918,6 +2937,226 @@ def phase_serving(syn, counters: dict, preset) -> dict:
             for kernel in one}
 
 
+# phase 20: lip-reading recognition
+ASR_LENS = (96, 80, 64, 50)      # frames of the ragged batch-4 request
+ASR_BEAM, ASR_MAX_LEN = 10, 50
+ASR_ENC_TOL = 1e-4               # encoder states, card against CPU, of max |ref| (valid frames)
+ASR_SCORE_TOL = 1e-4             # teacher-forced n-best scores, card against CPU, of max(1, |ref|)
+
+
+def asr_request(b: int, lens, seed: int, frames: int = 96):
+    rng = np.random.default_rng(seed)
+    video = torch.from_numpy(rng.standard_normal((b, frames, 88, 88, 1)).astype(np.float32))
+    return video, torch.from_numpy(np.arange(frames)[None, :] < np.asarray(lens)[:, None])
+
+
+def asr_models(cfgs) -> dict:
+    """name -> (CPU model, card model) with the same random weights, in eval
+    mode. cfgs: name -> (seed, constructor)."""
+    from lip2speech_tpu_torch.models.layers import init_weights
+
+    out = {}
+    for name, (seed, build) in cfgs.items():
+        cpu = build()
+        init_weights(cpu, torch.Generator().manual_seed(seed))
+        cpu.eval().requires_grad_(False)
+        gpu = build()
+        gpu.load_state_dict(cpu.state_dict())
+        out[name] = (cpu, gpu.cuda().eval().requires_grad_(False))
+    return out
+
+
+def first_nbest_difference(got, ref) -> str:
+    for i, (g_rows, r_rows) in enumerate(zip(got, ref)):
+        for k, (g, r) in enumerate(zip(g_rows, r_rows)):
+            if g != r:
+                step = next((s for s, (a, b) in enumerate(zip(g, r)) if a != b),
+                            min(len(g), len(r)))
+                return f"row {i} hypothesis {k} from step {step}"
+    return "none"
+
+
+def phase_asr(counters: dict) -> dict:
+    """The recognition path at the CLI's full width (random weights, f32,
+    TF32 off, beam 10, 50 steps): AV-HuBERT seq2seq (encoder 1024 x 24, 16
+    heads, FFN 4096; decoder 1024 x 6, 4 heads, FFN 3072; char vocabulary)
+    at B1 x 96 and B4 ragged, alone and with a 6-layer LM (512 / 8 / 2048)
+    at 0.3; RAVEn (1024 x 24, 16 heads) with the joint CTC/attention search
+    at CTC weight 0.1 at both shapes. Each decode: exact launches (attention
+    24, or rel_attention 24, others 0), the encoder states against the same
+    weights' CPU run, the card's n-best teacher-forced on the CPU, p50 of 5
+    calls, one profiled call (busy ms, launches); at B1 whether the n-best
+    equals the CPU search's. Then infer_asr in both modes on 4 clips, its
+    hypo.json against the direct decode of the same batch on the card.
+    Returns {kernel: {decode: launches}}."""
+    from lip2speech_tpu_torch.cli import infer_asr
+    from lip2speech_tpu_torch.data.manifest import Utterance, write_manifest
+    from lip2speech_tpu_torch.data.stage1 import Stage1Dataset
+    from lip2speech_tpu_torch.data.text import SentenceProcessor
+    from lip2speech_tpu_torch.data.video_io import save_video_gray
+    from lip2speech_tpu_torch.models.avhubert_asr import AVHubertSeq2Seq, Seq2SeqConfig
+    from lip2speech_tpu_torch.models.lm import TransformerLM
+    from lip2speech_tpu_torch.models.raven_asr import RavenASR
+
+    set_tf32(False)
+    t_phase = time.perf_counter()
+    processor = SentenceProcessor()
+    nc = processor.num_classes
+    av_cfg = Seq2SeqConfig(vocab_size=nc, encoder_dim=1024, encoder_heads=16, encoder_ffn_dim=4096,
+                           encoder_layers=24, decoder_dim=1024, decoder_heads=4,
+                           decoder_ffn_dim=3072, decoder_layers=6)
+    raven_cfg = RavenASR.from_num_classes(nc, dim=1024, heads=16, ffn_dim=4096, layers=24,
+                                          decoder_layers=6, decoder_heads=4)
+    # seed 0 for both ASR models: infer_asr's random weights
+    models = asr_models({"avhubert": (0, lambda: AVHubertSeq2Seq(av_cfg)),
+                         "lm": (1, lambda: TransformerLM(nc, 512, 8, 2048, 6)),
+                         "raven": (0, lambda: RavenASR(raven_cfg))})
+    print(f"asr: models built in {time.perf_counter() - t_phase:.1f} s; parameters "
+          + ", ".join(f"{k} {sum(p.numel() for p in m[0].parameters()) / 1e6:.1f} M"
+                      for k, m in models.items()), flush=True)
+    requests = {"B1x96": asr_request(1, (96,), seed=20),
+                "B4x96 ragged": asr_request(4, ASR_LENS, seed=21)}
+    decodes = [(f"{model} {shape}{' +LM' if lm else ''}", model, shape, lm)
+               for model, lm in (("avhubert", False), ("avhubert", True), ("raven", False))
+               for shape in requests]
+    kernel_of = {"avhubert": "attention", "raven": "rel_attention"}
+    read, launches, encoded = {}, {name: {} for name in counters}, {}
+    with torch.inference_mode():
+        for what, name, shape, with_lm in decodes:
+            cpu, gpu = models[name]
+            video, mask = requests[shape]
+            gv, gm = video.cuda(), mask.cuda()
+            lm_kw = {"lm": models["lm"][1], "lm_weight": 0.3} if with_lm else {}
+            if name == "avhubert":
+                kw = dict(max_len=ASR_MAX_LEN)
+                decode = lambda: gpu.decode_beam(gv, gm, beam=ASR_BEAM, **kw, **lm_kw)  # noqa: E731
+            else:
+                kw = dict(max_len=ASR_MAX_LEN, ctc_weight=0.1)
+                decode = lambda: gpu.decode_joint(gv, gm, beam=ASR_BEAM, **kw)  # noqa: E731
+            decode()                                              # warm-up
+            (nbest, scores), _, _, _ = run_counted(counters, decode, {kernel_of[name]: 24}, what)
+            for k in counters:
+                launches[k][what] = counters[k].launches
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                decode()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            stats: dict = {}
+            t = time.perf_counter()
+            busy = profile_call(decode, what, top=6, stats=stats, host_ops=False)
+            profile_s = time.perf_counter() - t
+            # the CPU run of the same weights: encoder states, then the card's
+            # n-best teacher-forced
+            if (name, shape) not in encoded:
+                t = time.perf_counter()
+                encoded[(name, shape)] = (cpu.encode(video, mask) if name == "avhubert"
+                                          else cpu.encoder(video, mask))
+                print(f"{what}: CPU encoder {time.perf_counter() - t:.1f} s", flush=True)
+            ref = encoded[(name, shape)]
+            got = gpu.encode(gv, gm) if name == "avhubert" else gpu.encoder(gv, gm)
+            ref_states, got_states = (ref, got) if name == "avhubert" else (ref[0], got[0])
+            valid = mask[:, :, None]
+            enc_err = float(((got_states.cpu() - ref_states).abs() * valid).max()
+                            / (ref_states.abs() * valid).max())
+            cpu_lm = {"lm": models["lm"][0], "lm_weight": 0.3} if with_lm else {}
+            t = time.perf_counter()
+            if name == "avhubert":
+                _, forced = cpu.rescore(video, mask, nbest, enc=ref, **kw, **cpu_lm)
+            else:
+                _, forced = cpu.rescore_joint(video, mask, nbest, encoded=ref, **kw)
+            forced = forced.numpy()
+            score_err = float((np.abs(forced - scores) / np.maximum(1.0, np.abs(forced))).max())
+            rescore_s = time.perf_counter() - t
+            same = "not run at batch 4 (the CPU search of 40 hypotheses x 50 steps)"
+            cpu_s = None
+            if shape == "B1x96":
+                t = time.perf_counter()
+                cpu_nbest, _ = (cpu.decode_beam(video, mask, beam=ASR_BEAM, **kw, **cpu_lm)
+                                if name == "avhubert"
+                                else cpu.decode_joint(video, mask, beam=ASR_BEAM, **kw))
+                cpu_s = time.perf_counter() - t
+                same = ("equal" if cpu_nbest == nbest
+                        else f"differs: {first_nbest_difference(nbest, cpu_nbest)}")
+            p50 = float(np.median(times))
+            read[what] = {"p50_ms": p50, "min_ms": min(times), "max_ms": max(times),
+                          "busy_ms": busy, "busy_share": busy / stats["wall_ms"],
+                          "launches_a_decode": stats["launches"], "encoder_err": enc_err,
+                          "score_err": score_err, "nbest_vs_cpu": same, "cpu_search_s": cpu_s,
+                          kernel_of[name]: launches[kernel_of[name]][what],
+                          "best": processor.decode(
+                              [t for t in (nbest[0][0] if name == "avhubert"
+                                           else gpu.to_text_ids(nbest[0][0])) if t < nc])}
+            print(f"{what}: p50_ms {p50:.3f} (5 calls, min {min(times):.3f} max {max(times):.3f}); "
+                  f"device_busy_ms {busy:.3f} busy_share {busy / stats['wall_ms']:.3f} "
+                  f"launches {stats['launches']}; encoder max_err/max|ref| {enc_err:.2e} "
+                  f"(tol {ASR_ENC_TOL}); teacher-forced scores on the CPU max_err {score_err:.2e} "
+                  f"of max(1, |ref|) (tol {ASR_SCORE_TOL}, {rescore_s:.1f} s); n-best vs the CPU "
+                  f"search: {same}" + (f" ({cpu_s:.1f} s)" if cpu_s else "")
+                  + f"; profiling {profile_s:.1f} s", flush=True)
+            if not np.isfinite(scores).all() or scores.shape != (video.shape[0], ASR_BEAM):
+                fail(f"{what}: bad scores {scores}")
+            if enc_err > ASR_ENC_TOL:
+                fail(f"{what}: encoder states off the CPU's by {enc_err:.2e} of max |ref|")
+            if score_err > ASR_SCORE_TOL:
+                fail(f"{what}: teacher-forced scores off the card's by {score_err:.2e}")
+        # the CLI in both modes on 4 clips (one 96-frame bucket, one batch)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_asr_") as tmp:
+            root = Path(tmp)
+            rng = np.random.default_rng(22)
+            utts, refs = [], {}
+            for i, n in enumerate(ASR_LENS):
+                uid = f"spk0/clip{i}"
+                save_video_gray(root / "video" / f"{uid}.mp4",
+                                rng.integers(0, 256, (n, 96, 96), dtype=np.uint8))
+                (root / "spk_emb" / "spk0").mkdir(parents=True, exist_ok=True)
+                np.save(root / "spk_emb" / f"{uid}.npy", np.zeros(256, np.float32))
+                utts.append(Utterance(uid, root / "video" / f"{uid}.mp4",
+                                      root / "audio" / f"{uid}.wav", n, n * 640))
+                refs[uid] = ["bin blue at f two now", "place red", "lay green", "set it"][i]
+            write_manifest(root / "test.tsv", root, utts)
+            (root / "refs.json").write_text(json.dumps(refs))
+            (batch,) = Stage1Dataset(root / "test.tsv").batches(4)
+            gv, gm = (torch.as_tensor(batch[k], device="cuda") for k in ("video", "frames_mask"))
+            for mode, flags in (("avhubert", []), ("raven", ["--raven", "--ctc-weight", "0.1"])):
+                what = f"infer_asr {mode} (4 clips, batch 4)"
+                args = ["--tsv", str(root / "test.tsv"), "--transcripts", str(root / "refs.json"),
+                        "--out-dir", str(root / mode), "--batch-size", "4", *flags]
+                _, seconds, _, _ = run_counted(counters, lambda: infer_asr.main(args),
+                                                 {kernel_of[mode]: 24}, what)
+                for k in counters:
+                    launches[k][what] = counters[k].launches
+                gpu = models[mode][1]
+                if mode == "avhubert":
+                    nbest, scores = gpu.decode_beam(gv, gm, beam=ASR_BEAM, max_len=ASR_MAX_LEN)
+                else:
+                    nbest, scores = gpu.decode_joint(gv, gm, beam=ASR_BEAM, max_len=ASR_MAX_LEN,
+                                                     ctc_weight=0.1, len_penalty=1.0)
+                hypos = json.loads((root / mode / "hypo.json").read_text())
+                wer = (root / mode / "wer.txt").read_text().splitlines()[0]
+                direct, err = {}, 0.0
+                for i, uid in enumerate(batch["ids"]):
+                    hyp = nbest[i][0] if mode == "avhubert" else gpu.to_text_ids(nbest[i][0])
+                    direct[uid] = processor.decode([t for t in hyp if t < nc])
+                    ref = float(scores[i, 0])
+                    err = max(err, abs(hypos[uid]["score"] - ref) / max(1.0, abs(ref)))
+                same = {u: h["hypo"] for u, h in hypos.items()} == direct
+                print(f"{what}: {seconds:.1f} s with the model's random init; {wer}; hypo.json "
+                      f"texts {'equal' if same else 'DIFFER'} to the direct decode on the card, "
+                      f"scores within {err:.2e}", flush=True)
+                read[what] = {"seconds": seconds, "wer_line": wer, "score_err": err}
+                if not same or err > ASR_SCORE_TOL:
+                    fail(f"{what}: hypo.json differs from the direct decode of the same batch")
+    read["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 20 recognition: {read['seconds']:.1f} s", flush=True)
+    print(json.dumps({"asr": read}), flush=True)
+    del models
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2991,6 +3230,7 @@ def main() -> int:
     phase_gan_cpu_check(s2, ft, preset)
     cli = phase_cli(syn, counters, preset)
     served = phase_serving(syn, counters, preset)
+    asr = phase_asr(counters)
     for name, numbers in (("rel_attention", rel), ("rel_attention_bias", bias),
                           ("rel_attention_bwd", shear_bwd), ("rel_attention_bias_bwd", bias_bwd)):
         numbers["dropout"] = "philox.cuh"
@@ -3007,7 +3247,7 @@ def main() -> int:
         numbers.update(design=f"mma.sync m16n8k16 bf16, f32 accumulate; f32: {f32_design}",
                        hmma_in_sass=hmma[lib], hmma_tf32_in_sass=hmma_tf32[lib],
                        cli_launches={tool: n[name] for tool, n in cli.items() if name in n},
-                       server_launches=served.get(name, {}))
+                       server_launches=served.get(name, {}), asr_launches=asr[name])
     launches.update({k: train_launches[k] for k in ("rel_attention_bwd", "rel_attention_bias_bwd")})
     pkg = "lip2speech_tpu_torch"
     jax_ops = "lip2speech_tpu/ops"
