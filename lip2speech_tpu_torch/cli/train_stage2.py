@@ -7,6 +7,11 @@ mel L1 over the whole validation set every --validation-interval steps with
 an audio and mel snapshot, and the per-epoch rate decay. On the card the
 generator's <=128-channel stages always run the trio kernel (no switch);
 --device cpu runs the plain versions on the CPU.
+
+Like the JAX CLI it trains over fitting_mesh(batch_size), data-parallel, as
+train_stage1 does (parallel/multihost.run_on_mesh): every rank builds the
+same global batch and steps on its rows; rank 0 prints, logs, validates and
+writes the checkpoints, and the others wait for it.
 """
 
 from __future__ import annotations
@@ -21,8 +26,7 @@ def _without_ids(batch: dict) -> dict:
     return {k: v for k, v in batch.items() if k != "ids"}
 
 
-def main(argv=None):
-    """Runs the training; returns the final GanState."""
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--preset", default="multi_target")
     p.add_argument("--train-tsv", required=True)
@@ -43,12 +47,33 @@ def main(argv=None):
                         "(G, D, both optimizers, step, epoch, dropout generator) and continue")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs the plain versions)")
-    args = p.parse_args(argv)
+    return p
 
+
+def _config(args):
+    from lip2speech_tpu_torch.core.config import preset, with_overrides
+
+    cfg = preset(args.preset)
+    if args.batch_size:
+        cfg = with_overrides(cfg, {"stage2.batch_size": args.batch_size})
+    return cfg
+
+
+def main(argv=None):
+    """Runs the training; returns the final GanState (None when worker
+    processes ran it)."""
+    from lip2speech_tpu_torch.parallel.multihost import run_on_mesh
+
+    args = _parser().parse_args(argv)
+    return run_on_mesh(_train, argv, _config(args).stage2.batch_size, args.device)
+
+
+def _train(argv, mesh):
+    """The training on this process's rank of `mesh` (None: one device)."""
     import numpy as np
     import torch
+    import torch.distributed as dist
 
-    from lip2speech_tpu_torch.core.config import preset, with_overrides
     from lip2speech_tpu_torch.data.prefetch import prefetch
     from lip2speech_tpu_torch.data.stage2 import Stage2Dataset
     from lip2speech_tpu_torch.ops.dsp import mel_spectrogram_hifigan
@@ -56,10 +81,10 @@ def main(argv=None):
     from lip2speech_tpu_torch.train import stage2
     from lip2speech_tpu_torch.utils.metrics_log import MetricsLogger
 
-    cfg = preset(args.preset)
-    if args.batch_size:
-        cfg = with_overrides(cfg, {"stage2.batch_size": args.batch_size})
+    args = _parser().parse_args(argv)
+    cfg = _config(args)
     bs = cfg.stage2.batch_size
+    lead = mesh is None or mesh.coords() == (0, 0)
     au = cfg.audio
 
     ds = Stage2Dataset(args.train_tsv, args.train_unt, cfg.vocoder, root_override=args.root,
@@ -69,18 +94,18 @@ def main(argv=None):
         val_ds = Stage2Dataset(args.valid_tsv, args.valid_unt, cfg.vocoder,
                                root_override=args.root, train=False)
 
-    state = stage2.create_gan_state(cfg, device=args.device)
-    step_fn = stage2.make_gan_step(cfg)
+    state = stage2.create_gan_state(cfg, device=args.device, mesh=mesh)
+    step_fn = stage2.make_gan_step(cfg, mesh)
     dev = state.device
 
     ckpt_dir = Path(args.checkpoint_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    mlog = MetricsLogger(ckpt_dir / "logs")
+    mlog = MetricsLogger(ckpt_dir / "logs") if lead else None
     steps = start_epoch = 0
     if args.resume:
         state, steps = ckpt.restore_stage2(ckpt_dir, state)
         start_epoch = state.epoch
-        if steps:
+        if steps and lead:
             print(f"resumed from step {steps}, epoch {start_epoch}")
 
     def validate():
@@ -120,7 +145,7 @@ def main(argv=None):
                 for batch in batches:
                     state, logs = step_fn(state, _without_ids(batch))
                     steps += 1
-                    if steps % args.log_interval == 0:
+                    if steps % args.log_interval == 0 and lead:
                         print(json.dumps({
                             "epoch": epoch, "step": steps,
                             "loss_gen": round(float(logs["loss_gen"]), 3),
@@ -132,12 +157,17 @@ def main(argv=None):
                     if steps % args.checkpoint_interval == 0:
                         ckpt.save_stage2(ckpt_dir, state, steps)
                     if val_ds is not None and steps % args.validation_interval == 0:
-                        validate()
+                        if lead:
+                            validate()
+                        if mesh is not None:
+                            dist.barrier()
             state = stage2.next_epoch(state)
     finally:
-        mlog.close()
+        if lead:
+            mlog.close()
     ckpt.save_stage2(ckpt_dir, state, steps)
-    print(f"done: {steps} steps, {args.epochs} epochs")
+    if lead:
+        print(f"done: {steps} steps, {args.epochs} epochs")
     return state
 
 

@@ -32,10 +32,13 @@ from lip2speech_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
 from lip2speech_tpu_torch.models.resnet3d import ResNet3DFrontend
 from lip2speech_tpu_torch.ops import nn as ops
 from lip2speech_tpu_torch.ops.attention import attention
+from lip2speech_tpu_torch.parallel.collectives import copy_to_model, row_parallel
 
 
 class SelfAttention(nn.Module):
-    """fairseq MultiheadAttention as self-attention, batch first."""
+    """fairseq MultiheadAttention as self-attention, batch first. Head-parallel
+    under tensor parallelism (`tp` set, parallel/sharding_rules.py): the rank
+    holds its heads of q/k/v_proj and its columns of out_proj."""
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
@@ -45,26 +48,37 @@ class SelfAttention(nn.Module):
         self.k_proj = Linear(dim, dim)
         self.v_proj = Linear(dim, dim)
         self.out_proj = Linear(dim, dim)
+        self.tp = None
+
+    def tp_parts(self) -> int:
+        return self.heads
 
     def forward(self, x, mask=None, gen=None):
         """x (B, T, D); mask (B, T) key mask or None (all keys valid)."""
         b, t, d = x.shape
-        h = self.heads
-        heads_first = lambda y: y.reshape(b, t, h, d // h).transpose(1, 2).contiguous()  # noqa: E731
+        tp = self.tp
+        h, dk = self.heads, d // self.heads
+        shard = None
+        if tp is not None:
+            h, x, shard = h // tp.size, copy_to_model(x, tp), (1, tp.index, tp.size)
+        heads_first = lambda y: y.reshape(b, t, h, dk).transpose(1, 2).contiguous()  # noqa: E731
         q, k, v = (heads_first(proj(x)) for proj in (self.q_proj, self.k_proj, self.v_proj))
         if self.training and self.dropout > 0.0:
-            s = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(d // h)
+            s = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(dk)
             if mask is not None:
                 s = s.masked_fill(~mask[:, None, None, :], -1e9)
-            attn = ops.dropout(torch.softmax(s, dim=-1), self.dropout, gen)
+            attn = ops.dropout(torch.softmax(s, dim=-1), self.dropout, gen, shard=shard)
             out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         else:
             out = attention(q, k, v, mask)                          # (B, H, T, dk)
-        return self.out_proj(out.transpose(1, 2).reshape(b, t, d))
+        out = out.transpose(1, 2).reshape(b, t, h * dk)
+        return self.out_proj(out) if tp is None else row_parallel(out, self.out_proj, tp)
 
 
 class TransformerLayer(nn.Module):
-    """fairseq TransformerSentenceEncoderLayer (GELU, pre- or post-norm)."""
+    """fairseq TransformerSentenceEncoderLayer (GELU, pre- or post-norm).
+    Under tensor parallelism (`tp` set) the rank holds its hidden units of
+    the FFN: rows of fc1, columns of fc2."""
 
     def __init__(self, dim: int, heads: int, ffn_dim: int, layer_norm_first: bool = True,
                  dropout: float = 0.1):
@@ -76,9 +90,15 @@ class TransformerLayer(nn.Module):
         self.fc1 = Linear(dim, ffn_dim)
         self.fc2 = Linear(ffn_dim, dim)
         self.final_layer_norm = LayerNorm(dim, eps=1e-5)
+        self.tp = None
+
+    def tp_parts(self) -> int:
+        return self.fc1.weight.shape[0]
 
     def _ffn(self, x):
-        return self.fc2(ops.gelu(self.fc1(x)))
+        if self.tp is None:
+            return self.fc2(ops.gelu(self.fc1(x)))
+        return row_parallel(ops.gelu(self.fc1(copy_to_model(x, self.tp))), self.fc2, self.tp)
 
     def forward(self, x, mask=None, gen=None):
         drop = (lambda y: ops.dropout(y, self.dropout, gen)) if self.training else (lambda y: y)

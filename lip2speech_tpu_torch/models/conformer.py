@@ -28,13 +28,21 @@ from torch import nn
 from lip2speech_tpu_torch.models.layers import BatchNorm, Conv1d, LayerNorm, Linear
 from lip2speech_tpu_torch.ops import nn as ops
 from lip2speech_tpu_torch.ops.rel_attention import rel_attention
+from lip2speech_tpu_torch.parallel.collectives import copy_to_model, row_parallel
 
 
 class RelPositionMultiHeadAttention(nn.Module):
+    """Head-parallel under tensor parallelism (parallel/sharding_rules.py:
+    `tp` set): the rank holds its heads of linear_q/k/v (weights and biases)
+    and pos_bias_u/v, and its columns of linear_out; linear_pos is whole, and
+    the rank takes its heads of its output. The kernel runs on the rank's
+    heads, with the layer's dropout seed offset by the rank's model index."""
+
     def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.dropout = dropout
+        self.tp = None
         self.linear_q = Linear(dim, dim)
         self.linear_k = Linear(dim, dim)
         self.linear_v = Linear(dim, dim)
@@ -51,37 +59,61 @@ class RelPositionMultiHeadAttention(nn.Module):
             self.pos_bias_u.uniform_(-bound, bound, generator=gen)
             self.pos_bias_v.uniform_(-bound, bound, generator=gen)
 
+    def tp_parts(self) -> int:
+        return self.heads
+
     def forward(self, x, pos_emb, mask, seed: int = 0):
         """x (B, T, D); pos_emb (2T-1, D); mask (B, T); seed selects the
         attention-dropout mask in training mode."""
         b, t, d = x.shape
+        tp = self.tp
         h, dk = self.heads, d // self.heads
+        p = self.linear_pos(pos_emb)
+        if tp is not None:
+            h, x = h // tp.size, copy_to_model(x, tp)
+            p = copy_to_model(p, tp).chunk(tp.size, -1)[tp.index]
+            seed = (seed + tp.index) % (2 ** 31 - 1)
         q = self.linear_q(x).reshape(b, t, h, dk)
         heads_first = lambda y: y.transpose(1, 2).contiguous()  # noqa: E731
         q_u = heads_first(q + self.pos_bias_u)
         q_v = heads_first(q + self.pos_bias_v)
         k = heads_first(self.linear_k(x).reshape(b, t, h, dk))
         v = heads_first(self.linear_v(x).reshape(b, t, h, dk))
-        p = heads_first(self.linear_pos(pos_emb).reshape(1, -1, h, dk))[0]
+        p = heads_first(p.reshape(1, -1, h, dk))[0]
         rate = self.dropout if self.training else 0.0
         out = rel_attention(q_u, q_v, k, v, p, mask, dropout_rate=rate, seed=seed)  # (B, H, T, dk)
-        return self.linear_out(out.transpose(1, 2).reshape(b, t, d))
+        out = out.transpose(1, 2).reshape(b, t, h * dk)
+        if tp is None:
+            return self.linear_out(out)
+        return row_parallel(out, self.linear_out, tp)
 
 
 class FeedForward(nn.Module):
-    """Linear -> ReLU -> dropout (training) -> Linear."""
+    """Linear -> ReLU -> dropout (training) -> Linear. Under tensor
+    parallelism the rank holds its hidden units: rows of w_1, columns of
+    w_2."""
 
     def __init__(self, dim: int, hidden: int, dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
         self.w_1 = Linear(dim, hidden)
         self.w_2 = Linear(hidden, dim)
+        self.tp = None
+
+    def tp_parts(self) -> int:
+        return self.w_1.weight.shape[0]
 
     def forward(self, x, gen=None):
-        x = torch.relu(self.w_1(x))
+        tp = self.tp
+        if tp is None:
+            x = torch.relu(self.w_1(x))
+            if self.training:
+                x = ops.dropout(x, self.dropout, gen)
+            return self.w_2(x)
+        x = torch.relu(self.w_1(copy_to_model(x, tp)))
         if self.training:
-            x = ops.dropout(x, self.dropout, gen)
-        return self.w_2(x)
+            x = ops.dropout(x, self.dropout, gen, shard=(-1, tp.index, tp.size))
+        return row_parallel(x, self.w_2, tp)
 
 
 class ConvModule(nn.Module):

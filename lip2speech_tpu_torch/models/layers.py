@@ -101,12 +101,26 @@ class Conv3d(_ConvNd):
         return ops.conv3d(x, self.weight, self.bias, self.stride, self.padding)
 
 
+def _data_group():
+    """The active mesh's data-axis group when it spans more than one rank."""
+    from lip2speech_tpu_torch.parallel.mesh import DATA_AXIS, active_mesh
+
+    mesh = active_mesh()
+    if mesh is None or not mesh.distributed or mesh.shape[DATA_AXIS] == 1:
+        return None
+    return mesh.data_group
+
+
 class BatchNorm(nn.Module):
     """Batch norm over channel dim 1 (eps 1e-5, momentum 0.1), with only the
     running statistics as buffers, as in the JAX tree. In training mode it
     normalises with the batch statistics and updates the buffers in place
     (f32 arithmetic, stored in the buffers' type); in eval mode it reads
-    them."""
+    them. Inside `parallel.use_mesh(mesh)` with a data axis of more than one
+    rank, the batch statistics are those of the whole batch across the data
+    axis (ops.batch_norm_train's group); the model axis, whose ranks hold the
+    same rows, is not reduced over. torch.nn.SyncBatchNorm cannot serve: it
+    refuses CPU tensors and keeps no f32 statistics for bf16 input."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -126,7 +140,8 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         if self.training:
             y, mean, var = ops.batch_norm_train(x, self.running_mean, self.running_var,
-                                                self.weight, self.bias, self.eps, self.momentum)
+                                                self.weight, self.bias, self.eps, self.momentum,
+                                                group=_data_group())
             with torch.no_grad():
                 self.running_mean.copy_(mean)
                 self.running_var.copy_(var)

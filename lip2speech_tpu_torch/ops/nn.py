@@ -51,33 +51,59 @@ def batch_norm(x, mean, var, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
 
 
 def batch_norm_train(x, running_mean, running_var, gamma, beta, eps: float = 1e-5,
-                     momentum: float = 0.1):
+                     momentum: float = 0.1, group=None):
     """Training-mode batch norm over channel dim 1; returns (y, new_mean,
     new_var). The batch statistics and the running update are f32 whatever
     the input type (a bf16 momentum update would round small drifts away);
     the normalisation stays on the input's type. running_var takes the
-    unbiased batch variance, as torch.nn.BatchNorm does."""
+    unbiased batch variance, as torch.nn.BatchNorm does.
+
+    With a process group the statistics are those of the batch of every rank
+    of it, as GSPMD gives the JAX mesh step: the sum, the sum of squares and
+    the count are summed over the group by an all-reduce whose backward sums
+    the gradients too, and the running variance is unbiased over the global
+    count."""
     reduce_dims = [d for d in range(x.ndim) if d != 1]
     n = x.numel() // x.shape[1]
     x32 = x.float()
-    mean = x32.mean(dim=reduce_dims)
-    var = x32.square().mean(dim=reduce_dims) - mean.square()
+    if group is None:
+        mean = x32.mean(dim=reduce_dims)
+        var = x32.square().mean(dim=reduce_dims) - mean.square()
+    else:
+        from lip2speech_tpu_torch.parallel.collectives import all_reduce_sum
+
+        c = x.shape[1]
+        sums = all_reduce_sum(torch.cat([x32.sum(dim=reduce_dims), x32.square().sum(dim=reduce_dims),
+                                         x32.new_full((1,), float(n))]), group)
+        n = sums[-1]                                   # the global count, on the device
+        mean = sums[:c] / n
+        var = sums[c: 2 * c] / n - mean.square()
     shape = (1, -1) + (1,) * (x.ndim - 2)
     scale = (torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
     y = (x - mean.to(x.dtype).reshape(shape)) * scale.reshape(shape) + beta.reshape(shape)
-    unbiased = var * (n / max(n - 1.0, 1.0))
+    unbiased = var * (n / (n - 1.0).clamp(min=1.0) if group is not None else n / max(n - 1.0, 1.0))
     new_mean = (1 - momentum) * running_mean.float() + momentum * mean
     new_var = (1 - momentum) * running_var.float() + momentum * unbiased
     return y, new_mean.detach(), new_var.detach()
 
 
-def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
+            shard: tuple[int, int, int] | None = None) -> torch.Tensor:
     """Inverted dropout whose mask comes from an explicit generator on x's
     device (F.dropout takes none); gen=None draws from the device's default
-    generator."""
+    generator. shard=(dim, index, parts): x is part `index` of `parts`
+    equal slices along dim of a tensor split over the model axis; the mask
+    of the whole tensor is drawn and x's part kept, so the ranks, which share
+    a generator, drop independent units and stay in step."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, device=x.device, generator=gen) >= rate
+    if shard is None:
+        keep = torch.rand(x.shape, device=x.device, generator=gen) >= rate
+    else:
+        dim, index, parts = shard
+        shape = list(x.shape)
+        shape[dim] *= parts
+        keep = (torch.rand(shape, device=x.device, generator=gen) >= rate).chunk(parts, dim)[index]
     return torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0)
 
 

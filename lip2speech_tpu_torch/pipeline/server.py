@@ -140,14 +140,19 @@ class ServerState:
 
     def on_device(self, fn, *args):
         """fn(*args) on the server's device thread: its result, or its
-        exception raised here."""
+        exception raised here. A pipeline with a serving mesh
+        (--data-parallel) hands each call's rows on from there to its
+        replicas' threads, one a device."""
         return self._device_thread.submit(fn, *args).result()
 
     def close(self) -> None:
-        """Stop the batchers and the device thread."""
+        """Stop the batchers, the device thread and the pipelines' replica
+        threads."""
         for b in self.batchers.values():
             b.close()
         self._device_thread.shutdown(wait=True)
+        for p in self.pipelines.values():
+            p.set_mesh(None)
 
     @property
     def pipeline(self) -> Lip2SpeechPipeline:
@@ -904,6 +909,9 @@ def main(argv=None):
                    help="run every serving bucket once before accepting traffic")
     p.add_argument("--streaming-port", type=int, default=0,
                    help="also serve the websocket frame-streaming endpoint")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="split request batches over every local card (a replica "
+                        "of each pipeline a card; with --device, that device)")
     p.add_argument("--default-audio-dir",
                    help="directory of default speaker voices (.npy 256-d "
                         "embeddings / .wav files); served at /audios, "
@@ -939,6 +947,13 @@ def main(argv=None):
                          asr=try_load_asr(args.asr_model, device=args.device),
                          static_dir=args.static_dir)
     state = server.RequestHandlerClass.state
+    if args.data_parallel:
+        from lip2speech_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=None if args.device is None else [args.device])
+        print(f"data-parallel serving over {mesh.shape['data']} devices")
+        for pipeline in pipelines.values():
+            pipeline.set_mesh(mesh)
     if args.warmup:
         print("warming up (serving buckets)...")
         # with the batcher on, device calls come in pow2 group sizes

@@ -13,10 +13,19 @@ and no explicit device it raises. On the card the conformer's attention, the
 AV-HuBERT trunk's attention and the vocoder's <=128-channel resblock trios
 run the hand-written kernels; on the CPU the same modules run their plain
 versions.
+
+Data-parallel serving (`set_mesh`, the JAX pipeline's mesh): one replica of
+the stage-1 model and the vocoder on each device of the mesh's data axis,
+each driven from a persistent thread of its own (cuDNN keeps its plans per
+thread). A batch is padded with zero, fully masked rows to a multiple of the
+axis, each replica takes its contiguous rows, and the rows come back in
+order with the pad rows dropped.
 """
 
 from __future__ import annotations
 
+import copy
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
@@ -43,6 +52,13 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
                                "the plain versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def _bind_thread(dev: torch.device) -> None:
+    """A replica thread launches on its own card (the kernels' launches take
+    the thread's current device)."""
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
 
 
 @dataclass
@@ -75,6 +91,8 @@ class Lip2SpeechPipeline:
         for m in (self.model, self.vocoder):
             m.eval().requires_grad_(False)
             m.to(device=self.device, dtype=compute_dtype)
+        self.mesh = None
+        self._replicas: list[tuple] = []      # (model, vocoder, device, thread) per data index
 
     @classmethod
     def from_jax_variables(cls, cfg: PipelineConfig, s1_variables: dict,
@@ -112,17 +130,39 @@ class Lip2SpeechPipeline:
         init_weights(vocoder, gen)
         return cls(cfg, model.state_dict(), vocoder.state_dict(), **kwargs)
 
+    def set_mesh(self, mesh) -> None:
+        """Serve over `mesh` (parallel.make_mesh over local devices, model
+        axis 1): a copy of both models on each device of its data axis, made
+        here once, with a thread of its own. None goes back to one device."""
+        for *_, thread in self._replicas:
+            thread.shutdown(wait=True)
+        self.mesh, self._replicas = mesh, []
+        if mesh is None:
+            return
+        if mesh.distributed or mesh.shape["model"] != 1:
+            raise ValueError("serving splits batches over a data axis of local devices "
+                             "(make_mesh(devices=...), model=1)")
+        for dev in mesh.devices[:, 0]:
+            models = [copy.deepcopy(m).to(dev) for m in (self.model, self.vocoder)]
+            thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"replica-{dev}",
+                                        initializer=_bind_thread, initargs=(dev,))
+            self._replicas.append((*models, dev, thread))
+
     @torch.inference_mode()
     def forward(self, video: torch.Tensor, frames_mask: torch.Tensor,
                 spk_emb: torch.Tensor):
         """Device tensors in, device tensors out: (wav, units, mel, mask)."""
+        return self._forward(self.model, self.vocoder, video, frames_mask, spk_emb)
+
+    @torch.inference_mode()
+    def _forward(self, model, vocoder, video, frames_mask, spk_emb):
         if self.compute_dtype is not None:
             video, spk_emb = video.to(self.compute_dtype), spk_emb.to(self.compute_dtype)
-        out = self.model(video, frames_mask, spk_emb)
+        out = model(video, frames_mask, spk_emb)
         num_special = self.cfg.model.units.num_special
         units = argmax_units(out["unit_logits"], out["mask"], num_special)
         units = torch.where(out["mask"], units, 0)              # pad-safe codes
-        wav = self.vocoder(units, out["mel"], spk_emb)
+        wav = vocoder(units, out["mel"], spk_emb)
         if self.emit_int16:
             # float -> int16 truncates toward zero, as JAX's astype does
             wav = torch.clamp(wav.float() * 32767.0, -32768, 32767).to(torch.int16)
@@ -147,13 +187,13 @@ class Lip2SpeechPipeline:
                          spk_emb: np.ndarray) -> list[SynthesisResult]:
         """video (B, T, 88, 88, 1) normalised; frames_mask (B, T) bool;
         spk_emb (B, 256). Returns one result per request, cut to its length."""
-        dev = self.device
         frames_mask = np.asarray(frames_mask, bool)
-        wav, units, mel, _ = self.forward(
-            torch.as_tensor(np.asarray(video, np.float32), device=dev),
-            torch.as_tensor(frames_mask, device=dev),
-            torch.as_tensor(np.asarray(spk_emb, np.float32), device=dev))
-        wav, units, mel = (t.cpu().numpy() for t in (wav, units, mel))
+        video, spk_emb = np.asarray(video, np.float32), np.asarray(spk_emb, np.float32)
+        if self.mesh is None:
+            wav, units, mel = self._host_call(self.model, self.vocoder, self.device,
+                                              video, frames_mask, spk_emb)
+        else:
+            wav, units, mel = self._mesh_call(video, frames_mask, spk_emb)
         spf = self.cfg.model.units.mel_per_frame * self.cfg.audio.hop_length
         results = []
         for i in range(frames_mask.shape[0]):
@@ -162,6 +202,33 @@ class Lip2SpeechPipeline:
                 wav=wav[i, : n * spf], units=units[i, : 2 * n].astype(np.int32),
                 mel=mel[i, : 4 * n], sample_rate=self.cfg.audio.sample_rate))
         return results
+
+    def _host_call(self, model, vocoder, dev, video, frames_mask, spk_emb):
+        """Host arrays in, host (wav, units, mel) out, on one device."""
+        wav, units, mel, _ = self._forward(
+            model, vocoder, torch.as_tensor(video, device=dev),
+            torch.as_tensor(frames_mask, device=dev), torch.as_tensor(spk_emb, device=dev))
+        return tuple(t.cpu().numpy() for t in (wav, units, mel))
+
+    def _mesh_call(self, video, frames_mask, spk_emb):
+        """The batch padded with zero, fully masked rows to a multiple of the
+        replicas, each replica's contiguous rows on its thread, the outputs
+        in row order (pad rows included: the caller reads only its rows)."""
+        from lip2speech_tpu_torch.parallel.mesh import shard_batch
+
+        n = len(self._replicas)
+        pad = (-video.shape[0]) % n
+        batch = {"video": video, "frames_mask": frames_mask, "spk_emb": spk_emb}
+        if pad:
+            batch = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+                     for k, v in batch.items()}
+        futures = []
+        for i, (model, vocoder, dev, thread) in enumerate(self._replicas):
+            rows = shard_batch(self.mesh, batch, index=i)
+            futures.append(thread.submit(self._host_call, model, vocoder, dev, rows["video"],
+                                         rows["frames_mask"], rows["spk_emb"]))
+        outs = [f.result() for f in futures]
+        return tuple(np.concatenate(parts) for parts in zip(*outs))
 
     def warmup(self, buckets=(48, 96, 160, 240, 360, 480, 600),
                batch_sizes=(1,)) -> None:

@@ -22,6 +22,14 @@ holds tensors (saved from the CPU), numbers and containers only, and is read
 back with torch.load(weights_only=True); optimizer state returns to the
 device of the state it is restored into. Each file carries
 "format": FORMAT, which tells it apart from a reference checkpoint.
+
+A state spread over a mesh of ranks (TrainState.mesh, GanState.mesh) is
+saved by rank 0 alone, in the single-card layout: the parameters split over
+the model axis, and their optimizer moments, are gathered first (every rank
+takes part), and the others wait at a barrier. Every rank restores from the
+one file and keeps its part. Such a file holds rank 0's noise generators, so
+a one-card resume continues them; a resume over a mesh re-seeds every
+rank's generators from their seeds and the step instead.
 """
 
 from __future__ import annotations
@@ -98,26 +106,79 @@ def set_generator_state(gen: torch.Generator, saved: dict | None) -> None:
         gen.set_state(saved["state"])
 
 
+def _distributed(mesh) -> bool:
+    return mesh is not None and mesh.distributed
+
+
+def _save_on_rank_zero(mesh, path: Path, content: dict) -> Path:
+    """Rank 0 writes; every rank of a mesh waits until it has."""
+    import torch.distributed as dist
+
+    if not _distributed(mesh) or dist.get_rank() == 0:
+        save(path, content)
+    if _distributed(mesh):
+        dist.barrier()
+    return path
+
+
+def reseed(gen: torch.Generator, step: int) -> None:
+    """A fresh, deterministic state for a rank's generator at a resume."""
+    gen.manual_seed((gen.initial_seed() * 1_000_003 + step) % 2 ** 63)
+
+
+def _moments(state, optimizer_sd: dict, fn) -> dict:
+    """optimizer_sd with the moments of the split parameters passed through
+    fn(tensors, dims, mesh) (gather_params or split_params), in the order of
+    the parameters on every rank."""
+    names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+    out = {**optimizer_sd, "state": dict(optimizer_sd["state"])}
+    for i in sorted(out["state"]):
+        if names[i] in state.sharded:
+            dims = {k: state.sharded[names[i]] for k in ("exp_avg", "exp_avg_sq")}
+            out["state"][i] = {**out["state"][i],
+                               **fn({k: out["state"][i][k] for k in dims}, dims, state.mesh)}
+    return out
+
+
 def stage1_content(state) -> dict:
-    """What an s1_ file holds of a TrainState."""
-    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+    """What an s1_ file holds of a TrainState, in the single-card layout
+    (split parameters gathered: every rank of the state's mesh calls it)."""
+    from lip2speech_tpu_torch.parallel.sharding_rules import gather_params
+
+    model_sd, optimizer_sd = state.model.state_dict(), state.optimizer.state_dict()
+    if state.sharded:
+        model_sd = gather_params(model_sd, state.sharded, state.mesh)
+        optimizer_sd = _moments(state, optimizer_sd, gather_params)
+    return {"model": model_sd, "optimizer": optimizer_sd,
             "step": state.step, "gen": generator_state(state.gen),
             "seed_gen": generator_state(state.seed_gen)}
 
 
 def save_stage1(ckpt_dir: str | Path, state, step: int) -> Path:
-    return save(Path(ckpt_dir) / f"s1_{step:08d}.pt", stage1_content(state))
+    return _save_on_rank_zero(state.mesh, Path(ckpt_dir) / f"s1_{step:08d}.pt",
+                              stage1_content(state))
 
 
 def load_stage1(path: str | Path, state):
-    """Load one s1_* file into `state` (in place; returns it). The noise
-    generators are set where the file holds states of their kinds."""
+    """Load one s1_* file into `state` (in place; returns it), each rank of
+    a mesh its part. The noise generators are set where the file holds
+    states of their kinds, or re-seeded over a mesh."""
+    from lip2speech_tpu_torch.parallel.sharding_rules import split_params
+
     ck = load(path)
-    state.model.load_state_dict(ck["model"], strict=True)
-    state.optimizer.load_state_dict(ck["optimizer"])
+    model_sd, optimizer_sd = ck["model"], ck["optimizer"]
+    if state.sharded:
+        model_sd = split_params(model_sd, state.sharded, state.mesh)
+        optimizer_sd = _moments(state, optimizer_sd, split_params)
+    state.model.load_state_dict(model_sd, strict=True)
+    state.optimizer.load_state_dict(optimizer_sd)
     state.step = int(ck["step"])
-    set_generator_state(state.gen, ck.get("gen"))
-    set_generator_state(state.seed_gen, ck.get("seed_gen"))
+    if _distributed(state.mesh):
+        reseed(state.gen, state.step)
+        reseed(state.seed_gen, state.step)
+    else:
+        set_generator_state(state.gen, ck.get("gen"))
+        set_generator_state(state.seed_gen, ck.get("seed_gen"))
     return state
 
 
@@ -133,8 +194,9 @@ def restore_stage1(ckpt_dir: str | Path, state):
 
 def save_stage2(ckpt_dir: str | Path, state, step: int) -> tuple[Path, Path]:
     """g_* holds the generator only; do_* the rest (the reference's split)."""
-    g_path = save(Path(ckpt_dir) / f"g_{step:08d}", {"generator": state.generator.state_dict()})
-    do_path = save(Path(ckpt_dir) / f"do_{step:08d}", {
+    g_path = _save_on_rank_zero(state.mesh, Path(ckpt_dir) / f"g_{step:08d}",
+                                {"generator": state.generator.state_dict()})
+    do_path = _save_on_rank_zero(state.mesh, Path(ckpt_dir) / f"do_{step:08d}", {
         "mpd": state.mpd.state_dict(), "msd": state.msd.state_dict(),
         "gen_opt": state.gen_opt.state_dict(), "disc_opt": state.disc_opt.state_dict(),
         "step": state.step, "epoch": state.epoch, "rng": generator_state(state.rng)})
@@ -157,5 +219,8 @@ def restore_stage2(ckpt_dir: str | Path, state):
     state.gen_opt.load_state_dict(do["gen_opt"])
     state.disc_opt.load_state_dict(do["disc_opt"])
     state.step, state.epoch = int(do["step"]), int(do["epoch"])
-    set_generator_state(state.rng, do.get("rng"))
+    if _distributed(state.mesh):
+        reseed(state.rng, state.step)
+    else:
+        set_generator_state(state.rng, do.get("rng"))
     return state, _step_of(g_path)

@@ -15,13 +15,25 @@ back f32; BatchNorm statistics, losses and the optimizer stay f32.
 The entry points run on the card unless the caller passes device="cpu", and
 raise without one. On the card the conformer's attention runs the
 hand-written forward and backward kernels with dropout inside them. The
-state is updated in place. Single device: no mesh.
+state is updated in place.
+
+With a mesh of ranks (parallel/mesh.py) the step is the JAX mesh step's
+arithmetic: each rank takes its rows of every micro-batch (the data axis)
+and, over the model axis, its heads and FFN units (parallel/sharding_rules.py);
+BatchNorm takes its statistics over the data axis; after the last
+micro-batch the gradients and the sample size are summed over the data axis
+(bucketed all-reduces of the flat gradients, once an update), and the
+gradients are divided by the global sample size; the clip norm and the logs
+are global. Each data index draws its own noise (seed + data index), which
+its model-axis ranks share. Without a mesh the step is the single-card one,
+unchanged.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -32,6 +44,9 @@ from lip2speech_tpu_torch.data.transforms import UINT8_FILL
 from lip2speech_tpu_torch.models.layers import init_weights
 from lip2speech_tpu_torch.models.multi_target import MultiTargetModel
 from lip2speech_tpu_torch.ops.nn import dequantize_video
+from lip2speech_tpu_torch.parallel.collectives import all_reduce_flat
+from lip2speech_tpu_torch.parallel.mesh import Mesh, require_ranks, shard_batch, use_mesh
+from lip2speech_tpu_torch.parallel.sharding_rules import shard_params
 from lip2speech_tpu_torch.pipeline.synthesise import resolve_device
 from lip2speech_tpu_torch.train.losses import label_smoothed_ce, stage1_loss, unit_accuracy
 
@@ -43,6 +58,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     gen: torch.Generator               # source of the training noise, on the model's device
     seed_gen: torch.Generator          # on the CPU: the attention-dropout seeds the kernels take
+    mesh: Mesh | None = None           # the ranks the state is spread over
+    sharded: dict[str, int] = field(default_factory=dict)   # parameter -> dim split over 'model'
 
     @property
     def device(self) -> torch.device:
@@ -86,11 +103,15 @@ def make_optimizer(cfg: Stage1TrainConfig, model: MultiTargetModel,
 
 def create_train_state(cfg: PipelineConfig, seed: int | None = None,
                        device: str | torch.device | None = None,
-                       state_dict: dict[str, torch.Tensor] | None = None) -> TrainState:
+                       state_dict: dict[str, torch.Tensor] | None = None,
+                       mesh: Mesh | None = None) -> TrainState:
     """Model, optimizer and noise generator on `device` (None: the card).
-    Weights come from state_dict (loaded strict) or, without one, from a
-    torch.Generator seeded with `seed` (default cfg.stage1.seed) on the CPU,
-    so a seed gives the same weights on every machine."""
+    Weights come from state_dict (loaded strict, in the single-card layout)
+    or, without one, from a torch.Generator seeded with `seed` (default
+    cfg.stage1.seed) on the CPU, so a seed gives the same weights on every
+    machine. With a mesh of ranks each rank keeps its part of the split
+    parameters, and its noise generators are seeded with seed + its data
+    index."""
     dev = resolve_device(device)
     seed = cfg.stage1.seed if seed is None else seed
     model = MultiTargetModel(cfg.model)
@@ -98,11 +119,16 @@ def create_train_state(cfg: PipelineConfig, seed: int | None = None,
         init_weights(model, torch.Generator().manual_seed(seed))
     else:
         model.load_state_dict(state_dict, strict=True)
+    sharded = {}
+    if mesh is not None:
+        sharded = shard_params(model, mesh)
+        seed += mesh.data_index
     model.to(dev).train()
     optimizer = make_optimizer(cfg.stage1, model, cfg.model.frontend.frozen)
     gen = torch.Generator(device=dev).manual_seed(seed)
     seed_gen = torch.Generator().manual_seed(seed)
-    return TrainState(step=0, model=model, optimizer=optimizer, gen=gen, seed_gen=seed_gen)
+    return TrainState(step=0, model=model, optimizer=optimizer, gen=gen, seed_gen=seed_gen,
+                      mesh=mesh, sharded=sharded)
 
 
 def _to_device(micro: dict, dev: torch.device) -> dict:
@@ -125,14 +151,34 @@ def _forward(model, micro: dict, bf16: bool, gen, seed_gen) -> dict:
     return {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in out.items()}
 
 
-def make_train_step(cfg: PipelineConfig):
+def _global_norm(state: TrainState, params, grads) -> torch.Tensor:
+    """The 2-norm of the whole gradient: with parameters split over the model
+    axis, the squares of the split ones are summed over it and the
+    replicated ones, which every rank holds whole, counted once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if not state.sharded:
+        return torch.linalg.vector_norm(norms)
+    import torch.distributed as dist
+
+    names = {p: n for n, p in state.model.named_parameters()}
+    split = torch.tensor([names[p] in state.sharded for p in params], device=norms.device)
+    squares = norms.square()
+    split_sum = squares[split].sum()
+    dist.all_reduce(split_sum, group=state.mesh.model_group)
+    return (split_sum + squares[~split].sum()).sqrt()
+
+
+def make_train_step(cfg: PipelineConfig, mesh: Mesh | None = None):
     """Returns train_step(state, batch) -> (state, logs). batch leaves are
     numpy arrays or tensors of shape (accum, micro_batch, ...): video (uint8
     wire format or normalised float), frames_mask, spk_emb, unit_tokens, mel,
     optionally text_labels / text_lengths. logs are 0-d tensors on the
     state's device: the sums over the accumulation axis of stage1_loss's
     logs, plus sample_size and the grad_norm of the divided gradients (before
-    clipping). state is updated in place."""
+    clipping). state is updated in place. With a mesh of ranks every rank
+    passes the same (global) batch and takes its rows; the micro-batch must
+    divide the data axis, and the logs are those of the global batch."""
+    require_ranks(mesh)
     s1 = cfg.stage1
     pad_id = cfg.model.units.pad
     rate = lr_schedule(s1)
@@ -142,26 +188,31 @@ def make_train_step(cfg: PipelineConfig):
         params = trained_parameters(model)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
+        if mesh is not None:
+            batch = shard_batch(mesh, batch, axis=1)
         accum = batch["video"].shape[0]
         ss_sum = torch.zeros((), device=dev)
         log_sums: dict[str, torch.Tensor] = {}
-        for i in range(accum):
-            micro = _to_device({k: v[i] for k, v in batch.items()}, dev)
-            outputs = _forward(model, micro, s1.bf16_compute, state.gen, state.seed_gen)
-            loss, sample_size, logs = stage1_loss(
-                outputs, micro, pad_id, label_smoothing=s1.label_smoothing,
-                mel_weight=s1.mel_weight, text_weight=s1.text_weight,
-                sentence_avg=s1.sentence_avg)
-            loss.backward()                       # sums into .grad over micro-batches
-            ss_sum = ss_sum + sample_size
-            for k, v in logs.items():
-                log_sums[k] = log_sums.get(k, 0) + v.detach()
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            for i in range(accum):
+                micro = _to_device({k: v[i] for k, v in batch.items()}, dev)
+                outputs = _forward(model, micro, s1.bf16_compute, state.gen, state.seed_gen)
+                loss, sample_size, logs = stage1_loss(
+                    outputs, micro, pad_id, label_smoothing=s1.label_smoothing,
+                    mel_weight=s1.mel_weight, text_weight=s1.text_weight,
+                    sentence_avg=s1.sentence_avg)
+                loss.backward()                       # sums into .grad over micro-batches
+                ss_sum = ss_sum + sample_size
+                for k, v in logs.items():
+                    log_sums[k] = log_sums.get(k, 0) + v.detach()
         # gradients of the summed loss over the total sample size, then the clip
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         for p, g in zip(params, grads):
             p.grad = g
+        if mesh is not None:                      # sums over the data axis, once an update
+            all_reduce_flat([ss_sum, *log_sums.values(), *grads], mesh.data_group)
         torch._foreach_div_(grads, ss_sum.clamp(min=1.0))
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        grad_norm = _global_norm(state, params, grads)
         clip = torch.where(grad_norm < s1.clip_norm, 1.0, s1.clip_norm / grad_norm)
         torch._foreach_mul_(grads, clip)
         for group in state.optimizer.param_groups:
