@@ -149,6 +149,35 @@ Phases, in order; any failure exits non-zero before the last line:
      the n-best equals the CPU search's (printed, not gated). Then infer_asr
      in both modes on 4 synthetic clips, hypo.json against the direct decode
      of the same batch on the card. Prints one "asr" JSON line.
+ 21. multi-GPU on the one card (parallel/, the data- and tensor-parallel
+     steps, data-parallel serving), f32 with TF32 off and cuDNN's
+     deterministic algorithms, dropout 0: at world
+     size 1 over NCCL in this process, the data-parallel stage-1 step of
+     multi_target at 4 x 600 x 2 and the GAN step at 16 x 8,960 against
+     the single-card steps on the same state and batch (bit for bit, or,
+     where the card does not repeat the single-card step bit for bit
+     itself, shown by a twin run, within the limits below), exact launches (rel_attention and rel_attention_bwd 24 a
+     step, the trio 4), p50 of 3 each; a one-device serving mesh against
+     the plain call (PCM16 equal). Then two ranks sharing the card over
+     gloo (FileStore, CUDA tensors), against the single-process steps:
+     DP2 (2 + 2 rows), DP1 x TP2 (4 heads a rank) and a TP2 step of
+     multi_target_avhubert at 1 x 240 (attention 24 launches a rank on 8
+     heads, rel_attention 12), then the GAN step with 8 + 8 rows; gradients
+     by name within 1e-4 of the step's largest element and in the 2-norm
+     of the whole gradient's (phase 13's pair: ReLU gates within rounding
+     of 0 flip between batch sizes), or within ten times the worst that a
+     twin of the single-card step from weights one ulp away reads (phase
+     13's rule), BatchNorm
+     statistics or u within 1e-5 of max(1, |ref|) (a running mean also
+     of its running variance's square root), logs within 1e-5
+     (MULTI_TOL); the GAN's gradients by phase 17's GAN_CHECK_TOL (2e-4 /
+     1e-5 of the generator's / discriminators' largest element); exact
+     launches a rank; the TP2 state's
+     s1_ file (rank 0, single-card layout) read into a one-card state; step
+     p50s, the gradient all-reduce's ms an update and peak memory a rank,
+     labelled one card shared. Then serving on two replicas of cuda:0, bf16
+     B4 x 240 ragged and f32 B1 x 96 (a pad row): PCM16 within 1 step of
+     the plain call, p50 beside it. Prints one "multi_gpu" JSON line.
 Kernel times are device time (CUDA events, host enqueue hidden behind a
 device sleep). Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -3157,6 +3186,482 @@ def phase_asr(counters: dict) -> dict:
     return launches
 
 
+MULTI_TIMEOUT_S = 300.0        # seconds a collective of phase 21 may wait
+MULTI_TOL = {"grads": 1e-4,    # stage 1: of the step's largest element, and in the 2-norm
+                               # of the whole gradient's (phase 13's pair)
+             "stats": 1e-5,    # of max(1, each tensor's max |ref|): BatchNorm statistics, u
+             "logs": 1e-5}     # relative
+MULTI_SHAPES = {"multi_target": (2, 4, 600), "multi_target_avhubert": (1, 1, 240)}  # accum, B, T
+MULTI_SERVING = ((torch.bfloat16, 4, 240, MAIN_LENS), (None, 1, 96, (96,)))   # dtype, B, T, lens
+
+
+def kernel_counters() -> dict:
+    """Kernel name -> the wrapper whose .launches counts its launches."""
+    from lip2speech_tpu_torch.ops import attention as att
+    from lip2speech_tpu_torch.ops import fused_tail as ft
+    from lip2speech_tpu_torch.ops import rel_attention as ra
+
+    return {"rel_attention": ra.rel_attention_kernel,
+            "rel_attention_bwd": ra.rel_attention_bwd_kernel,
+            "rel_attention_bias": ra.rel_attention_bias_kernel,
+            "rel_attention_bias_bwd": ra.rel_attention_bias_bwd_kernel,
+            "attention": att.attention_kernel,
+            "fused_resblock_trio": ft.fused_resblock_trio_kernel}
+
+
+def multi_cfg(preset, name: str):
+    """Phase 21's stage-1 configuration of a preset: f32 (bf16_compute off,
+    as train_stage1 runs it), dropout 0, the first update at rate 0 (so
+    Adam's first moment is (1 - b1) x the gradient), the accumulation of
+    MULTI_SHAPES."""
+    base = preset(name)
+    conf = dataclasses.replace(base.model.conformer, dropout=0.0, attention_dropout=0.0)
+    return dataclasses.replace(
+        base, model=dataclasses.replace(base.model, conformer=conf, final_dropout=0.0),
+        stage1=dataclasses.replace(base.stage1, warmup_updates=2, max_updates=10,
+                                   update_freq=MULTI_SHAPES[name][0], bf16_compute=False))
+
+
+def multi_expected(cfg, name: str) -> dict:
+    accum = MULTI_SHAPES[name][0]
+    layers = cfg.model.conformer.layers
+    out = {"rel_attention": layers * accum, "rel_attention_bwd": layers * accum}
+    if name == "multi_target_avhubert":
+        out["attention"] = cfg.model.frontend.encoder_layers * accum
+    return out
+
+
+def stage1_reading(state, logs: dict) -> dict:
+    """The update's gradients by name (Adam's first moments over 1 - b1,
+    after the first update), in the single-card layout (every rank of a
+    mesh gathers), the BatchNorm statistics and the logs; on the CPU."""
+    from lip2speech_tpu_torch.train import checkpoint
+
+    content = checkpoint.stage1_content(state)
+    names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+    b1 = state.optimizer.param_groups[0]["betas"][0]
+    grads = {names[i]: (s["exp_avg"] / (1 - b1)).cpu()
+             for i, s in content["optimizer"]["state"].items()}
+    stats = {k: v.cpu().clone() for k, v in content["model"].items() if "running" in k}
+    return {"grads": grads, "stats": stats, "logs": logs}
+
+
+def gan_reading(state, logs: dict) -> dict:
+    """The first GAN step's gradients by name (first moments over 1 - b1),
+    the spectral u and the logs; on the CPU."""
+    grads = {}
+    for opt, mods in ((state.gen_opt, {"generator": state.generator}),
+                      (state.disc_opt, {"mpd": state.mpd, "msd": state.msd})):
+        b1 = opt.param_groups[0]["betas"][0]
+        for pre, m in mods.items():
+            grads.update({f"{pre}.{n}": (opt.state[p]["exp_avg"] / (1 - b1)).cpu()
+                          for n, p in m.named_parameters()})
+    return {"grads": grads, "stats": {k: v.cpu().clone() for k, v in state.msd.named_buffers()},
+            "logs": logs}
+
+
+def multi_errors(got: dict, ref: dict, what: str, gan: bool = False) -> dict:
+    """The worst error of each kind against the single-process reference,
+    each over its scale and as a share of its limit (fails over 1):
+    - stage 1's gradients, as phase 13 holds the card to the CPU: each
+      tensor's largest error over the step's largest gradient element, and
+      its error's 2-norm over the whole gradient's 2-norm (grad_shares),
+      limit MULTI_TOL["grads"], or ten times the worst the reference's ulp
+      twin reads if more (phase 13's rule). Per tensor over its own max |ref| would
+      not do: the model is piecewise linear, and a ReLU input within
+      rounding of 0 gates one way on one side and the other way on the
+      other (the ranks' other batch sizes take other cuBLAS and cuDNN
+      algorithms), so one position's share moves in the weights behind it;
+      a gradient that is zero in exact arithmetic (the bias in front of a
+      BatchNorm) is noise on both sides; and the frontend's conv weight
+      gradients sum ~10^7 products in f32 in an order the batch size picks;
+    - the GAN's: over its side's largest element (generator, or the
+      discriminators), limits GAN_CHECK_TOL as phase 17's;
+    - statistics (running mean and variance, u): over max(1, the tensor's
+      max |ref|), a running mean's also over the square root of its layer's
+      running variance if more (a batch mean rounds at the size of the
+      values it sums), limit MULTI_TOL["stats"];
+    - logs: relative, limit MULTI_TOL["logs"]."""
+    grads = ref["grads"]
+    side = (lambda k: "disc" if k.startswith(("mpd.", "msd.")) else "generator") if gan else (
+        lambda k: "step")
+    top: dict = {}
+    for k, g in grads.items():
+        top[side(k)] = max(top.get(side(k), 0.0), float(g.abs().max()))
+    stage1 = {} if gan else grad_shares(got["grads"], grads)
+    worst = {}
+    for kind in ("grads", "stats", "logs"):
+        if set(got[kind]) != set(ref[kind]):
+            fail(f"{what}: {kind} by name differ: {sorted(set(got[kind]) ^ set(ref[kind]))[:5]}")
+        share = {}
+        for k, r in ref[kind].items():
+            if kind == "logs":
+                share[k] = abs(got[kind][k] - r) / max(abs(r), 1e-30) / MULTI_TOL["logs"]
+                continue
+            diff = got[kind][k] - r
+            if kind == "grads" and gan:
+                share[k] = float(diff.abs().max()) / top[side(k)] / GAN_CHECK_TOL[side(k)]
+            elif kind == "grads":
+                # within the limit, or within ten times what rounding alone moves the
+                # gradient anywhere (phase 13's rule: a gate flips where rounding puts it)
+                share[k] = stage1[k] / max(1.0, 10 * max(ref["ulp_twin"].values()))
+            else:
+                var = ref[kind].get(k.replace("running_mean", "running_var"))
+                scale = max(float(r.abs().max()), 1.0, math.sqrt(float(var.max())) if k.endswith(
+                    "running_mean") and var is not None else 0.0)
+                share[k] = float(diff.abs().max()) / scale / MULTI_TOL["stats"]
+        at = max(share, key=share.get)
+        worst[kind] = {"share_of_limit": share[at], "at": at}
+        if kind == "grads":
+            for k in sorted(share, key=share.get)[-3:]:
+                print(f"{what}: gradient {k}: {share[k]:.3f} of the limit ("
+                      f"{stage1.get(k, share[k]):.3f} of MULTI_TOL); its max |ref| "
+                      f"{float(grads[k].abs().max()) / top[side(k)]:.2e} of the largest", flush=True)
+    print(f"{what}: against the single-process step, worst share of the limit {worst}", flush=True)
+    if any(w["share_of_limit"] > 1.0 for w in worst.values()):
+        fail(f"{what}: over the limit against the single-process step")
+    return worst
+
+
+def grad_shares(got: dict, ref: dict) -> dict:
+    """Each stage-1 gradient's error as a share of MULTI_TOL["grads"]: the
+    larger of its largest error over the step's largest element and its
+    error's 2-norm over the whole gradient's 2-norm (phase 13's pair)."""
+    top = max(float(g.abs().max()) for g in ref.values())
+    norm = math.sqrt(sum(float(g.double().square().sum()) for g in ref.values()))
+    return {k: max(float((got[k] - r).abs().max()) / top,
+                   float((got[k] - r).double().norm()) / norm) / MULTI_TOL["grads"]
+            for k, r in ref.items()}
+
+
+def ulp_twin(s1, cfg, counters, batch, expected, ref: dict, what: str) -> dict:
+    """The yardstick of rounding (phase 13's twin): the single-card step
+    from weights moved by about one unit in the last place (times 1 + 1e-7
+    x normal noise), its gradients' shares of the limit against the
+    reference's, by name."""
+    state = s1.create_train_state(cfg, seed=0)
+    noise = torch.Generator(device=state.device).manual_seed(7)
+    with torch.no_grad():
+        for p in s1.trained_parameters(state.model):
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, device=p.device, generator=noise))
+    _, twin, _ = counted_steps(counters, s1.make_train_step(cfg), state, batch, expected,
+                               f"{what} ulp twin", 1)
+    shares = grad_shares(twin["grads"], ref["grads"])
+    at = max(shares, key=shares.get)
+    print(f"{what} ulp twin: its gradients against the step's, worst {shares[at]:.3f} of the "
+          f"limit at {at}", flush=True)
+    return shares
+
+
+def counted_steps(counters, step, state, batch, expected, what, n: int, gan: bool = False):
+    """n counted steps (exact launches each); returns (first logs, reading
+    after the first, step ms)."""
+    counted = counted_gan_step if gan else counted_step
+    times, reading, logs = [], None, None
+    for i in range(n):
+        out = counted(counters, step, state, batch, expected, f"{what} step {i + 1}")
+        times.append(out[1])
+        if i == 0:
+            logs = out[0]
+            reading = gan_reading(state, logs) if gan else stage1_reading(state, logs)
+    return logs, reading, times
+
+
+def local_heads(model) -> dict:
+    """Heads a rank holds of the first attention block of each kind."""
+    heads = {}
+    for m in model.modules():
+        if hasattr(m, "tp_parts") and hasattr(m, "heads"):
+            heads.setdefault(type(m).__name__, m.heads // (m.tp.size if m.tp else 1))
+    return heads
+
+
+def all_reduce_ms(params, mesh, calls: int = 3) -> float:
+    """Milliseconds of one update's gradient all-reduce (all_reduce_flat of
+    tensors shaped as the trained parameters over the data group)."""
+    from lip2speech_tpu_torch.parallel.collectives import all_reduce_flat
+
+    grads = [torch.zeros_like(p) for p in params]
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        all_reduce_flat(grads, mesh.data_group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def multi_rank(rank: int, world: int, tmp: str) -> None:
+    """One of phase 21's two ranks on the one card (gloo over a FileStore in
+    tmp, CUDA tensors): the DP2 stage-1 step (2 + 2 rows), DP1 x TP2 of the
+    same step (4 heads a rank), a TP2 step of the flagship (its AV-HuBERT
+    encoder 8 heads a rank) and the DP2 GAN step (8 + 8 rows), each with
+    exact launches, against the single-process references the parent left
+    in tmp. Writes its readings to tmp/rank<r>.pt; rank 0 also writes the
+    TP2 state as an s1_ file for the parent to read on one card."""
+    sys.path.insert(0, str(REPO))
+    from lip2speech_tpu_torch.core.config import preset
+    from lip2speech_tpu_torch.parallel import multihost
+    from lip2speech_tpu_torch.parallel.mesh import make_mesh
+    from lip2speech_tpu_torch.train import checkpoint
+    from lip2speech_tpu_torch.train import stage1 as s1
+    from lip2speech_tpu_torch.train import stage2 as s2
+
+    set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    multihost.initialize(init_method=f"file://{tmp}/gloo", num_processes=world, process_id=rank,
+                         backend="gloo", device=torch.device("cuda", 0), timeout=MULTI_TIMEOUT_S)
+    counters = kernel_counters()
+    ref = torch.load(Path(tmp) / "reference.pt", weights_only=False)
+    read = {}
+    for name, (data, model), preset_name, n in (
+            ("dp2", (2, 1), "multi_target", 3), ("tp2", (1, 2), "multi_target", 2),
+            ("flagship_tp2", (1, 2), "multi_target_avhubert", 1)):
+        cfg = multi_cfg(preset, preset_name)
+        accum, b, frames = MULTI_SHAPES[preset_name]
+        mesh = make_mesh(data=data, model=model)
+        torch.cuda.reset_peak_memory_stats()
+        state = s1.create_train_state(cfg, seed=0, mesh=mesh)
+        step = s1.make_train_step(cfg, mesh)
+        what = (f"phase 21 rank {rank} {name} {preset_name} {b}x{frames}x{accum} f32 "
+                f"(one card shared by two ranks)")
+        _, got, times = counted_steps(counters, step, state, train_batch(cfg, accum, b, frames, 0),
+                                      multi_expected(cfg, preset_name), what, n)
+        read[name] = {"step_ms": times, "heads": local_heads(state.model),
+                      "launches": multi_expected(cfg, preset_name),
+                      "errors": multi_errors(got, ref[preset_name], what),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if name == "dp2":
+            read[name]["all_reduce_ms"] = all_reduce_ms(s1.trained_parameters(state.model), mesh)
+        if name == "tp2":
+            checkpoint.save_stage1(tmp, state, state.step)
+        del state, step
+        torch.cuda.empty_cache()
+    cfg = preset("multi_target")
+    mesh = make_mesh(data=2)
+    torch.cuda.reset_peak_memory_stats()
+    state = s2.create_gan_state(cfg, seed=0, mesh=mesh)
+    state.generator.code_dropout = 0.0
+    step = s2.make_gan_step(cfg, mesh)
+    what = (f"phase 21 rank {rank} GAN dp2 {cfg.stage2.batch_size}x{cfg.vocoder.segment_size} "
+            f"f32 (one card shared)")
+    _, got, times = counted_steps(counters, step, state,
+                                  gan_batch(cfg, cfg.stage2.batch_size, seed=0),
+                                  {"fused_resblock_trio": n_trio_stages(cfg.vocoder)}, what, 3,
+                                  gan=True)
+    read["gan_dp2"] = {"step_ms": times, "errors": multi_errors(got, ref["gan"], what, gan=True),
+                       "launches": {"fused_resblock_trio": n_trio_stages(cfg.vocoder)},
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "all_reduce_ms": all_reduce_ms(list(state.generator.parameters()), mesh)}
+    torch.save(read, Path(tmp) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def phase_multi_gpu(counters: dict, preset) -> dict:
+    """Phase 21: the parallel layer on the one card, f32, TF32 off
+    everywhere and cuDNN's deterministic algorithms (the comparisons hold
+    the same f32 paths on both sides: with cuDNN free to choose, the
+    single-card step repeated on the card differed from itself by up to
+    1.1e-4 of a conv weight gradient's max |ref|), random weights from
+    seed 0, dropout 0.
+
+    1. NCCL at world size 1, in this process: the data-parallel stage-1 step
+       of multi_target at 4 x 600 x 2 against the single-card step on the
+       same state and batch (equal_runs: bit for bit, or as a twin of the
+       single-card step is), exact launches,
+       p50 of 3 steps each; the same for the GAN step at 16 x 8,960 (the
+       generator's dropout off); a one-device serving mesh against the
+       plain call (PCM16 equal). The single-card first steps, and one of the
+       flagship at 1 x 240, are the references of 2.
+    2. Two ranks sharing the card over gloo (multi_rank): DP2, DP1 x TP2,
+       the flagship's TP2 and the GAN's DP2, each within MULTI_TOL of its
+       reference, exact launches a rank; the TP2 state's s1_ file, written
+       by rank 0 in the single-card layout, read into a one-card state.
+    3. Serving on a mesh of two replicas of cuda:0: bf16 at B4 x 240 ragged
+       and f32 at B1 x 96 (a pad row), PCM16 within 1 step of the plain
+       call, p50 beside it.
+    Shared-card times are not scaling: two ranks take turns on one card."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from lip2speech_tpu_torch.parallel import multihost
+    from lip2speech_tpu_torch.parallel.mesh import make_mesh
+    from lip2speech_tpu_torch.pipeline import synthesise as syn
+    from lip2speech_tpu_torch.train import checkpoint
+    from lip2speech_tpu_torch.train import stage1 as s1
+    from lip2speech_tpu_torch.train import stage2 as s2
+
+    t_phase = time.perf_counter()
+    set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    read: dict = {}
+    reference: dict = {}
+    with tempfile.TemporaryDirectory(prefix="l2s_phase21_") as tmp:
+        multihost.initialize(init_method=f"file://{tmp}/nccl", num_processes=1, process_id=0,
+                             device=torch.device("cuda", 0), timeout=MULTI_TIMEOUT_S)
+        try:
+            mesh = make_mesh(data=1)
+            print(f"phase 21: NCCL at world size 1, backend {dist.get_backend()}, mesh "
+                  f"{mesh.shape}", flush=True)
+            cfg = multi_cfg(preset, "multi_target")
+            accum, b, frames = MULTI_SHAPES["multi_target"]
+            batch = train_batch(cfg, accum, b, frames, seed=0)
+            expected = multi_expected(cfg, "multi_target")
+            runs = {}
+            for kind, m in (("plain", None), ("twin", None), ("nccl", mesh)):
+                state = s1.create_train_state(cfg, seed=0, mesh=m)
+                what = f"phase 21 {kind} multi_target {b}x{frames}x{accum} f32"
+                logs, reading, times = counted_steps(counters, s1.make_train_step(cfg, m), state,
+                                                     batch, expected, what, 1)
+                runs[kind] = (state, reading, times)
+            reference["multi_target"] = runs["plain"][1]
+            reference["multi_target"]["ulp_twin"] = ulp_twin(
+                s1, cfg, counters, batch, expected, runs["plain"][1],
+                f"phase 21 plain multi_target {b}x{frames}x{accum} f32")
+            read["nccl_stage1"] = equal_runs(runs, "stage 1")
+            for kind, m in (("plain", None), ("nccl", mesh)):
+                state, _, times = runs[kind]
+                times += [counted_step(counters, s1.make_train_step(cfg, m), state, batch, expected,
+                                       f"phase 21 {kind} multi_target step {i}")[1] for i in (2, 3)]
+                read["nccl_stage1"][f"{kind}_p50_ms"] = float(np.median(times))
+            del runs, state
+            torch.cuda.empty_cache()
+            gcfg = preset("multi_target")
+            gbatch = gan_batch(gcfg, gcfg.stage2.batch_size, seed=0)
+            trio = {"fused_resblock_trio": n_trio_stages(gcfg.vocoder)}
+            runs = {}
+            for kind, m, n in (("plain", None, 3), ("twin", None, 1), ("nccl", mesh, 3)):
+                state = s2.create_gan_state(gcfg, seed=0, mesh=m)
+                state.generator.code_dropout = 0.0
+                _, reading, times = counted_steps(
+                    counters, s2.make_gan_step(gcfg, m), state, gbatch, trio,
+                    f"phase 21 {kind} GAN {gcfg.stage2.batch_size}x{gcfg.vocoder.segment_size} f32",
+                    n, gan=True)
+                runs[kind] = (state, reading, times)
+            reference["gan"] = runs["plain"][1]
+            read["nccl_gan"] = equal_runs(runs, "GAN", gan=True)
+            for kind in ("plain", "nccl"):
+                read["nccl_gan"][f"{kind}_p50_ms"] = float(np.median(runs[kind][2]))
+            del runs, state
+            torch.cuda.empty_cache()
+            pipe = syn.Lip2SpeechPipeline.initialize_random(gcfg, emit_int16=True)
+            req = request(gcfg, 1, 96, [96], seed=21)
+            plain = pipe.synthesise_batch(*req)
+            pipe.set_mesh(make_mesh(devices=["cuda:0"]))
+            meshed = pipe.synthesise_batch(*req)
+            pipe.set_mesh(None)
+            diff = max(pcm_diff(a.wav, c.wav) for a, c in zip(plain, meshed))
+            print(f"phase 21 serving on a one-device mesh f32 B1x96: PCM16 max difference {diff} "
+                  f"from the plain call", flush=True)
+            if diff != 0 or not all(np.array_equal(a.units, c.units) for a, c in zip(plain, meshed)):
+                fail("phase 21: a one-device serving mesh differs from the plain call")
+            del pipe
+        finally:
+            dist.destroy_process_group()
+        fcfg = multi_cfg(preset, "multi_target_avhubert")
+        accum, b, frames = MULTI_SHAPES["multi_target_avhubert"]
+        state = s1.create_train_state(fcfg, seed=0)
+        fbatch, fexpected = train_batch(fcfg, accum, b, frames, 0), multi_expected(
+            fcfg, "multi_target_avhubert")
+        what = f"phase 21 plain multi_target_avhubert {b}x{frames}x{accum} f32"
+        _, flagship, _ = counted_steps(counters, s1.make_train_step(fcfg), state, fbatch,
+                                       fexpected, what, 1)
+        del state
+        flagship["ulp_twin"] = ulp_twin(s1, fcfg, counters, fbatch, fexpected, flagship, what)
+        reference["multi_target_avhubert"] = flagship
+        torch.cuda.empty_cache()
+        torch.save(reference, Path(tmp) / "reference.pt")
+        t_ranks = time.perf_counter()
+        mp.start_processes(multi_rank, args=(2, tmp), nprocs=2, join=True, start_method="spawn")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        print(f"phase 21: two ranks on one card over gloo took {time.perf_counter() - t_ranks:.1f} s "
+              f"(processes, init, four runs)", flush=True)
+        one_card, update = checkpoint.restore_stage1(tmp, s1.create_train_state(cfg, seed=0))
+        tp2_steps = len(ranks[0]["tp2"]["step_ms"])
+        print(f"phase 21: rank 0's TP2 s1_ file restored into a one-card state as --resume "
+              f"does, at update {update}", flush=True)
+        if not update == one_card.step == tp2_steps:
+            fail("phase 21: the TP2 checkpoint did not restore on one card")
+        del one_card
+    for name in ranks[0]:
+        read[name] = {f"rank{r}": ranks[r][name] for r in range(2)}
+        for r in range(2):
+            x = ranks[r][name]
+            print(f"phase 21 {name} rank {r} (one card shared by two ranks): step_ms "
+                  f"{[round(t, 1) for t in x['step_ms']]} p50 {float(np.median(x['step_ms'])):.1f}; "
+                  f"peak memory {x['peak_gib']:.2f} GiB"
+                  + (f"; gradient all-reduce {x['all_reduce_ms']:.1f} ms an update (gloo)"
+                     if "all_reduce_ms" in x else "")
+                  + (f"; heads a rank {x['heads']}" if "heads" in x else ""), flush=True)
+    read["serving"] = multi_serving(syn, preset, make_mesh)
+    torch.backends.cudnn.deterministic = False
+    read["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21 multi-GPU on one card: {read['seconds']:.1f} s", flush=True)
+    print(json.dumps({"multi_gpu": read}, default=float), flush=True)
+    return read
+
+
+def equal_runs(runs: dict, what: str, gan: bool = False) -> dict:
+    """The NCCL world-size-1 run against the single-card one after the
+    first step: bit for bit. The single-card step is run twice ("twin"):
+    where the card does not repeat it bit for bit itself (cuDNN's and
+    cuBLAS's f32 algorithms may sum with atomics), the NCCL run is held
+    instead to multi_errors' limits, as is the twin."""
+    ref = runs["plain"][1]
+
+    def differing(got) -> list:
+        return [k for kind in ("grads", "stats") for k, r in ref[kind].items()
+                if not torch.equal(got[kind][k], r)] + [
+            k for k, v in ref["logs"].items() if got["logs"][k] != v]
+
+    nccl, twin = differing(runs["nccl"][1]), differing(runs["twin"][1])
+    print(f"phase 21 NCCL world size 1 {what}: bit for bit {not nccl} ({len(nccl)} tensors "
+          f"differ); the single-card step against itself: bit for bit {not twin} ({len(twin)} "
+          f"differ)", flush=True)
+    out = {"bitwise": not nccl, "differing": len(nccl), "twin_bitwise": not twin,
+           "twin_differing": len(twin)}
+    if nccl:
+        if not twin:
+            fail(f"phase 21 NCCL world size 1 {what}: the card repeats the single-card step bit "
+                 f"for bit, the NCCL step differs in {nccl[:5]}")
+        out["twin_errors"] = multi_errors(runs["twin"][1], ref, f"phase 21 {what} single-card twin",
+                                          gan)
+        out["errors"] = multi_errors(runs["nccl"][1], ref, f"phase 21 {what} NCCL world size 1",
+                                     gan)
+    return out
+
+
+def multi_serving(syn, preset, make_mesh) -> dict:
+    """Two replicas of cuda:0 against the plain call: bf16 B4 x 240 ragged
+    and f32 B1 x 96 (one pad row); PCM16 within 1 step, units equal; p50 of
+    5 calls each way (one card shared by two replica threads)."""
+    cfg = preset("multi_target")
+    read = {}
+    for dtype, b, frames, lens in MULTI_SERVING:
+        pipe = syn.Lip2SpeechPipeline.initialize_random(cfg, compute_dtype=dtype, emit_int16=True)
+        req = request(cfg, b, frames, lens, seed=22)
+        plain = pipe.synthesise_batch(*req)
+        plain_p50 = p50_ms(pipe, req, calls=5)[0]
+        pipe.set_mesh(make_mesh(devices=["cuda:0", "cuda:0"]))
+        meshed = pipe.synthesise_batch(*req)
+        check_results(meshed, lens, "phase 21 serving mesh")
+        mesh_p50 = p50_ms(pipe, req, calls=5)[0]
+        pipe.set_mesh(None)
+        diff = max(pcm_diff(a.wav, c.wav) for a, c in zip(plain, meshed))
+        units = all(np.array_equal(a.units, c.units) for a, c in zip(plain, meshed))
+        what = f"{'bf16' if dtype else 'f32'} B{b}x{frames}"
+        print(f"phase 21 serving {what} on two replicas of cuda:0 (one card shared): PCM16 max "
+              f"difference {diff}, units equal {units}; p50 {mesh_p50:.2f} ms against "
+              f"{plain_p50:.2f} plain", flush=True)
+        if diff > 1 or not units:
+            fail(f"phase 21 serving {what}: the two-replica mesh differs from the plain call")
+        read[what] = {"pcm16_max_diff": diff, "p50_ms": mesh_p50, "plain_p50_ms": plain_p50}
+        del pipe
+        torch.cuda.empty_cache()
+    return read
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3192,12 +3697,7 @@ def main() -> int:
                 print(f"ptxas {log.stem}: {line.strip()}", flush=True)
     hmma, hmma_tf32 = sass_tensor_core_counts(build)
 
-    counters = {"rel_attention": ra.rel_attention_kernel,
-                "rel_attention_bwd": ra.rel_attention_bwd_kernel,
-                "rel_attention_bias": ra.rel_attention_bias_kernel,
-                "rel_attention_bias_bwd": ra.rel_attention_bias_bwd_kernel,
-                "attention": att.attention_kernel,
-                "fused_resblock_trio": ft.fused_resblock_trio_kernel}
+    counters = kernel_counters()
     cfg = preset("multi_target")
     n_trio = n_trio_stages(cfg.vocoder)
     rel = phase_attention(ra, dev)
@@ -3231,6 +3731,7 @@ def main() -> int:
     cli = phase_cli(syn, counters, preset)
     served = phase_serving(syn, counters, preset)
     asr = phase_asr(counters)
+    multi = phase_multi_gpu(counters, preset)
     for name, numbers in (("rel_attention", rel), ("rel_attention_bias", bias),
                           ("rel_attention_bwd", shear_bwd), ("rel_attention_bias_bwd", bias_bwd)):
         numbers["dropout"] = "philox.cuh"
@@ -3247,7 +3748,10 @@ def main() -> int:
         numbers.update(design=f"mma.sync m16n8k16 bf16, f32 accumulate; f32: {f32_design}",
                        hmma_in_sass=hmma[lib], hmma_tf32_in_sass=hmma_tf32[lib],
                        cli_launches={tool: n[name] for tool, n in cli.items() if name in n},
-                       server_launches=served.get(name, {}), asr_launches=asr[name])
+                       server_launches=served.get(name, {}), asr_launches=asr[name],
+                       multi_gpu_launches_a_rank={
+                           run: multi[run]["rank0"]["launches"].get(name, 0)
+                           for run in ("dp2", "tp2", "flagship_tp2", "gan_dp2")})
     launches.update({k: train_launches[k] for k in ("rel_attention_bwd", "rel_attention_bias_bwd")})
     pkg = "lip2speech_tpu_torch"
     jax_ops = "lip2speech_tpu/ops"
