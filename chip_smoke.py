@@ -136,12 +136,13 @@ Phases, in order; any failure exits non-zero before the last line:
      HTTP requests beside the direct call's p50 and device busy ms (bf16 and
      f32, with the two kernels' share); a bad video_path gives 400 and the
      next request 200. Prints one "serving" JSON line.
- 20. lip-reading recognition at the CLI's full width, random weights, f32
-     (TF32 off), beam 10, 50 steps, char vocabulary: AV-HuBERT seq2seq
-     (encoder 1024 x 24, decoder 1024 x 6) at B1 x 96 and B4 ragged
-     (96/80/64/50), alone and with a 6-layer LM (512 / 8 / 2048) fused at
-     0.3; RAVEn (conformer 1024 x 24) with the joint CTC/attention search at
-     CTC weight 0.1 at both shapes. Each decode: exact launches (attention
+ 20. lip-reading recognition at the CLI's full width, the decoders cut
+     from 6 layers to 3, random weights, f32 (TF32 off), beam 10, 50
+     steps, char vocabulary: AV-HuBERT seq2seq (encoder 1024 x 24, decoder
+     1024 x 3) at B1 x 96 and B4 ragged (96/80/64/50), alone and with a
+     6-layer LM (512 / 8 / 2048) fused at 0.3; RAVEn (conformer 1024 x 24,
+     decoder 1024 x 3) with the joint CTC/attention search at CTC weight
+     0.1 at both shapes. Each decode: exact launches (attention
      24 or rel_attention 24 a decode, every other kernel 0), the encoder
      states against the same weights' CPU run (ASR_ENC_TOL), the card's
      n-best teacher-forced on the CPU (ASR_SCORE_TOL), p50 of 5 calls, one
@@ -178,6 +179,21 @@ Phases, in order; any failure exits non-zero before the last line:
      labelled one card shared. Then serving on two replicas of cuda:0, bf16
      B4 x 240 ragged and f32 B1 x 96 (a pad row): PCM16 within 1 step of
      the plain call, p50 beside it. Prints one "multi_gpu" JSON line.
+ 22. AV-HuBERT masked-prediction pretraining (models/avhubert_pretrain.py)
+     at full width (dim 1024, 24 layers, 500 classes, audio and video,
+     modality dropout 0.5, dropout 0), f32 with TF32 off, random weights
+     from seed 0, B4 x 250 ragged: one step's logits, loss and gradients on
+     the attention kernel against the same step on the plain attention
+     (logits within 1e-4 of max |ref|, the loss within 1e-4 relative,
+     gradients within ten times an ulp twin's error), which the kernel 0.1%
+     off must fail; three Adam steps with
+     exactly 24 attention launches a forward and a step, p50, peak memory,
+     a profiled step (busy ms, the kernel's share), a step inside
+     utils.profiling.device_trace holding its annotate ranges and the
+     kernel; the card against the CPU at B1 x 50; the optional modules
+     (Conv1dResNetFrontend, ShuffleNet3DFrontend, VQQuantizer, three
+     VQBottleneck EMA updates) against the CPU. Prints one "pretrain" JSON
+     line and the phase's seconds.
 Kernel times are device time (CUDA events, host enqueue hidden behind a
 device sleep). Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -2971,6 +2987,7 @@ ASR_LENS = (96, 80, 64, 50)      # frames of the ragged batch-4 request
 ASR_BEAM, ASR_MAX_LEN = 10, 50
 ASR_ENC_TOL = 1e-4               # encoder states, card against CPU, of max |ref| (valid frames)
 ASR_SCORE_TOL = 1e-4             # teacher-forced n-best scores, card against CPU, of max(1, |ref|)
+ASR_DECODER_LAYERS = 3           # of the CLI's 6: a depth cut that keeps the whole run near 550 s
 
 
 def asr_request(b: int, lens, seed: int, frames: int = 96):
@@ -3007,10 +3024,12 @@ def first_nbest_difference(got, ref) -> str:
 
 def phase_asr(counters: dict) -> dict:
     """The recognition path at the CLI's full width (random weights, f32,
-    TF32 off, beam 10, 50 steps): AV-HuBERT seq2seq (encoder 1024 x 24, 16
-    heads, FFN 4096; decoder 1024 x 6, 4 heads, FFN 3072; char vocabulary)
+    TF32 off, beam 10, 50 steps; the decoders cut to ASR_DECODER_LAYERS of
+    the CLI's 6): AV-HuBERT seq2seq (encoder 1024 x 24, 16 heads, FFN 4096;
+    decoder 1024 x 3, 4 heads, FFN 3072; char vocabulary)
     at B1 x 96 and B4 ragged, alone and with a 6-layer LM (512 / 8 / 2048)
-    at 0.3; RAVEn (1024 x 24, 16 heads) with the joint CTC/attention search
+    at 0.3; RAVEn (1024 x 24, 16 heads, decoder 1024 x 3) with the joint
+    CTC/attention search
     at CTC weight 0.1 at both shapes. Each decode: exact launches (attention
     24, or rel_attention 24, others 0), the encoder states against the same
     weights' CPU run, the card's n-best teacher-forced on the CPU, p50 of 5
@@ -3033,9 +3052,9 @@ def phase_asr(counters: dict) -> dict:
     nc = processor.num_classes
     av_cfg = Seq2SeqConfig(vocab_size=nc, encoder_dim=1024, encoder_heads=16, encoder_ffn_dim=4096,
                            encoder_layers=24, decoder_dim=1024, decoder_heads=4,
-                           decoder_ffn_dim=3072, decoder_layers=6)
+                           decoder_ffn_dim=3072, decoder_layers=ASR_DECODER_LAYERS)
     raven_cfg = RavenASR.from_num_classes(nc, dim=1024, heads=16, ffn_dim=4096, layers=24,
-                                          decoder_layers=6, decoder_heads=4)
+                                          decoder_layers=ASR_DECODER_LAYERS, decoder_heads=4)
     # seed 0 for both ASR models: infer_asr's random weights
     models = asr_models({"avhubert": (0, lambda: AVHubertSeq2Seq(av_cfg)),
                          "lm": (1, lambda: TransformerLM(nc, 512, 8, 2048, 6)),
@@ -3152,7 +3171,8 @@ def phase_asr(counters: dict) -> dict:
             for mode, flags in (("avhubert", []), ("raven", ["--raven", "--ctc-weight", "0.1"])):
                 what = f"infer_asr {mode} (4 clips, batch 4)"
                 args = ["--tsv", str(root / "test.tsv"), "--transcripts", str(root / "refs.json"),
-                        "--out-dir", str(root / mode), "--batch-size", "4", *flags]
+                        "--out-dir", str(root / mode), "--batch-size", "4",
+                        "--decoder-layers", str(ASR_DECODER_LAYERS), *flags]
                 _, seconds, _, _ = run_counted(counters, lambda: infer_asr.main(args),
                                                  {kernel_of[mode]: 24}, what)
                 for k in counters:
@@ -3662,6 +3682,348 @@ def multi_serving(syn, preset, make_mesh) -> dict:
     return read
 
 
+PRETRAIN_LENS = (250, 200, 150, 100)    # valid frames of the ragged batch-4 pretraining batch
+PRETRAIN_TOL = 1e-4                     # of max |ref|: logits against plain; card against CPU
+PRETRAIN_FAULT = 1 + 1e-3               # the faulty attention's scale, which the check must see
+PRETRAIN_KW = dict(audio_feat_dim=104, modality_dropout=0.5, audio_dropout=0.5, dropout=0.0)
+
+
+def pretrain_batch(tp, lens, t: int, dev, seed: int) -> dict:
+    """A ragged pretraining batch: video (B, T, 88, 88, 1) with the masked
+    frames zeroed, stacked audio features (B, T, 104), the span mask of
+    the port's compute_mask_indices (mask_prob 0.3, length 5, over each
+    row's valid frames), targets in [0, 500)."""
+    from lip2speech_tpu_torch.ops.masking import compute_mask_indices
+
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    frames_mask = np.arange(t)[None, :] < np.array(lens)[:, None]
+    span = compute_mask_indices((b, t), frames_mask.astype(np.int32), 0.3, 5, rng)
+    video = torch.from_numpy(rng.standard_normal((b, t, 88, 88, 1), dtype=np.float32)).to(dev)
+    span_t = torch.from_numpy(span).to(dev)
+    return {"video": tp.mask_video_frames(video, span_t),
+            "audio": torch.from_numpy(rng.standard_normal((b, t, 104), dtype=np.float32)).to(dev),
+            "frames_mask": torch.from_numpy(frames_mask).to(dev), "span_mask": span_t,
+            "targets": torch.from_numpy(rng.integers(0, 500, (b, t))).to(dev)}
+
+
+def pretrain_forward(tp, model, batch: dict, gen=None):
+    """The model's outputs and pretrain_loss, each inside its annotate range."""
+    from lip2speech_tpu_torch.utils.profiling import annotate
+
+    with annotate("forward"):
+        out = model(batch["video"], batch["frames_mask"], batch["span_mask"],
+                    audio=batch["audio"], gen=gen)
+    with annotate("loss"):
+        loss, logs = tp.pretrain_loss(out, batch["targets"])
+    return out, loss, logs
+
+
+def pretrain_step(tp, model, opt, batch: dict, gen) -> dict:
+    """One Adam step of pretrain_loss (tests/test_pretrain.py's loop);
+    returns the logs as floats."""
+    from lip2speech_tpu_torch.utils.profiling import annotate
+
+    opt.zero_grad(set_to_none=True)
+    _, loss, logs = pretrain_forward(tp, model, batch, gen)
+    with annotate("backward"):
+        loss.backward()
+    opt.step()
+    return {"loss": float(loss.detach()), **{k: float(v.detach()) for k, v in logs.items()}}
+
+
+def pretrain_grads(tp, model, batch: dict, seed: int) -> dict:
+    """One forward and backward of pretrain_loss without an update: logits,
+    loss, logs and the gradients by name (the modality-dropout draws from a
+    generator seeded with `seed`)."""
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=batch["video"].device).manual_seed(seed)
+    out, loss, logs = pretrain_forward(tp, model, batch, gen)
+    loss.backward()
+    return {"logits": out["logits"].detach(), "loss": float(loss.detach()),
+            "logs": {k: float(v.detach()) for k, v in logs.items()},
+            "grads": {n: p.grad for n, p in model.named_parameters()}}
+
+
+def worst_grad_err(got: dict, ref: dict) -> tuple[float, str]:
+    """Phase 13's measure: the larger of a tensor's largest error over the
+    step's largest gradient element and its error's 2-norm over the whole
+    gradient's 2-norm, worst over the tensors, with its name."""
+    top = max(float(g.abs().max()) for g in ref.values())
+    norm = math.sqrt(sum(float(g.double().square().sum()) for g in ref.values()))
+    errs = {n: max(float((got[n] - r).abs().max()) / top,
+                   float((got[n] - r).double().norm()) / norm) for n, r in ref.items()}
+    name = max(errs, key=errs.get)
+    return errs[name], name
+
+
+@contextlib.contextmanager
+def plain_attention_fn(att):
+    """ops.attention with AttentionFn replaced by the plain reference_attention."""
+    real = att.AttentionFn
+    att.AttentionFn = type("PlainAttentionFn", (), {"apply": staticmethod(att.reference_attention)})
+    try:
+        yield
+    finally:
+        att.AttentionFn = real
+
+
+def pretrain_against_plain(tp, counters, model, batch, plain: dict, twin_err: float,
+                           what: str) -> dict:
+    """One kernel step's logits, loss and gradients against the plain
+    step's: logits within PRETRAIN_TOL of max |ref|, the loss within
+    PRETRAIN_TOL relative, the worst gradient error within ten times the
+    ulp twin's. Returns the readings and whether they pass."""
+    for c in counters.values():
+        c.launches = 0
+    got = pretrain_grads(tp, model, batch, seed=1)
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    logits_err = rel_max_err(got["logits"].cpu().numpy(), plain["logits"].cpu().numpy())
+    g_err, at = worst_grad_err(got["grads"], plain["grads"])
+    read = {"logits_err": logits_err, "loss_rel_err": abs(got["loss"] - plain["loss"]) / abs(plain["loss"]),
+            "grad_err": g_err, "grad_err_at": at, "twin_grad_err": twin_err, "launches": launches}
+    read["ok"] = (logits_err <= PRETRAIN_TOL and read["loss_rel_err"] <= PRETRAIN_TOL
+                  and g_err <= 10 * twin_err)
+    print(f"pretrain {what} against the plain step: logits max err / max |ref| {logits_err:.3e} "
+          f"(tol {PRETRAIN_TOL:g}), loss rel err {read['loss_rel_err']:.3e} (tol {PRETRAIN_TOL:g}), "
+          f"worst gradient err "
+          f"{g_err:.3e} at {at} (ten times the ulp twin's: {10 * twin_err:.3e}); launches {launches}; "
+          f"{'passes' if read['ok'] else 'fails'}", flush=True)
+    return read
+
+
+def optional_modules_on_card(dev) -> dict:
+    """Conv1dResNetFrontend (prelu, swish) on 2 x 4 s of 16 kHz and
+    ShuffleNet3DFrontend at B2 x T50, in eval and training mode; VQQuantizer
+    on 2 x 1 s and three VQBottleneck EMA updates with a dead code (drawn
+    from CPU generators of one seed on both sides); each on the card
+    against the CPU within PRETRAIN_TOL of max |ref|."""
+    import copy
+
+    from lip2speech_tpu_torch.models import resnet1d, shufflenet, vq
+    from lip2speech_tpu_torch.models.layers import init_weights
+
+    rng = np.random.default_rng(5)
+    errs = {}
+
+    def both(module, fn):
+        init_weights(module, torch.Generator().manual_seed(0))
+        card = copy.deepcopy(module).to(dev)
+        with torch.no_grad():
+            return fn(module, "cpu"), fn(card, dev)
+
+    wav = rng.standard_normal((2, 4 * 16_000, 1), dtype=np.float32)
+    crops = rng.standard_normal((2, 50, 88, 88, 1), dtype=np.float32)
+    for name, module, x in (("resnet1d_prelu", resnet1d.Conv1dResNetFrontend("prelu"), wav),
+                            ("resnet1d_swish", resnet1d.Conv1dResNetFrontend("swish"), wav),
+                            ("shufflenet", shufflenet.ShuffleNet3DFrontend(), crops)):
+        for mode in ("eval", "train"):
+            ref, got = both(module, lambda m, d: m.train(mode == "train")(
+                torch.from_numpy(x).to(d)).cpu().numpy())
+            errs[f"{name}_{mode}"] = rel_max_err(got, ref)
+    lat = rng.standard_normal((2, 16_000, 1), dtype=np.float32)
+    ref, got = both(vq.VQQuantizer(),
+                    lambda m, d: m.eval()(torch.from_numpy(lat).to(d))[0].cpu().numpy())
+    errs["vq_quantizer"] = rel_max_err(got, ref)
+    xs = [rng.standard_normal((2, 500, 128), dtype=np.float32) for _ in range(3)]
+
+    def ema(m, d):
+        m.train()
+        with torch.no_grad():
+            m.codebook[-1] = 50.0                       # a code no input is near: dead at once
+            m.ema_sum[-1] = 50.0
+            m.ema_count[-1] = 1e-3
+        gen = torch.Generator().manual_seed(11)
+        codes = [m(torch.from_numpy(x).to(d), gen)[0].cpu().numpy() for x in xs]
+        return codes, {k: v.cpu().numpy() for k, v in m.state_dict().items()}
+
+    (codes_ref, sd_ref), (codes, sd) = both(vq.VQBottleneck(), ema)
+    if not all(np.array_equal(a, b) for a, b in zip(codes, codes_ref)):
+        fail("VQBottleneck on the card: codes differ from the CPU's")
+    for k in sd_ref:
+        errs[f"vq_ema_{k}"] = rel_max_err(sd[k], sd_ref[k])
+    if np.isclose(sd["codebook"][-1], 50.0).any():
+        fail("VQBottleneck on the card: the dead code was not restarted")
+    print(f"pretrain: optional modules, card against CPU, max err / max |ref|: "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tol {PRETRAIN_TOL:g})", flush=True)
+    bad = {k: v for k, v in errs.items() if not v <= PRETRAIN_TOL}
+    if bad:
+        fail(f"optional modules on the card disagree with the CPU: {bad}")
+    return errs
+
+
+def phase_pretrain(counters: dict) -> dict:
+    """Phase 22: AV-HuBERT masked-prediction pretraining at full width on the
+    card, f32 with TF32 off, random weights from seed 0.
+
+    1. AVHubertPretrainModel at its class defaults (dim 1024, 16 heads, ffn
+       4096, 24 layers, final_dim 256, 500 classes, logit_temp 0.1) with the
+       audio modality (104 features), modality dropout 0.5, audio dropout
+       0.5 and dropout 0, in training mode; a batch of 4 x 250 frames
+       (ragged 250/200/150/100), 88 x 88 video, span masks at 0.3 x length
+       5; exactly 24 attention launches a forward and a step, no other
+       kernel.
+    2. Before any update: one step's logits, loss and gradients by name
+       against the same step with AttentionFn replaced by the plain
+       reference attention: logits within PRETRAIN_TOL of max |ref|, the
+       loss within PRETRAIN_TOL relative, the worst gradient error
+       (worst_grad_err) within ten times what a twin of the plain step from
+       weights one ulp away reads (phase 13's yardstick); an attention
+       kernel 0.1% off (scaled_kernel) must fail that check.
+    3. Three Adam steps (lr 1e-3): step p50, peak memory, a profiled step
+       (device busy ms, the attention kernel's share), one step inside
+       utils.profiling.device_trace with annotate ranges around forward,
+       loss and backward, which the trace must hold beside the attention
+       kernel (in a temporary directory).
+    4. At B1 x 50 in eval mode, the card's logits, loss and logs against the
+       port's CPU path on the same weights, within PRETRAIN_TOL of max |ref|.
+    5. optional_modules_on_card."""
+    import tempfile
+
+    from lip2speech_tpu_torch.models import avhubert_pretrain as tp
+    from lip2speech_tpu_torch.models.layers import init_weights
+    from lip2speech_tpu_torch.ops import attention as att
+    from lip2speech_tpu_torch.utils.profiling import device_trace
+
+    t_phase = time.perf_counter()
+    set_tf32(False)
+    dev = torch.device("cuda")
+    with torch.device(dev):
+        model = tp.AVHubertPretrainModel(**PRETRAIN_KW)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    model.train()
+    layers = model.encoder.n_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = pretrain_batch(tp, PRETRAIN_LENS, max(PRETRAIN_LENS), dev, seed=0)
+    read = {"parameters": n_params, "batch": f"{len(PRETRAIN_LENS)}x{max(PRETRAIN_LENS)} "
+            f"ragged {list(PRETRAIN_LENS)}", "masked_frames": int(batch["span_mask"].sum())}
+    print(f"pretrain: AVHubertPretrainModel {n_params / 1e6:.1f} M parameters, {layers} layers; "
+          f"batch {read['batch']}, {read['masked_frames']} masked frames", flush=True)
+
+    # 2. the kernel's step against the plain step, before any update
+    with plain_attention_fn(att):
+        plain = pretrain_grads(tp, model, batch, seed=1)
+        saved = [p.detach().clone() for p in model.parameters()]
+        noise = torch.Generator(device=dev).manual_seed(7)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + 1e-7 * torch.randn(p.shape, device=dev, generator=noise))
+        twin = pretrain_grads(tp, model, batch, seed=1)
+        with torch.no_grad():
+            for p, s in zip(model.parameters(), saved):
+                p.copy_(s)
+        del saved
+    twin_err, twin_at = worst_grad_err(twin["grads"], plain["grads"])
+    print(f"pretrain ulp twin (plain path, weights one ulp away): worst gradient err {twin_err:.3e} "
+          f"at {twin_at}", flush=True)
+    del twin
+    read["against_plain"] = pretrain_against_plain(tp, counters, model, batch, plain, twin_err,
+                                                   "kernel")
+    if not read["against_plain"]["ok"] or read["against_plain"]["launches"] != {"attention": layers}:
+        fail("pretraining on the attention kernel disagrees with the plain step")
+    with scaled_kernel(att, "attention_kernel", PRETRAIN_FAULT):
+        faulty = pretrain_against_plain(tp, counters, model, batch, plain, twin_err,
+                                        f"attention x {PRETRAIN_FAULT}")
+    if faulty["ok"]:
+        fail("the pretraining check did not see an attention kernel 0.1% off")
+    read["faulty_grad_err"] = faulty["grad_err"]
+    del plain
+    model.zero_grad(set_to_none=True)
+
+    # 3. three Adam steps, a profiled one and a traced one
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    times, logs = [], []
+    for i in range(3):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs.append(pretrain_step(tp, model, opt, batch, gen))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = {n: c.launches for n, c in counters.items()}
+        print(f"pretrain step {i + 1}: step_ms {times[-1]:.1f} launches {counts} logs "
+              f"{ {k: round(v, 4) for k, v in logs[-1].items()} }", flush=True)
+        read["launches_a_step"] = {n: k for n, k in counts.items() if k}
+        if counts != {n: layers if n == "attention" else 0 for n in counters}:
+            fail(f"pretrain step: expected {layers} attention launches and no other, got {counts}")
+        if not all(math.isfinite(v) for v in logs[-1].values()):
+            fail(f"pretrain step: non-finite logs {logs[-1]}")
+    for c in counters.values():
+        c.launches = 0
+    with torch.no_grad():
+        pretrain_forward(tp, model, batch, gen)
+    read["launches_a_forward"] = {n: c.launches for n, c in counters.items() if c.launches}
+    if read["launches_a_forward"] != {"attention": layers}:
+        fail(f"pretrain forward: launches {read['launches_a_forward']}")
+    read["steps"] = logs
+    read["step_ms"] = times
+    read["step_p50_ms"] = float(np.median(times))
+    read["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_name, stats = {}, {}
+    read["busy_ms"] = profile_call(lambda: pretrain_step(tp, model, opt, batch, gen),
+                                   "pretrain step 4x250 f32", by_name=by_name, stats=stats)
+    if not read["busy_ms"] > 0:
+        fail("pretrain: the profiler saw no device time")
+    read["attention_ms"] = sum(ms for k, ms in by_name.items() if "attention_mma" in k)
+    read["attention_share"] = read["attention_ms"] / max(read["busy_ms"], 1e-9)
+    read["profiled_wall_ms"], read["device_launches"] = stats["wall_ms"], stats["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            pretrain_step(tp, model, opt, batch, gen)
+            torch.cuda.synchronize()
+        files = list(Path(tmp).glob("*.pt.trace.json"))
+        events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+        read["trace_mb"] = files[0].stat().st_size / 2 ** 20 if files else 0.0
+    names = {e.get("name", "") for e in events}
+    read["trace_ranges"] = sorted(names & {"forward", "loss", "backward"})
+    read["trace_attention_kernels"] = sum(1 for e in events if e.get("cat") == "kernel"
+                                          and "attention_mma" in e.get("name", ""))
+    print(f"pretrain: device_trace wrote {len(files)} file(s), {read['trace_mb']:.1f} MiB; annotate "
+          f"ranges {read['trace_ranges']}; attention kernels in it {read['trace_attention_kernels']}",
+          flush=True)
+    if read["trace_ranges"] != ["backward", "forward", "loss"] or read["trace_attention_kernels"] != layers:
+        fail("the device trace lacks the annotate ranges or the attention kernel")
+    print(f"pretrain 4x250 f32 (TF32 off): step_ms {[round(t, 1) for t in times]} p50 "
+          f"{read['step_p50_ms']:.1f}; busy {read['busy_ms']:.1f} ms, share "
+          f"{read['busy_ms'] / read['profiled_wall_ms']:.3f}, {read['device_launches']} device launches; "
+          f"attention {read['attention_ms']:.3f} ms = {100 * read['attention_share']:.2f}% of busy; "
+          f"peak memory {read['peak_gib']:.2f} GiB", flush=True)
+    del opt
+
+    # 4. the card against the CPU at B1 x 50, eval mode
+    small = pretrain_batch(tp, (50,), 50, "cpu", seed=3)
+    cpu = tp.AVHubertPretrainModel(**PRETRAIN_KW)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    results = {}
+    for who, m, b in (("cpu", cpu.eval(), small),
+                      ("card", model.eval(), {k: v.to(dev) for k, v in small.items()})):
+        with torch.no_grad():
+            out, loss, logs = pretrain_forward(tp, m, b)
+        results[who] = {"logits": out["logits"].cpu().numpy(), "loss": float(loss),
+                        **{k: float(v) for k, v in logs.items()}}
+    del cpu
+    ref, got = results["cpu"], results["card"]
+    errs = {k: rel_max_err(np.asarray(got[k]), np.asarray(ref[k])) if np.any(ref[k])
+            else float(abs(got[k])) for k in ref}
+    read["card_against_cpu"] = errs
+    print(f"pretrain B1x50 eval, card against CPU: max err / max |ref| "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tol {PRETRAIN_TOL:g})", flush=True)
+    if not all(v <= PRETRAIN_TOL for v in errs.values()):
+        fail("pretraining on the card disagrees with the CPU")
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # 5. the optional modules
+    read["optional_modules"] = optional_modules_on_card(dev)
+    read["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 22 pretraining and the optional modules: {read['seconds']:.1f} s", flush=True)
+    print(json.dumps({"pretrain": read}, default=float), flush=True)
+    return read
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3732,6 +4094,7 @@ def main() -> int:
     served = phase_serving(syn, counters, preset)
     asr = phase_asr(counters)
     multi = phase_multi_gpu(counters, preset)
+    pretrain = phase_pretrain(counters)
     for name, numbers in (("rel_attention", rel), ("rel_attention_bias", bias),
                           ("rel_attention_bwd", shear_bwd), ("rel_attention_bias_bwd", bias_bwd)):
         numbers["dropout"] = "philox.cuh"
@@ -3752,6 +4115,8 @@ def main() -> int:
                        multi_gpu_launches_a_rank={
                            run: multi[run]["rank0"]["launches"].get(name, 0)
                            for run in ("dp2", "tp2", "flagship_tp2", "gan_dp2")})
+    plain["pretrain_launches"] = {"forward": pretrain["launches_a_forward"].get("attention", 0),
+                                  "step": pretrain["launches_a_step"].get("attention", 0)}
     launches.update({k: train_launches[k] for k in ("rel_attention_bwd", "rel_attention_bias_bwd")})
     pkg = "lip2speech_tpu_torch"
     jax_ops = "lip2speech_tpu/ops"

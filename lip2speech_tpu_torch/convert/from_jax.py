@@ -7,6 +7,7 @@ layouts move:
 
   Linear      (in, out)                    -> (out, in)
   Conv1d      (K, I, O)                    -> (O, I, K)
+  ConvT1d     (K, O, I)                    -> (I, O, K)
   Conv2d      (kh, kw, I, O)               -> (O, I, kh, kw)
   Conv3d      (kt, kh, kw, I, O)           -> (O, I, kt, kh, kw)
   WN conv     weight_v (K, I, O), g (O,)   -> (O, I, K), g (O, 1, 1)
@@ -20,7 +21,9 @@ layouts move:
 
 Vectors carry over as they are: biases, norm scales, BatchNorm running
 statistics, pos_bias_u/v, PReLU alphas, layerscale gammas, GroupNorm
-weight and bias.
+weight and bias; so do the pretraining model's mask_emb and label_embs and
+the VQ's "vq_stats" collection (codebook, ema_count, ema_sum), which become
+buffers.
 Inputs are nested dicts of numpy arrays. A gradient tree has the layout of
 its parameter tree, so `jax_tree_to_state_dict` names and lays out
 gradients too.
@@ -73,6 +76,34 @@ def stage1_state_dict(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
     sd = jax_tree_to_state_dict(variables["params"])
     sd.update(jax_tree_to_state_dict(variables.get("batch_stats", {})))
     return sd
+
+
+def _collections(variables: dict[str, Any], required: tuple[str, ...],
+                 optional: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
+    """One state_dict from several flax collections; a collection missing
+    from `required`, or one named in neither tuple, raises KeyError."""
+    unknown = sorted(set(variables) - set(required) - set(optional))
+    missing = sorted(set(required) - set(variables))
+    if unknown or missing:
+        raise KeyError(f"collections: unknown {unknown}, missing {missing}")
+    sd = {}
+    for name in required + optional:
+        sd.update(jax_tree_to_state_dict(variables.get(name, {})))
+    return sd
+
+
+def pretrain_state_dict(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of AVHubertPretrainModel -> state_dict;
+    mask_emb (F,) and label_embs (classes, final_dim) carry over as they
+    are."""
+    return _collections(variables, ("params", "batch_stats"))
+
+
+def vq_state_dict(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """{"vq_stats"[, "params"]} of VQBottleneck or VQQuantizer -> state_dict:
+    the EMA state (codebook, ema_count, ema_sum) becomes the buffers of the
+    same names."""
+    return _collections(variables, ("vq_stats",), ("params",))
 
 
 def vocoder_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:

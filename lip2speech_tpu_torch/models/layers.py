@@ -73,22 +73,42 @@ class _ConvNd(nn.Module):
 
 
 class Conv1d(_ConvNd):
-    def __init__(self, in_ch, out_ch, kernel: int, padding: int = 0, groups: int = 1):
-        super().__init__(in_ch, out_ch, (kernel,), 1, padding, groups)
+    def __init__(self, in_ch, out_ch, kernel: int, padding: int = 0, groups: int = 1,
+                 stride: int = 1, bias: bool = True):
+        super().__init__(in_ch, out_ch, (kernel,), stride, padding, groups, bias)
 
     def forward(self, x):
-        return ops.conv1d(x, self.weight, self.bias, padding=self.padding,
+        return ops.conv1d(x, self.weight, self.bias, self.stride, self.padding,
                           groups=self.groups)
+
+
+class ConvTranspose1d(nn.Module):
+    """Weight (in, out, K), torch.nn.ConvTranspose1d's layout; fan-in in x K
+    at init, as the JAX layer's."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch))
+        self.stride, self.padding = stride, padding
+
+    def init_random(self, gen: torch.Generator) -> None:
+        fan_in = self.weight.shape[0] * self.weight.shape[2]
+        uniform_(self.weight, fan_in, gen)
+        uniform_(self.bias, fan_in, gen)
+
+    def forward(self, x):
+        return ops.conv_transpose1d(x, self.weight, self.bias, self.stride, self.padding)
 
 
 class Conv2d(_ConvNd):
     def __init__(self, in_ch, out_ch, kernel, stride=(1, 1), padding=(0, 0),
-                 bias: bool = True):
+                 bias: bool = True, groups: int = 1):
         super().__init__(in_ch, out_ch, tuple(kernel), tuple(stride),
-                         tuple(padding), bias=bias)
+                         tuple(padding), groups, bias)
 
     def forward(self, x):
-        return ops.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        return ops.conv2d(x, self.weight, self.bias, self.stride, self.padding, self.groups)
 
 
 class Conv3d(_ConvNd):

@@ -34,8 +34,8 @@ def conv_transpose1d(x, w, b=None, stride: int = 1, padding: int = 0) -> torch.T
     return _add_bias(F.conv_transpose1d(x, w, None, stride, padding), b)
 
 
-def conv2d(x, w, b=None, stride=1, padding=0) -> torch.Tensor:
-    return _add_bias(F.conv2d(x, w, None, stride, padding), b)
+def conv2d(x, w, b=None, stride=1, padding=0, groups: int = 1) -> torch.Tensor:
+    return _add_bias(F.conv2d(x, w, None, stride, padding, 1, groups), b)
 
 
 def conv3d(x, w, b=None, stride=(1, 1, 1), padding=(0, 0, 0)) -> torch.Tensor:

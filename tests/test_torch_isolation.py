@@ -48,7 +48,9 @@ def test_port_has_the_slice_modules():
                 "pipeline/server", "pipeline/streaming", "data/text", "native/__init__",
                 "eval/metrics", "eval/pesq_p862", "models/transformer_decoder", "decode/beam",
                 "models/avhubert_asr", "models/lm", "decode/ctc_joint", "models/raven_asr",
-                "eval/asr_eval", "cli/infer_asr", "eval/harness"):
+                "eval/asr_eval", "cli/infer_asr", "eval/harness", "utils/profiling",
+                "ops/masking", "models/avhubert_pretrain", "models/resnet1d",
+                "models/shufflenet", "models/vq"):
         assert f"lip2speech_tpu_torch/{mod}.py" in names
     csrc = {p.name for p in (REPO / "lip2speech_tpu_torch" / "csrc").iterdir()}
     native = {p.name for p in (REPO / "lip2speech_tpu_torch" / "native").iterdir()}
