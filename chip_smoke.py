@@ -194,6 +194,25 @@ Phases, in order; any failure exits non-zero before the last line:
      (Conv1dResNetFrontend, ShuffleNet3DFrontend, VQQuantizer, three
      VQBottleneck EMA updates) against the CPU. Prints one "pretrain" JSON
      line and the phase's seconds.
+ 23. the dataset tools and the capacity probe at the full width of
+     multi_target, through their entry points, in a temporary directory:
+     create_dataset init (4 raw 240 x 320 clips of 40-64 frames with
+     landmarks, a random GE2E encoder, --workers 2) on the card against
+     --device cpu (crops, wavs and label files equal; mels and d-vectors
+     within 1e-4 of max |ref|); train_stage1, one update of batch 2 on
+     that tree (12 rel_attention and 12 rel_attention_bwd launches); infer
+     from the update's file against the CPU (CLI_REL_TOL, units only at
+     near-ties); create_dataset vocoder on both; vocode (a random
+     generator, 4 trio launches an utterance); overlay
+     --denoise-and-normalise over its wavs on the card against the CPU
+     (1e-4 of max |ref|), the mux backend and count printed;
+     find_max_duration to its 24 s cap in 4 s steps, f32 with TF32 off:
+     every probe ok, exactly 12 rel_attention and 4 trio launches a
+     forward (two forwards a probe), each probe's latency and real-time
+     factor beside the card's name and power limit, the 8 s probe's
+     waveform against the same weights' plain path on the CPU (1e-3), and
+     a forward raising an error other than out of memory fails the tool
+     (an injected out of memory ends the list). Prints the phase's JSON.
 Kernel times are device time (CUDA events, host enqueue hidden behind a
 device sleep). Prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -2421,7 +2440,7 @@ def state_mismatches(got, ref) -> list[str]:
 
 
 def unit_flips_within_ties(cfg, sd, label: Path, gpu_dir: Path, cpu_dir: Path,
-                           tol: float = 1e-3) -> tuple[int, int]:
+                           tol: float = 1e-3, split: str = "all") -> tuple[int, int]:
     """Units of the card's run against the CPU's, utterance by utterance:
     where they differ, the card's unit must be within `tol` (f32_check's
     limit on logits) of the CPU's top logit at that position. Returns
@@ -2429,7 +2448,7 @@ def unit_flips_within_ties(cfg, sd, label: Path, gpu_dir: Path, cpu_dir: Path,
     from lip2speech_tpu_torch.data.stage1 import Stage1Dataset
     from lip2speech_tpu_torch.models.multi_target import MultiTargetModel
 
-    ds = Stage1Dataset(label / "all.tsv", label / "all.unt", train=False)
+    ds = Stage1Dataset(label / f"{split}.tsv", label / f"{split}.unt", train=False)
     n_pos = n_diff = 0
     model = None
     for i, utt in enumerate(ds.utts):
@@ -4024,6 +4043,308 @@ def phase_pretrain(counters: dict) -> dict:
     return read
 
 
+# phase 23: the dataset tools and the capacity probe
+DATASET_LENS = (40, 48, 56, 64)   # frames of the 4 raw 240 x 320 clips
+DATASET_TOL = 1e-4                # mel, d-vectors, denoised wavs: card vs CPU, of max |ref|
+PROBE_SECONDS = (24.0, 4.0)       # find_max_duration's default cap and step
+PROBE_CHECK_SECONDS = 8.0         # the probe held against the plain path on the CPU
+
+
+def raw_dataset_clips(root: Path, seed: int = 0) -> tuple[list, list, list]:
+    """The recipe of tests/test_create_dataset_full.py at DATASET_LENS: raw
+    240 x 320 .npy frames (dark noise with a bright 7 x 7 patch at the
+    mouth), 68-point landmark .npy files (the mean face shifted a pixel a
+    frame) and sine wavs of 640 samples a frame. Returns the three path
+    lists."""
+    from lip2speech_tpu_torch.pipeline.mouth_crop import default_mean_face
+    from lip2speech_tpu_torch.utils.audio_io import write_wav
+
+    root.mkdir(parents=True, exist_ok=True)
+    mean_face = default_mean_face()
+    rng = np.random.default_rng(seed)
+    videos, lms_files, audios = [], [], []
+    for c, t in enumerate(DATASET_LENS):
+        frames = rng.integers(0, 40, (t, 240, 320), dtype=np.uint8)
+        lms = []
+        for i in range(t):
+            lm = mean_face * 0.9 + np.array([70 + 5 * c + i % 30, 40])
+            mx, my = (int(v) for v in lm[48:68].mean(axis=0))
+            frames[i, my - 3: my + 4, mx - 3: mx + 4] = 255
+            lms.append(lm)
+        np.save(root / f"c{c}.npy", frames)
+        np.save(root / f"c{c}.lms.npy", np.stack(lms))
+        sig = 0.3 * np.sin(2 * np.pi * (180 + 40 * c) * np.arange(t * 640) / 16_000)
+        write_wav(root / f"c{c}.wav", sig + 0.01 * rng.standard_normal(sig.size), 16_000)
+        videos.append(str(root / f"c{c}.npy"))
+        lms_files.append(str(root / f"c{c}.lms.npy"))
+        audios.append(str(root / f"c{c}.wav"))
+    return videos, lms_files, audios
+
+
+def dataset_video(path: Path, n_frames: int) -> None:
+    """A video for overlay to pair a wav with: an mp4 of n_frames 96 x 96
+    frames written with cv2 where cv2 is installed, else an empty file of
+    that name (a machine without cv2 has no libav to mux with either)."""
+    try:
+        import cv2
+    except ImportError:
+        path.write_bytes(b"")
+        return
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25, (96, 96))
+    for i in range(n_frames):
+        writer.write(np.full((96, 96, 3), 4 * i % 256, np.uint8))
+    writer.release()
+
+
+def dataset_tree_errors(got: Path, ref: Path) -> dict:
+    """Two `create_dataset init` trees: equal file lists (else fail); the
+    worst error of the mels and d-vectors over max |ref|, and the number of
+    other files (crops, wavs, label files up to their root line) that are
+    not equal byte for byte."""
+    files = files_under(ref)
+    if files_under(got) != files:
+        fail(f"create_dataset: the trees differ: {files_under(got)} on the card, {files} on "
+             f"the CPU")
+    errs = {"mel": 0.0, "spk_emb": 0.0, "unequal_files": 0}
+    for rel in files:
+        top = rel.parts[0]
+        if top in ("mel", "spk_emb"):
+            errs[top] = max(errs[top], rel_max_err(np.load(got / rel), np.load(ref / rel)))
+        elif top == "label":
+            same = ((got / rel).read_text().replace(str(got), "ROOT")
+                    == (ref / rel).read_text().replace(str(ref), "ROOT"))
+            errs["unequal_files"] += not same
+        else:
+            errs["unequal_files"] += (got / rel).read_bytes() != (ref / rel).read_bytes()
+    return errs
+
+
+def phase_dataset_tools(syn, counters: dict, preset, smi: str) -> dict:
+    """The dataset and capacity tools through their entry points at the full
+    width of multi_target, in a temporary directory removed after:
+    create_dataset init (4 raw clips with landmarks, a random GE2E encoder,
+    --workers 2) on the card against the same command with --device cpu;
+    train_stage1 for one update of batch 2 on that tree (exactly 12
+    rel_attention and 12 rel_attention_bwd launches); infer from the
+    update's file, the card against the CPU (the mels at CLI_REL_TOL, units
+    differing only at near-ties); create_dataset vocoder on both infer
+    outputs; vocode (a random generator) on the card's; overlay
+    --denoise-and-normalise over those wavs on the card against the CPU;
+    find_max_duration to its 24 s cap in 4 s steps, f32 with TF32 off:
+    every probe ok with exactly 12 rel_attention and 4 fused trio launches a
+    forward (two forwards a probe, as the tool warms up once), the 8 s
+    probe's waveform against the same weights' plain path on the CPU
+    (phase 5's limit), and a forward that raises an error other than out of
+    memory fails the tool. Returns the launches of each kernel by tool."""
+    from lip2speech_tpu_torch import native
+    from lip2speech_tpu_torch.cli import create_dataset, find_max_duration, infer, overlay
+    from lip2speech_tpu_torch.cli import train_stage1, vocode
+    from lip2speech_tpu_torch.data.stage1 import pick_bucket
+    from lip2speech_tpu_torch.models.layers import init_weights
+    from lip2speech_tpu_torch.models.vocoder import MelCodeGenerator
+    from lip2speech_tpu_torch.utils.audio_io import read_wav
+
+    cfg = preset("multi_target")
+    layers, n_trio = cfg.model.conformer.layers, n_trio_stages(cfg.vocoder)
+    seconds, launches, read = {}, {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dataset_") as tmp:
+        tmp = Path(tmp)
+        videos, lms, audios = raw_dataset_clips(tmp / "raw")
+
+        # 1. create_dataset init on the card, then the same on the CPU
+        set_tf32(False)
+        init = ["init", "--videos", *videos, "--audios", *audios, "--landmarks", *lms,
+                "--speaker-encoder", "random", "--split", "test"]
+        utts, seconds["init"], _, launches["init"] = run_counted(
+            counters, lambda: create_dataset.main(init + ["--workers", "2", "--out-root",
+                                                          str(tmp / "ds")]),
+            {}, "create_dataset init")
+        t0 = time.perf_counter()
+        create_dataset.main(init + ["--out-root", str(tmp / "ds_cpu"), "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        errs = dataset_tree_errors(tmp / "ds", tmp / "ds_cpu")
+        read["init"] = errs
+        print(f"create_dataset init: {len(utts)} clips of {DATASET_LENS} frames, 240 x 320 -> "
+              f"{np.load(tmp / 'ds' / 'video/test/clip/00000.npy').shape} crops; card against "
+              f"CPU: mel {errs['mel']:.3e}, d-vector {errs['spk_emb']:.3e} of max |ref| (tol "
+              f"{DATASET_TOL:g}), {errs['unequal_files']} crops / wavs / label files unequal; "
+              f"CPU run {cpu_s:.2f} s", flush=True)
+        if (errs["unequal_files"] or not errs["mel"] <= DATASET_TOL
+                or not errs["spk_emb"] <= DATASET_TOL or [u.n_frames for u in utts]
+                != list(DATASET_LENS)):
+            fail("create_dataset init: the card's tree disagrees with the CPU's")
+
+        # 2. one stage-1 update on that tree, infer, create_dataset vocoder
+        torch.backends.cuda.matmul.allow_tf32 = False       # torch's defaults for training
+        torch.backends.cudnn.allow_tf32 = True
+        label = tmp / "ds" / "label"
+        tsv, unt = str(label / "test.tsv"), str(label / "test.unt")
+        state, seconds["train_stage1"], _, launches["train_stage1"] = run_counted(
+            counters, lambda: train_stage1.main(
+                ["--preset", "multi_target", "--train-tsv", tsv, "--train-unt", unt,
+                 "--checkpoint-dir", str(tmp / "s1"), "--batch-size", "2", "--update-freq", "1",
+                 "--max-updates", "1", "--save-interval", "1", "--log-interval", "1"]),
+            {"rel_attention": layers, "rel_attention_bwd": layers}, "train_stage1 --max-updates 1")
+        if state.step != 1:
+            fail(f"train_stage1: step {state.step} after one update")
+        del state
+        torch.cuda.empty_cache()
+        set_tf32(False)
+        ckpt_file = str(tmp / "s1" / "s1_00000001.pt")
+        n_batches = sum(-(-c // 4) for c in Counter(pick_bucket(n) for n in DATASET_LENS).values())
+        infer_args = ["--preset", "multi_target", "--checkpoint", ckpt_file, "--tsv", tsv,
+                      "--unt", unt, "--batch-size", "4"]
+        stats, seconds["infer"], _, launches["infer"] = run_counted(
+            counters, lambda: infer.main(infer_args + ["--results-path", str(tmp / "inf")]),
+            {"rel_attention": layers * n_batches}, "infer")
+        t0 = time.perf_counter()
+        infer.main(infer_args + ["--results-path", str(tmp / "inf_cpu"), "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        from lip2speech_tpu_torch.convert.from_reference import load_stage1_weights
+
+        mel_err = infer_mel_err(tmp / "inf", tmp / "inf_cpu")
+        n_pos, n_diff = unit_flips_within_ties(cfg, load_stage1_weights(ckpt_file, cfg.model),
+                                               label, tmp / "inf", tmp / "inf_cpu", split="test")
+        read["infer"] = {"mel": mel_err, "unit_positions": n_pos, "units_differ": n_diff}
+        print(f"infer from the update's s1_: {stats['n_utts']} utterances, n_failed "
+              f"{stats['n_failed']}; mel error vs CPU {mel_err:.3e} of max |mel| (tol "
+              f"{CLI_REL_TOL:g}); units differ at {n_diff} of {n_pos} positions (near-ties "
+              f"only); CPU run {cpu_s:.2f} s", flush=True)
+        if (stats["n_failed"] or stats["n_utts"] != len(DATASET_LENS)
+                or files_under(tmp / "inf") != files_under(tmp / "inf_cpu")
+                or not mel_err <= CLI_REL_TOL):
+            fail("infer: the card's artifacts disagree with the CPU's")
+        for side in ("", "_cpu"):
+            create_dataset.main(["vocoder", "--dataset-root", str(tmp / "ds"), "--synthesis-dir",
+                                 str(tmp / f"inf{side}"), "--out-root", str(tmp / f"voc{side}")])
+        voc_files = files_under(tmp / "voc")
+        voc_mel = max(rel_max_err(np.load(tmp / "voc" / r), np.load(tmp / "voc_cpu" / r))
+                      for r in voc_files if r.parts[0] == "mel")
+        unequal = [r for r in voc_files if r.parts[0] in ("audio", "spk_emb")
+                   and (tmp / "voc" / r).read_bytes() != (tmp / "voc_cpu" / r).read_bytes()]
+        rows = [np.array(line.split(), int) for line in
+                (tmp / "voc" / "label" / "test.unt").read_text().splitlines()]
+        rows_cpu = [np.array(line.split(), int) for line in
+                    (tmp / "voc_cpu" / "label" / "test.unt").read_text().splitlines()]
+        unit_diff = sum(int((a != b).sum()) for a, b in zip(rows, rows_cpu))
+        read["vocoder_dir"] = {"files": len(voc_files), "mel": voc_mel, "units_differ": unit_diff}
+        print(f"create_dataset vocoder: {len(voc_files)} files, the same list as the CPU's: "
+              f"{voc_files == files_under(tmp / 'voc_cpu')}; mel {voc_mel:.3e} of max |ref|; "
+              f"audio / spk_emb unequal {len(unequal)}; units differ at {unit_diff} positions "
+              f"(infer's near-ties)", flush=True)
+        if (voc_files != files_under(tmp / "voc_cpu") or unequal or not voc_mel <= CLI_REL_TOL
+                or unit_diff != n_diff or len(rows) != len(DATASET_LENS)):
+            fail("create_dataset vocoder: the tree from the card's infer disagrees with the CPU's")
+
+        # 3. vocode the card's tree (a random generator), then overlay its wavs
+        gen = MelCodeGenerator(cfg.vocoder)
+        init_weights(gen, torch.Generator().manual_seed(1))
+        vtsv, vunt = tmp / "voc" / "label" / "test.tsv", tmp / "voc" / "label" / "test.unt"
+        _, seconds["vocode"], _, launches["vocode"] = run_counted(
+            counters, lambda: vocode.run_vocoder(cfg, gen.state_dict(), vtsv, vunt, tmp / "wav"),
+            {"fused_resblock_trio": n_trio * len(DATASET_LENS)}, "vocode.run_vocoder")
+        try:
+            native.build("media_mux")
+            shim = "builds"
+        except native.BuildError as e:
+            shim = f"does not build ({str(e).splitlines()[0]})"
+        for u in utts:                                      # the videos overlay pairs by name
+            dataset_video(tmp / "ds" / "video" / f"{u.uid}.mp4", u.n_frames)
+        ov = ["--video-dir", str(tmp / "ds" / "video"), "--pred-wav-dir",
+              str(tmp / "wav" / "pred_wav"), "--denoise-and-normalise"]
+        summary, seconds["overlay"], _, launches["overlay"] = run_counted(
+            counters, lambda: overlay.main(ov + ["--out-dir", str(tmp / "ov")]), {}, "overlay")
+        overlay.main(ov + ["--out-dir", str(tmp / "ov_cpu"), "--device", "cpu"])
+        den = sorted((tmp / "ov").rglob("*_denoised.wav"))
+        den_err = max(rel_max_err(read_wav(p)[0], read_wav(tmp / "ov_cpu" / p.relative_to(
+            tmp / "ov"))[0]) for p in den)
+        read["overlay"] = dict(summary, denoised=len(den), denoise_err=den_err)
+        print(f"overlay --denoise-and-normalise: {summary}; the libav mux shim {shim}; "
+              f"denoised wavs card against CPU {den_err:.3e} of max |ref| (tol "
+              f"{DATASET_TOL:g})", flush=True)
+        if summary["pairs"] != len(DATASET_LENS) or len(den) != len(DATASET_LENS) or not (
+                den_err <= DATASET_TOL):
+            fail("overlay: the card's denoised wavs disagree with the CPU's")
+        del gen
+
+        # 4. find_max_duration to its cap, every probe's launches, the 8 s waveform
+        set_tf32(False)
+        real_probe, probes = find_max_duration.probe, []
+
+        def counted_probe(pipe, secs):
+            before = {n: c.launches for n, c in counters.items()}
+            result, wav = real_probe(pipe, secs)
+            probes.append((pipe, secs, {n: c.launches - before[n] for n, c in counters.items()},
+                           wav))
+            return result, wav
+
+        cap, step = PROBE_SECONDS
+        find_max_duration.probe = counted_probe
+        try:
+            out, seconds["find_max_duration"], _, launches["find_max_duration"] = run_counted(
+                counters, lambda: find_max_duration.main(["--preset", "multi_target"]),
+                {"rel_attention": 2 * layers * round(cap / step),
+                 "fused_resblock_trio": 2 * n_trio * round(cap / step)}, "find_max_duration")
+        finally:
+            find_max_duration.probe = real_probe
+        per_probe = {"rel_attention": 2 * layers, "fused_resblock_trio": 2 * n_trio}
+        for (_, secs, counts, _), res in zip(probes, out["probes"]):
+            print(f"find_max_duration probe {secs:g} s ({res['frames']} frames, B1 f32): "
+                  f"{res['latency_ms']} ms, real-time factor {res['rtf']}, launches "
+                  f"{ {k: n for k, n in counts.items() if n} } | {smi}", flush=True)
+            if counts != {n: per_probe.get(n, 0) for n in counters}:
+                fail(f"find_max_duration: probe {secs:g} s launched {counts}")
+        if out["max_ok_seconds"] != cap or not all(r["ok"] for r in out["probes"]):
+            fail(f"find_max_duration: {out}")
+        pipe, _, _, wav = next(p for p in probes if p[1] == PROBE_CHECK_SECONDS)
+        cpu = syn.Lip2SpeechPipeline(cfg, pipe.model.state_dict(), pipe.vocoder.state_dict(),
+                                     device="cpu")
+        t0 = time.perf_counter()
+        n = int(PROBE_CHECK_SECONDS * 25)
+        ref = cpu.forward(torch.zeros(1, n, 88, 88, 1), torch.ones(1, n, dtype=torch.bool),
+                          torch.zeros(1, 256))[0][0].numpy()
+        probe_err = float(np.abs(wav - ref).max())
+        print(f"find_max_duration {PROBE_CHECK_SECONDS:g} s probe's waveform against the plain "
+              f"path on the CPU: max_abs_err {probe_err:.3e} (tol 1e-3), |wav| max "
+              f"{float(np.abs(ref).max()):.4f}; CPU run {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        if wav.shape != ref.shape or not probe_err <= 1e-3:
+            fail("find_max_duration: the probe's waveform disagrees with the plain path")
+        del cpu
+        real_forward = pipe.forward
+        for exc, ends in ((torch.cuda.OutOfMemoryError("CUDA out of memory (injected)"), True),
+                          (RuntimeError("CUDA error: an illegal memory access (injected)"), False)):
+            def failing(video, mask, spk, exc=exc):
+                if video.shape[1] > 100:
+                    raise exc
+                return real_forward(video, mask, spk)
+
+            pipe.forward = failing
+            try:
+                res = find_max_duration.probe_durations(pipe, 12.0, 4.0)
+                outcome = f"ends the list at {res['max_ok_seconds']:g} s"
+                ok = ends and res["max_ok_seconds"] == 4.0 and not res["probes"][-1]["ok"]
+            except RuntimeError as e:
+                outcome = f"fails the tool ({e})"
+                ok = not ends and not isinstance(e, torch.cuda.OutOfMemoryError)
+            print(f"find_max_duration with a forward raising {type(exc).__name__} past 100 "
+                  f"frames: {outcome}", flush=True)
+            if not ok:
+                fail("find_max_duration: an error other than out of memory must fail the tool, "
+                     "and out of memory must end the list")
+        pipe.forward = real_forward
+        read["probes"] = out["probes"]
+        read["probe_err"] = probe_err
+        del pipe, probes
+        torch.cuda.empty_cache()
+    seconds["phase"] = time.perf_counter() - t_phase
+    read.update(seconds={k: round(v, 3) for k, v in seconds.items()}, launches=launches)
+    print(f"phase 23 dataset tools and capacity probe (multi_target, full width): "
+          f"{json.dumps(read, default=float)}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4095,6 +4416,7 @@ def main() -> int:
     asr = phase_asr(counters)
     multi = phase_multi_gpu(counters, preset)
     pretrain = phase_pretrain(counters)
+    tools = phase_dataset_tools(syn, counters, preset, smi)
     for name, numbers in (("rel_attention", rel), ("rel_attention_bias", bias),
                           ("rel_attention_bwd", shear_bwd), ("rel_attention_bias_bwd", bias_bwd)):
         numbers["dropout"] = "philox.cuh"
@@ -4111,6 +4433,8 @@ def main() -> int:
         numbers.update(design=f"mma.sync m16n8k16 bf16, f32 accumulate; f32: {f32_design}",
                        hmma_in_sass=hmma[lib], hmma_tf32_in_sass=hmma_tf32[lib],
                        cli_launches={tool: n[name] for tool, n in cli.items() if name in n},
+                       dataset_tool_launches={tool: n[name] for tool, n in tools.items()
+                                              if name in n},
                        server_launches=served.get(name, {}), asr_launches=asr[name],
                        multi_gpu_launches_a_rank={
                            run: multi[run]["rank0"]["launches"].get(name, 0)

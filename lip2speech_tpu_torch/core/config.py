@@ -15,13 +15,17 @@ from typing import Any, Sequence
 
 @dataclass(frozen=True)
 class AudioConfig:
-    """The dataset mel's hop, and the vocoder's mel-loss STFT (1024/256/1024,
-    80 bins from fmin, fmax None: the Nyquist rate)."""
+    """The dataset mel (Tacotron-style, centred: 640/160/640, 80 bins from 0
+    to 8 kHz, reference create_dataset.py:62-75), and the vocoder's mel-loss
+    STFT (1024/256/1024, 80 bins from fmin, fmax None: the Nyquist rate)."""
 
     sample_rate: int = 16_000
+    n_fft: int = 640
     hop_length: int = 160
+    win_length: int = 640
     num_mels: int = 80
     fmin: float = 0.0
+    fmax: float = 8000.0
     loss_n_fft: int = 1024
     loss_hop_length: int = 256
     loss_win_length: int = 1024

@@ -54,6 +54,7 @@ from lip2speech_tpu_torch.models import avhubert_asr as tavh
 from lip2speech_tpu_torch.models import lm as tlm
 from lip2speech_tpu_torch.models import raven_asr as traven
 from lip2speech_tpu_torch.models import transformer_decoder as tdec
+from torch_tmp import tmp_path  # noqa: F401  (removed when the test passes)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TOL = 1e-4                   # of max(1, |ref|): scores, logits, CTC prefix scores

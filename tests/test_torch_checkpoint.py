@@ -29,6 +29,7 @@ from test_torch_train_stage1 import _batch as s1_batch
 from test_torch_train_stage1 import _cfg as s1_cfg
 from test_torch_train_stage2 import _batch as gan_batch
 from test_torch_train_stage2 import _cfg as gan_cfg
+from torch_tmp import tmp_path  # noqa: F401  (removed when the test passes)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -269,3 +270,81 @@ def test_orbax_generator_converted_gives_jax_waveform(tmp_path, orbax_to_torch):
         got = port(torch.as_tensor(batch["code"]).long(), torch.as_tensor(batch["mel"]),
                    torch.as_tensor(batch["spk_emb"]))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
+
+
+def test_orbax_do_converted_resumes_the_jax_gan_run(tmp_path, tmp_path_factory, orbax_to_torch):
+    """The JAX GAN state after one step and next_epoch (the cached half of
+    test_torch_train_stage2.py, which saves it with the JAX package's
+    save_stage2), its g_ and do_ converted (the `do_` kind) and restored by
+    the port's restore_stage2: generator, MPD, MSD (its u vectors too), both
+    AdamW states (exp_avg / exp_avg_sq of every parameter, step = optax's
+    count) within 1e-6 of the JAX trees, step and epoch equal. Then one port
+    GAN step from it against the JAX package's second make_gan_step from the
+    same state, as test_torch_train_stage2.py holds its steps: logs 1e-5
+    relative; parameters 2e-5 absolute on the elements whose first-step
+    gradient is at least a tenth of the tensor's largest; u 1e-5."""
+    import shutil
+
+    from lip2speech_tpu_torch.convert import from_jax
+
+    from test_torch_asr import run_once
+    from test_torch_modules import _np_tree
+    from test_torch_train_stage2 import _jax_two_steps, _to_torch
+
+    tc = gan_cfg(tcfg)
+    batches = [gan_batch(10), gan_batch(11)]
+    shared, ref = run_once(tmp_path_factory, "stage2_jax_two_steps",
+                           lambda shared: _jax_two_steps(batches, shared))
+    ref = _to_torch(ref)
+    port_dir = tmp_path / "port"
+    orbax_to_torch.main(["--input", str(shared / "g_00000001"),
+                         "--output", str(port_dir / "g_00000001")])
+    tree = jckpt.load_pytree(shared / "do_00000001")
+    gen_tree = jckpt.load_pytree(shared / "g_00000001")["generator"]
+    ckpt.save(port_dir / "do_00000001", orbax_to_torch.convert_stage2_do(tree, tc))
+    for name in ("g_00000001", "do_00000001"):      # read once, by this test
+        shutil.rmtree(shared / name)
+
+    state, steps = ckpt.restore_stage2(port_dir, stage2.create_gan_state(tc, seed=3, device="cpu"))
+    assert steps == 1 and (state.step, state.epoch) == (1, 1)
+    want = {"generator": from_jax.vocoder_state_dict(_np_tree(gen_tree)),
+            "mpd": from_jax.discriminator_state_dict(_np_tree(tree["mpd"])),
+            "msd": from_jax.discriminator_state_dict(_np_tree(tree["msd"]),
+                                                      _np_tree(tree["msd_spectral"]))}
+    for side, sd in want.items():
+        got = getattr(state, side).state_dict()
+        assert got.keys() == sd.keys(), side
+        for k, v in sd.items():
+            np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=1e-6, err_msg=side + k)
+    for opt, named, jopt in (
+            (state.gen_opt, list(state.generator.named_parameters()), tree["gen_opt"]),
+            (state.disc_opt, [(f"{pre}.{n}", p) for pre, m in (("mpd", state.mpd),
+                                                                ("msd", state.msd))
+                              for n, p in m.named_parameters()], tree["disc_opt"])):
+        adam = orbax_to_torch._adam_state(jopt)
+        assert int(np.asarray(adam["count"])) == 1
+        for moment, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            jm = from_jax.jax_tree_to_state_dict(_np_tree(adam[moment]))
+            assert {n for n, _ in named} == set(jm)
+            for n, p in named:
+                np.testing.assert_allclose(opt.state[p][key].numpy(), jm[n].numpy(),
+                                           atol=1e-6, err_msg=n)
+                assert float(opt.state[p]["step"]) == 1.0
+    state.generator.code_dropout = 0.0
+    state, logs = stage2.make_gan_step(tc)(state, batches[1])
+    for k, v in ref["jlogs"][1].items():
+        np.testing.assert_allclose(float(logs[k]), v, rtol=1e-5, err_msg=k)
+    grads = ref["grads"]
+    compared = 0
+    for side in ("generator", "mpd", "msd"):
+        prefix = "" if side == "generator" else f"{side}."
+        for n, p in getattr(state, side).named_parameters():
+            g = grads[prefix + n]
+            inside = g.abs() >= 0.1 * g.abs().max()
+            compared += int(inside.sum())
+            np.testing.assert_allclose(p.detach()[inside].numpy(),
+                                       ref["final"][side][n][inside].numpy(), atol=2e-5,
+                                       err_msg=side + "." + n)
+    assert compared > 0
+    for k, u in state.msd.named_buffers():
+        np.testing.assert_allclose(u.numpy(), ref["final"]["msd"][k].numpy(), atol=1e-5, err_msg=k)

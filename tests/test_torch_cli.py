@@ -32,6 +32,7 @@ from lip2speech_tpu_torch.utils.audio_io import read_wav, write_wav
 from lip2speech_tpu_torch.utils.metrics_log import read_scalars
 
 from test_torch_modules import _perturb
+from torch_tmp import tmp_path  # noqa: F401  (removed when the test passes)
 
 LENS = (12, 17, 20, 26)
 

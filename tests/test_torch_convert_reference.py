@@ -33,6 +33,7 @@ from ref_mirror import RefConformerModule, RefFrontend, RefMelCodeGenerator, Ref
 from test_converter_auto_avsr import RefAutoAVSRModel
 from test_converter_avhubert import TorchAVHubert
 from test_converter_raven import RavenEncoder
+from torch_tmp import tmp_path  # noqa: F401  (removed when the test passes)
 
 D_FE = 32                    # the avhubert and raven mirrors' width
 

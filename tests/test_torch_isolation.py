@@ -50,14 +50,50 @@ def test_port_has_the_slice_modules():
                 "models/avhubert_asr", "models/lm", "decode/ctc_joint", "models/raven_asr",
                 "eval/asr_eval", "cli/infer_asr", "eval/harness", "utils/profiling",
                 "ops/masking", "models/avhubert_pretrain", "models/resnet1d",
-                "models/shufflenet", "models/vq"):
+                "models/shufflenet", "models/vq", "pipeline/media", "cli/create_dataset",
+                "cli/find_max_duration", "cli/overlay", "cli/shape_predictor",
+                "data/spm_train", "cli/gen_subword", "cli/avspeech"):
         assert f"lip2speech_tpu_torch/{mod}.py" in names
     csrc = {p.name for p in (REPO / "lip2speech_tpu_torch" / "csrc").iterdir()}
     native = {p.name for p in (REPO / "lip2speech_tpu_torch" / "native").iterdir()}
-    assert {"editdistance.c", "ctc_beam.c"} <= native
+    assert {"editdistance.c", "ctc_beam.c", "media_demux.c", "media_mux.c"} <= native
     assert {"rel_attention.cu", "fused_tail.cu", "attention.cu", "rel_attention_bias.cu",
             "flash_tile.cuh", "rel_attention_bwd.cu", "rel_attention_bias_bwd.cu",
             "flash_bwd_tile.cuh", "philox.cuh", "mma_tile.cuh"} <= csrc
+
+
+def test_the_package_files_match_the_jax_package_but_on_purpose():
+    """The .py / .c files of the two packages differ only where they should:
+    the Pallas kernels (CUDA sources and their ops modules here), the two
+    modules that need no counterpart, and the port's own additions."""
+    def files(pkg):
+        root = REPO / pkg
+        return {str(p.relative_to(root)) for p in root.rglob("*") if p.suffix in (".py", ".c")
+                and "_build" not in p.parts}
+
+    jax_only = files("lip2speech_tpu") - files("lip2speech_tpu_torch")
+    port_only = files("lip2speech_tpu_torch") - files("lip2speech_tpu")
+    assert jax_only == {"ops/pallas_attention.py", "ops/pallas_rel_attention.py",
+                        "ops/pallas_fused_tail.py", "ops/fold_conv.py",
+                        "convert/torch_to_jax.py"}
+    assert port_only == {"ops/attention.py", "ops/rel_attention.py", "ops/fused_tail.py",
+                         "ops/dropout_mask.py", "kernels/__init__.py", "kernels/build.py",
+                         "convert/from_jax.py", "convert/from_reference.py",
+                         "parallel/collectives.py"}
+
+
+def test_the_orbax_script_takes_only_the_restore_from_the_jax_package():
+    """scripts/orbax_to_torch.py, the one file that imports both packages:
+    the JAX side restores the orbax tree (train.checkpoint.load_pytree);
+    every conversion is the port's."""
+    path = REPO / "scripts" / "orbax_to_torch.py"
+    tree = ast.parse(path.read_text())
+    jax_side = {(n.module, a.name) for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+                and n.module and n.module.split(".")[0] == "lip2speech_tpu" for a in n.names}
+    assert jax_side == {("lip2speech_tpu.train.checkpoint", "load_pytree")}
+    roots = {name.split(".")[0] for name in _imported_modules(path)}
+    assert roots & set(FORBIDDEN) == {"lip2speech_tpu"}
+    assert "lip2speech_tpu_torch" in roots
 
 
 def test_every_kernel_source_names_what_it_replaces():
@@ -159,6 +195,23 @@ def test_asr_without_cuda_raises_unless_cpu_requested(monkeypatch, tmp_path):
         evaluate_asr(model, tmp_path / "none.tsv", {})
 
 
+def test_dataset_tools_without_cuda_raise_unless_cpu_requested(monkeypatch, tmp_path):
+    """create_dataset init, find_max_duration and overlay's denoise run on
+    the card unless --device cpu."""
+    from lip2speech_tpu_torch.cli import create_dataset, find_max_duration, overlay
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "wavs").mkdir()
+    for main, argv in (
+            (create_dataset.main, ["init", "--videos", "v.npy", "--out-root", str(tmp_path)]),
+            (find_max_duration.main, ["--preset", "tiny"]),
+            (overlay.main, ["--video-dir", str(tmp_path), "--pred-wav-dir",
+                            str(tmp_path / "wavs"), "--out-dir", str(tmp_path / "o"),
+                            "--denoise-and-normalise"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+
+
 def test_import_and_cpu_path_need_no_nvcc(tmp_path):
     """Importing the kernel modules and running their CPU paths builds and
     loads nothing (nvcc is unreachable in the child process); importing the
@@ -190,6 +243,8 @@ def test_import_and_cpu_path_need_no_nvcc(tmp_path):
         "from lip2speech_tpu_torch.cli import infer_asr\n"
         "from lip2speech_tpu_torch.eval import asr_eval, harness, metrics\n"
         "from lip2speech_tpu_torch.models import avhubert_asr, lm, raven_asr\n"
+        "from lip2speech_tpu_torch.pipeline import media\n"
+        "from lip2speech_tpu_torch.cli import create_dataset, find_max_duration, overlay\n"
         "assert not build._libs and not native._LIBS\n"
         "assert rel_attention.rel_attention_bwd_kernel.launches == 0\n"
         "assert rel_attention.rel_attention_bias_bwd_kernel.launches == 0\n"

@@ -120,7 +120,7 @@ def ranked(tmp_path_factory):
     enc = run_once(tmp_path_factory, "parallel_encoder_jax", lambda shared: _jax_encoder())[1]
     gan_batches = [gan_batch(10), gan_batch(11)]
     gref = _to_torch(run_once(tmp_path_factory, "stage2_jax_two_steps",
-                              lambda shared: _jax_two_steps(gan_batches))[1])
+                              lambda shared: _jax_two_steps(gan_batches, shared))[1])
     tc = _cfg(tcfg, adam_eps=1e-3, batch_size=4)
     sd = from_jax.stage1_state_dict(jref["start"])
     jobs = [(name, ranks.stage1_steps, (tc, sd, _stage1_batches(), data, model))

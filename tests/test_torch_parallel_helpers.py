@@ -32,6 +32,7 @@ from lip2speech_tpu_torch.train import stage1
 import torch_parallel_ranks as ranks
 from test_torch_cli import _files, dataset  # noqa: F401  (the fixture)
 from test_torch_train_stage1 import _cfg
+from torch_tmp import tmp_path  # noqa: F401  (removed when the test passes)
 
 
 def _cpus(n):

@@ -44,6 +44,7 @@ from lip2speech_tpu_torch.utils.audio_io import write_wav
 
 from test_heuristic_landmarks import _render_face_video
 from test_torch_speaker_denoise import encoder_from, speaker_params
+from torch_tmp import tmp_path  # noqa: F401  (removed when the test passes)
 
 TIMEOUT = 120          # every HTTP call and join: a hung server fails a test
 PCM_TOL = 1            # PCM16 steps

@@ -19,6 +19,7 @@ from lip2speech_tpu_torch.cli import convert as tconvert_cli
 from lip2speech_tpu_torch.convert import from_jax
 from lip2speech_tpu_torch.models import speaker as tspeaker
 from lip2speech_tpu_torch.ops import denoise as tdenoise
+from torch_tmp import tmp_path  # noqa: F401  (removed when the test passes)
 
 REL_TOL = 1e-5
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from lip2speech_tpu.core import config as jcfg
 from lip2speech_tpu.data import stage2 as jdata
 from lip2speech_tpu.models import vocoder as jvoc
+from lip2speech_tpu.train import checkpoint as jckpt
 from lip2speech_tpu.train import stage2 as jstage2
 from lip2speech_tpu_torch.convert import from_jax
 from lip2speech_tpu_torch.core import config as tcfg
@@ -107,13 +108,15 @@ def _to_torch(tree):
     return torch.from_numpy(tree) if isinstance(tree, np.ndarray) else tree
 
 
-def _jax_two_steps(batches) -> dict:
+def _jax_two_steps(batches, shared=None) -> dict:
     """The JAX half of two_steps, all numpy: the starting weights (as port
     state_dicts), both steps' logs with the generator's dropout neutralised
     (flax.linen.intercept_methods on Dropout), the first step's gradients
     (the Adam first moments, (1 - b1) x the gradients, by port name), the
     final weights, the injected rate and validation_mel_l1 after next_epoch.
-    The JAX step is compiled once, here."""
+    The JAX step is compiled once, here. With `shared` (run_once's
+    directory) the state between the steps (after next_epoch) is also saved
+    there by the JAX package's save_stage2, as g_00000001 / do_00000001."""
     jc = _cfg(jcfg)
     models, txs, jstate = _jax_state(jc, batches[0])
     start = _port_dicts(jstate)
@@ -128,6 +131,8 @@ def _jax_two_steps(batches) -> dict:
             grads = {**from_jax.jax_tree_to_state_dict(_np_tree(jstate.gen_opt.inner_state[0].mu)),
                      **from_jax.jax_tree_to_state_dict(_np_tree(jstate.disc_opt.inner_state[0].mu))}
             jstate = jstage2.next_epoch(jstate)
+            if shared is not None:
+                jckpt.save_stage2(shared, jstate, 1)
     val = jax.jit(lambda p, b: jstage2.validation_mel_l1(models[0], p, b, jc))(
         jstate.gen_params, {k: jnp.asarray(v) for k, v in batches[1].items()})
     return _to_numpy({"start": start, "jlogs": jlogs, "grads": grads,
@@ -149,7 +154,7 @@ def two_steps(tmp_path_factory):
     tc = _cfg(tcfg)
     batches = [_batch(10), _batch(11)]
     ref = _to_torch(run_once(tmp_path_factory, "stage2_jax_two_steps",
-                             lambda shared: _jax_two_steps(batches))[1])
+                             lambda shared: _jax_two_steps(batches, shared))[1])
     tstate = tstage2.create_gan_state(tc, device="cpu", state_dicts=ref["start"])
     tstate.generator.code_dropout = 0.0
     tstep = tstage2.make_gan_step(tc)

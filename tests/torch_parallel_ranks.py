@@ -13,8 +13,8 @@ other, to pay for the processes once.
 
 from __future__ import annotations
 
+import datetime
 import os
-import socket
 from pathlib import Path
 
 import torch
@@ -24,18 +24,26 @@ TIMEOUT_S = 120.0
 
 def spawn(fn, world: int, tmp_path: Path, *args, launcher: bool = False) -> list:
     """launcher=True: the ranks get torchrun's environment (RANK,
-    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT on a free localhost
-    port) instead of a group, and fn joins one itself."""
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) instead of a group,
+    and fn joins one itself. As under torchrun, the rendezvous store is the
+    launcher's: a TCPStore this process opens on a port the kernel picks
+    (port 0) and holds while the ranks run, and the ranks reach it as
+    clients (TORCHELASTIC_USE_AGENT_STORE), so no other process can take
+    the port between its choice and the ranks' rendezvous."""
+    import torch.distributed as dist
     import torch.multiprocessing as mp
 
     tmp_path.mkdir(parents=True, exist_ok=True)
-    port = None
+    store = None
     if launcher:
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-    mp.start_processes(_rank_main, args=(world, str(tmp_path), fn, args, port), nprocs=world,
-                       join=True, start_method="spawn")
+        store = dist.TCPStore("127.0.0.1", 0, world, is_master=True, wait_for_workers=False,
+                              timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    port = None if store is None else store.port
+    try:
+        mp.start_processes(_rank_main, args=(world, str(tmp_path), fn, args, port),
+                           nprocs=world, join=True, start_method="spawn")
+    finally:
+        del store
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -50,7 +58,8 @@ def _rank_main(rank: int, world: int, tmp: str, fn, args, port) -> None:
                              process_id=rank, device="cpu", timeout=TIMEOUT_S)
     else:
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                          TORCHELASTIC_USE_AGENT_STORE="True", TORCHELASTIC_RESTART_COUNT="0")
     try:
         result = fn(rank, world, Path(tmp), *args)
         torch.save(result, os.path.join(tmp, f"rank{rank}.pt"))
@@ -93,6 +102,9 @@ def stage1_steps(rank, world, tmp, cfg, state_dict, batches, data: int, model: i
     for p, q in zip(stage1.trained_parameters(fresh.model), stage1.trained_parameters(state.model)):
         a, b = fresh.optimizer.state[p], state.optimizer.state[q]
         same &= all(torch.equal(a[k], b[k]) for k in ("exp_avg", "exp_avg_sq", "step"))
+    torch.distributed.barrier()        # every rank has read the file back
+    if rank == 0:
+        path.unlink()                  # the run keeps the result, not the file
     return {"logs": logs, "model": content["model"], "restored_equal": bool(same),
             "heads": state.model.conformer.layers_0.self_attn.pos_bias_u.shape[0],
             "split": sorted(state.sharded),
