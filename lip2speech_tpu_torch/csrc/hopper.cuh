@@ -1,0 +1,271 @@
+// Hopper (sm_90a) building blocks of rel_attention_bwd.cu: warpgroup matrix
+// products (wgmma) with their shared-memory descriptors, TMA tile loads and
+// bulk reductions, mbarriers, named barriers and the async-proxy fence,
+// written in inline PTX, and the host-side encoding of TMA tensor maps. Not
+// compiled on its own.
+//
+// Shared-memory operand tiles are 128-byte-swizzled, as TMA writes them with
+// CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes (64 bf16, or 32 floats)
+// whose 16-byte chunks are XOR-ed with the row's index mod 8, in atoms of 8
+// rows (1024 bytes); every tile starts on a 1024-byte boundary. A bf16 tile
+// of 64 rows x 64 channels is 64 such rows (8 KB); an f32 one is two 8 KB
+// halves, channels 0..31 and 32..63 (`sw32`).
+//
+// wgmma reads an operand tile through a 64-bit descriptor: start address,
+// the stride between 8-row atoms (SBO, 1024 bytes here), and the swizzle
+// mode. K-major: the product's reduction runs along the 128-byte rows; a
+// k-step (16 bf16 or 8 floats, 32 bytes) advances the start by 32 bytes
+// inside the atom. MN-major (bf16 only: tf32 wgmma has no transpose): the
+// reduction runs across rows; a k16 step advances by 16 rows (2048 bytes).
+// Accumulators are m64nN f32: warp w of the warpgroup holds rows 16w + g and
+// 16w + g + 8 (g = lane / 4) in the m16n8 layout of mma_tile.cuh, c[n][0..1]
+// row g columns 8n + 2q, 8n + 2q + 1 (q = lane % 4), c[n][2..3] row g + 8.
+// A from registers takes the same per-warp fragment as mma.sync (m16k8
+// tf32).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers, named barriers, fences
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// True once the barrier's phase of the given parity has completed (the
+// thread may be suspended a while inside).
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Waits for that phase. A wait that outlasts ~2^35 clocks (some 20 s; every
+// wait of these kernels lasts microseconds) traps, so that a fault in the
+// barrier protocol ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// barrier `id` (1..15) among `threads` threads (a multiple of 32)
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Orders this thread's generic shared-memory accesses before later
+// async-proxy ones (wgmma operand reads, TMA writes), and the reverse.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+// Box (c0, c1, c2) of a 3-D tensor map into shared memory; completion adds
+// the box's bytes to the barrier's transaction count. Elements outside the
+// tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Adds an f32 box of shared memory into a 3-D tensor map's box (c0, c1,
+// c2), elementwise, in the L2: a bulk reduction. Elements outside the tensor
+// are skipped. Tracked by the issuing thread's bulk groups.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups are still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// until at most N of them are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled operand at `p` (8-row atoms 1024 bytes
+// apart). The same form serves K-major and MN-major tiles of one atom's
+// width; the instruction's transpose flag tells them apart.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of an accumulator (or of A
+// registers) across a wgmma fence or wait.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[e])::"memory");
+}
+
+#define L2S_ACC32(d)                                                                        \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
+      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]),            \
+      "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),            \
+      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]),            \
+      "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]),            \
+      "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define L2S_D32                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64, f32) += A (64 x 16) B (16 x 64), bf16, both from shared memory;
+// TA / TB = 1: that operand's tile is MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " L2S_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : L2S_ACC32(d)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, f32) += A (64 x 8) B (8 x 64), TF32: A (m16k8 fragments of the
+// warp's rows) in registers, B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " L2S_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : L2S_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same for a 64 x 32 accumulator (m64n32k8).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[4][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef L2S_ACC32
+#undef L2S_D32
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, reached through the runtime (the
+// libraries link no libcuda); nullptr if the driver lacks it.
+__host__ inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A map over `slices` stacked (rows, 64) matrices of bf16 (es = 2) or f32
+// (es = 4) at `base`, read in boxes of 64 rows x 128 bytes, swizzled as
+// the wgmma descriptors above expect. Rows outside [0, rows) of a slice
+// read as zeros. False if the driver refuses it.
+__host__ inline bool encode_rows64(CUtensorMap* map, const void* base, int es, int rows,
+                                   int slices) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)slices};
+  const cuuint64_t strides[2] = {(cuuint64_t)64 * es, (cuuint64_t)rows * 64 * es};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / es), 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper

@@ -6,7 +6,9 @@
 // bf16 products run on mma.sync.m16n8k16 (bf16 in, f32 accumulate), written
 // in inline PTX; operands come from shared memory by ldmatrix, or straight
 // from an accumulator (the probabilities and dS as the A operand of the
-// next product). Tiles arrive by 16-byte cp.async.
+// next product). Tiles arrive by 16-byte cp.async. (rel_attention_bwd.cu's
+// products run on wgmma, hopper.cuh; it takes the accumulator-layout
+// helpers, the TF32 split and its f32 path's mma.sync from here.)
 //
 // Layouts. A block has 4 warps; warp w owns the 16 query rows 16w.. of the
 // block's 64. Lane l has g = l / 4 and q = l % 4; an m16n8 f32 accumulator
@@ -657,8 +659,8 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst, const float 
   }
 }
 
-// The key-major backward's transposed products (rel_attention_bwd.cu's key
-// pass, rel_attention_bias_bwd.cu): P~ and dS of a query tile against the
+// The key-major backward's transposed products (rel_attention_bias_bwd.cu;
+// rel_attention_bwd.cu's f32 path): P~ and dS of a query tile against the
 // block's 64 keys go to tiles, and the warps of keys 16w.. then take dV +=
 // P~^T dO and dK += dS^T Q_u over the tile's 64 query rows (f32: channels
 // 32 cc ..).

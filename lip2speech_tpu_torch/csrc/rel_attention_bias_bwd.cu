@@ -42,8 +42,8 @@
 // (`key_products`). dQ_u = dS K goes to an f32 buffer by four-float
 // reductions (`red_add_rows`).
 //   So the bias is read once and dbias written once, the byte floor, and
-// five products run where the two-pass split of rel_attention_bwd.cu would
-// run seven (S and dPr recomputed by both passes) and read the bias twice
+// five products run where a query pass and a key pass would run seven (S
+// and dPr recomputed by both passes) and read the bias twice
 // (12 T^2 bytes). The cost: dQ_u's f32 sums arrive in an order that changes
 // from run to run, so its last bits may differ between runs (in bf16 then
 // rounded); dK, dV and dbias are deterministic.
@@ -59,7 +59,7 @@
 // half the keys (S, dPr, dS, P~: 16 accumulators each a lane) and then half
 // the channels of dK, dV and dQ_u; P~ and dS stored transposed, [key][query]
 // at a row stride of 72, and read as A by float2 in the k8 order, with dO's
-// and Q_u's rows read to match (rel_attention_bwd.cu's key pass); dQ_u =
+// and Q_u's rows read to match; dQ_u =
 // dS K reads dS back out of its transposed tile (keys 2q, 2q + 1 of a k8
 // step, K's rows by single floats). Q_u and dO single-buffered: issued
 // after a tile's last barrier, so each tile waits on device memory, and a

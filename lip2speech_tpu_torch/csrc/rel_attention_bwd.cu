@@ -13,487 +13,879 @@
 //     dP[h, T-1-i+j] += dS[i, j] q_v[i]      summed over i, j and the batch
 // Rows that had no valid key (lse below -1e30 / 2) get zero gradient.
 //
-// What bounds it: eight (T x T x 64) products per (batch, head), plus the
-// recomputation of S and dPr in the second pass, against O(T) bytes:
-// operations, on the tensor cores (bf16; f32 in 3xTF32).
+// What bounds it: eight (T x T x 64) products per (batch, head) against O(T)
+// bytes: operations, on the tensor cores (bf16; f32 in 3xTF32, three TF32
+// products for each).
 //
 // Design. The TPU kernel is one sequential program per (batch, head) that
 // carries dK, dV and dP in fast memory across query blocks and un-shears dS
-// with log2 rolls. Here two kernels run after a row-dot pre-pass
-// (flash_bwd_tile.cuh): the query pass owns 64 query rows, loops over key
-// tiles and keeps dQ_u and dQ_v in registers (and adds dP); the key pass
-// owns 64 keys, loops over query tiles and keeps dK and dV. Both recompute
-// P from the LSE; dQ is written once, so everything but dP is
-// deterministic. The dropout mask is philox.cuh's, a function of
-// (seed, b*h, i, j), so both passes see the forward's mask.
-//
-// Both passes are templates over the input type, `rel_bwd_{query,key}_pass
-// _mma<T>`: one tile loop; the type picks the tiles, the products, the warp
-// layout and the layouts of the tiles the kernels write themselves (dG, P~,
-// dS). Every product runs on the tensor cores, in bf16 on mma.sync
-// m16n8k16 and in f32 in 3xTF32 on m16n8k8 (mma_tile.cuh: hi, lo = v - hi,
-// three products each, f32 accumulate; ~2^-21 of |a b| dropped, so the f32
-// path is held to 1e-4 of the plain version, where one TF32 product, ~1e-3
-// off, would not pass). cp.async into operand tiles; the window as a ring
-// of three 64-row chunks, its next chunk loading while the current tile
-// computes. S's position term as in rel_attention.cu (G = Q_v . Win^T read
-// back along the diagonal). bf16: 4 warps of 16 query rows (keys, in the
-// key pass), each against the whole tile; dS and P~ are rounded to bf16 as
-// operands, f32 sums. f32: 8 warps, two to each 16 rows, each taking half
-// the tile's keys (S, dPr, dS, P~) and then half the channels of the
-// products that follow: one f32 block fills an SM's shared memory, and a
-// block of 4 warps left the schedulers one warp each, bound by latency.
-//   query pass  K, V double-buffered. The position gradients go through
-//               dG, a 64 x 128 tile holding dS un-sheared, dG[a, 63-a+j] =
-//               dS[a, j] (the forward's extraction inverted; the positions
-//               off the band stay zero from the start): dQ_v += dG_w .
-//               Win_w (16 x 80 x 64) and dWin = dG^T . Q_v (128 x 64 x 64,
-//               over the 20 non-zero 16 x 16 blocks of the band only).
-//               Rows 16w own window blocks w and w+4 of dWin. After key
-//               tile j, block w (table rows p0 + 16w ..) receives nothing
-//               more from this block and is added to dP in device memory,
-//               four floats per atomic; block w+4 is the next tile's block
-//               w and stays in registers. So every block sends each table
-//               row to memory once, not once per tile pair. Q_u and dO are
-//               staged through dG into registers. bf16: dQ_u += dS K from
-//               dS's registers; Q_v fragments in registers; 103.5 KB, two
-//               blocks per SM. f32: dQ_u += dS K with dS read back out of
-//               dG (the keys of a k8 step in the order 0, 2, 4, 6, 1, 3, 5,
-//               7, K's rows read by single floats to match); dG f32 with a
-//               row stride of 136 floats, read as A by float2 (dQ_v, the
-//               window rows in that order) and by single floats (dWin^T);
-//               Q_u and dO held unsplit, Q_v read from its tile at each
-//               use; 198.5 KB, one block of 8 warps per SM.
-//   key pass    K and V fixed; Q_u, Q_v, dO per query tile. Warps compute
-//               dS and P~ of their rows and keys and store them to tiles;
-//               then the warps of keys 16w .. accumulate dK and dV from
-//               their transposes: bf16 tiles [query][key] read by ldmatrix
-//               .trans; f32 tiles stored transposed, [key][query] at a row
-//               stride of 72, read as A by float2 in the k8 order above,
-//               with dO's and Q_u's rows read to match. Only the window
-//               ring overlaps compute here: Q_u, Q_v and dO of tile t+1 are
-//               single-buffered, issued after tile t's last barrier and
-//               waited for at the top of tile t+1, so each query tile waits
-//               on device memory. bf16: 102.3 KB, two blocks per SM (a
-//               second stage of the three would add 24 KB and leave one);
-//               f32: 200.3 KB, one block of 8 warps per SM.
+// with log2 rolls. Here a row-dot pre-pass (flash_bwd_tile.cuh) writes D,
+// then one key-major pass, `rel_bwd_wgmma<T>`, computes every product of a
+// tile pair once. A block owns 64 keys of one (batch, head) and walks over
+// the query tiles of 64, with 384 threads: a producer warpgroup and two
+// consumer warpgroups (hopper.cuh holds the Hopper primitives).
+//   The producer's first thread issues TMA loads: K and V once, then per
+// query tile Q_u, Q_v, dO and the one 64-row chunk of the position table
+// that the tile's window adds, into a ring of kS stages on full / empty
+// mbarriers. The window ring holds kS + 1 chunks: chunk m is window rows
+// 0..63 of tile m and 64..127 of tile m + 1, so a slot is refilled only
+// after the stage that last read it was released. TMA zero-fills rows past
+// the sequence and the table's ends. Under dropout all 128 producer threads
+// draw the tile's keep bits (philox.cuh: the forward's mask) before the
+// stage is free, eight Philox calls each, and leave one word per consumer
+// thread in the stage (`keep_half`).
+//   dK and dV stay in registers and are written once. dQ_u and dQ_v (over
+// key blocks) and dP (over key blocks, query tiles and the batch) are sums
+// in zeroed f32 buffers in device memory, so their last bits may differ
+// between runs. The position gradients go through dG, the 64 x 128 window
+// tile holding dS un-sheared, dG[a, 63-a+j] = dS[a, j] (zero off the band):
+// dQ_v = dG Win, dWin = dG^T Q_v, whose window rows 64..127 (with rows
+// 0..63 of the previous tile, carried in registers) receive nothing more
+// after this tile and go to dP, while rows 0..63 are the next tile's
+// 64..127: each block sends each table row to memory once.
+//   bf16 (dtype 1): every product on wgmma m64n64k16 with f32 accumulators,
+// the work split between the warpgroups, which run a tile apart through two
+// pair buffers (P~, dS, dG) on pair_full / pair_empty mbarriers:
+//     warpgroup 0: G = Q_v Win^T (the warps' band of G through an f32
+//       scratch, read back along the diagonal), S = Q_u K^T, dPr = dO V^T
+//       (K-major operands, as TMA lays them out), P (exp2 with the scale
+//       folded in; the rows' LSE and D loaded while the products run), dS
+//       and P~, stored as bf16 [query][key] tiles; dV += P~^T dO (both
+//       operands MN-major).
+//     warpgroup 1: dQ_u = dS K and dK += dS^T Q_u, while it un-shears dS
+//       into the dG band; dQ_v = dG Win; dWin = dG^T Q_v. dQ_u, dQ_v and
+//       each dP block are staged as swizzled f32 tiles and added by TMA
+//       bulk reductions (cp.reduce.async.bulk .add.f32), which skip rows
+//       outside the tensors.
+//   dS and P~ are rounded to bf16 as operands, every sum is f32. 224.3 KB
+// of shared memory: one block per SM. Twelve warps cap a thread at 168
+// registers (a 128-byte spill); warpgroup 0 holds only dV and warpgroup 1
+// dK, the carried dP block and its products' accumulators.
+//   f32 (dtype 0): 3xTF32 (mma_tile.cuh: hi = v rounded to TF32, lo = v -
+// hi, lo hi + hi lo + hi hi, f32 sums; held to 1e-4 of the plain version,
+// where one TF32 product, ~1e-3 off, fails). TF32 wgmma reads both shared
+// operands K-major only, and a split tile takes twice the space, so the
+// products whose operands arrive K-major run on wgmma with A split in
+// registers and B split once a tile into shared memory (hi in place, lo
+// beside it): S = Q_u K^T and dPr = dO V^T (K and V split once a block;
+// each warpgroup 32 of the keys, m64n32k8) and G^T = Win Q_v^T (each
+// warpgroup one 64-row window half, m64n64k8; G^T through a 128 x 64 f32
+// scratch). The products that reduce over queries, keys or window rows,
+// dK, dV, dQ_u, dQ_v and dWin, would need transposed split copies of Q_u,
+// dO, K, the window and dG, five more 32 KB tiles beyond the 227 KB; with
+// transposed split P~ and dS tiles, which do fit, dK and dV on wgmma read
+// slower on the card than on mma.sync. So these five stay on mma.sync
+// m16n8k8 in this kernel, each warpgroup on 32 of the channels: P~ and dS
+// stored transposed ([key][query], row stride 72) and read as A by float2
+// in the k8 order 0, 2, 4, 6, 1, 3, 5, 7; dQ_v's and dWin's A read dG out
+// of the dS tile along the shear (no dG tile); B rows from the swizzled
+// tiles, conflict-free in that order; dQ_u, dQ_v and dP by four-float
+// reductions. One stage: 197.8 KB.
 //
 // Bounds are checked: any T.
 
 #include "flash_bwd_tile.cuh"
+#include "hopper.cuh"
 #include "mma_tile.cuh"
 
 namespace {
 
 using namespace mma;
+namespace hp = hopper;
 
-constexpr int kDgLd = 136;   // row stride of the dG tile (bf16: ldmatrix without conflicts)
+constexpr int kThreads = 384;   // two consumer warpgroups and the producer warpgroup
 
-// bf16: 4 warps, each owning 16 query rows (query pass) or keys (key pass)
-// against the whole tile. f32: 8 warps, two to each 16 rows, each taking
-// half the tile's keys (kw = 0 or 32) and, in the products that follow,
-// half the channels: the 3xTF32 products leave one 4-warp block of ~200 KB
-// an SM latency-bound, and two warps a scheduler hide each other's waits.
+// Shared memory, byte offsets from a 1024-aligned base.
 template <typename T>
-struct Pass {
-  static constexpr bool kBf16 = sizeof(T) == 2;
-  static constexpr int kWarps = kBf16 ? 4 : 8;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int NT = kBf16 ? 8 : 4;         // n8 tiles of keys (and channels) a warp
-  static constexpr int kGLd = kBf16 ? kGld : 56;   // row stride of a warp's G scratch
-  static constexpr int E = Tile<T>::kElems;
-  // query pass: Q_v, two stages of K and of V, the window ring, dG (Q_u
-  // and dO pass through it on their way to registers), the warps' G
-  // scratch, two stages of mask flags
-  static constexpr size_t kQSmem = ((size_t)8 * E + (size_t)kB * kDgLd) * sizeof(T) +
-                                   ((size_t)kWarps * 16 * kGLd + 2 * kB) * sizeof(float);
-  // key pass: K, V, Q_u, Q_v, dO, the window ring, P~, dS, the G scratch, the mask flags
-  static constexpr int kPdElems = kBf16 ? kTile : kD * kPtLd;
-  static constexpr size_t kKSmem = ((size_t)8 * E + 2 * (size_t)kPdElems) * sizeof(T) +
-                                   ((size_t)kWarps * 16 * kGLd + kB) * sizeof(float);
-  static constexpr int kBlocksPerSm = kBf16 ? 2 : 1;
+struct Layout;
+
+template <>
+struct Layout<bf16> {
+  static constexpr int kS = 2;                      // stages of Q_u, Q_v, dO
+  static constexpr int kRing = kS + 1;              // window chunks
+  static constexpr int TB = kTile * 2;              // a 64 x 64 bf16 tile
+  static constexpr int kPairBytes = 4 * TB;         // P~, dS, dG (two 64-column halves)
+  static constexpr int kK = 0, kV = TB;
+  static constexpr int kStage = 2 * TB;                          // [kS] x (Q_u, Q_v, dO)
+  static constexpr int kRingOff = kStage + kS * 3 * TB;
+  static constexpr int kPair = kRingOff + kRing * TB;            // [2]
+  static constexpr int kGScr = kPair + 2 * kPairBytes;           // warpgroup 0's G scratch
+  static constexpr int kStaging = kGScr + 4 * 16 * kGld * 4;     // dQ_u, dQ_v, dWin: f32 tiles
+  static constexpr int kFlags = kStaging + 3 * kB * kD * 4;
+  static constexpr int kKeep = kFlags + kB * 4;   // [kS] x 128 dropout words
+  static constexpr int kBars = kKeep + kS * 512;   // full[kS] empty[kS] kv pair_full[2] pair_empty[2]
+  static constexpr int kSmem = kBars + (2 * kS + 5) * 8 + 1024;   // + alignment slack
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+template <>
+struct Layout<float> {
+  static constexpr int kS = 1;
+  static constexpr int kRing = kS + 1;
+  static constexpr int TB = kB * kD * 4;            // two swizzled halves of 32 channels
+  static constexpr int kK = 0, kV = TB, kKlo = 2 * TB, kVlo = 3 * TB;   // hi in place
+  static constexpr int kStage = 4 * TB;             // Q_u, Q_v (hi in place), dO
+  static constexpr int kQvLo = kStage + 3 * TB;
+  static constexpr int kRingOff = kQvLo + TB;
+  static constexpr int kPair = kRingOff + kRing * TB;   // P~^T, dS^T [key][query]; G^T over them
+  static constexpr int kGtLd = 68;
+  static constexpr int kFlags = kPair + 2 * kB * kPtLd * 4;
+  static constexpr int kKeep = kFlags + kB * 4;    // 128 dropout words
+  static constexpr int kBars = kKeep + kS * 512;   // full, empty, kv
+  static constexpr int kSmem = kBars + 3 * 8 + 1024;
+  static_assert(2 * kB * kGtLd <= 2 * kB * kPtLd, "G^T scratch fits the pair tiles");
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+struct Bars {
+  uint64_t *full, *empty, *kv, *pfull, *pempty;
 };
 
 template <typename T>
 struct Args {
-  const T *qu, *qv, *k, *v, *p, *d_o;
   const uint8_t* mask;
   const float *lse, *delta;
-  T *dqu, *dqv, *dk, *dv;
+  float *dqu, *dqv;   // f32 sums, zeroed by the caller
+  T *dk, *dv;
   float* dp;
   int H, T_len;
   float scale;
   philox::Dropout drop;
 };
 
-__device__ __forceinline__ void put(bf16* dst, float v) { *dst = __float2bfloat16_rn(v); }
-__device__ __forceinline__ void put(float* dst, float v) { *dst = v; }
-
-__device__ __forceinline__ uint32_t dg_addr(const bf16* sDg, RC rc) {
-  return smem_u32(sDg + rc.r * kDgLd + rc.c);
+// The warp's index, as a value the compiler knows to be the same across
+// the warp (wgmma in code it takes for divergent is serialized).
+__device__ __forceinline__ int warp_index() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
 }
 
-// The lane's two rows' log-sum-exp and D; rows past the sequence get
-// lse = -inf (probabilities 0).
+// element offset of (row, col) in a swizzled f32 64 x 64 tile (two halves
+// of 32 channels)
+__device__ __forceinline__ int sw32(int r, int c) {
+  return ((c >> 5) << 11) + (r << 5) + ((((c >> 2) & 7) ^ (r & 7)) << 2) + (c & 3);
+}
+
+// window chunk m (table rows T-64+j0-64m ..): window rows 0..63 of query
+// tile m, rows 64..127 of tile m + 1
 template <typename T>
-__device__ __forceinline__ void row_stats(const Args<T>& g, int bh, int i_g, float lse[2],
+__device__ __forceinline__ T* ring_chunk(unsigned char* sm, int m) {
+  using L = Layout<T>;
+  return reinterpret_cast<T*>(sm + L::kRingOff + (((m % L::kRing) + L::kRing) % L::kRing) * L::TB);
+}
+
+// ---------------------------------------------------------------------------
+// producer
+// ---------------------------------------------------------------------------
+
+// Rows row .. row+63 of slice `slice` of a map into a swizzled tile
+template <typename T>
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar, int row,
+                                         int slice) {
+  hp::tma_load_3d(dst, map, bar, 0, row, slice);
+  if constexpr (sizeof(T) == 4)
+    hp::tma_load_3d(static_cast<unsigned char*>(dst) + 8192, map, bar, 32, row, slice);
+}
+
+// The dropout keep bits of query rows i0 .. i0+63 against the block's keys
+// j0 .. j0+63 as 128 words, one per consumer thread of a 64 x 64 tile in
+// the accumulator layout: word 32w + 4g + q holds, for rows 16w + g (bits
+// 0..15) and 16w + g + 8 (bits 16..31), keys 8n + 2q + e at bit 2n + e.
+// philox.cuh's counter (i, j / 4, b*h) gives the four keys of a group of
+// four: keys 0, 1 belong to an even q, 2, 3 to the odd one. These are the
+// bits mma_tile.cuh's keep_frag draws in a consumer's place; here the
+// producer warpgroup draws them, thread pt taking one row (pt % 2 selects
+// g or g + 8) of the words of q = 2 qp, 2 qp + 1 for pair pt / 2 = (w, g,
+// qp): eight Philox calls a tile.
+__device__ __forceinline__ void keep_half(uint32_t& even, uint32_t& odd, const philox::Dropout& d,
+                                          int bh, int i0, int j0, int pt) {
+  const int p = pt >> 1, w = p >> 4, g = (p >> 1) & 7, qp = p & 1, rh = pt & 1;
+  even = 0u;
+  odd = 0u;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const uint4 r = philox::philox4x32_10(
+        make_uint4((uint32_t)(i0 + 16 * w + g + 8 * rh), (uint32_t)((j0 >> 2) + 2 * n + qp),
+                   (uint32_t)bh, 0u),
+        d.k0, d.k1);
+    even |= ((uint32_t)(r.x >= d.thresh) | ((uint32_t)(r.y >= d.thresh) << 1)) << (2 * n);
+    odd |= ((uint32_t)(r.z >= d.thresh) | ((uint32_t)(r.w >= d.thresh) << 1)) << (2 * n);
+  }
+}
+
+// The producer warpgroup: its first thread issues the TMA loads; under
+// dropout all its threads draw the tile's keep bits before the stage is
+// free and write them into it after. A stage's full barrier takes two
+// arrivals (the loads' and the bits') and the loads' bytes.
+template <typename T>
+__device__ __forceinline__ void produce(const CUtensorMap* tm_qu, const CUtensorMap* tm_qv,
+                                        const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                        const CUtensorMap* tm_do, const CUtensorMap* tm_p,
+                                        unsigned char* sm, const Bars& br, const Args<T>& g,
+                                        int bh, int h, int j0) {
+  using L = Layout<T>;
+  const int pt = threadIdx.x - 256, T_len = g.T_len;
+  const bool drop = g.drop.thresh != 0u;
+  if (pt == 0) {
+    hp::mbar_expect_tx(br.kv, 2 * L::TB);
+    tma_tile<T>(sm + L::kK, tm_k, br.kv, j0, bh);
+    tma_tile<T>(sm + L::kV, tm_v, br.kv, j0, bh);
+  }
+  const int n_tiles = (T_len + kB - 1) / kB;
+  const int base0 = T_len - kB + j0;   // table row of window chunk 0
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % L::kS;
+    uint32_t even = 0u, odd = 0u;
+    if (drop) keep_half(even, odd, g.drop, bh, kB * t, j0, pt);
+    if (t >= L::kS) hp::mbar_wait(&br.empty[s], ((t / L::kS) - 1) & 1);
+    if (pt == 0) {
+      hp::mbar_expect_tx(&br.full[s], (t == 0 ? 5 : 4) * L::TB);
+      unsigned char* st = sm + L::kStage + s * 3 * L::TB;
+      tma_tile<T>(st, tm_qu, &br.full[s], kB * t, bh);
+      tma_tile<T>(st + L::TB, tm_qv, &br.full[s], kB * t, bh);
+      tma_tile<T>(st + 2 * L::TB, tm_do, &br.full[s], kB * t, bh);
+      tma_tile<T>(ring_chunk<T>(sm, t), tm_p, &br.full[s], base0 - kB * t, h);
+      if (t == 0) tma_tile<T>(ring_chunk<T>(sm, -1), tm_p, &br.full[s], base0 + kB, h);
+    }
+    if (drop) {   // rows g + 8 into the high halves
+      const uint32_t e8 = __shfl_xor_sync(0xffffffffu, even, 1);
+      const uint32_t o8 = __shfl_xor_sync(0xffffffffu, odd, 1);
+      if ((pt & 1) == 0) {
+        const int p = pt >> 1;
+        uint32_t* words = reinterpret_cast<uint32_t*>(sm + L::kKeep + s * 512) +
+                          32 * (p >> 4) + 4 * ((p >> 1) & 7) + 2 * (p & 1);
+        words[0] = even | (e8 << 16);
+        words[1] = odd | (o8 << 16);
+      }
+    }
+    hp::named_barrier(3, 128);
+    if (pt == 0) hp::mbar_arrive(&br.full[s]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// consumers: what both types share
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The lane's two rows' log-sum-exp times log2(e), +inf for rows that had no
+// valid key (lse below -1e30 / 2) or lie past the sequence (probabilities
+// 0), and D.
+template <typename T>
+__device__ __forceinline__ void row_stats(const Args<T>& g, int bh, int i_g, float lse2[2],
                                           float delta[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = i_g + 8 * r;
-    lse[r] = i < g.T_len ? g.lse[(size_t)bh * g.T_len + i] : -INFINITY;
+    const float l = i < g.T_len ? g.lse[(size_t)bh * g.T_len + i] : -INFINITY;
+    lse2[r] = l > 0.5f * flash::kMasked ? l * kLog2e : INFINITY;
     delta[r] = i < g.T_len ? g.delta[(size_t)bh * g.T_len + i] : 0.f;
   }
 }
 
-// From the scores s (scaled, mask not applied) and dpr = dO V^T of the
-// warp's 16 x 8 NT pair tile: ds = P o (dpr * keep - D) * scale, and with
-// pd != nullptr also pd = P * keep. Rows whose lse is below -1e30 / 2 had
-// no valid key and get P = 0. kj0: the warp's first key; sM: its flags.
+// Bit 2n + e set where the lane's key 8n + 2q + e of the tile's columns is
+// valid (sM: their flags).
+template <int NT>
+__device__ __forceinline__ uint32_t key_bits(const float* sM, int q) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (sM[8 * n + 2 * q + e] > 0.f) bits |= 1u << (2 * n + e);
+  return bits;
+}
+
+// From the unscaled scores s and dpr = dO V^T of the warp's 16 x 8 NT pair
+// tile: s becomes dS = P o (dpr * keep - D) * scale, and dpr P~ = P * keep,
+// with P = exp2(s * scale * log2(e) - lse2), 0 on invalid keys. Under
+// dropout, keep comes from the lane's keep word (`keep_half`), whose
+// n-tiles n0 .. are the tile's columns.
 template <int NT, typename T>
-__device__ __forceinline__ void backward_frag(float s[][4], const float dpr[][4], float (*pd)[4],
-                                              const float* sM, const Args<T>& g, int bh, int i_g,
-                                              int kj0, const float lse[2], const float delta[2],
-                                              int q) {
+__device__ __forceinline__ void pair_grads(float s[][4], float dpr[][4], uint32_t kbits,
+                                           uint32_t keep, int n0, const Args<T>& g,
+                                           const float lse2[2], const float delta[2]) {
+  const float sl2 = g.scale * kLog2e;
+  const bool drop = g.drop.thresh != 0u;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
-    float kf[4] = {1.f, 1.f, 1.f, 1.f};
-    if (g.drop.thresh != 0u) keep_frag(g.drop, (uint32_t)bh, i_g, kj0 + 8 * n + 2 * q, q, kf);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
-      const bool ok = lse[r] > 0.5f * flash::kMasked && sM[8 * n + 2 * q + (e & 1)] > 0.f;
-      const float prob = ok ? expf(s[n][e] - lse[r]) : 0.f;
-      if (pd != nullptr) pd[n][e] = prob * kf[e];
-      s[n][e] = prob * (dpr[n][e] * kf[e] - delta[r]) * g.scale;
+      const float kf =
+          drop ? ((keep >> (16 * r + 2 * (n0 + n) + (e & 1))) & 1u ? g.drop.inv_keep : 0.f) : 1.f;
+      const float prob = (kbits >> (2 * n + (e & 1))) & 1u
+                             ? exp2f(fmaf(s[n][e], sl2, -lse2[r])) : 0.f;
+      s[n][e] = prob * (dpr[n][e] * kf - delta[r]) * g.scale;
+      dpr[n][e] = prob * kf;
     }
   }
 }
 
-// The query pass's products after dG is complete, for the warp's 16 query
-// rows 16w.. (its window rows rb .. rb+79):
-//   dQ_v += dG_w . Win_w,  dWin on window blocks w (done: to dP) and w+4
-//   (carried); block b meets query k-steps s with 3 <= b + s <= 7 only.
-// bf16: all 64 channels (cc = 0), dQ_u already added from dS's registers;
-// f32: channels 32 cc .., and dQ_u += dS K from dS read back out of dG.
-__device__ __forceinline__ void band_dqv(float dqv[8][4], const bf16* sDg, const Ring<bf16>& win,
-                                         int m, int w, int, int lane) {
-  const int rb = 48 - 16 * w;
+// ---------------------------------------------------------------------------
+// bf16: every product on wgmma. Warpgroup 0 computes the pair's scores,
+// dS and P~ and holds dV; warpgroup 1, a tile behind, holds dK and takes
+// dQ_u, dQ_v and dWin from the pair tiles warpgroup 0 leaves.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint64_t dsc(const bf16* p) { return hp::desc_sw128(p); }
+
+__device__ __forceinline__ bf16* pair_tiles(unsigned char* sm, int b) {
+  return reinterpret_cast<bf16*>(sm + Layout<bf16>::kPair + b * Layout<bf16>::kPairBytes);
+}
+
+// A warp's share of a 64 x 64 f32 accumulator into a swizzled f32 tile
+__device__ __forceinline__ void stage_tile(float* st, const float (&acc)[8][4], int w, int lane) {
+  const int r = 16 * w + (lane >> 2), c = 2 * (lane & 3);
 #pragma unroll
-  for (int ks = 0; ks < kGRows / 16; ++ks) {
-    uint32_t a[4];
-    ldsm_x4(a, dg_addr(sDg, a_rows(lane, 16 * w, rb + 16 * ks)));
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, win.addr(m, b_cols(lane, 16 * np, rb + 16 * ks)));
-      mma16816(dqv[2 * np], a, b[0], b[1]);
-      mma16816(dqv[2 * np + 1], a, b[2], b[3]);
-    }
+  for (int n = 0; n < 8; ++n) {
+    *reinterpret_cast<float2*>(st + sw32(r, 8 * n + c)) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(st + sw32(r + 8, 8 * n + c)) = make_float2(acc[n][2], acc[n][3]);
   }
 }
 
-__device__ __forceinline__ void band_dqv(float dqv[4][4], const float* sDg,
-                                         const Ring<float>& win, int m, int w, int cc, int lane) {
-  const int rb = 48 - 16 * w, g = lane >> 2, q = lane & 3;
-  const float* d0 = sDg + (16 * w + g) * kDgLd + rb + 2 * q;
-#pragma unroll 2
-  for (int ks = 0; ks < kGRows / 8; ++ks) {
-    const float2 x0 = *reinterpret_cast<const float2*>(d0 + 8 * ks);
-    const float2 x1 = *reinterpret_cast<const float2*>(d0 + 8 * kDgLd + 8 * ks);
-    const uint32_t av[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x), __float_as_uint(x0.y),
-                            __float_as_uint(x1.y)};
-    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
-    split4(av, ah, al);
-    // window rows 2q, 2q + 1 of the step, channels 32 cc ..
-    load_b_cols<4>(bh, bl, win.row(m, rb + 8 * ks + 2 * q) + 32 * cc + g);
-    mma3_tiles<4>(dqv, ah, al, bh, bl);
-  }
+// A staged f32 tile added to rows row .. row+63 of slice `slice` of a map
+__device__ __forceinline__ void reduce_tile(const CUtensorMap* map, const float* st, int row,
+                                            int slice) {
+  hp::tma_reduce_add_3d(map, st, 0, row, slice);
+  hp::tma_reduce_add_3d(map, st + 2048, 32, row, slice);
 }
 
-// f32: dQ_u (rows 16w.., channels 32 cc ..) += dS K, with dS[a][j] =
-// dG[a][63 - a + j] (the keys of a k8 step in the order 0, 2, 4, 6, 1, 3,
-// 5, 7, K's rows read to match)
-__device__ __forceinline__ void dqu_from_dg(float dqu[4][4], const float* sDg, const float* kt,
-                                            int w, int cc, int lane) {
-  const int g = lane >> 2, q = lane & 3, a = 16 * w + g;
-  const float* d0 = sDg + a * kDgLd + kB - 1 - a + 2 * q;             // row a, key 2q
-  const float* d1 = sDg + (a + 8) * kDgLd + kB - 1 - (a + 8) + 2 * q;   // row a + 8
-#pragma unroll 2
-  for (int ks = 0; ks < 8; ++ks) {
-    const uint32_t av[4] = {__float_as_uint(d0[8 * ks]), __float_as_uint(d1[8 * ks]),
-                            __float_as_uint(d0[8 * ks + 1]), __float_as_uint(d1[8 * ks + 1])};
-    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
-    split4(av, ah, al);
-    load_b_cols<4>(bh, bl, kt + (8 * ks + 2 * q) * kLd32 + 32 * cc + g);
-    mma3_tiles<4>(dqu, ah, al, bh, bl);
-  }
-}
+// Warpgroup 0: G, S, dPr, P~ and dS of each tile pair, then dV += P~^T dO
+__device__ __forceinline__ void consume_scores(const Args<bf16>& g, unsigned char* sm,
+                                               const Bars& br, int bh, int j0) {
+  using L = Layout<bf16>;
+  const int w = warp_index() & 3, lane = threadIdx.x & 31, q = lane & 3, gq = lane >> 2;
+  const int T_len = g.T_len, n_tiles = (T_len + kB - 1) / kB, rb = 48 - 16 * w;
+  const bf16* sK = reinterpret_cast<const bf16*>(sm + L::kK);
+  const bf16* sV = reinterpret_cast<const bf16*>(sm + L::kV);
+  float* sG = reinterpret_cast<float*>(sm + L::kGScr) + w * 16 * kGld;
+  const uint32_t kbits = key_bits<8>(reinterpret_cast<const float*>(sm + L::kFlags), q);
 
-// c += dWin of window block b (rows 16b..16b+15) = dG[:, block b]^T . Q_v
-// (f32: channels 32 cc ..)
-__device__ __forceinline__ void band_dwin(float c[8][4], const bf16* sDg, const bf16* sQv, int b,
-                                          int, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    if (b + ks < 3 || b + ks > 7) continue;
-    uint32_t a[4];
-    ldsm_x4_t(a, dg_addr(sDg, a_cols(lane, 16 * b, 16 * ks)));
-    product_nn_step(c, a, sQv, ks, lane);
-  }
-}
-
-__device__ __forceinline__ void band_dwin(float c[4][4], const float* sDg, const float* sQv,
-                                          int b, int cc, int lane) {
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    if (b + ks < 3 || b + ks > 7) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int k0 = 16 * ks + 8 * h;   // queries k0 + 2q, k0 + 2q + 1
-      const float* d0 = sDg + (k0 + 2 * q) * kDgLd + 16 * b + g;
-      const uint32_t av[4] = {__float_as_uint(d0[0]), __float_as_uint(d0[8]),
-                              __float_as_uint(d0[kDgLd]), __float_as_uint(d0[kDgLd + 8])};
-      uint32_t ah[4], al[4], bh[4][2], bl[4][2];
-      split4(av, ah, al);
-      load_b_cols<4>(bh, bl, sQv + (k0 + 2 * q) * kLd32 + 32 * cc + g);
-      mma3_tiles<4>(c, ah, al, bh, bl);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(Pass<T>::kThreads, Pass<T>::kBlocksPerSm)
-rel_bwd_query_pass_mma(const Args<T> g) {
-  using P = Pass<T>;
-  constexpr int E = P::E, NT = P::NT;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* sQv = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQv + E;               // two stages
-  T* sV = sK + 2 * E;            // two stages
-  const Ring<T> win{sV + 2 * E};
-  T* sDg = win.s + 3 * E;        // [query row][window row]
-  float* sG = reinterpret_cast<float*>(sDg + kB * kDgLd);
-  float* sM = sG + P::kWarps * 16 * P::kGLd;   // two stages
-
-  const int T_len = g.T_len, bh = blockIdx.y, h = bh % g.H, i0 = blockIdx.x * kB;
-  const size_t base = (size_t)bh * T_len * kD;
-  const int n_table = 2 * T_len - 1;
-  const T* ph = g.p + (size_t)h * n_table * kD;
-  float* dp_h = g.dp + (size_t)h * n_table * kD;
-  const int p_base = T_len - 1 - (i0 + kB - 1);   // table row of window chunk 0
-  const uint8_t* mask_row = g.mask + (size_t)(bh / g.H) * T_len;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
-  const int w = warp & 3, cc = warp >> 2, kw = 8 * NT * cc;   // rows 16w..; keys kw..
-  const int i_g = i0 + 16 * w + (lane >> 2);
-  float* G = sG + warp * 16 * P::kGLd;
-  const int n_tiles = (T_len + kB - 1) / kB;
-
-  // Q_u and dO pass through the dG tile on their way to registers
-  load_tile<P::kThreads>(sDg, g.qu + base, i0, T_len);
-  load_tile<P::kThreads>(sDg + E, g.d_o + base, i0, T_len);
-  load_tile<P::kThreads>(sQv, g.qv + base, i0, T_len);
-  load_tile<P::kThreads>(sK, g.k + base, 0, T_len);
-  load_tile<P::kThreads>(sV, g.v + base, 0, T_len);
-  load_tile<P::kThreads>(win.chunk(0), ph, p_base, n_table);
-  load_tile<P::kThreads>(win.chunk(1), ph, p_base + kB, n_table);
-  flash::load_mask(sM, mask_row, 0, T_len);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  RowsA<T> aqu, ado;
-  PassRowsA<T> aqv;
-  aqu.init(sDg, 16 * w, lane);
-  ado.init(sDg + E, 16 * w, lane);
-  aqv.init(sQv, 16 * w, lane);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kB * kDgLd * (int)sizeof(T) / 4; e += P::kThreads)
-    reinterpret_cast<uint32_t*>(sDg)[e] = 0u;
-
-  float lse[2], delta[2];
-  row_stats(g, bh, i_g, lse, delta);
-  float dqu[NT][4], dqv[NT][4], carry[NT][4];
-  zero<NT>(dqu);
-  zero<NT>(dqv);
-  zero<NT>(carry);
-
+  float dv[8][4];
+  zero<8>(dv);
+  hp::mbar_wait(br.kv, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {       // stage t+1 was last read in tile t-1
-      const int j1 = (t + 1) * kB;
-      load_tile<P::kThreads>(sK + (st ^ 1) * E, g.k + base, j1, T_len);
-      load_tile<P::kThreads>(sV + (st ^ 1) * E, g.v + base, j1, T_len);
-      load_tile<P::kThreads>(win.chunk(t + 2), ph, p_base + (t + 2) * kB, n_table);
-      flash::load_mask(sM + (st ^ 1) * kB, mask_row, j1, T_len);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const int s = t % L::kS, b = t & 1;
+    hp::mbar_wait(&br.full[s], (t / L::kS) & 1);
+    const bf16* sQu = reinterpret_cast<const bf16*>(sm + L::kStage + s * 3 * L::TB);
+    const bf16* sQv = sQu + kTile;
+    const bf16* sdO = sQv + kTile;
+    const bf16* w0 = ring_chunk<bf16>(sm, t);        // window rows 0..63
+    const bf16* w1 = ring_chunk<bf16>(sm, t - 1);    // 64..127
+    const int i_g = kB * t + 16 * w + gq;
+    float lse2[2], delta[2];
+    row_stats(g, bh, i_g, lse2, delta);   // in flight while the products run
+
+    {   // G = Q_v Win^T; the warp's window columns rb .. rb+79 to its scratch
+      float g0[8][4], g1[8][4];
+      zero<8>(g0);
+      zero<8>(g1);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) hp::wgmma_bf16_ss<0, 0>(g0, dsc(sQv + 16 * ks), dsc(w0 + 16 * ks));
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) hp::wgmma_bf16_ss<0, 0>(g1, dsc(sQv + 16 * ks), dsc(w1 + 16 * ks));
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_acc(g0);
+      hp::fence_acc(g1);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (8 * n >= rb) store_g<kGld>(sG, g0[n], 8 * n - rb + 2 * q, lane);
+        if (8 * n < rb + 16) store_g<kGld>(sG, g1[n], 64 + 8 * n - rb + 2 * q, lane);
+      }
     }
-    __syncthreads();
-    const T* kt = sK + st * E;
-    const T* vt = sV + st * E;
+    // S = Q_u K^T (+ the position term), dPr = dO V^T
+    float sc[8][4], dpr[8][4];
+    zero<8>(sc);
+    zero<8>(dpr);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) hp::wgmma_bf16_ss<0, 0>(sc, dsc(sQu + 16 * ks), dsc(sK + 16 * ks));
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) hp::wgmma_bf16_ss<0, 0>(dpr, dsc(sdO + 16 * ks), dsc(sV + 16 * ks));
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_acc(sc);
+    hp::fence_acc(dpr);
+    add_diagonal<8, kGld>(sc, sG, lane);
+    const uint32_t keep = g.drop.thresh != 0u
+        ? reinterpret_cast<const uint32_t*>(sm + L::kKeep + s * 512)[threadIdx.x] : 0u;
+    pair_grads<8>(sc, dpr, kbits, keep, 0, g, lse2, delta);   // dpr is now P~
 
-    float s[NT][4], dpr[NT][4];
-    zero<NT>(s);
-    zero<NT>(dpr);
-    product_nt<NT>(s, aqu, kt + Tile<T>::at(kw, 0), lane);
-    add_position_term<NT, P::kGLd>(s, aqv, win, t, 48 - 16 * w + kw, lane, G);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= g.scale;
-    product_nt<NT>(dpr, ado, vt + Tile<T>::at(kw, 0), lane);
-    backward_frag<NT>(s, dpr, nullptr, sM + st * kB + kw, g, bh, i_g, t * kB + kw, lse, delta, q);
+    // P~ and dS to pair buffer b, once warpgroup 1 has read it (tile t-2)
+    if (t >= 2) hp::mbar_wait(&br.pempty[b], ((t >> 1) - 1) & 1);
+    bf16* pPd = pair_tiles(sm, b);
+    bf16* pdS = pPd + kTile;
+    store_pair<8>(pPd, pdS, dpr, sc, w, 0, lane);
+    hp::fence_proxy_async();
+    hp::named_barrier(1, 128);
+    hp::mbar_arrive(&br.pfull[b]);
 
-    // dS un-sheared into dG (bf16: and dQ_u += dS K from the registers)
+    // dV += P~^T dO
+    hp::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int ks = 0; ks < 4; ++ks)
+      hp::wgmma_bf16_ss<1, 1>(dv, dsc(pPd + ks * 16 * kD), dsc(sdO + ks * 16 * kD));
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_acc(dv);
+    hp::mbar_arrive(&br.empty[s]);
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<8>(g.dv + (size_t)bh * T_len * kD, dv, j0 + 16 * w + gq, T_len, one, q);
+}
+
+// Warpgroup 1, a tile behind: dQ_u = dS K and dK += dS^T Q_u; dG from the
+// pair's dS; dQ_v = dG Win; dWin = dG^T Q_v, whose window rows 64..127 (+
+// the carry) go to dP
+__device__ __forceinline__ void consume_query(const Args<bf16>& g, const CUtensorMap* tm_dqu,
+                                              const CUtensorMap* tm_dqv, const CUtensorMap* tm_dp,
+                                              unsigned char* sm, const Bars& br, int bh, int h,
+                                              int j0) {
+  using L = Layout<bf16>;
+  const int ct = threadIdx.x - 128, w = warp_index() & 3, lane = ct & 31;
+  const bool lead = ct == 0;   // issues the reductions
+  const int T_len = g.T_len, n_tiles = (T_len + kB - 1) / kB, n_table = 2 * T_len - 1;
+  const bf16* sK = reinterpret_cast<const bf16*>(sm + L::kK);
+  float* stq = reinterpret_cast<float*>(sm + L::kStaging);
+  float* stv = stq + kB * kD;
+  float* stw = stv + kB * kD;
+
+  float dk[8][4], carry[8][4];
+  zero<8>(dk);
+  zero<8>(carry);
+  hp::mbar_wait(br.kv, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % L::kS, b = t & 1;
+    hp::mbar_wait(&br.full[s], (t / L::kS) & 1);
+    hp::mbar_wait(&br.pfull[b], (t >> 1) & 1);
+    const bf16* sQu = reinterpret_cast<const bf16*>(sm + L::kStage + s * 3 * L::TB);
+    const bf16* sQv = sQu + kTile;
+    const bf16* w0 = ring_chunk<bf16>(sm, t);
+    const bf16* w1 = ring_chunk<bf16>(sm, t - 1);
+    const bf16* pdS = pair_tiles(sm, b) + kTile;
+    bf16* pDg = pair_tiles(sm, b) + 2 * kTile;   // [query][window col], two halves
+    const int win = T_len - kB + j0 - kB * t;   // table row of window row 0
+
+    {   // dQ_u = dS K and dK += dS^T Q_u (running while dG is built), dQ_v = dG Win
+      float dqu[8][4], dqv[8][4];
+      zero<8>(dqu);
+      zero<8>(dqv);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hp::wgmma_bf16_ss<0, 1>(dqu, dsc(pdS + 16 * kk), dsc(sK + kk * 16 * kD));
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hp::wgmma_bf16_ss<1, 1>(dk, dsc(pdS + ks * 16 * kD), dsc(sQu + ks * 16 * kD));
+      hp::wgmma_commit();
+      {   // dG[a][63 - a + j] = dS[a][j]: thread ct takes row ct / 2, keys 32 (ct % 2) ..
+        const int a = ct >> 1, j1 = 32 * (ct & 1);
+#pragma unroll
+        for (int c8 = 0; c8 < 4; ++c8) {
+          const int j = j1 + 8 * c8;
+          const uint4 v = *reinterpret_cast<const uint4*>(pdS + swz(a, j));
+          const bf16* x = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int col = kB - 1 - a + j + e;
+            pDg[(col >> 6) * kTile + swz(a, col & 63)] = x[e];
+          }
+        }
+      }
+      hp::fence_proxy_async();
+      hp::named_barrier(2, 128);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        hp::wgmma_bf16_ss<0, 1>(dqv, dsc(pDg + (ks >> 2) * kTile + 16 * (ks & 3)),
+                                dsc((ks < 4 ? w0 : w1) + (ks & 3) * 16 * kD));
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_acc(dqu);
+      hp::fence_acc(dqv);
+      if (lead) hp::bulk_wait_read<0>();   // the staging tiles are free again
+      hp::named_barrier(2, 128);
+      stage_tile(stq, dqu, w, lane);
+      stage_tile(stv, dqv, w, lane);
+      hp::fence_proxy_async();
+      hp::named_barrier(2, 128);
+      if (lead) {
+        reduce_tile(tm_dqu, stq, kB * t, bh);
+        reduce_tile(tm_dqv, stv, kB * t, bh);
+        hp::bulk_commit();
+      }
+    }
+    // dWin = dG^T Q_v, window rows 0..63 and 64..127
+    float dw0[8][4], dw1[8][4];
+    zero<8>(dw0);
+    zero<8>(dw1);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      hp::wgmma_bf16_ss<1, 1>(dw0, dsc(pDg + ks * 16 * kD), dsc(sQv + ks * 16 * kD));
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      hp::wgmma_bf16_ss<1, 1>(dw1, dsc(pDg + kTile + ks * 16 * kD), dsc(sQv + ks * 16 * kD));
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_acc(dk);
+    hp::fence_acc(dw0);
+    hp::fence_acc(dw1);
+    hp::mbar_arrive(&br.pempty[b]);   // pair buffer b, the stage and chunk t-1 are consumed
+    hp::mbar_arrive(&br.empty[s]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int a = 16 * w + (lane >> 2) + 8 * (e >> 1), j = kw + 8 * n + 2 * q + (e & 1);
-        put(sDg + a * kDgLd + kB - 1 - a + j, s[n][e]);
+        dw1[n][e] += carry[n][e];
+        carry[n][e] = dw0[n][e];
       }
-    if constexpr (P::kBf16) product_acc_nn(dqu, s, kt, lane);
-    __syncthreads();   // dG is complete
-
-    if constexpr (!P::kBf16) dqu_from_dg(dqu, sDg, kt, w, cc, lane);
-    band_dqv(dqv, sDg, win, t, w, cc, lane);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int b = w + 4 * half;
-      float c[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[n][e] = half == 0 ? carry[n][e] : 0.f;
-      band_dwin(c, sDg, sQv, b, cc, lane);
-      if (half == 0) {
-        red_add_rows<NT>(c, dp_h + 8 * NT * cc, p_base + t * kB + 16 * b, n_table, lane);
-      } else {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) carry[n][e] = c[n][e];
-      }
+    stage_tile(stw, dw1, w, lane);
+    hp::fence_proxy_async();
+    hp::named_barrier(2, 128);
+    if (lead) {
+      reduce_tile(tm_dp, stw, win + kB, h);
+      hp::bulk_commit();
     }
-    __syncthreads();   // stage st, window chunk t and dG are consumed
   }
-  red_add_rows<NT>(carry, dp_h + 8 * NT * cc, p_base + n_tiles * kB + 16 * w, n_table, lane);
+  red_add_rows<8>(carry, g.dp + (size_t)h * n_table * kD,
+                  T_len - kB + j0 - kB * (n_tiles - 1) + 16 * w, n_table, lane);
   const float one[2] = {1.f, 1.f};
-  store_rows<NT>(g.dqu + base + 8 * NT * cc, dqu, i_g, T_len, one, q);
-  store_rows<NT>(g.dqv + base + 8 * NT * cc, dqv, i_g, T_len, one, q);
+  store_rows<8>(g.dk + (size_t)bh * T_len * kD, dk, j0 + 16 * w + (lane >> 2), T_len, one,
+                lane & 3);
+  if (lead) hp::bulk_wait<0>();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(Pass<T>::kThreads, Pass<T>::kBlocksPerSm)
-rel_bwd_key_pass_mma(const Args<T> g) {
-  using P = Pass<T>;
-  constexpr int E = P::E, NT = P::NT;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);
-  T* sV = sK + E;
-  T* sQu = sV + E;
-  T* sQv = sQu + E;
-  T* sdO = sQv + E;
-  const Ring<T> win{sdO + E};
-  T* sPd = win.s + 3 * E;           // P~ of the pair
-  T* sdS = sPd + P::kPdElems;       // dS of the pair
-  float* sG = reinterpret_cast<float*>(sdS + P::kPdElems);
-  float* sM = sG + P::kWarps * 16 * P::kGLd;
+// ---------------------------------------------------------------------------
+// f32: 3xTF32. Both warpgroups work on each tile: the scores of half the
+// keys each on wgmma, then the mma.sync products on half the channels each.
+// ---------------------------------------------------------------------------
 
-  const int T_len = g.T_len, bh = blockIdx.y, h = bh % g.H, j0 = blockIdx.x * kB;
-  const size_t base = (size_t)bh * T_len * kD;
-  const int n_table = 2 * T_len - 1;
-  const T* ph = g.p + (size_t)h * n_table * kD;
-  // window of query tile t: chunks -t, -t+1, chunk m at table row p_base + 64m
-  const int p_base = T_len - 1 - (kB - 1) + j0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
-  const int w = warp & 3, cc = warp >> 2, kw = 8 * NT * cc;   // rows (keys) 16w..; keys kw..
-  float* G = sG + warp * 16 * P::kGLd;
-  const int n_tiles = (T_len + kB - 1) / kB;
+__device__ __forceinline__ uint64_t dsc32(const float* tile, int ks) {   // k8 step ks
+  return hp::desc_sw128(tile + ((ks >> 2) << 11) + ((ks & 3) << 3));
+}
 
-  load_tile<P::kThreads>(sK, g.k + base, j0, T_len);
-  load_tile<P::kThreads>(sV, g.v + base, j0, T_len);
-  flash::load_mask(sM, g.mask + (size_t)(bh / g.H) * T_len, j0, T_len);
-  load_tile<P::kThreads>(win.chunk(0), ph, p_base, n_table);
-  load_tile<P::kThreads>(win.chunk(1), ph, p_base + kB, n_table);
-  load_tile<P::kThreads>(sQu, g.qu + base, 0, T_len);
-  load_tile<P::kThreads>(sQv, g.qv + base, 0, T_len);
-  load_tile<P::kThreads>(sdO, g.d_o + base, 0, T_len);
-  cp_async_commit();
+// hi in place, lo = v - hi into `lo`, over a whole tile (both warpgroups)
+__device__ __forceinline__ void split_tile(float* hi, float* lo, int tid) {
+  float4* h4 = reinterpret_cast<float4*>(hi);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+  for (int e = tid; e < kB * kD / 4; e += 256) {
+    float4 x = h4[e], y;
+    uint32_t a, b;
+    split(x.x, a, b); x.x = __uint_as_float(a); y.x = __uint_as_float(b);
+    split(x.y, a, b); x.y = __uint_as_float(a); y.y = __uint_as_float(b);
+    split(x.z, a, b); x.z = __uint_as_float(a); y.z = __uint_as_float(b);
+    split(x.w, a, b); x.w = __uint_as_float(a); y.w = __uint_as_float(b);
+    h4[e] = x;
+    l4[e] = y;
+  }
+}
 
-  float dk[NT][4], dv[NT][4];
-  zero<NT>(dk);
-  zero<NT>(dv);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int i_g = t * kB + 16 * w + (lane >> 2);
-    cp_async_wait<0>();
-    __syncthreads();
-    if (t + 1 < n_tiles) {       // chunk -(t+1) shares its slot with -t+2, last read in tile t-1
-      load_tile<P::kThreads>(win.chunk(-(t + 1)), ph, p_base - (t + 1) * kB, n_table);
-      cp_async_commit();
-    }
-    float lse[2], delta[2];
-    row_stats(g, bh, i_g, lse, delta);
-
-    float s[NT][4], dpr[NT][4], pd[NT][4];
-    zero<NT>(s);
-    zero<NT>(dpr);
-    {
-      PassRowsA<T> a;
-      a.init(sQu, 16 * w, lane);
-      product_nt<NT>(s, a, sK + Tile<T>::at(kw, 0), lane);
-      a.init(sQv, 16 * w, lane);
-      add_position_term<NT, P::kGLd>(s, a, win, -t, 48 - 16 * w + kw, lane, G);
-      a.init(sdO, 16 * w, lane);
-      product_nt<NT>(dpr, a, sV + Tile<T>::at(kw, 0), lane);
-    }
+// acc (64 x 8 NT) += A B^T in 3xTF32 on wgmma: A the 64 rows of a swizzled
+// tile (the warp's 16 as register fragments, split), B 8 NT rows of a tile
+// split into b_hi (in place) and b_lo; four k8 steps at a time.
+template <int NT>
+__device__ __forceinline__ void wgmma_nt32(float (&acc)[NT][4], const float* a_tile,
+                                           const float* b_hi, const float* b_lo, int w, int lane) {
+  const int gq = lane >> 2, q = lane & 3, r = 16 * w + gq;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+  for (int half = 0; half < 2; ++half) {
+    uint32_t ah[4][4], al[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= g.scale;
-    backward_frag<NT>(s, dpr, pd, sM + kw, g, bh, i_g, j0 + kw, lse, delta, q);
-    store_pair<NT>(sPd, sdS, pd, s, w, kw, lane);
-    __syncthreads();
-    key_products(dv, dk, sPd, sdS, sdO, sQu, w, cc, lane);
-    __syncthreads();   // Q_u, Q_v, dO, P~ and dS are consumed
-    if (t + 1 < n_tiles) {
-      const int i1 = (t + 1) * kB;
-      load_tile<P::kThreads>(sQu, g.qu + base, i1, T_len);
-      load_tile<P::kThreads>(sQv, g.qv + base, i1, T_len);
-      load_tile<P::kThreads>(sdO, g.d_o + base, i1, T_len);
-      cp_async_commit();
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k0 = 8 * (4 * half + kk) + q;
+      const uint32_t av[4] = {__float_as_uint(a_tile[sw32(r, k0)]),
+                              __float_as_uint(a_tile[sw32(r + 8, k0)]),
+                              __float_as_uint(a_tile[sw32(r, k0 + 4)]),
+                              __float_as_uint(a_tile[sw32(r + 8, k0 + 4)])};
+      split4(av, ah[kk], al[kk]);
+    }
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int ks = 4 * half + kk;
+      hp::wgmma_tf32_rs(acc, al[kk], dsc32(b_hi, ks));
+      hp::wgmma_tf32_rs(acc, ah[kk], dsc32(b_lo, ks));
+      hp::wgmma_tf32_rs(acc, ah[kk], dsc32(b_hi, ks));
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_acc(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hp::fence_regs(ah[kk]);
+      hp::fence_regs(al[kk]);
     }
   }
+}
+
+// B fragments of 4 n-tiles (columns c0 + 8n, rows r0 and r0 + 1 of a k8
+// step in the order 0, 2, 4, 6, 1, 3, 5, 7) of a swizzled tile: split, or
+// from its hi and lo tiles
+__device__ __forceinline__ void b_rows_split(uint32_t bh[4][2], uint32_t bl[4][2],
+                                             const float* tile, int r0, int c0) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+    split_b(tile[sw32(r0, c0 + 8 * n)], tile[sw32(r0 + 1, c0 + 8 * n)], bh[n], bl[n]);
+}
+__device__ __forceinline__ void b_rows_hl(uint32_t bh[4][2], uint32_t bl[4][2], const float* hi,
+                                          const float* lo, int r0, int c0) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int o0 = sw32(r0, c0 + 8 * n), o1 = sw32(r0 + 1, c0 + 8 * n);
+    bh[n][0] = __float_as_uint(hi[o0]);
+    bh[n][1] = __float_as_uint(hi[o1]);
+    bl[n][0] = __float_as_uint(lo[o0]);
+    bl[n][1] = __float_as_uint(lo[o1]);
+  }
+}
+
+__device__ __forceinline__ uint32_t ds_at(const float* sdST, int jj, int a) {
+  return __float_as_uint(jj >= 0 && jj < kB ? sdST[jj * kPtLd + a] : 0.f);
+}
+
+__device__ __forceinline__ void consume(const Args<float>& g, unsigned char* sm, const Bars& br,
+                                        int bh, int h, int j0) {
+  using L = Layout<float>;
+  const int tid = threadIdx.x, c = warp_index() >> 2, w = warp_index() & 3, lane = tid & 31;
+  const int q = lane & 3, gq = lane >> 2;
+  const int kw = 32 * c;
+  const int T_len = g.T_len, n_tiles = (T_len + kB - 1) / kB;
+  const int n_table = 2 * T_len - 1, rb = 48 - 16 * w;
+  const size_t base = (size_t)bh * T_len * kD;
+  float* dp_h = g.dp + (size_t)h * n_table * kD + kw;
+  float* sKh = reinterpret_cast<float*>(sm + L::kK);
+  float* sVh = reinterpret_cast<float*>(sm + L::kV);
+  float* sKl = reinterpret_cast<float*>(sm + L::kKlo);
+  float* sVl = reinterpret_cast<float*>(sm + L::kVlo);
+  float* sQvLo = reinterpret_cast<float*>(sm + L::kQvLo);
+  float* sPdT = reinterpret_cast<float*>(sm + L::kPair);
+  float* sdST = sPdT + kB * kPtLd;
+  float* sGt = sPdT;
+  const uint32_t kbits = key_bits<4>(reinterpret_cast<const float*>(sm + L::kFlags) + kw, q);
+
+  hp::mbar_wait(br.kv, 0);
+  split_tile(sKh, sKl, tid);
+  split_tile(sVh, sVl, tid);
+  float dk[4][4], dv[4][4], carry[4][4], acc[4][4];
+  zero<4>(dk);
+  zero<4>(dv);
+  zero<4>(carry);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    hp::mbar_wait(&br.full[0], t & 1);
+    float* sQu = reinterpret_cast<float*>(sm + L::kStage);
+    float* sQv = sQu + kB * kD;
+    float* sdO = sQv + kB * kD;
+    const float* w0 = ring_chunk<float>(sm, t);
+    const float* w1 = ring_chunk<float>(sm, t - 1);
+    const int win = T_len - kB + j0 - kB * t;
+    const int i_g = kB * t + 16 * w + gq;
+    float lse2[2], delta[2];
+    row_stats(g, bh, i_g, lse2, delta);
+    split_tile(sQv, sQvLo, tid);
+    hp::fence_proxy_async();
+    hp::named_barrier(1, 256);
+    {
+      float gt[8][4];
+      zero<8>(gt);
+      wgmma_nt32(gt, c ? w1 : w0, sQv, sQvLo, w, lane);
+      float* row = sGt + (kB * c + 16 * w + gq) * L::kGtLd + 2 * q;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        *reinterpret_cast<float2*>(row + 8 * n) = make_float2(gt[n][0], gt[n][1]);
+        *reinterpret_cast<float2*>(row + 8 * L::kGtLd + 8 * n) = make_float2(gt[n][2], gt[n][3]);
+      }
+    }
+    float sc[4][4], dpr[4][4];
+    zero<4>(sc);
+    zero<4>(dpr);
+    wgmma_nt32(sc, sQu, sKh + kw * 32, sKl + kw * 32, w, lane);
+    wgmma_nt32(dpr, sdO, sVh + kw * 32, sVl + kw * 32, w, lane);
+    hp::named_barrier(1, 256);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int a = 16 * w + gq + 8 * (e >> 1), j = kw + 8 * n + 2 * q + (e & 1);
+        sc[n][e] += sGt[(kB - 1 - a + j) * L::kGtLd + a];
+      }
+    const uint32_t keep = g.drop.thresh != 0u
+        ? reinterpret_cast<const uint32_t*>(sm + L::kKeep)[tid & 127] : 0u;
+    pair_grads<4>(sc, dpr, kbits, keep, 4 * c, g, lse2, delta);
+    hp::named_barrier(1, 256);
+    store_pair<4>(sPdT, sdST, dpr, sc, w, kw, lane);
+    hp::named_barrier(1, 256);
+    {
+      zero<4>(acc);
+      const int a = 16 * w + gq;
+#pragma unroll 2
+      for (int kk = 0; kk < 8; ++kk) {
+        const int r = 8 * kk + 2 * q;
+        const uint32_t av[4] = {ds_at(sdST, r, a), ds_at(sdST, r, a + 8), ds_at(sdST, r + 1, a),
+                                ds_at(sdST, r + 1, a + 8)};
+        uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+        split4(av, ah, al);
+        b_rows_hl(bh, bl, sKh, sKl, r, kw + gq);
+        mma3_tiles<4>(acc, ah, al, bh, bl);
+      }
+      red_add_rows<4>(acc, g.dqu + base + kw, kB * t + 16 * w, T_len, lane);
+    }
+#pragma unroll 2
+    for (int ks = 0; ks < 8; ++ks) {
+      uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+      key_rows_a(sdST, w, 8 * ks, lane, ah, al);
+      b_rows_split(bh, bl, sQu, 8 * ks + 2 * q, kw + gq);
+      mma3_tiles<4>(dk, ah, al, bh, bl);
+      key_rows_a(sPdT, w, 8 * ks, lane, ah, al);
+      b_rows_split(bh, bl, sdO, 8 * ks + 2 * q, kw + gq);
+      mma3_tiles<4>(dv, ah, al, bh, bl);
+    }
+    {
+      zero<4>(acc);
+      const int a = 16 * w + gq;
+#pragma unroll 2
+      for (int ks = 0; ks < kGRows / 8; ++ks) {
+        const int jj = 8 * ks + 2 * q + gq - 15;
+        const uint32_t av[4] = {ds_at(sdST, jj, a), ds_at(sdST, jj + 8, a + 8),
+                                ds_at(sdST, jj + 1, a), ds_at(sdST, jj + 9, a + 8)};
+        uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+        split4(av, ah, al);
+        const int r0 = rb + 8 * ks + 2 * q;
+        b_rows_split(bh, bl, r0 < kB ? w0 : w1, r0 & (kB - 1), kw + gq);
+        mma3_tiles<4>(acc, ah, al, bh, bl);
+      }
+      red_add_rows<4>(acc, g.dqv + base + kw, kB * t + 16 * w, T_len, lane);
+    }
+#pragma unroll
+    for (int half = 1; half >= 0; --half) {
+      const int b = w + 4 * half;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = half ? carry[n][e] : 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        const int s16 = ks >> 1;
+        if (b + s16 < 3 || b + s16 > 7) continue;
+        const int a0 = 8 * ks + 2 * q, jj = 16 * b + gq - (kB - 1) + a0;
+        const uint32_t av[4] = {ds_at(sdST, jj, a0), ds_at(sdST, jj + 8, a0),
+                                ds_at(sdST, jj + 1, a0 + 1), ds_at(sdST, jj + 9, a0 + 1)};
+        uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+        split4(av, ah, al);
+        b_rows_hl(bh, bl, sQv, sQvLo, a0, kw + gq);
+        mma3_tiles<4>(acc, ah, al, bh, bl);
+      }
+      if (half) {
+        red_add_rows<4>(acc, dp_h, win + kB + 16 * w, n_table, lane);
+      } else {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) carry[n][e] = acc[n][e];
+      }
+    }
+    hp::fence_proxy_async();
+    hp::mbar_arrive(&br.empty[0]);
+  }
+  red_add_rows<4>(carry, dp_h, T_len - kB + j0 - kB * (n_tiles - 1) + 16 * w, n_table, lane);
   const float one[2] = {1.f, 1.f};
-  const int j_g = j0 + 16 * w + (lane >> 2);
-  store_rows<NT>(g.dk + base + 8 * NT * cc, dk, j_g, T_len, one, q);
-  store_rows<NT>(g.dv + base + 8 * NT * cc, dv, j_g, T_len, one, q);
+  store_rows<4>(g.dk + base + kw, dk, j0 + 16 * w + gq, T_len, one, q);
+  store_rows<4>(g.dv + base + kw, dv, j0 + 16 * w + gq, T_len, one, q);
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+rel_bwd_wgmma(const __grid_constant__ CUtensorMap tm_qu, const __grid_constant__ CUtensorMap tm_qv,
+              const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+              const __grid_constant__ CUtensorMap tm_do, const __grid_constant__ CUtensorMap tm_p,
+              const __grid_constant__ CUtensorMap tm_dqu, const __grid_constant__ CUtensorMap tm_dqv,
+              const __grid_constant__ CUtensorMap tm_dp, const Args<T> g) {
+  using L = Layout<T>;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int T_len = g.T_len, bh = blockIdx.y, h = bh % g.H, j0 = blockIdx.x * kB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  const Bars br{bars, bars + L::kS, bars + 2 * L::kS, bars + 2 * L::kS + 1,
+                bars + 2 * L::kS + 3};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kS; ++s) {
+      hp::mbar_init(&br.full[s], 2);
+      hp::mbar_init(&br.empty[s], 256);
+    }
+    hp::mbar_init(br.kv, 1);
+    if constexpr (kBf16)
+      for (int b = 0; b < 2; ++b) {
+        hp::mbar_init(&br.pfull[b], 128);
+        hp::mbar_init(&br.pempty[b], 128);
+      }
+    hp::fence_mbar_init();
+  }
+  // key flags of the block's keys: 1 valid, 0 masked, -1 past the sequence
+  const uint8_t* mask_row = g.mask + (size_t)(bh / g.H) * T_len;
+  float* sM = reinterpret_cast<float*>(sm + L::kFlags);
+  for (int e = threadIdx.x; e < kB; e += kThreads) {
+    const int j = j0 + e;
+    sM[e] = j < T_len ? (mask_row[j] ? 1.f : 0.f) : -1.f;
+  }
+  if constexpr (kBf16) {   // dG is zero off the band, which no tile writes
+    for (int b = 0; b < 2; ++b) {
+      uint4* dg = reinterpret_cast<uint4*>(pair_tiles(sm, b) + 2 * kTile);
+      for (int e = threadIdx.x; e < 4 * kTile / 16; e += kThreads) dg[e] = make_uint4(0, 0, 0, 0);
+    }
+  }
+  __syncthreads();
+
+  if (warp_index() >= 8) {   // the producer warpgroup
+    produce<T>(&tm_qu, &tm_qv, &tm_k, &tm_v, &tm_do, &tm_p, sm, br, g, bh, h, j0);
+    return;
+  }
+  if constexpr (kBf16) {
+    if (warp_index() < 4)
+      consume_scores(g, sm, br, bh, j0);
+    else
+      consume_query(g, &tm_dqu, &tm_dqv, &tm_dp, sm, br, bh, h, j0);
+  } else {
+    consume(g, sm, br, bh, h, j0);
+  }
 }
 
 template <typename T>
 cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
                    const uint8_t* mask, const float* lse, const void* out, const void* d_o,
-                   void* dqu, void* dqv, void* dk, void* dv, float* dp, float* delta, int B,
+                   float* dqu, float* dqv, void* dk, void* dv, float* dp, float* delta, int B,
                    int H, int T_len, philox::Dropout drop, cudaStream_t stream) {
+  using L = Layout<T>;
   if (!aligned16({qu, qv, k, v, p, d_o, dp, dqu, dqv, dk, dv})) return cudaErrorMisalignedAddress;
   cudaError_t e = flash::launch_row_dot<T>(out, d_o, delta, (size_t)B * H * T_len, stream);
   if (e != cudaSuccess) return e;
+  // loads: q_u, q_v, k, v, dO over (B H, T, 64), the table over (H, 2T-1,
+  // 64), in the input type; reductions: dq_u, dq_v and dp, f32
+  CUtensorMap m[9];
+  const int es = (int)sizeof(T), bhn = B * H;
+  const void* src[5] = {qu, qv, k, v, d_o};
+  bool ok = true;
+  for (int i = 0; i < 5; ++i) ok = ok && hp::encode_rows64(&m[i], src[i], es, T_len, bhn);
+  ok = ok && hp::encode_rows64(&m[5], p, es, 2 * T_len - 1, H) &&
+       hp::encode_rows64(&m[6], dqu, 4, T_len, bhn) &&
+       hp::encode_rows64(&m[7], dqv, 4, T_len, bhn) &&
+       hp::encode_rows64(&m[8], dp, 4, 2 * T_len - 1, H);
+  if (!ok) return cudaErrorInvalidValue;
   Args<T> g;
-  g.qu = static_cast<const T*>(qu);
-  g.qv = static_cast<const T*>(qv);
-  g.k = static_cast<const T*>(k);
-  g.v = static_cast<const T*>(v);
-  g.p = static_cast<const T*>(p);
-  g.d_o = static_cast<const T*>(d_o);
   g.mask = mask;
   g.lse = lse;
   g.delta = delta;
-  g.dqu = static_cast<T*>(dqu);
-  g.dqv = static_cast<T*>(dqv);
+  g.dqu = dqu;
+  g.dqv = dqv;
   g.dk = static_cast<T*>(dk);
   g.dv = static_cast<T*>(dv);
   g.dp = dp;
@@ -501,52 +893,48 @@ cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v,
   g.T_len = T_len;
   g.scale = 1.0f / sqrtf((float)kD);
   g.drop = drop;
-  dim3 grid((T_len + kB - 1) / kB, B * H);
-  auto q_pass = rel_bwd_query_pass_mma<T>;
-  e = cudaFuncSetAttribute(q_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)Pass<T>::kQSmem);
+  dim3 grid((T_len + kB - 1) / kB, bhn);
+  auto kern = rel_bwd_wgmma<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (e != cudaSuccess) return e;
-  q_pass<<<grid, Pass<T>::kThreads, Pass<T>::kQSmem, stream>>>(g);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  auto k_pass = rel_bwd_key_pass_mma<T>;
-  e = cudaFuncSetAttribute(k_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)Pass<T>::kKSmem);
-  if (e != cudaSuccess) return e;
-  k_pass<<<grid, Pass<T>::kThreads, Pass<T>::kKSmem, stream>>>(g);
+  kern<<<grid, kThreads, L::kSmem, stream>>>(m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
+                                              m[8], g);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// All tensors contiguous. q_u, q_v, k, v, out, d_out and the gradients dq_u,
-// dq_v, dk, dv: (B, H, T, dk) of the input type; p (H, 2T-1, dk); mask (B, T)
-// uint8; lse (B, H, T) float32 from the forward. dp: float32 (H, 2T-1, dk),
-// zeroed by the caller, receives the position table's gradient. delta:
-// float32 (B, H, T) scratch. dtype: 0 = float32 (3xTF32), 1 = bfloat16;
-// pointers 16-byte aligned. Only dk = 64.
-// rate and seed as given to the forward. Returns cudaGetLastError() after
-// the launches.
+// All tensors contiguous. q_u, q_v, k, v, out, d_out and the gradients dk,
+// dv: (B, H, T, dk) of the input type; p (H, 2T-1, dk); mask (B, T) uint8;
+// lse (B, H, T) float32 from the forward. dq_u, dq_v: float32 (B, H, T, dk),
+// zeroed by the caller, receive the sums of the gradients; dp: float32 (H,
+// 2T-1, dk), zeroed by the caller, receives the position table's gradient.
+// delta: float32 (B, H, T) scratch. dtype: 0 = float32 (3xTF32), 1 =
+// bfloat16; pointers 16-byte aligned. Only dk = 64. rate and seed as given
+// to the forward. Returns cudaGetLastError() after the launches.
 extern "C" int l2s_rel_attention_bwd(const void* qu, const void* qv, const void* k,
                                      const void* v, const void* p, const void* mask,
                                      const void* lse, const void* out, const void* d_out,
                                      void* dqu, void* dqv, void* dk_out, void* dv_out, void* dp,
                                      void* delta, int B, int H, int T_len, int dk, int dtype,
                                      float rate, unsigned long long seed, void* stream) {
-  if (dk != flash::kD || B < 1 || H < 1 || T_len < 1 || rate < 0.f || rate >= 1.f)
+  if (dk != flash::kD || B < 1 || H < 1 || T_len < 1 || rate < 0.f || rate >= 1.f ||
+      B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* l = static_cast<const float*>(lse);
+  float* dqf = static_cast<float*>(dqu);
+  float* dvf = static_cast<float*>(dqv);
   float* dpf = static_cast<float*>(dp);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const philox::Dropout drop = philox::make_dropout(rate, seed);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float>(qu, qv, k, v, p, m, l, out, d_out, dqu, dqv, dk_out, dv_out, dpf, dl, B, H,
+    e = launch<float>(qu, qv, k, v, p, m, l, out, d_out, dqf, dvf, dk_out, dv_out, dpf, dl, B, H,
                       T_len, drop, s);
   else if (dtype == 1)
-    e = launch<bf16>(qu, qv, k, v, p, m, l, out, d_out, dqu, dqv, dk_out, dv_out, dpf, dl, B, H,
+    e = launch<bf16>(qu, qv, k, v, p, m, l, out, d_out, dqf, dvf, dk_out, dv_out, dpf, dl, B, H,
                      T_len, drop, s);
   else
     e = cudaErrorInvalidValue;

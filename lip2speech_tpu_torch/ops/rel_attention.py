@@ -230,9 +230,12 @@ def rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g,
                              dropout_rate: float = 0.0, seed: int = 0):
     """Launch csrc/rel_attention_bwd.cu; returns (dq_u, dq_v, dk, dv, dp) in
     the input type. lse and out come from rel_attention_kernel with the same
-    dropout_rate and seed. f32 inputs take the kernels' 3xTF32 path, bf16
-    ones their bf16 path, which rounds dS and P to bf16 as operands. dp is
-    accumulated with f32 atomics, so its last bits may differ between runs."""
+    dropout_rate and seed. One key-major kernel for both types: f32 inputs
+    take its 3xTF32 path, bf16 ones its bf16 path, which rounds dS and P to
+    bf16 as operands. It sums dq_u, dq_v and dp over key blocks by f32
+    reductions into zeroed f32 buffers allocated here (rounded to bf16 after
+    the launch for bf16 inputs), so their last bits may differ between runs
+    in either type; dk and dv are deterministic."""
     b, h, t, dk = q_u.shape
     dev, dt = q_u.device, q_u.dtype
     _check_dropout(dropout_rate, seed)
@@ -241,14 +244,15 @@ def rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g,
                        [("p", p, (h, 2 * t - 1, dk), dt),
                         ("lse", lse, (b, h, t), torch.float32)]), mask, b, t)
     mask_u8 = mask.to(torch.uint8).contiguous()
-    dq_u, dq_v, dk_, dv = (torch.empty_like(q_u) for _ in range(4))
+    dq_u, dq_v = (torch.zeros(q_u.shape, dtype=torch.float32, device=dev) for _ in range(2))
+    dk_, dv = torch.empty_like(q_u), torch.empty_like(q_u)
     dp = torch.zeros((h, 2 * t - 1, dk), dtype=torch.float32, device=dev)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     _launch("rel_attention_bwd", "l2s_rel_attention_bwd",
             (q_u, q_v, k, v, p, mask_u8, lse, out, g, dq_u, dq_v, dk_, dv, dp, delta),
             b, h, t, dk, dt, dropout_rate, seed, dev)
     rel_attention_bwd_kernel.launches += 1
-    return dq_u, dq_v, dk_, dv, dp.to(dt)
+    return dq_u.to(dt), dq_v.to(dt), dk_, dv, dp.to(dt)
 
 
 rel_attention_bwd_kernel.launches = 0   # kernel launches since the last reset
