@@ -7,11 +7,12 @@ Phases, in order; any failure exits non-zero before the last line:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels from lip2speech_tpu_torch/csrc (nvcc, in parallel);
      print ptxas's registers and spills of every kernel (each f32 and bf16
-     instantiation), and count the tensor-core (HMMA) instructions in each
-     library's SASS, the TF32 ones apart: none in any of rel_attention,
-     rel_attention_bwd, rel_attention_bias, rel_attention_bias_bwd,
-     attention and fused_tail (bf16 on mma.sync), or no TF32 one in any of
-     them (f32 in 3xTF32), fails;
+     instantiation), and count the tensor-core instructions in each
+     library's SASS, warp-level (HMMA, mma.sync) and warpgroup (HGMMA,
+     wgmma) apart, the TF32 ones of each apart: no HMMA or no TF32 HMMA in
+     any of rel_attention, rel_attention_bias, rel_attention_bias_bwd,
+     attention and fused_tail (mma.sync; f32 in 3xTF32), or no HGMMA or no
+     TF32 HGMMA in rel_attention_bwd (wgmma; f32 in 3xTF32), fails;
   3. rel-position attention kernel against its plain version, f32 and bf16;
      bf16 times at B4 H8 T480 and at the train step's B8 H8 T1200, each
      beside SDPA with the position term as a float bias mask; the f32 path
@@ -64,7 +65,8 @@ Phases, in order; any failure exits non-zero before the last line:
      row; the bias route's dbias also by its own limits (DBIAS_TOL), which
      two faulty dbias made from the kernel's must fail; both kernels' bf16
      times at B4 H8 T480 and B8 H8 T1200 beside their plain versions, SDPA's
-     backward and the bound (bytes and operations), the bias route's also
+     backward (the shear route's with the float bias requiring grad, the
+     library_ms, and without) and the bound (bytes and operations), the bias route's also
      beside the autograd of the bias construction; the shear backward's f32
      path (3xTF32) at B4 H8 T480 and B8 H8 T1200 within 1e-4 of max(1,
      |ref|) of its plain version, where the backward at one TF32 product
@@ -301,32 +303,41 @@ def valid_rows_err(out, ref, lens) -> float:
     return max(float((out.float() - ref)[i, :, :n].abs().max()) for i, n in enumerate(lens) if n)
 
 
-# libraries whose bf16 path runs on mma.sync, and those whose f32 path runs
-# on mma.sync in 3xTF32: all six
-TENSOR_CORE_KERNELS = ("rel_attention", "rel_attention_bwd", "rel_attention_bias",
-                       "rel_attention_bias_bwd", "attention", "fused_tail")
-TF32_KERNELS = TENSOR_CORE_KERNELS
+# libraries whose products run on mma.sync (HMMA; f32 in 3xTF32), and those
+# that run them on wgmma (HGMMA; f32 in 3xTF32, with some products still on
+# mma.sync)
+HMMA_KERNELS = ("rel_attention", "rel_attention_bias", "rel_attention_bias_bwd", "attention",
+                "fused_tail")
+HGMMA_KERNELS = ("rel_attention_bwd",)
 
 
-def sass_tensor_core_counts(build) -> tuple[dict, dict]:
-    """HMMA instructions in each kernel library's SASS (cuobjdump), all of
-    them and the TF32 ones (HMMA.1688.F32.TF32) apart; fails if a library
-    whose bf16 path runs on mma.sync has none, or one whose f32 path runs in
-    3xTF32 has no TF32 one."""
+def sass_tensor_core_counts(build) -> dict:
+    """Tensor-core instructions in each kernel library's SASS (cuobjdump):
+    {"hmma", "hmma_tf32", "hgmma", "hgmma_tf32"} -> {library: count}, HMMA
+    (warp-level, mma.sync) and HGMMA (warpgroup, wgmma) apart, each with its
+    TF32 ones apart. Fails if a library of HMMA_KERNELS has no HMMA or no
+    TF32 HMMA, or one of HGMMA_KERNELS no HGMMA or no TF32 HGMMA."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    counts, tf32 = {}, {}
+    counts = {"hmma": {}, "hmma_tf32": {}, "hgmma": {}, "hgmma_tf32": {}}
     for lib in sorted(build._build_dir().glob("lib*.so")):
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                               timeout=120, check=True).stdout
-        hmma = [line for line in sass.splitlines() if "HMMA" in line]
-        counts[lib.stem[3:]] = len(hmma)
-        tf32[lib.stem[3:]] = sum(1 for line in hmma if "TF32" in line)
-    print(f"SASS HMMA instructions per library: {counts}; of them TF32: {tf32}", flush=True)
-    missing = [k for k in TENSOR_CORE_KERNELS if not counts.get(k)]
-    missing += [f"{k} (TF32)" for k in TF32_KERNELS if not tf32.get(k)]
+        name = lib.stem[3:]
+        for kind, word in (("hmma", "HMMA"), ("hgmma", "HGMMA")):
+            found = [line for line in sass.splitlines() if word in line]
+            counts[kind][name] = len(found)
+            counts[f"{kind}_tf32"][name] = sum(1 for line in found if "TF32" in line)
+    print(f"SASS HMMA instructions per library: {counts['hmma']}; of them TF32: "
+          f"{counts['hmma_tf32']}", flush=True)
+    print(f"SASS HGMMA instructions per library: {counts['hgmma']}; of them TF32: "
+          f"{counts['hgmma_tf32']}", flush=True)
+    missing = [f"{k} ({kind})" for kind, libs in (("hmma", HMMA_KERNELS), ("hmma_tf32", HMMA_KERNELS),
+                                                   ("hgmma", HGMMA_KERNELS),
+                                                   ("hgmma_tf32", HGMMA_KERNELS))
+               for k in libs if not counts[kind].get(k)]
     if missing:
-        fail(f"no tensor-core instruction in {missing}")
-    return counts, tf32
+        fail(f"no tensor-core instruction of the expected kind in {missing}")
+    return counts
 
 
 def phase_attention(ra, dev) -> dict:
@@ -1227,18 +1238,24 @@ def fmt_errs(errs: dict) -> str:
     return f"max {errs['max']:.2e} rms {errs['rms']:.2e}"
 
 
-def sdpa_bwd_ms(q, k, v, bias, g) -> float:
+def sdpa_bwd_ms(q, k, v, bias, g, bias_grad: bool = False) -> float:
     """The backward of one scaled_dot_product_attention call with the
-    position bias as a float mask (the library yardstick)."""
+    position bias as a float mask (the library yardstick); with bias_grad
+    the bias requires grad too, so the library also computes dbias, which
+    the shear route's dq_v and dp need."""
     q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    bias = bias.detach().requires_grad_(bias_grad)
     out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-    return time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), iters=5)
+    wrt = (q, k, v, bias) if bias_grad else (q, k, v)
+    return time_ms(lambda: torch.autograd.grad(out, wrt, g, retain_graph=True), iters=5)
 
 
 def shear_bwd_times(ra, gen, dev, b, h, t, dtype=torch.bfloat16) -> dict:
     """Kernel 3 (all keys valid) beside its bound, its plain version and the
-    backward of SDPA with the position term as a float bias mask; in f32
-    (3xTF32) the f32 FMA bound and the 3xTF32 bound."""
+    backward of SDPA with the position term as a float bias mask, the bias
+    requiring grad (library_ms: dbias is what dq_v and dp need) and not
+    (library_ms_bias_no_grad); in f32 (3xTF32) the f32 FMA bound and the
+    3xTF32 bound."""
     dk, sz = 64, torch.finfo(dtype).bits // 8
     (q_u, q_v, k, v, p), _, g = bwd_inputs(gen, b, h, t, dtype, dev)
     mask = torch.ones(b, t, dtype=torch.bool, device=dev)
@@ -1246,15 +1263,20 @@ def shear_bwd_times(ra, gen, dev, b, h, t, dtype=torch.bfloat16) -> dict:
     k_ms = time_ms(lambda: ra.rel_attention_bwd_kernel(q_u, q_v, k, v, p, mask, lse, out, g),
                    iters=5 if dtype == torch.float32 and t >= TRAIN_SHAPE[2] else 10)
     plain_ms = time_ms(lambda: ra.rel_attention_bwd_plain(q_u, q_v, k, v, p, mask, lse, out, g), iters=3)
-    lib_ms = sdpa_bwd_ms(q_u, k, v, ra.rel_position_bias(q_v, p).to(dtype), g)
+    bias = ra.rel_position_bias(q_v, p).to(dtype)
+    lib_ms = sdpa_bwd_ms(q_u, k, v, bias, g, bias_grad=True)
+    lib_no_grad_ms = sdpa_bwd_ms(q_u, k, v, bias, g)
+    del bias
     # inputs q_u q_v k v out dO and p, mask, lse once; outputs dq_u dq_v dk dv and dp once
     n_bytes = 10 * b * h * t * dk * sz + 2 * h * (2 * t - 1) * dk * sz + b * t + b * h * t * 4
     flops = 8 * 2 * b * h * t * t * dk
     bms, by = bound_ms(n_bytes, flops, dtype)
-    res = {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+    res = {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+           "library_ms_bias_no_grad": lib_no_grad_ms}
     line = (f"rel_attention_bwd B{b} H{h} T{t} {str(dtype)[6:]}: kernel_ms {k_ms:.4f} plain_ms "
-            f"{plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA backward, float bias mask) bound_ms "
-            f"{bms:.4f} ({by})")
+            f"{plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA backward, float bias mask requiring "
+            f"grad) library_ms_bias_no_grad {lib_no_grad_ms:.4f} (the same, the bias without "
+            f"grad: no dbias) bound_ms {bms:.4f} ({by})")
     if dtype == torch.float32:
         res["tf32x3_bound_ms"] = tf32x3_bound_ms(n_bytes, flops)
         line += f" (f32 FMA) 3xTF32 bound_ms {res['tf32x3_bound_ms']:.4f}"
@@ -4378,7 +4400,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {log.stem}: {line.strip()}", flush=True)
-    hmma, hmma_tf32 = sass_tensor_core_counts(build)
+    sass = sass_tensor_core_counts(build)
 
     counters = kernel_counters()
     cfg = preset("multi_target")
@@ -4428,10 +4450,16 @@ def main() -> int:
                                ("rel_attention_bias_bwd", "rel_attention_bias_bwd", bias_bwd),
                                ("attention", "attention", plain),
                                ("fused_resblock_trio", "fused_tail", trio)):
-        f32_design = ("3xTF32 mma.sync m16n8k8, f32 accumulate" if lib in TF32_KERNELS
-                      else "FMA")
-        numbers.update(design=f"mma.sync m16n8k16 bf16, f32 accumulate; f32: {f32_design}",
-                       hmma_in_sass=hmma[lib], hmma_tf32_in_sass=hmma_tf32[lib],
+        design = ("mma.sync m16n8k16 bf16, f32 accumulate; f32: 3xTF32 mma.sync m16n8k8, "
+                  "f32 accumulate")
+        if lib in HGMMA_KERNELS:
+            design = ("one key-major pass, TMA-fed, warp-specialised; bf16: every product on "
+                      "wgmma m64n64k16, f32 accumulate; f32: 3xTF32, S, dPr and G on wgmma "
+                      "m64nNk8, dK, dV, dQ_u, dQ_v and dP on mma.sync m16n8k8")
+        numbers.update(design=design,
+                       hmma_in_sass=sass["hmma"][lib], hmma_tf32_in_sass=sass["hmma_tf32"][lib],
+                       hgmma_in_sass=sass["hgmma"][lib],
+                       hgmma_tf32_in_sass=sass["hgmma_tf32"][lib],
                        cli_launches={tool: n[name] for tool, n in cli.items() if name in n},
                        dataset_tool_launches={tool: n[name] for tool, n in tools.items()
                                               if name in n},
