@@ -2,16 +2,21 @@
 csrc/rel_attention_bwd.cu, checked on the CPU: every product in 3xTF32
 (each operand split into hi, rounded to TF32 as cvt.rna rounds, and lo =
 v - hi, which the tensor core reads truncated to TF32; lo_a hi_b + hi_a
-lo_b + hi_a hi_b in f32), emulated in plain PyTorch at the kernels'
+lo_b + hi_a hi_b in f32; on wgmma or mma.sync alike, the split done once a
+tile for a shared-memory operand and at the fragment for a register one,
+the same values either way), emulated in plain PyTorch at the kernels'
 rounding points, against the JAX package's f32 forward (`dense_rel_attention`)
 and backward (`_rel_flash_bwd_impl` in interpret mode), within the limits
 that chip_smoke.py holds the kernels to on the card: 1e-4 absolute forward
 (phase 3), 1e-4 of max(1, |ref|) a gradient backward (phases 11 and 12).
 One TF32 product (1xTF32: hi_a hi_b), in every product or in any one of
 them, must fall outside those limits, so that they tell the method from
-the cheaper one. This checks the method, not the kernels, which run only
-on the card. T = 130 (three key tiles of 64, the last one ragged) with a
-fully masked batch row; head dim 64, the kernels' only one."""
+the cheaper one. The backward kernel is key-major: a block owns 64 keys,
+so dq_u, dq_v and dp are f32 sums of the blocks' partials, and it takes P
+as exp2(S * scale * log2(e) - lse * log2(e)) from the unscaled S; the
+emulation does the same. This checks the method, not the kernels, which
+run only on the card. T = 130 (three key tiles of 64, the last one ragged)
+with a fully masked batch row; head dim 64, the kernels' only one."""
 
 import math
 
@@ -30,6 +35,8 @@ FWD_PRODUCTS = ("qk", "pos", "pv")
 BWD_PRODUCTS = ("qk", "pos", "dpr", "dqu", "dqv", "dk", "dv", "dp")
 LENS = (130, 97, 0)
 H, T, DK = 2, 130, 64
+KEY_BLOCK = 64              # keys a block of the backward kernel owns
+LOG2E = 1.4426950408889634
 
 
 def _tf32(t):
@@ -72,18 +79,34 @@ def _forward(q_u, q_v, k, v, p, mask, terms):
     return _mm("bhqk,bhkd->bhqd", e, v, terms["pv"]) / e.sum(-1, keepdim=True).clamp_min(1e-20)
 
 
-def _backward(q_u, q_v, k, v, p, mask, lse, out, g, terms):
-    """The backward kernels' arithmetic (rel_attention_bwd_plain's formulas),
-    each product at its rounding: the recomputed S, dPr = dO V^T, dQ_u = dS
-    K, dQ_v = dG p, dK = dS^T Q_u, dV = P^T dO, dP = dG^T Q_v."""
+def _block_sums(ds, fn):
+    """sum over the key blocks of fn(dS with the other blocks' keys zeroed),
+    in f32: what the key-major kernel adds into its f32 buffers."""
+    out = 0.0
+    for j0 in range(0, ds.shape[-1], KEY_BLOCK):
+        blk = torch.zeros_like(ds)
+        blk[..., j0:j0 + KEY_BLOCK] = ds[..., j0:j0 + KEY_BLOCK]
+        out = out + fn(blk)
+    return out
+
+
+def _backward(q_u, q_v, k, v, p, mask, lse, out, g, terms, key_blocks=True):
+    """The backward kernel's arithmetic (rel_attention_bwd_plain's formulas),
+    each product at its rounding: the recomputed unscaled S, P = exp2(S *
+    scale log2(e) - lse log2(e)), dPr = dO V^T, dQ_u = dS K, dQ_v = dG p,
+    dK = dS^T Q_u, dV = P^T dO, dP = dG^T Q_v; dq_u, dq_v and dp summed over
+    the key blocks' partials (key_blocks=False: one product over all keys)."""
     valid = mask[:, None, None, :] & (lse > tra.NEG_INF / 2)[..., None]
-    prob = torch.where(valid, torch.exp(_scores(q_u, q_v, k, p, terms) - lse[..., None]), 0.0)
+    s_raw = _scores(q_u, q_v, k, p, terms) * math.sqrt(DK)
+    prob = torch.where(valid, torch.exp2(s_raw * (LOG2E / math.sqrt(DK)) - lse[..., None] * LOG2E),
+                       0.0)
     dpr = _mm("bhqd,bhkd->bhqk", g, v, terms["dpr"])
     ds = prob * (dpr - (g * out).sum(-1, keepdim=True)) / math.sqrt(DK)
-    dg = tra.rel_unshift(ds)
-    return (_mm("bhqk,bhkd->bhqd", ds, k, terms["dqu"]), _mm("bhqp,hpd->bhqd", dg, p, terms["dqv"]),
+    sums = _block_sums if key_blocks else (lambda d, fn: fn(d))
+    return (sums(ds, lambda d: _mm("bhqk,bhkd->bhqd", d, k, terms["dqu"])),
+            sums(ds, lambda d: _mm("bhqp,hpd->bhqd", tra.rel_unshift(d), p, terms["dqv"])),
             _mm("bhqk,bhqd->bhkd", ds, q_u, terms["dk"]), _mm("bhqk,bhqd->bhkd", prob, g, terms["dv"]),
-            _mm("bhqp,bhqd->hpd", dg, q_v, terms["dp"]))
+            sums(ds, lambda d: _mm("bhqp,bhqd->hpd", tra.rel_unshift(d), q_v, terms["dp"])))
 
 
 @pytest.fixture(scope="module")
@@ -139,3 +162,27 @@ def test_one_tf32_product_fails_the_forward_limit(case, one):
 @pytest.mark.parametrize("one", ("all",) + BWD_PRODUCTS)
 def test_one_tf32_product_fails_the_backward_limit(case, one):
     assert _bwd_err(case, _terms(BWD_PRODUCTS, one)) > BWD_TOL
+
+
+def test_key_block_partials_sum_like_one_product(case):
+    """The key-major kernel's f32 sums of 64-key partials (dq_u, dq_v, dp)
+    against one 3xTF32 product over all keys: order only, far inside the
+    limit."""
+    args = (*case["args"], case["mask"], case["lse"], case["out"], case["g"],
+            _terms(BWD_PRODUCTS))
+    blocks, whole = _backward(*args), _backward(*args, key_blocks=False)
+    for a, r in zip(blocks, whole):
+        assert float((a - r).abs().max()) / max(1.0, float(r.abs().max())) <= BWD_TOL / 100
+
+
+def test_exp2_of_the_folded_scale_is_within_the_f32_limit(case):
+    """P as the kernel takes it, exp2(S * scale log2(e) - lse log2(e)) from
+    the unscaled S, against exp(S * scale - lse) of the plain version."""
+    valid = case["mask"][:, None, None, :] & (case["lse"] > tra.NEG_INF / 2)[..., None]
+    q_u, q_v, k, _, p = case["args"]
+    s = _scores(q_u, q_v, k, p, _terms(BWD_PRODUCTS))
+    lse = case["lse"][..., None]
+    got = torch.where(valid, torch.exp2(s * math.sqrt(DK) * (LOG2E / math.sqrt(DK)) - lse * LOG2E),
+                      0.0)
+    ref = torch.where(valid, torch.exp(s - lse), 0.0)
+    assert float((got - ref).abs().max()) <= BWD_TOL / 100
