@@ -1,8 +1,11 @@
-// Hopper (sm_90a) building blocks of rel_attention_bwd.cu: warpgroup matrix
-// products (wgmma) with their shared-memory descriptors, TMA tile loads and
-// bulk reductions, mbarriers, named barriers and the async-proxy fence,
-// written in inline PTX, and the host-side encoding of TMA tensor maps. Not
-// compiled on its own.
+// Hopper (sm_90a) building blocks of the attention kernels on wgmma
+// (rel_attention_bwd.cu, and the forward of flash_fwd_hopper.cuh that
+// attention.cu and rel_attention.cu launch): warpgroup matrix products
+// (wgmma) with their shared-memory descriptors, TMA tile loads and bulk
+// reductions, mbarriers, named barriers and the async-proxy fence, written in
+// inline PTX, the host-side encoding of TMA tensor maps, and the tile helpers
+// the kernels share (swizzled f32 tiles, the TF32 split of a tile, the
+// dropout keep words). Not compiled on its own.
 //
 // Shared-memory operand tiles are 128-byte-swizzled, as TMA writes them with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes (64 bf16, or 32 floats)
@@ -20,14 +23,16 @@
 // Accumulators are m64nN f32: warp w of the warpgroup holds rows 16w + g and
 // 16w + g + 8 (g = lane / 4) in the m16n8 layout of mma_tile.cuh, c[n][0..1]
 // row g columns 8n + 2q, 8n + 2q + 1 (q = lane % 4), c[n][2..3] row g + 8.
-// A from registers takes the same per-warp fragment as mma.sync (m16k8
-// tf32).
+// A from registers takes the same per-warp fragment as mma.sync (m16k16
+// bf16, m16k8 tf32).
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_tile.cuh"
 
 namespace hopper {
 
@@ -216,8 +221,217 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[4][4], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, f32) += A (64 x 16) B (16 x 64), bf16: A (m16k16 fragments of
+// the warp's rows, as mma.sync takes them) in registers, B from shared
+// memory; TB = 1: B's tile is MN-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " L2S_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : L2S_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+#define L2S_ACC16(d)                                                                        \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
+      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]),            \
+      "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+#define L2S_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32, f32) += A (64 x 16) B (16 x 32), bf16, both from shared memory
+// (m64n32k16); TA / TB as in the 64-column form.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[4][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " L2S_D16
+      ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : L2S_ACC16(d)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 32, f32) += A (64 x 8) B (8 x 32), TF32, both K-major in shared
+// memory (m64n32k8).
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[4][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " L2S_D16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : L2S_ACC16(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The same for a 64 x 64 accumulator (m64n64k8).
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " L2S_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : L2S_ACC32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef L2S_ACC16
+#undef L2S_D16
 #undef L2S_ACC32
 #undef L2S_D32
+
+// ---------------------------------------------------------------------------
+// Tiles of the attention kernels
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The warp's index, as a value the compiler knows to be the same across
+// the warp (wgmma in code it takes for divergent is serialized).
+__device__ __forceinline__ int warp_index() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
+}
+
+// element offset of (row, col) in a swizzled f32 64 x 64 tile (two halves
+// of 32 channels)
+__device__ __forceinline__ int sw32(int r, int c) {
+  return ((c >> 5) << 11) + (r << 5) + ((((c >> 2) & 7) ^ (r & 7)) << 2) + (c & 3);
+}
+
+// descriptor of k8 step ks of a K-major swizzled f32 tile
+__device__ __forceinline__ uint64_t dsc32(const float* tile, int ks) {
+  return desc_sw128(tile + ((ks >> 2) << 11) + ((ks & 3) << 3));
+}
+
+// Rows row .. row+63 of slice `slice` of a map into a swizzled tile
+template <typename T>
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar, int row,
+                                         int slice) {
+  tma_load_3d(dst, map, bar, 0, row, slice);
+  if constexpr (sizeof(T) == 4)
+    tma_load_3d(static_cast<unsigned char*>(dst) + 8192, map, bar, 32, row, slice);
+}
+
+// The dropout keep bits of query rows i0 .. i0+63 against keys j0 .. j0+63
+// as 128 words, one per consumer thread of a 64 x 64 tile in the
+// accumulator layout: word 32w + 4g + q holds, for rows 16w + g (bits
+// 0..15) and 16w + g + 8 (bits 16..31), keys 8n + 2q + e at bit 2n + e.
+// philox.cuh's counter (i, j / 4, b*h) gives the four keys of a group of
+// four: keys 0, 1 belong to an even q, 2, 3 to the odd one. These are the
+// bits mma_tile.cuh's keep_frag draws in a consumer's place; here a
+// producer warpgroup draws them, thread pt taking one row (pt % 2 selects
+// g or g + 8) of the words of q = 2 qp, 2 qp + 1 for pair pt / 2 = (w, g,
+// qp): eight Philox calls a tile.
+__device__ __forceinline__ void keep_half(uint32_t& even, uint32_t& odd, const philox::Dropout& d,
+                                          int bh, int i0, int j0, int pt) {
+  const int p = pt >> 1, w = p >> 4, g = (p >> 1) & 7, qp = p & 1, rh = pt & 1;
+  even = 0u;
+  odd = 0u;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const uint4 r = philox::philox4x32_10(
+        make_uint4((uint32_t)(i0 + 16 * w + g + 8 * rh), (uint32_t)((j0 >> 2) + 2 * n + qp),
+                   (uint32_t)bh, 0u),
+        d.k0, d.k1);
+    even |= ((uint32_t)(r.x >= d.thresh) | ((uint32_t)(r.y >= d.thresh) << 1)) << (2 * n);
+    odd |= ((uint32_t)(r.z >= d.thresh) | ((uint32_t)(r.w >= d.thresh) << 1)) << (2 * n);
+  }
+}
+
+// hi in place, lo = v - hi into `lo`, over a whole f32 tile (by NTHREADS
+// threads, tid 0 ..)
+template <int NTHREADS = 256>
+__device__ __forceinline__ void split_tile(float* hi, float* lo, int tid) {
+  float4* h4 = reinterpret_cast<float4*>(hi);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+  for (int e = tid; e < mma::kB * mma::kD / 4; e += NTHREADS) {
+    float4 x = h4[e], y;
+    uint32_t a, b;
+    mma::split(x.x, a, b); x.x = __uint_as_float(a); y.x = __uint_as_float(b);
+    mma::split(x.y, a, b); x.y = __uint_as_float(a); y.y = __uint_as_float(b);
+    mma::split(x.z, a, b); x.z = __uint_as_float(a); y.z = __uint_as_float(b);
+    mma::split(x.w, a, b); x.w = __uint_as_float(a); y.w = __uint_as_float(b);
+    h4[e] = x;
+    l4[e] = y;
+  }
+}
+
+// acc (64 x 8 NT) += A B^T in 3xTF32 on wgmma: A the 64 rows of a swizzled
+// tile (the warp's 16 as register fragments, split), B 8 NT rows of a tile
+// split into b_hi (in place) and b_lo; four k8 steps at a time.
+template <int NT>
+__device__ __forceinline__ void wgmma_nt32(float (&acc)[NT][4], const float* a_tile,
+                                           const float* b_hi, const float* b_lo, int w, int lane) {
+  const int gq = lane >> 2, q = lane & 3, r = 16 * w + gq;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k0 = 8 * (4 * half + kk) + q;
+      const uint32_t av[4] = {__float_as_uint(a_tile[sw32(r, k0)]),
+                              __float_as_uint(a_tile[sw32(r + 8, k0)]),
+                              __float_as_uint(a_tile[sw32(r, k0 + 4)]),
+                              __float_as_uint(a_tile[sw32(r + 8, k0 + 4)])};
+      mma::split4(av, ah[kk], al[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int ks = 4 * half + kk;
+      wgmma_tf32_rs(acc, al[kk], dsc32(b_hi, ks));
+      wgmma_tf32_rs(acc, ah[kk], dsc32(b_lo, ks));
+      wgmma_tf32_rs(acc, ah[kk], dsc32(b_hi, ks));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(ah[kk]);
+      fence_regs(al[kk]);
+    }
+  }
+}
+
+// B fragments of 4 n-tiles (columns c0 + 8n, rows r0 and r0 + 1 of a k8
+// step in the order 0, 2, 4, 6, 1, 3, 5, 7) of a swizzled f32 tile, split
+__device__ __forceinline__ void b_rows_split(uint32_t bh[4][2], uint32_t bl[4][2],
+                                             const float* tile, int r0, int c0) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+    mma::split_b(tile[sw32(r0, c0 + 8 * n)], tile[sw32(r0 + 1, c0 + 8 * n)], bh[n], bl[n]);
+}
+
+// The position term of a warpgroup's 64 query rows (Q_v: a swizzled bf16
+// tile) against the 128 window rows their diagonals touch (w0: rows 0..63,
+// w1: rows 64..127), G = Q_v Win^T on wgmma; warp w keeps the columns rb ..
+// rb+79 (rb = 48 - 16w) that its 16 rows touch in its scratch sG (16 rows
+// of kGld floats), from which mma::add_diagonal adds BD[a][j] =
+// G[a][63-a+j] to the scores (q = lane % 4). Waits for every wgmma group of
+// the warpgroup.
+__device__ __forceinline__ void position_band(float* sG, const mma::bf16* sQv,
+                                              const mma::bf16* w0, const mma::bf16* w1, int rb,
+                                              int q, int lane) {
+  float g0[8][4], g1[8][4];
+  mma::zero<8>(g0);
+  mma::zero<8>(g1);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_bf16_ss<0, 0>(g0, desc_sw128(sQv + 16 * ks), desc_sw128(w0 + 16 * ks));
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_bf16_ss<0, 0>(g1, desc_sw128(sQv + 16 * ks), desc_sw128(w1 + 16 * ks));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(g0);
+  fence_acc(g1);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (8 * n >= rb) mma::store_g<mma::kGld>(sG, g0[n], 8 * n - rb + 2 * q, lane);
+    if (8 * n < rb + 16) mma::store_g<mma::kGld>(sG, g1[n], 64 + 8 * n - rb + 2 * q, lane);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps

@@ -1,14 +1,15 @@
-// Tensor-core building blocks of the attention kernels (rel_attention.cu,
-// rel_attention_bwd.cu, attention.cu, rel_attention_bias.cu,
-// rel_attention_bias_bwd.cu); fused_tail.cu uses the primitives (cp.async,
-// ldmatrix, mma, packing, the TF32 split). Not compiled on its own.
+// Tensor-core building blocks of the bias route's attention kernels
+// (rel_attention_bias.cu, rel_attention_bias_bwd.cu); fused_tail.cu uses the
+// primitives (cp.async, ldmatrix, mma, packing, the TF32 split). Not
+// compiled on its own.
 //
 // bf16 products run on mma.sync.m16n8k16 (bf16 in, f32 accumulate), written
 // in inline PTX; operands come from shared memory by ldmatrix, or straight
 // from an accumulator (the probabilities and dS as the A operand of the
-// next product). Tiles arrive by 16-byte cp.async. (rel_attention_bwd.cu's
-// products run on wgmma, hopper.cuh; it takes the accumulator-layout
-// helpers, the TF32 split and its f32 path's mma.sync from here.)
+// next product). Tiles arrive by 16-byte cp.async. (The kernels on wgmma,
+// rel_attention_bwd.cu and flash_fwd_hopper.cuh's forward, run their
+// products through hopper.cuh; they take the accumulator-layout helpers and
+// the TF32 split from here, the backward also its f32 path's mma.sync.)
 //
 // Layouts. A block has 4 warps; warp w owns the 16 query rows 16w.. of the
 // block's 64. Lane l has g = l / 4 and q = l % 4; an m16n8 f32 accumulator
@@ -16,13 +17,11 @@
 // c[2..3]. A bf16 tile of 64 rows x 64 channels has 128-byte rows whose
 // 16-byte chunks are XOR-swizzled by the row (chunk c of row r sits at
 // c ^ (r % 8)), so that ldmatrix's eight row reads and cp.async's writes hit
-// distinct banks. The position-table window is a ring of three such tiles
-// of 64 table rows (`Ring`): consecutive key tiles' windows overlap in 64
-// rows, so each tile loads only the next 64. Key-mask flags and scores come
-// from flash_tile.cuh (`load_mask`, `mask_score`).
+// distinct banks. Key-mask flags and scores come from flash_tile.cuh
+// (`load_mask`, `mask_score`).
 //
-// f32 products (the f32 paths of the four rel-attention kernels and of
-// attention.cu) run in 3xTF32 on mma.sync.m16n8k8: each operand is split
+// f32 products (the bias route's f32 paths, and the f32 products of the
+// wgmma kernels that stay on mma.sync) run in 3xTF32 on mma.sync.m16n8k8: each operand is split
 // into hi (TF32, rounded to nearest) and lo = v - hi, and a product is
 // lo_a hi_b + hi_a lo_b +
 // hi_a hi_b (`mma3_tiles`), f32 accumulate; what is dropped is ~2^-21 of
@@ -42,8 +41,7 @@
 // kernels write themselves use the same order where it suits their
 // readers. The f32 helpers take a warp's share of a tile's keys as NT n8
 // tiles: all 64 keys (NT = 8) or half of them where two warps share 16
-// rows (the f32 backward kernels' 8 warps, attention.cu's f32 blocks of 32
-// rows).
+// rows (the f32 backward kernels' 8 warps).
 
 #pragma once
 
@@ -175,23 +173,6 @@ struct Tile<float> {
   static __device__ __forceinline__ int at(int r, int c) { return r * kLd32 + c; }
 };
 
-// The window ring: three 64-row tiles. Window row r (0..127) of a tile
-// whose window begins with chunk m lives in chunk m + r / 64 (chunk m holds
-// table rows base + 64 m ..), slot (m + r / 64) mod 3.
-template <typename T>
-struct Ring {
-  T* s;
-  __device__ __forceinline__ T* chunk(int m) const {
-    return s + (((m % 3) + 3) % 3) * Tile<T>::kElems;
-  }
-  __device__ __forceinline__ uint32_t addr(int m, RC rc) const {
-    return smem_u32(chunk(m + (rc.r >> 6)) + Tile<T>::at(rc.r & 63, rc.c));
-  }
-  __device__ __forceinline__ const T* row(int m, int r) const {
-    return chunk(m + (r >> 6)) + Tile<T>::at(r & 63, 0);
-  }
-};
-
 // 16 x 64 A fragments (4 k-steps) of rows m0.. of a swizzled [m][k] tile
 __device__ __forceinline__ void load_a(uint32_t a[4][4], const bf16* tile, int m0, int lane) {
 #pragma unroll
@@ -269,26 +250,6 @@ __device__ __forceinline__ void add_diagonal(float s[][4], const float* sG, int 
       s[n][2 + e] += sG[(g + 8) * LD + 7 - g + j];
     }
   __syncwarp();
-}
-
-__device__ __forceinline__ void add_position_term(float s[8][4], const uint32_t qv[4][4],
-                                                  const Ring<bf16>& win, int m, int rb,
-                                                  int lane, float* sG) {
-  const int q = lane & 3;
-#pragma unroll
-  for (int np = 0; np < kGRows / 16; ++np) {
-    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t b[4];
-      ldsm_x4(b, win.addr(m, b_rows(lane, rb + 16 * np, 16 * ks)));
-      mma16816(c[0], qv[ks], b[0], b[1]);
-      mma16816(c[1], qv[ks], b[2], b[3]);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) store_g(sG, c[h], 16 * np + 8 * h + 2 * q, lane);
-  }
-  add_diagonal(s, sG, lane);
 }
 
 // Dropout scales (0 or 1 / (1 - rate)) of the lane's accumulator elements
@@ -593,53 +554,6 @@ __device__ __forceinline__ void product_acc_nn(float acc[8][4], const float p[][
     load_b_cols<8>(bh, bl, x + (8 * kk + 2 * q) * kLd32 + g);   // k rows 2q, 2q + 1 of the step
     mma3_tiles<8>(acc, ah, al, bh, bl);
   }
-}
-
-template <int NT = 8, int LD = kGld>
-__device__ __forceinline__ void add_position_term(float s[][4], const RowsA<bf16>& qv,
-                                                  const Ring<bf16>& win, int m, int rb, int lane,
-                                                  float* sG) {
-  static_assert(NT == 8 && LD == kGld, "bf16: a warp's rows against the whole tile");
-  add_position_term(s, qv.a, win, m, rb, lane, sG);
-}
-
-// NP n8 tile pairs of the f32 G (window rows r0 ..) into the scratch's
-// columns from col0: c[n] over the 8 k8 steps, an A fragment of q_v loaded
-// and split once a step
-template <int NP, int LD, class A>
-__device__ __forceinline__ void g_pairs(const A& qv, const Ring<float>& win, int m, int r0,
-                                        int col0, int lane, float* sG) {
-  float c[2 * NP][4];
-#pragma unroll
-  for (int n = 0; n < 2 * NP; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    uint32_t ah[4], al[4], bh[2 * NP][2], bl[2 * NP][2];
-    qv.frag(ks, lane, ah, al);
-#pragma unroll
-    for (int np = 0; np < NP; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, win.addr(m, b32_rows(lane, r0 + 16 * np, 8 * ks)));
-      split_b4(b, np, bh, bl);
-    }
-    mma3_tiles<2 * NP>(c, ah, al, bh, bl);
-  }
-#pragma unroll
-  for (int n = 0; n < 2 * NP; ++n) store_g<LD>(sG, c[n], col0 + 8 * n + 2 * (lane & 3), lane);
-}
-
-// The f32 position term: G (16 x (16 + 8 NT)) in blocks of at most 48
-// window rows (24 accumulators).
-template <int NT = 8, int LD = kGld, class A>
-__device__ __forceinline__ void add_position_term(float s[][4], const A& qv,
-                                                  const Ring<float>& win, int m, int rb, int lane,
-                                                  float* sG) {
-  constexpr int kPairs = (16 + 8 * NT) / 16;   // n8 tile pairs of G
-  g_pairs<(kPairs < 3 ? kPairs : 3), LD>(qv, win, m, rb, 0, lane, sG);
-  if constexpr (kPairs > 3) g_pairs<kPairs - 3, LD>(qv, win, m, rb + 48, 48, lane, sG);
-  add_diagonal<NT, LD>(s, sG, lane);
 }
 
 // The lane's share of a warp's 16 x 8 NT accumulator as rows `row` (its g)

@@ -25,8 +25,10 @@
 // and loops over key tiles of 64 with an online softmax; bounds are checked,
 // so T needs no padding.
 //
-// One kernel for both input types, `rel_attention_bias_mma<T>`: attention.cu's
-// `attention_mma` loop plus one additive f32 tile per key tile (mma_tile.cuh);
+// One kernel for both input types, `rel_attention_bias_mma<T>`: an mma.sync
+// flash loop (4 warps of 16 query rows, an online softmax on the
+// accumulator fragments) plus one additive f32 tile per key tile
+// (mma_tile.cuh);
 // the type picks the tiles, the products and the epilogue's stores. 4 warps
 // x 16 query rows; the Q_u fragments stay in registers; K and V arrive by
 // 16-byte cp.async, double-buffered. The score is acc * scale + bias in f32

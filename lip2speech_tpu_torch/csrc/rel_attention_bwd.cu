@@ -92,6 +92,15 @@ namespace {
 
 using namespace mma;
 namespace hp = hopper;
+using hp::b_rows_split;
+using hp::dsc32;
+using hp::keep_half;
+using hp::kLog2e;
+using hp::split_tile;
+using hp::sw32;
+using hp::tma_tile;
+using hp::warp_index;
+using hp::wgmma_nt32;
 
 constexpr int kThreads = 384;   // two consumer warpgroups and the producer warpgroup
 
@@ -153,18 +162,6 @@ struct Args {
   philox::Dropout drop;
 };
 
-// The warp's index, as a value the compiler knows to be the same across
-// the warp (wgmma in code it takes for divergent is serialized).
-__device__ __forceinline__ int warp_index() {
-  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
-}
-
-// element offset of (row, col) in a swizzled f32 64 x 64 tile (two halves
-// of 32 channels)
-__device__ __forceinline__ int sw32(int r, int c) {
-  return ((c >> 5) << 11) + (r << 5) + ((((c >> 2) & 7) ^ (r & 7)) << 2) + (c & 3);
-}
-
 // window chunk m (table rows T-64+j0-64m ..): window rows 0..63 of query
 // tile m, rows 64..127 of tile m + 1
 template <typename T>
@@ -176,41 +173,6 @@ __device__ __forceinline__ T* ring_chunk(unsigned char* sm, int m) {
 // ---------------------------------------------------------------------------
 // producer
 // ---------------------------------------------------------------------------
-
-// Rows row .. row+63 of slice `slice` of a map into a swizzled tile
-template <typename T>
-__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar, int row,
-                                         int slice) {
-  hp::tma_load_3d(dst, map, bar, 0, row, slice);
-  if constexpr (sizeof(T) == 4)
-    hp::tma_load_3d(static_cast<unsigned char*>(dst) + 8192, map, bar, 32, row, slice);
-}
-
-// The dropout keep bits of query rows i0 .. i0+63 against the block's keys
-// j0 .. j0+63 as 128 words, one per consumer thread of a 64 x 64 tile in
-// the accumulator layout: word 32w + 4g + q holds, for rows 16w + g (bits
-// 0..15) and 16w + g + 8 (bits 16..31), keys 8n + 2q + e at bit 2n + e.
-// philox.cuh's counter (i, j / 4, b*h) gives the four keys of a group of
-// four: keys 0, 1 belong to an even q, 2, 3 to the odd one. These are the
-// bits mma_tile.cuh's keep_frag draws in a consumer's place; here the
-// producer warpgroup draws them, thread pt taking one row (pt % 2 selects
-// g or g + 8) of the words of q = 2 qp, 2 qp + 1 for pair pt / 2 = (w, g,
-// qp): eight Philox calls a tile.
-__device__ __forceinline__ void keep_half(uint32_t& even, uint32_t& odd, const philox::Dropout& d,
-                                          int bh, int i0, int j0, int pt) {
-  const int p = pt >> 1, w = p >> 4, g = (p >> 1) & 7, qp = p & 1, rh = pt & 1;
-  even = 0u;
-  odd = 0u;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const uint4 r = philox::philox4x32_10(
-        make_uint4((uint32_t)(i0 + 16 * w + g + 8 * rh), (uint32_t)((j0 >> 2) + 2 * n + qp),
-                   (uint32_t)bh, 0u),
-        d.k0, d.k1);
-    even |= ((uint32_t)(r.x >= d.thresh) | ((uint32_t)(r.y >= d.thresh) << 1)) << (2 * n);
-    odd |= ((uint32_t)(r.z >= d.thresh) | ((uint32_t)(r.w >= d.thresh) << 1)) << (2 * n);
-  }
-}
 
 // The producer warpgroup: its first thread issues the TMA loads; under
 // dropout all its threads draw the tile's keep bits before the stage is
@@ -265,8 +227,6 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_qu, const CUtensor
 // ---------------------------------------------------------------------------
 // consumers: what both types share
 // ---------------------------------------------------------------------------
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 // The lane's two rows' log-sum-exp times log2(e), +inf for rows that had no
 // valid key (lse below -1e30 / 2) or lie past the sequence (probabilities
@@ -377,25 +337,7 @@ __device__ __forceinline__ void consume_scores(const Args<bf16>& g, unsigned cha
     float lse2[2], delta[2];
     row_stats(g, bh, i_g, lse2, delta);   // in flight while the products run
 
-    {   // G = Q_v Win^T; the warp's window columns rb .. rb+79 to its scratch
-      float g0[8][4], g1[8][4];
-      zero<8>(g0);
-      zero<8>(g1);
-      hp::wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) hp::wgmma_bf16_ss<0, 0>(g0, dsc(sQv + 16 * ks), dsc(w0 + 16 * ks));
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) hp::wgmma_bf16_ss<0, 0>(g1, dsc(sQv + 16 * ks), dsc(w1 + 16 * ks));
-      hp::wgmma_commit();
-      hp::wgmma_wait<0>();
-      hp::fence_acc(g0);
-      hp::fence_acc(g1);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        if (8 * n >= rb) store_g<kGld>(sG, g0[n], 8 * n - rb + 2 * q, lane);
-        if (8 * n < rb + 16) store_g<kGld>(sG, g1[n], 64 + 8 * n - rb + 2 * q, lane);
-      }
-    }
+    hp::position_band(sG, sQv, w0, w1, rb, q, lane);   // G: the warp's window columns to its scratch
     // S = Q_u K^T (+ the position term), dPr = dO V^T
     float sc[8][4], dpr[8][4];
     zero<8>(sc);
@@ -564,73 +506,7 @@ __device__ __forceinline__ void consume_query(const Args<bf16>& g, const CUtenso
 // keys each on wgmma, then the mma.sync products on half the channels each.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint64_t dsc32(const float* tile, int ks) {   // k8 step ks
-  return hp::desc_sw128(tile + ((ks >> 2) << 11) + ((ks & 3) << 3));
-}
-
-// hi in place, lo = v - hi into `lo`, over a whole tile (both warpgroups)
-__device__ __forceinline__ void split_tile(float* hi, float* lo, int tid) {
-  float4* h4 = reinterpret_cast<float4*>(hi);
-  float4* l4 = reinterpret_cast<float4*>(lo);
-  for (int e = tid; e < kB * kD / 4; e += 256) {
-    float4 x = h4[e], y;
-    uint32_t a, b;
-    split(x.x, a, b); x.x = __uint_as_float(a); y.x = __uint_as_float(b);
-    split(x.y, a, b); x.y = __uint_as_float(a); y.y = __uint_as_float(b);
-    split(x.z, a, b); x.z = __uint_as_float(a); y.z = __uint_as_float(b);
-    split(x.w, a, b); x.w = __uint_as_float(a); y.w = __uint_as_float(b);
-    h4[e] = x;
-    l4[e] = y;
-  }
-}
-
-// acc (64 x 8 NT) += A B^T in 3xTF32 on wgmma: A the 64 rows of a swizzled
-// tile (the warp's 16 as register fragments, split), B 8 NT rows of a tile
-// split into b_hi (in place) and b_lo; four k8 steps at a time.
-template <int NT>
-__device__ __forceinline__ void wgmma_nt32(float (&acc)[NT][4], const float* a_tile,
-                                           const float* b_hi, const float* b_lo, int w, int lane) {
-  const int gq = lane >> 2, q = lane & 3, r = 16 * w + gq;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    uint32_t ah[4][4], al[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int k0 = 8 * (4 * half + kk) + q;
-      const uint32_t av[4] = {__float_as_uint(a_tile[sw32(r, k0)]),
-                              __float_as_uint(a_tile[sw32(r + 8, k0)]),
-                              __float_as_uint(a_tile[sw32(r, k0 + 4)]),
-                              __float_as_uint(a_tile[sw32(r + 8, k0 + 4)])};
-      split4(av, ah[kk], al[kk]);
-    }
-    hp::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int ks = 4 * half + kk;
-      hp::wgmma_tf32_rs(acc, al[kk], dsc32(b_hi, ks));
-      hp::wgmma_tf32_rs(acc, ah[kk], dsc32(b_lo, ks));
-      hp::wgmma_tf32_rs(acc, ah[kk], dsc32(b_hi, ks));
-    }
-    hp::wgmma_commit();
-    hp::wgmma_wait<0>();
-    hp::fence_acc(acc);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      hp::fence_regs(ah[kk]);
-      hp::fence_regs(al[kk]);
-    }
-  }
-}
-
-// B fragments of 4 n-tiles (columns c0 + 8n, rows r0 and r0 + 1 of a k8
-// step in the order 0, 2, 4, 6, 1, 3, 5, 7) of a swizzled tile: split, or
-// from its hi and lo tiles
-__device__ __forceinline__ void b_rows_split(uint32_t bh[4][2], uint32_t bl[4][2],
-                                             const float* tile, int r0, int c0) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    split_b(tile[sw32(r0, c0 + 8 * n)], tile[sw32(r0 + 1, c0 + 8 * n)], bh[n], bl[n]);
-}
+// B fragments as b_rows_split's, from a tile's hi and lo tiles
 __device__ __forceinline__ void b_rows_hl(uint32_t bh[4][2], uint32_t bl[4][2], const float* hi,
                                           const float* lo, int r0, int c0) {
 #pragma unroll

@@ -4,11 +4,12 @@ ops/pallas_attention.py, kernel `_attn_kernel`, entry `flash_attention` /
 
     O = softmax_j(q.k^T / sqrt(dk), keys outside the mask excluded) V
 
-The CUDA kernel (csrc/attention.cu) is an online-softmax flash loop over key
-tiles on the tensor cores: bf16 on mma.sync m16n8k16, f32 in 3xTF32 on
-mma.sync m16n8k8 (each operand split into a TF32 hi and an f32 lo, three
-TF32 products for each f32 one, f32 accumulation); `reference_attention` is
-its plain version. `attention` dispatches on
+The CUDA kernel (csrc/attention.cu, the forward of csrc/flash_fwd_hopper.cuh
+without the position term) is an online-softmax flash loop over key tiles on
+Hopper's warpgroup products (wgmma), fed by TMA: bf16 with f32 accumulation,
+f32 in 3xTF32 (each operand split into a TF32 hi and an f32 lo, three TF32
+products for each f32 one, f32 accumulation); `reference_attention` is its
+plain version. `attention` dispatches on
 the device of its inputs: CPU tensors take the plain version, CUDA tensors
 the kernel through `AttentionFn`. The JAX entry's backward is a dense
 recompute outside any kernel (the vjp of its reference attention), so
@@ -37,10 +38,13 @@ def reference_attention(q, k, v, mask=None) -> torch.Tensor:
 
 
 def attention_kernel(q, k, v, mask=None) -> torch.Tensor:
-    """Launch csrc/attention.cu; returns out (B, H, T, dk). f32 runs in
-    3xTF32 (within 3e-5 of reference_attention with TF32 off), bf16 with f32
-    accumulation. Rows with no valid key stay finite (a uniform average of
-    V). Not differentiable by itself: see AttentionFn."""
+    """Launch csrc/attention.cu; returns out (B, H, T, dk). A block of 384
+    threads (a TMA producer warpgroup, two consumer warpgroups on wgmma)
+    owns 128 query rows in bf16, 64 in f32, where the two warpgroups split
+    the keys and combine at the end. f32 runs in 3xTF32 (within 3e-5 of
+    reference_attention with TF32 off), bf16 with f32 accumulation and P
+    rounded to bf16. Rows with no valid key stay finite (a uniform average
+    of V). Not differentiable by itself: see AttentionFn."""
     from lip2speech_tpu_torch.kernels import build
 
     b, h, t, dk = q.shape

@@ -9,7 +9,8 @@ dropout the product with V sees the probabilities times keep / (1 - rate);
 the softmax sum does not. Two implementations, selected by `impl` (default:
 the LIP2SPEECH_FLASH_IMPL environment variable, "shear" when unset):
 
-  "shear"  csrc/rel_attention.cu computes the position term inside its
+  "shear"  csrc/rel_attention.cu (the forward of csrc/flash_fwd_hopper.cuh,
+           on wgmma, fed by TMA) computes the position term inside its
            online-softmax flash loop and csrc/rel_attention_bwd.cu all five
            gradients; plain versions `dense_rel_attention` and
            `rel_attention_bwd_plain`; autograd through `RelAttentionFn`.
@@ -206,10 +207,14 @@ def _qkv(what: str, q_u, others: dict, extra=()):
 
 def rel_attention_kernel(q_u, q_v, k, v, p, mask, dropout_rate: float = 0.0, seed: int = 0):
     """Launch csrc/rel_attention.cu; returns (out (B,H,T,dk), lse (B,H,T) f32).
-    Rows with no valid key stay finite (a uniform average of V). f32 inputs
-    take the kernel's 3xTF32 path (three TF32 tensor-core products for each
-    f32 one, f32 sums), bf16 ones its bf16 path, which rounds P to bf16
-    before P V. Every pointer must be 16-byte aligned."""
+    Rows with no valid key stay finite (a uniform average of V). A block of
+    384 threads (a TMA producer warpgroup, two consumer warpgroups on wgmma)
+    owns 128 query rows in bf16, 64 in f32, where the two warpgroups split
+    the keys and combine at the end. f32 inputs take the kernel's 3xTF32 path
+    (three TF32 tensor-core products for each f32 one, f32 sums), bf16 ones
+    its bf16 path, which rounds P to bf16 before P V. The softmax runs in
+    log2 units (exp2); the returned log-sum-exp is the natural one. Every
+    pointer must be 16-byte aligned."""
     b, h, t, dk = q_u.shape
     _check_dropout(dropout_rate, seed)
     _check_inputs("rel_attention", _qkv("rel_attention", q_u, {"q_v": q_v, "k": k, "v": v},
