@@ -1,9 +1,14 @@
 """The method of the f32 path of csrc/attention.cu, checked on the CPU: both
 products (S = Q K^T and O = P V) in 3xTF32 (each operand split into hi,
 rounded to TF32 as cvt.rna rounds, and lo = v - hi, which the tensor core
-reads truncated to TF32; lo_a hi_b + hi_a lo_b + hi_a hi_b in f32), with the
-kernel's online softmax over key tiles of 64 (as its blocks of 64 query
-rows run it), emulated in plain PyTorch at the kernel's rounding points,
+reads truncated to TF32; lo_a hi_b + hi_a lo_b + hi_a hi_b in f32; the
+split once a tile for an operand in shared memory, Q and K, and at the
+fragment for one in registers, P, V's rows, the same values either way),
+with the kernel's online softmax (flash_fwd_hopper.cuh: a block's two
+consumer warpgroups take keys 32c .. 32c+31 of every 64-key tile, each with
+its own running maximum and sum in log2 units, exp2 of the scores times
+scale * log2(e), combined at the end), emulated in plain PyTorch at the
+kernel's rounding points,
 against the JAX package's Pallas kernel (`flash_attention` in interpret
 mode) and its `reference_attention`, in f32, within the limit that
 chip_smoke.py holds the kernel to on the card: 3e-5 absolute on valid rows
@@ -27,8 +32,10 @@ TOL = 3e-5                  # chip_smoke.py phase 6, absolute, f32
 PRODUCTS = ("qk", "pv")
 LENS = (130, 97, 0)
 H, T, DK = 2, 130, 64
-TILE = 64                   # keys per step of the kernel's online softmax
+TILE = 64                   # keys per step of the kernel's loop
+HALF = 32                   # keys of a tile each consumer warpgroup takes
 MASKED = -1e30              # the kernel's score of a masked key
+LOG2E = 1.4426950408889634
 
 
 def _tf32(t):
@@ -57,24 +64,35 @@ def _terms(one=None):
     return {name: 1 if one in ("all", name) else 3 for name in PRODUCTS}
 
 
-def _forward(q, k, v, mask, terms):
-    """The kernel's arithmetic: S from the split product, masked keys at
-    -1e30, then per key tile the running maximum m, P = exp(S - m) split as
-    the A of P V, the running sum from the unsplit P."""
-    s = _mm("bhqd,bhkd->bhqk", q, k, terms["qk"]) / math.sqrt(DK)
-    s = s.masked_fill(~mask[:, None, None, :], MASKED)
-    m = torch.full(s.shape[:-1] + (1,), -math.inf)
-    l = torch.zeros_like(m)
-    acc = torch.zeros_like(q)
-    for j0 in range(0, T, TILE):
-        st = s[..., j0:j0 + TILE]
-        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(st - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + _mm("bhqk,bhkd->bhqd", p, v[..., j0:j0 + TILE, :], terms["pv"])
-        m = m_new
-    return acc / l.clamp_min(1e-20)
+def _forward(q, k, v, mask, terms, halves=2):
+    """The kernel's arithmetic: S from the split product, times scale *
+    log2(e), masked keys at -1e30 log2(e); per warpgroup and key tile the
+    running maximum m of its 32 keys, P = exp2(S - m) split as the A of P V,
+    the running sum from the unsplit P; then the warpgroups combined
+    (halves=1: one online softmax over whole 64-key tiles)."""
+    s = _mm("bhqd,bhkd->bhqk", q, k, terms["qk"]) * (LOG2E / math.sqrt(DK))
+    s = s.masked_fill(~mask[:, None, None, :], MASKED * LOG2E)
+    width = TILE // halves
+    m_all, l_all, acc_all = [], [], []
+    for c in range(halves):
+        m = torch.full(s.shape[:-1] + (1,), MASKED * LOG2E)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(q)
+        for j0 in range(width * c, T, TILE):
+            st = s[..., j0:j0 + width]
+            m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(st - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + _mm("bhqk,bhkd->bhqd", p, v[..., j0:j0 + width, :], terms["pv"])
+            m = m_new
+        m_all.append(m)
+        l_all.append(l)
+        acc_all.append(acc)
+    m = torch.stack(m_all).amax(0)
+    scales = [torch.exp2(x - m) for x in m_all]
+    l = sum(x * a for x, a in zip(l_all, scales))
+    return sum(x * a for x, a in zip(acc_all, scales)) / l.clamp_min(1e-20)
 
 
 @pytest.fixture(scope="module")
@@ -92,10 +110,10 @@ def case():
                      "reference": to_t(jatt.reference_attention(*j))}}
 
 
-def _err(case, terms, ref):
+def _err(case, terms, ref, halves=2):
     """Max abs error over the valid rows (a fully masked row is a uniform
     average in the kernel, over the padded keys too in the JAX kernel)."""
-    got = _forward(*case["args"], case["mask"], terms)
+    got = _forward(*case["args"], case["mask"], terms, halves)
     rows = case["mask"][:, None, :, None]
     return float(((got - case["refs"][ref]) * rows).abs().max())
 
@@ -108,3 +126,13 @@ def test_3xtf32_is_within_the_f32_limit(case, ref):
 @pytest.mark.parametrize("one", ("all",) + PRODUCTS)
 def test_one_tf32_product_fails_the_f32_limit(case, one):
     assert _err(case, _terms(one), "reference") > TOL
+
+
+def test_warpgroup_combine_is_within_the_f32_limit(case):
+    """The two warpgroups' online softmaxes over interleaved 32-key halves,
+    combined at the end, against one online softmax over whole 64-key tiles:
+    the order of the sums only, far inside the limit."""
+    args = (*case["args"], case["mask"], _terms())
+    rows = case["mask"][:, None, :, None]
+    diff = (_forward(*args) - _forward(*args, halves=1)) * rows
+    assert float(diff.abs().max()) <= TOL / 100

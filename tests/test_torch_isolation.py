@@ -4,6 +4,7 @@ use, and entry points never drop to the CPU on their own."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -96,9 +97,27 @@ def test_the_orbax_script_takes_only_the_restore_from_the_jax_package():
     assert "lip2speech_tpu_torch" in roots
 
 
+def _with_headers(csrc, name: str) -> str:
+    """The text of csrc/<name> and of the csrc headers it includes,
+    transitively."""
+    seen, todo, text = set(), [name], ""
+    while todo:
+        n = todo.pop()
+        if n in seen or not (csrc / n).exists():
+            continue
+        seen.add(n)
+        t = (csrc / n).read_text()
+        text += t
+        todo += re.findall(r'#include "([^"]+)"', t)
+    return text
+
+
 def test_every_kernel_source_names_what_it_replaces():
     """Each compiled source states the TPU kernel it replaces, and the four
-    rel-position attention kernels share one dropout generator."""
+    rel-position attention kernels share one dropout generator, used in the
+    kernel's source or in a header it includes (the forward's loop lives in
+    flash_fwd_hopper.cuh, the keep-bit drawing of both wgmma kernels in
+    hopper.cuh)."""
     csrc = REPO / "lip2speech_tpu_torch" / "csrc"
     sources = sorted(csrc.glob("*.cu"))
     assert len(sources) == 6
@@ -106,9 +125,10 @@ def test_every_kernel_source_names_what_it_replaces():
         assert "Replaces: lip2speech_tpu/ops/pallas_" in src.read_text(), src.name
     for name in ("rel_attention", "rel_attention_bias", "rel_attention_bwd",
                  "rel_attention_bias_bwd"):
-        text = (csrc / f"{name}.cu").read_text()
-        assert "philox::Dropout" in text
-        assert any(f in text for f in ("keep_tile", "pv_product_dropout", "keep_frag"))
+        text = _with_headers(csrc, f"{name}.cu")
+        assert "philox::Dropout" in text, name
+        assert any(f in text for f in ("keep_tile", "pv_product_dropout", "keep_frag",
+                                       "keep_half")), name
     assert '#include "philox.cuh"' in (csrc / "flash_tile.cuh").read_text()
 
 

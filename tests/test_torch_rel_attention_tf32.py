@@ -5,7 +5,10 @@ v - hi, which the tensor core reads truncated to TF32; lo_a hi_b + hi_a
 lo_b + hi_a hi_b in f32; on wgmma or mma.sync alike, the split done once a
 tile for a shared-memory operand and at the fragment for a register one,
 the same values either way), emulated in plain PyTorch at the kernels'
-rounding points, against the JAX package's f32 forward (`dense_rel_attention`)
+rounding points (the forward's online softmax as flash_fwd_hopper.cuh runs
+it: a block's two consumer warpgroups take keys 32c .. 32c+31 of every
+64-key tile, each with its own running maximum and sum in log2 units, exp2
+of the scores times scale * log2(e), combined at the end), against the JAX package's f32 forward (`dense_rel_attention`)
 and backward (`_rel_flash_bwd_impl` in interpret mode), within the limits
 that chip_smoke.py holds the kernels to on the card: 1e-4 absolute forward
 (phase 3), 1e-4 of max(1, |ref|) a gradient backward (phases 11 and 12).
@@ -36,6 +39,8 @@ BWD_PRODUCTS = ("qk", "pos", "dpr", "dqu", "dqv", "dk", "dv", "dp")
 LENS = (130, 97, 0)
 H, T, DK = 2, 130, 64
 KEY_BLOCK = 64              # keys a block of the backward kernel owns
+TILE = 64                   # keys per step of the forward's loop
+HALF = 32                   # keys of a tile each of the forward's consumer warpgroups takes
 LOG2E = 1.4426950408889634
 
 
@@ -70,13 +75,35 @@ def _scores(q_u, q_v, k, p, terms):
             + tra.rel_shift(_mm("bhqd,hpd->bhqp", q_v, p, terms["pos"]))) / math.sqrt(DK)
 
 
-def _forward(q_u, q_v, k, v, p, mask, terms):
-    """The forward kernel's arithmetic: S in f32 from the split products, the
-    row's exp(S - max) unnormalised times V, divided by the row sum."""
-    m = mask[:, None, None, :]
-    s = _scores(q_u, q_v, k, p, terms).masked_fill(~m, tra.NEG_INF)
-    e = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill(~m, 0.0)
-    return _mm("bhqk,bhkd->bhqd", e, v, terms["pv"]) / e.sum(-1, keepdim=True).clamp_min(1e-20)
+def _forward(q_u, q_v, k, v, p, mask, terms, halves=2):
+    """The forward kernel's arithmetic: S in f32 from the split products,
+    times log2(e), masked keys at -1e30 log2(e); per warpgroup and key tile
+    the running maximum m of its 32 keys, P = exp2(S - m) split as the A of
+    P V, the running sum from the unsplit P; then the warpgroups combined
+    (halves=1: one online softmax over whole 64-key tiles)."""
+    masked2 = tra.NEG_INF * LOG2E
+    s = (_scores(q_u, q_v, k, p, terms) * LOG2E).masked_fill(~mask[:, None, None, :], masked2)
+    width = TILE // halves
+    m_all, l_all, acc_all = [], [], []
+    for c in range(halves):
+        m = torch.full(s.shape[:-1] + (1,), masked2)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(q_u)
+        for j0 in range(width * c, T, TILE):
+            st = s[..., j0:j0 + width]
+            m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            e = torch.exp2(st - m_new)
+            l = l * alpha + e.sum(-1, keepdim=True)
+            acc = acc * alpha + _mm("bhqk,bhkd->bhqd", e, v[..., j0:j0 + width, :], terms["pv"])
+            m = m_new
+        m_all.append(m)
+        l_all.append(l)
+        acc_all.append(acc)
+    m = torch.stack(m_all).amax(0)
+    scales = [torch.exp2(x - m) for x in m_all]
+    l = sum(x * a for x, a in zip(l_all, scales))
+    return sum(x * a for x, a in zip(acc_all, scales)) / l.clamp_min(1e-20)
 
 
 def _block_sums(ds, fn):
@@ -162,6 +189,16 @@ def test_one_tf32_product_fails_the_forward_limit(case, one):
 @pytest.mark.parametrize("one", ("all",) + BWD_PRODUCTS)
 def test_one_tf32_product_fails_the_backward_limit(case, one):
     assert _bwd_err(case, _terms(BWD_PRODUCTS, one)) > BWD_TOL
+
+
+def test_warpgroup_combine_is_within_the_forward_limit(case):
+    """The forward's two warpgroups over interleaved 32-key halves, combined
+    at the end, against one online softmax over whole 64-key tiles: the
+    order of the sums only, far inside the limit."""
+    args = (*case["args"], case["mask"], _terms(FWD_PRODUCTS))
+    rows = case["mask"][:, None, :, None]
+    diff = (_forward(*args) - _forward(*args, halves=1)) * rows
+    assert float(diff.abs().max()) <= FWD_TOL / 100
 
 
 def test_key_block_partials_sum_like_one_product(case):
