@@ -532,8 +532,8 @@ def phase_plain_attention(att, dev) -> dict:
     whole against the plain version's uniform average), at the shape the
     flagship's train step gives it (B8 H16 T600), at the flagship's f32
     request (B1 H16 T96) and at HuBERT's (B1 H12, no mask, up to the 4999
-    frames of a full extraction chunk). bf16 times at B4 H16 T240 and B8 H16
-    T600; the f32 path (3xTF32) within ATTENTION_F32_TOL of the plain
+    frames of a full extraction chunk). bf16 times at B4 H16 T240, B8 H16
+    T600 and B1 H12 T4999; the f32 path (3xTF32) within ATTENTION_F32_TOL of the plain
     version in every f32 case, where attention_one_tf32 must not be (read
     over the same rows), and timed at B1 H16 T96, B4 H16 T240, B1 H12 T500
     and B1 H12 T4999 beside f32 SDPA, the plain version, its f32 FMA bound

@@ -241,18 +241,6 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[8][4], const uint32_t (
       "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
 #define L2S_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 
-// d (64 x 32, f32) += A (64 x 16) B (16 x 32), bf16, both from shared memory
-// (m64n32k16); TA / TB as in the 64-column form.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[4][4], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " L2S_D16
-      ", %16, %17, p, 1, 1, %19, %20;\n}\n"
-      : L2S_ACC16(d)
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
 // d (64 x 32, f32) += A (64 x 8) B (8 x 32), TF32, both K-major in shared
 // memory (m64n32k8).
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[4][4], uint64_t da, uint64_t db) {
@@ -391,15 +379,6 @@ __device__ __forceinline__ void wgmma_nt32(float (&acc)[NT][4], const float* a_t
       fence_regs(al[kk]);
     }
   }
-}
-
-// B fragments of 4 n-tiles (columns c0 + 8n, rows r0 and r0 + 1 of a k8
-// step in the order 0, 2, 4, 6, 1, 3, 5, 7) of a swizzled f32 tile, split
-__device__ __forceinline__ void b_rows_split(uint32_t bh[4][2], uint32_t bl[4][2],
-                                             const float* tile, int r0, int c0) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    mma::split_b(tile[sw32(r0, c0 + 8 * n)], tile[sw32(r0 + 1, c0 + 8 * n)], bh[n], bl[n]);
 }
 
 // The position term of a warpgroup's 64 query rows (Q_v: a swizzled bf16

@@ -92,7 +92,6 @@ namespace {
 
 using namespace mma;
 namespace hp = hopper;
-using hp::b_rows_split;
 using hp::dsc32;
 using hp::keep_half;
 using hp::kLog2e;
@@ -506,7 +505,15 @@ __device__ __forceinline__ void consume_query(const Args<bf16>& g, const CUtenso
 // keys each on wgmma, then the mma.sync products on half the channels each.
 // ---------------------------------------------------------------------------
 
-// B fragments as b_rows_split's, from a tile's hi and lo tiles
+// B fragments of 4 n-tiles (columns c0 + 8n, rows r0 and r0 + 1 of a k8
+// step in the order 0, 2, 4, 6, 1, 3, 5, 7) of a swizzled tile: split, or
+// from its hi and lo tiles
+__device__ __forceinline__ void b_rows_split(uint32_t bh[4][2], uint32_t bl[4][2],
+                                             const float* tile, int r0, int c0) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+    split_b(tile[sw32(r0, c0 + 8 * n)], tile[sw32(r0 + 1, c0 + 8 * n)], bh[n], bl[n]);
+}
 __device__ __forceinline__ void b_rows_hl(uint32_t bh[4][2], uint32_t bl[4][2], const float* hi,
                                           const float* lo, int r0, int c0) {
 #pragma unroll
