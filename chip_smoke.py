@@ -175,7 +175,7 @@ Phases, in order; any failure exits non-zero before the last line:
      13's rule), BatchNorm
      statistics or u within 1e-5 of max(1, |ref|) (a running mean also
      of its running variance's square root), logs within 1e-5
-     (MULTI_TOL; stage 1's, or ten times what the twin reads if more); the GAN's gradients by phase 17's GAN_CHECK_TOL (2e-4 /
+     (MULTI_TOL; stage 1's grad_norm within 1e-4); the GAN's gradients by phase 17's GAN_CHECK_TOL (2e-4 /
      1e-5 of the generator's / discriminators' largest element); exact
      launches a rank; the TP2 state's
      s1_ file (rank 0, single-card layout) read into a one-card state; step
@@ -542,7 +542,7 @@ def phase_plain_attention(att, dev) -> dict:
     gen = torch.Generator().manual_seed(3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dk = 64
-    result, f32, failures = None, {}, []
+    bf16, f32, failures, bf16_err = {}, {}, [], 0.0
     cases = [(4, 16, 240, "ragged", torch.bfloat16, True), (4, 16, 240, "ragged", torch.float32, True),
              (4, 16, 235, "ragged", torch.bfloat16, False), (4, 16, 235, "ragged", torch.float32, False),
              (4, 16, 235, "empty row", torch.bfloat16, False),
@@ -599,14 +599,10 @@ def phase_plain_attention(att, dev) -> dict:
                                tf32x3_bound_ms=tf32x3_bound_ms(n_bytes, flops))
                 line += f" 3xTF32 bound_ms {numbers['tf32x3_bound_ms']:.4f}"
                 f32[f"B{b}H{h}T{t}"] = numbers
-            elif result is None:
-                result = {"max_abs_err": err, **numbers}
-            elif "train_shape" not in result:
-                result["train_shape"] = numbers
             else:
-                result["unit_chunk"] = numbers
-        if dtype == torch.bfloat16 and result is not None:
-            result["max_abs_err"] = max(result["max_abs_err"], err)
+                bf16[f"B{b}H{h}T{t}"] = numbers
+        if not is_f32:
+            bf16_err = max(bf16_err, err)
         print(line, flush=True)
         if not ok:
             failures.append(line)
@@ -615,8 +611,9 @@ def phase_plain_attention(att, dev) -> dict:
     if failures:
         fail(f"attention kernel disagrees with its plain version, or 1xTF32 passes the f32 "
              f"limit: {failures}")
-    result["f32"] = f32
-    return result
+    # the serving shape's bf16 reading heads the kernels line; every timed
+    # reading stands under its shape
+    return {"max_abs_err": bf16_err, **bf16["B4H16T240"], "bf16": bf16, "f32": f32}
 
 
 def bias_attention_one_tf32(ra, q_u, k, v, bias, mask) -> torch.Tensor:
@@ -3260,7 +3257,11 @@ MULTI_TIMEOUT_S = 300.0        # seconds a collective of phase 21 may wait
 MULTI_TOL = {"grads": 1e-4,    # stage 1: of the step's largest element, and in the 2-norm
                                # of the whole gradient's (phase 13's pair)
              "stats": 1e-5,    # of max(1, each tensor's max |ref|): BatchNorm statistics, u
-             "logs": 1e-5}     # relative
+             "logs": 1e-5,     # relative
+             # relative, stage 1's grad_norm: rounding alone moves the flagship step's
+             # (1 x 240) by up to 4.2e-5, the plain attention versions against their ulp
+             # twins at weight seeds 0-3 (PERF.md)
+             "grad_norm": 1e-4}
 MULTI_SHAPES = {"multi_target": (2, 4, 600), "multi_target_avhubert": (1, 1, 240)}  # accum, B, T
 MULTI_SERVING = ((torch.bfloat16, 4, 240, MAIN_LENS), (None, 1, 96, (96,)))   # dtype, B, T, lens
 
@@ -3351,12 +3352,9 @@ def multi_errors(got: dict, ref: dict, what: str, gan: bool = False) -> dict:
       max |ref|), a running mean's also over the square root of its layer's
       running variance if more (a batch mean rounds at the size of the
       values it sums), limit MULTI_TOL["stats"];
-    - logs: relative, limit MULTI_TOL["logs"], or for stage 1 ten times what
-      the reference's ulp twin reads of that log if more (phase 13's rule
-      again: the gradient norm sums gradients whose gates rounding flips;
-      the flagship step at 1 x 240 moves its grad_norm by 4.2e-5 between
-      weights one ulp apart with the plain attention versions, 1.5e-5 with
-      the kernels)."""
+    - logs: relative, limit MULTI_TOL["logs"], stage 1's grad_norm
+      MULTI_TOL["grad_norm"] (the norm of gradients whose rounding the
+      gradients' own limit allows for)."""
     grads = ref["grads"]
     side = (lambda k: "disc" if k.startswith(("mpd.", "msd.")) else "generator") if gan else (
         lambda k: "step")
@@ -3371,9 +3369,8 @@ def multi_errors(got: dict, ref: dict, what: str, gan: bool = False) -> dict:
         share = {}
         for k, r in ref[kind].items():
             if kind == "logs":
-                twin = 10 * ref.get("ulp_twin_logs", {}).get(k, 0.0)
-                share[k] = abs(got[kind][k] - r) / max(abs(r), 1e-30) / max(MULTI_TOL["logs"],
-                                                                             twin)
+                limit = MULTI_TOL["grad_norm" if k == "grad_norm" and not gan else "logs"]
+                share[k] = abs(got[kind][k] - r) / max(abs(r), 1e-30) / limit
                 continue
             diff = got[kind][k] - r
             if kind == "grads" and gan:
@@ -3415,8 +3412,7 @@ def ulp_twin(s1, cfg, counters, batch, expected, ref: dict, what: str) -> dict:
     """The yardstick of rounding (phase 13's twin): the single-card step
     from weights moved by about one unit in the last place (times 1 + 1e-7
     x normal noise), its gradients' shares of the limit against the
-    reference's, by name; its logs' relative differences from the
-    reference's go to ref["ulp_twin_logs"]."""
+    reference's, by name."""
     state = s1.create_train_state(cfg, seed=0)
     noise = torch.Generator(device=state.device).manual_seed(7)
     with torch.no_grad():
@@ -3426,10 +3422,8 @@ def ulp_twin(s1, cfg, counters, batch, expected, ref: dict, what: str) -> dict:
                                f"{what} ulp twin", 1)
     shares = grad_shares(twin["grads"], ref["grads"])
     at = max(shares, key=shares.get)
-    ref["ulp_twin_logs"] = {k: abs(twin["logs"][k] - r) / max(abs(r), 1e-30)
-                            for k, r in ref["logs"].items()}
     print(f"{what} ulp twin: its gradients against the step's, worst {shares[at]:.3f} of the "
-          f"limit at {at}; its logs' relative differences {ref['ulp_twin_logs']}", flush=True)
+          f"limit at {at}", flush=True)
     return shares
 
 
@@ -4479,8 +4473,9 @@ def main() -> int:
         elif lib in HGMMA_KERNELS:
             design = ("flash_fwd_hopper.cuh: TMA-fed, a producer and two consumer warpgroups; "
                       "bf16: 128 query rows a block, every product on wgmma m64nNk16, f32 "
-                      "accumulate; f32: 64 rows, the warpgroups split the keys, 3xTF32 with "
-                      "every product on wgmma m64nNk8")
+                      "accumulate; f32: 64 rows, 3xTF32 with every product on wgmma m64nNk8, "
+                      "the warpgroups on alternate key tiles (attention) or 32 keys of each "
+                      "tile (rel_attention)")
         numbers.update(design=design,
                        hmma_in_sass=sass["hmma"][lib], hmma_tf32_in_sass=sass["hmma_tf32"][lib],
                        hgmma_in_sass=sass["hgmma"][lib],

@@ -29,18 +29,19 @@
 //
 // bf16 (dtype 1): 128 query rows a block, 64 for each consumer warpgroup
 // against every key; S and P V on wgmma m64n64k16, P in registers. Four
-// stages: 86.1 KB of shared memory, 144 registers, one block (384 threads)
+// stages: 86.1 KB of shared memory, 142 registers, one block (384 threads)
 // an SM.
 //
 // f32 (dtype 0): 3xTF32, held to 3e-5 against the plain version, which one
 // TF32 product (~1e-4 to 1e-3 off) does not meet. 64 query rows a block;
-// the producer splits Q once a block and K once a tile and writes V^T
-// split; S and P V on wgmma m64n64k8. The two consumer warpgroups take
-// alternate whole key tiles, each with its own online softmax, and combine
-// at the end, so a block's serial path is half the tiles: the flagship's
-// f32 request (B1 H16 T96) has 32 blocks on 132 SMs, unit extraction's B1
-// H12 T500 96. Three stages of K and two of V: 193.9 KB of shared memory,
-// one block an SM.
+// the two consumer warpgroups take alternate whole key tiles, each with its
+// own online softmax, and merge at the end, so a block's serial path is
+// half the tiles: the flagship's f32 request (B1 H16 T96) has 32 blocks on
+// 132 SMs, unit extraction's B1 H12 T500 96. S on wgmma m64n64k8 with Q's
+// fragments split in registers (m64n32k8 for a last tile of at most 32
+// keys), K split by the producer once a tile, V^T written split by it; P V
+// on m64n64k8. Three stages of K and two of V: 177.9 KB of shared memory,
+// 128 registers, one block an SM.
 
 #include "flash_fwd_hopper.cuh"
 

@@ -12,21 +12,25 @@
 // philox.cuh's function of (seed, b*h, i, j).
 //
 // The block: 384 threads, two consumer warpgroups and a producer warpgroup
-// (hopper.cuh), one block an SM. The producer's first thread issues TMA
-// loads: Q_u (and Q_v) once, then per key tile of 64 K, V and, with kPos,
-// the one 64-row chunk of the position table that the tile's window adds
-// (the window is a ring of chunks, refilled only after every tile that
-// reads a chunk released its stage), into rings of stages on loaded /
-// ready / empty mbarriers. TMA zero-fills rows past the sequence and the
-// table's ends (negative rows included); the key flags the producer writes
-// (1 valid, 0 masked, -1 past the sequence, the mask read a tile ahead)
-// keep zero-filled keys out of the softmax. Under dropout the producer
-// draws the tile's keep bits (hopper.cuh `keep_half`, eight Philox calls a
-// thread for 64 rows) into the stage before it is ready. The consumers'
-// online softmax runs on the accumulator in log2 units (exp2, the scale and
+// (hopper.cuh), one block an SM. The producer issues TMA loads: Q_u (and
+// Q_v) once, then per key tile of 64 K, V and, with kPos, the one 64-row
+// chunk of the position table that the tile's window adds (bf16: the
+// window is a ring of chunks, refilled only after every tile that reads a
+// chunk released its stage), into rings of stages on loaded / ready /
+// empty mbarriers. TMA zero-fills rows past the sequence and the table's
+// ends (negative rows included); the key flags the producer writes (1
+// valid, 0 masked, -1 past the sequence, the mask read a tile ahead) keep
+// zero-filled keys out of the softmax. Under dropout the producer draws
+// the tile's keep bits (hopper.cuh `keep_half`, eight Philox calls a thread
+// for 64 rows) into the stage before it is ready. The consumers' online
+// softmax runs on the accumulator in log2 units (exp2, the scale and
 // log2(e) folded into one multiply; a masked key scores -1e30 log2(e), so
 // the log-sum-exp m ln 2 + ln l is the natural one), and P stays in
-// registers as the A operand of O += P V.
+// registers as the A operand of O += P V. Every shared-memory pointer
+// derives from the block's base by offsets, so the compiler emits shared
+// loads and stores (LDS / STS with 32-bit addresses): the first version
+// rounded the base through an integer, and every access became a generic
+// 64-bit one (the shear forward 10-13% slower for it).
 //   bf16: a block owns 128 query rows, consumer warpgroup c rows 64c ..
 // 64c+63 against every key of each tile; every product on wgmma with f32
 // accumulation: S = Q_u K^T m64n64k16 from shared memory, P V m64n64k16
@@ -34,28 +38,36 @@
 // as the shear backward computes it (hopper.cuh `position_band`: G = Q_v
 // Win^T over the warpgroup's 128 window rows, each warp's band through its
 // f32 scratch, read back along the diagonal into S's accumulator: two
-// products for 64 x 64 scores). Four stages of K and V; 144 (160 with the
+// products for 64 x 64 scores). Four stages of K and V; 142 (154 with the
 // position term) registers, no spill.
 //   f32: 3xTF32 (hi = v rounded to TF32, lo = v - hi, lo hi + hi lo + hi hi
-// with f32 sums; mma_tile.cuh). A block owns 64 query rows: Q_u and Q_v
-// split in hi and lo take 16 KB each, and 128 rows do not fit beside the
-// stages. The producer splits Q once a block and K once a tile in shared
-// memory (hi in place, lo beside), and writes V^T split in hi and lo, its
-// keys in each k8 step in the order 0, 2, 4, 6, 1, 3, 5, 7 (where P's
-// accumulator holds them: TF32 wgmma reads B only K-major); K and V have
-// rings of their own (with the position term two K stages and one of V,
-// the most that 227 KB hold). Every product on wgmma: S from the split
-// tiles, P V m64n64k8 with P split in registers, and with kPos G^T = Win
-// Q_v^T m64n64k8, the window chunk split in registers as A. Each
-// consumer warpgroup runs its own online softmax, and the two combine (max,
-// sum, O) through shared memory at the end. Without the position term they
-// take alternate whole tiles (S m64n64k8), so each warpgroup's serial path
-// is half the tiles. With it, warpgroup c takes keys 32c .. 32c+31 of every
-// tile (S m64n32k8) and computes G^T of window chunk t + c, its band stored
-// sheared, Gs[a][j] = G[a][63-a+j], which both read back at their elements'
-// own places: alternate tiles would need a scratch and a V stage for each
-// warpgroup, which do not fit beside the position table's ring. 168
-// registers with the position term, no spill.
+// with f32 sums; mma_tile.cuh). A block owns 64 query rows, and each
+// consumer warpgroup runs its own online softmax; the two parts merge (max,
+// sum, O) through shared memory at the end. The producer splits tiles in
+// shared memory (hi in place, lo beside) and writes V as V^T split in hi
+// and lo, its keys in each k8 step in the order 0, 2, 4, 6, 1, 3, 5, 7
+// (where P's accumulator holds them: TF32 wgmma reads B only K-major).
+// Every product on wgmma, P V m64n64k8 with P split in registers as A.
+//   Without the position term the warpgroups take alternate whole tiles,
+// so each one's serial path is half the tiles. S = Q K^T m64n64k8 takes
+// Q's fragments split in registers (hopper.cuh wgmma_nt32; no split pass
+// over Q), and a last tile whose keys past 31 all lie past the sequence
+// (the flagship's f32 request at T 96) runs as m64n32k8 and four k-steps
+// of P V. K and V are loaded by two of the producer's warps, so that the
+// TMA issues overlap. Three stages of K and two of V^T: 177.9 KB, 128
+// registers, no spill. At T 96 (32 blocks on 132 SMs) the block's time is
+// its chain: TMA, the producer's passes over K and V, S, the softmax, P V,
+// the merge; a pair of blocks sharing the keys (a cluster) was no faster.
+//   With the position term warpgroup c takes keys 32c .. 32c+31 of every
+// tile (S m64n32k8 from the split Q_u) and the position term as G^T = Win
+// Q_v^T m64n32k8 of its 32 query rows against window chunk t + 1 (A split
+// in registers). Chunk t + 1 holds tile t's G where j > a and tile t + 1's
+// where j <= a, so each chunk is computed once; both warpgroups store their
+// parts sheared, Gs[a][j] = G[a][63-a+j] (the second part once the tile's
+// reads are done), and read back their scores' own places. The producer
+// splits Q_u, Q_v once and K once a tile, and writes V^T. Two stages of K
+// with their window chunk, one of V^T: 210.6 KB, 168 registers, a 24-byte
+// spill.
 //
 // Bounds are checked: any T.
 
@@ -100,29 +112,47 @@ struct Layout<bf16, kPos> {
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
-// f32: 64 query rows; K (with the tile's key flags, keep words and window
-// chunk) and V in rings of their own, V as V^T split by the producer.
-template <bool kPos>
-struct Layout<float, kPos> {
+// f32 without the position term: 64 query rows (Q as it landed: the
+// consumers split its fragments in registers); rings of K (hi, lo) and V^T
+// (hi, lo; V lands in lo).
+template <>
+struct Layout<float, false> {
   static constexpr bool kBf16 = false;
   static constexpr int kQT = 1;
   static constexpr int kRows = 64;
   static constexpr int TB = kB * kD * 4;         // a 64 x 64 tile: two halves of 32 channels
-  static constexpr int kSK = kPos ? 2 : 3;       // K stages
-  static constexpr int kSV = kPos ? 1 : 2;       // V stages
-  static constexpr int kRing = kPos ? kSK + 1 : 0;
-  static constexpr int kQu = 0, kQv = 2 * TB;   // each hi in place, lo beside
-  static constexpr int kK = kQv + (kPos ? 2 * TB : 0);   // [kSK] x (hi, lo)
-  static constexpr int kVT = kK + kSK * 2 * TB;          // [kSV] x (V^T hi, V^T lo; V lands in lo)
-  static constexpr int kRingOff = kVT + kSV * 2 * TB;
-  static constexpr int kScr = kRingOff + kRing * TB;     // the sheared Gs
-  static constexpr int kFlags = kScr + (kPos ? kB * kB * 4 : 0);   // [kSK] x 64 key flags
-  static constexpr int kKeep = kFlags + kSK * kB * 4;              // [kSK] x 128 words
-  static constexpr int kBars = kKeep + (kPos ? kSK * 512 : 0);
-  // q, qs, K loaded, ready, empty [kSK], V loaded, ready, empty [kSV]
+  static constexpr int kSK = 3, kSV = 2;         // K stages, V stages
+  static constexpr int kQu = 0;
+  static constexpr int kK = TB;                          // [kSK] x (hi, lo)
+  static constexpr int kVT = kK + kSK * 2 * TB;          // [kSV] x (V^T hi, V^T lo)
+  static constexpr int kFlags = kVT + kSV * 2 * TB;      // [kSK] x 64 key flags
+  // q, (qs), K loaded, ready, empty [kSK], V loaded, ready, empty [kSV]
+  static constexpr int kBars = kFlags + kSK * kB * 4;
   static constexpr int kSmem = kBars + (2 + 3 * kSK + 3 * kSV) * 8 + 1024;
   static_assert(kSmem <= 232448, "shared memory of one block");
-  static_assert(kSK * 2 * TB >= 36 * 128 * 4, "the combine's exchange fits the K stages");
+};
+
+// f32 with the position term: 64 query rows (Q_u, Q_v: hi in place, lo
+// beside); a K stage holds the tile's K (hi, lo) and window chunk t + 1;
+// one stage of V^T (hi, lo); the sheared Gs, where window chunk 0 lands.
+template <>
+struct Layout<float, true> {
+  static constexpr bool kBf16 = false;
+  static constexpr int kQT = 1;
+  static constexpr int kRows = 64;
+  static constexpr int TB = kB * kD * 4;
+  static constexpr int kSK = 2, kSV = 1;         // K stages, V stages
+  static constexpr int kStageBytes = 3 * TB;
+  static constexpr int kQu = 0, kQv = 2 * TB;
+  static constexpr int kStage = 4 * TB;                    // [kSK] x (K hi, K lo, chunk)
+  static constexpr int kVT = kStage + kSK * kStageBytes;   // V^T hi, V^T lo (V lands in lo)
+  static constexpr int kScr = kVT + 2 * TB;
+  static constexpr int kFlags = kScr + TB;                 // [kSK] x 64 key flags
+  static constexpr int kKeep = kFlags + kSK * kB * 4;      // [kSK] x 128 words
+  static constexpr int kBars = kKeep + kSK * 512;
+  // q, qs, K loaded, ready, empty [kSK], V loaded, ready, empty
+  static constexpr int kSmem = kBars + (2 + 3 * kSK + 3 * kSV) * 8 + 1024;
+  static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
 // bf16 uses the K barriers for its stages of K and V.
@@ -152,23 +182,55 @@ __device__ __forceinline__ T* ring_chunk(unsigned char* sm, int m) {
 
 __device__ __forceinline__ uint64_t dsc(const bf16* p) { return hp::desc_sw128(p); }
 
-// The f32 position term of one window chunk `win` (window rows 64c ..
-// 64c+63) against the 64 query rows: G^T = Win Q_v^T on wgmma by the
-// calling warpgroup (window rows in the accumulator's rows), its band into
-// the sheared scratch.
-__device__ __forceinline__ void position_chunk(const float* sQv, const float* win, float* Gs,
-                                               int c, int w, int lane) {
-  float gt[8][4];
-  zero<8>(gt);
-  hp::wgmma_nt32<8>(gt, win, sQv, sQv + kB * kD, w, lane);
-  const int q = lane & 3, gq = lane >> 2;
+// f32 V: thread pt (of 128) reads key row pt / 2, channels 32 (pt % 2) ..
+// +31, of a landed tile into x; store_vt writes them as V^T split in hi and
+// lo, the keys of each k8 step in the order 0, 2, 4, 6, 1, 3, 5, 7 (where
+// P's accumulator holds them: TF32 wgmma reads B only K-major).
+__device__ __forceinline__ void load_v(float (&x)[32], const float* v, int pt) {
+  const int r = pt >> 1, c0 = 32 * (pt & 1);
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int c4 = 0; c4 < 8; ++c4) {
+    const float4 y = *reinterpret_cast<const float4*>(v + hp::sw32(r, c0 + 4 * c4));
+    x[4 * c4] = y.x;
+    x[4 * c4 + 1] = y.y;
+    x[4 * c4 + 2] = y.z;
+    x[4 * c4 + 3] = y.w;
+  }
+}
+__device__ __forceinline__ void store_vt(const float (&x)[32], float* vth, float* vtl, int pt) {
+  const int r = pt >> 1, c0 = 32 * (pt & 1);
+  const int kp = 8 * (r >> 3) + ((r & 7) >> 1) + 4 * (r & 1);   // key r's place in its k8 step
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int a = 8 * n + 2 * q + (e & 1), j = 64 * c + 16 * w + gq + 8 * (e >> 1) - 63 + a;
-      if (j >= 0 && j < kB) Gs[gs_at(a, j)] = gt[n][e];
-    }
+  for (int cc = 0; cc < 32; ++cc) {
+    uint32_t hi, lo;
+    split(x[cc], hi, lo);
+    const int at = hp::sw32(c0 + cc, kp);
+    vth[at] = __uint_as_float(hi);
+    vtl[at] = __uint_as_float(lo);
+  }
+}
+
+// hi in place, lo = v - hi into `lo`, over a whole f32 tile by 128 threads
+// (tid 0 ..): every load first, then the splits and stores (hopper.cuh
+// split_tile's loop, whose loads wait on the stores before them)
+__device__ __forceinline__ void split_tile128(float* hi, float* lo, int tid) {
+  constexpr int kIt = kB * kD / 4 / 128;
+  float4* h4 = reinterpret_cast<float4*>(hi);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+  float4 x[kIt];
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) x[i] = h4[tid + 128 * i];
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    float4 y;
+    uint32_t a, b;
+    split(x[i].x, a, b); x[i].x = __uint_as_float(a); y.x = __uint_as_float(b);
+    split(x[i].y, a, b); x[i].y = __uint_as_float(a); y.y = __uint_as_float(b);
+    split(x[i].z, a, b); x[i].z = __uint_as_float(a); y.z = __uint_as_float(b);
+    split(x[i].w, a, b); x[i].w = __uint_as_float(a); y.w = __uint_as_float(b);
+    h4[tid + 128 * i] = x[i];
+    l4[tid + 128 * i] = y;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -240,47 +302,34 @@ __device__ __forceinline__ void produce_bf16(const CUtensorMap* tm_qu, const CUt
   }
 }
 
-// The producer warpgroup, f32. Q_u and Q_v are split once a block. K (and
-// the window chunk) and V have rings of their own: process_k(t) writes tile
-// t's key flags and keep bits and splits K once it landed; process_v(t)
-// writes V^T split in hi and lo, its keys in each k8 step in the order 0,
-// 2, 4, 6, 1, 3, 5, 7 (where P's accumulator holds them). Each tile's K is
-// ready before the consumers start it, and its V while they compute its
-// scores. Without the position term the consumer warpgroups take
-// alternate tiles, so K is readied two tiles ahead.
-template <bool kPos>
-__device__ __forceinline__ void produce_f32(const CUtensorMap* tm_qu, const CUtensorMap* tm_qv,
-                                            const CUtensorMap* tm_k, const CUtensorMap* tm_v,
-                                            const CUtensorMap* tm_p, unsigned char* sm,
-                                            const Bars& br, const Args& g, int bh, int i0) {
-  using L = Layout<float, kPos>;
-  constexpr int kAhead = kPos ? 1 : 2;   // tiles K is readied ahead
+// The producer warpgroup, f32 without the position term: Q lands once (the
+// consumers split its fragments in registers). K and V have rings of their
+// own, loaded by two of the producer's warps so that the issues overlap:
+// process_k(t) writes the tile's key flags and splits K once it landed;
+// process_v(t) writes V^T split. The consumer warpgroups take alternate
+// tiles, so K is readied two tiles ahead.
+__device__ __forceinline__ void produce_keys(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                             const CUtensorMap* tm_v, unsigned char* sm,
+                                             const Bars& br, const Args& g, int bh, int i0) {
+  using L = Layout<float, false>;
   const int pt = threadIdx.x - 256, T_len = g.T_len, n_tiles = (T_len + kB - 1) / kB;
-  const int h = bh % g.H, wbase = T_len - kB - i0;   // table row of window chunk 0
   const uint8_t* mask_row = g.mask == nullptr ? nullptr : g.mask + (size_t)(bh / g.H) * T_len;
-  const bool drop = g.drop.thresh != 0u;
   if (pt == 0) {
-    hp::mbar_expect_tx(br.q, (kPos ? 2 : 1) * L::TB);
-    hp::tma_tile<float>(sm + L::kQu, tm_qu, br.q, i0, bh);
-    if constexpr (kPos) hp::tma_tile<float>(sm + L::kQv, tm_qv, br.q, i0, bh);
+    hp::mbar_expect_tx(br.q, L::TB);
+    hp::tma_tile<float>(sm + L::kQu, tm_q, br.q, i0, bh);
   }
   auto issue_k = [&](int t) {
     const int s = t % L::kSK;
     if (t >= L::kSK) hp::mbar_wait(&br.ke[s], ((t / L::kSK) - 1) & 1);
-    if (pt == 0) {
-      hp::mbar_expect_tx(&br.kl[s], (kPos ? (t == 0 ? 3 : 2) : 1) * L::TB);
+    if (pt == 32) {
+      hp::mbar_expect_tx(&br.kl[s], L::TB);
       hp::tma_tile<float>(sm + L::kK + s * 2 * L::TB, tm_k, &br.kl[s], kB * t, bh);
-      if constexpr (kPos) {
-        if (t == 0) hp::tma_tile<float>(ring_chunk<float, kPos>(sm, 0), tm_p, &br.kl[s], wbase, h);
-        hp::tma_tile<float>(ring_chunk<float, kPos>(sm, t + 1), tm_p, &br.kl[s],
-                            wbase + kB * (t + 1), h);
-      }
     }
   };
-  auto issue_v = [&](int t) {
+  auto issue_v = [&](int t) {   // into V^T lo
     const int v = t % L::kSV;
     if (t >= L::kSV) hp::mbar_wait(&br.ve[v], ((t / L::kSV) - 1) & 1);
-    if (pt == 0) {
+    if (pt == 64) {
       hp::mbar_expect_tx(&br.vl[v], L::TB);
       hp::tma_tile<float>(sm + L::kVT + v * 2 * L::TB + L::TB, tm_v, &br.vl[v], kB * t, bh);
     }
@@ -296,7 +345,88 @@ __device__ __forceinline__ void produce_f32(const CUtensorMap* tm_qu, const CUte
       reinterpret_cast<float*>(sm + L::kFlags)[s * kB + pt] = (float)m_next;
       if (t + 1 < n_tiles) m_next = mask_at(kB * (t + 1) + pt);
     }
-    if (kPos && drop) {   // rows g + 8 into the high halves
+    hp::mbar_wait(&br.kl[s], (t / L::kSK) & 1);
+    float* kh = reinterpret_cast<float*>(sm + L::kK + s * 2 * L::TB);
+    split_tile128(kh, kh + kB * kD, pt);
+    hp::fence_proxy_async();
+    hp::named_barrier(3, 128);
+    if (pt == 0) hp::mbar_arrive(&br.kr[s]);
+  };
+  auto process_v = [&](int t) {
+    const int v = t % L::kSV;
+    float* vth = reinterpret_cast<float*>(sm + L::kVT + v * 2 * L::TB);
+    float x[32];
+    hp::mbar_wait(&br.vl[v], (t / L::kSV) & 1);
+    load_v(x, vth + kB * kD, pt);
+    hp::named_barrier(3, 128);   // V is read before V^T lo overwrites it
+    store_vt(x, vth, vth + kB * kD, pt);
+    hp::fence_proxy_async();
+    hp::named_barrier(3, 128);
+    if (pt == 0) hp::mbar_arrive(&br.vr[v]);
+  };
+
+  for (int t = 0; t < n_tiles && t < L::kSK; ++t) issue_k(t);
+  for (int t = 0; t < n_tiles && t < L::kSV; ++t) issue_v(t);
+  for (int t = 0; t < 2 && t < n_tiles; ++t) process_k(t);
+  for (int t = 0; t < n_tiles; ++t) {
+    process_v(t);
+    if (t + 2 < n_tiles) process_k(t + 2);
+    if (t + L::kSK < n_tiles) issue_k(t + L::kSK);
+    if (t + L::kSV < n_tiles) issue_v(t + L::kSV);
+  }
+}
+
+// The producer warpgroup, f32 with the position term. Q_u and Q_v are
+// split once a block. Tile t's stage holds K and window chunk t + 1 (chunk
+// 0 lands in the scratch); process_k(t) writes the tile's key flags and
+// keep bits and splits K once it landed; process_v(t) writes V^T split from
+// V, which lands in V^T lo once the consumers finished P V of tile t - 1.
+// Each tile's K is ready before the consumers start it, and its V while
+// they compute its scores.
+__device__ __forceinline__ void produce_f32(const CUtensorMap* tm_qu, const CUtensorMap* tm_qv,
+                                            const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                            const CUtensorMap* tm_p, unsigned char* sm,
+                                            const Bars& br, const Args& g, int bh, int i0) {
+  using L = Layout<float, true>;
+  const int pt = threadIdx.x - 256, T_len = g.T_len, n_tiles = (T_len + kB - 1) / kB;
+  const int h = bh % g.H, wbase = T_len - kB - i0;   // table row of window chunk 0
+  const uint8_t* mask_row = g.mask == nullptr ? nullptr : g.mask + (size_t)(bh / g.H) * T_len;
+  const bool drop = g.drop.thresh != 0u;
+  if (pt == 0) {
+    hp::mbar_expect_tx(br.q, 2 * L::TB);
+    hp::tma_tile<float>(sm + L::kQu, tm_qu, br.q, i0, bh);
+    hp::tma_tile<float>(sm + L::kQv, tm_qv, br.q, i0, bh);
+  }
+  auto stage = [&](int s) { return reinterpret_cast<float*>(sm + L::kStage + s * L::kStageBytes); };
+  auto issue_k = [&](int t) {
+    const int s = t % L::kSK;
+    if (t >= L::kSK) hp::mbar_wait(&br.ke[s], ((t / L::kSK) - 1) & 1);
+    if (pt == 0) {
+      hp::mbar_expect_tx(&br.kl[s], (t == 0 ? 3 : 2) * L::TB);
+      hp::tma_tile<float>(stage(s), tm_k, &br.kl[s], kB * t, bh);
+      hp::tma_tile<float>(stage(s) + 2 * kB * kD, tm_p, &br.kl[s], wbase + kB * (t + 1), h);
+      if (t == 0) hp::tma_tile<float>(sm + L::kScr, tm_p, &br.kl[s], wbase, h);
+    }
+  };
+  auto issue_v = [&](int t) {   // into V^T lo, once P V of tile t - 1 is done
+    if (t > 0) hp::mbar_wait(br.ve, (t - 1) & 1);
+    if (pt == 0) {
+      hp::mbar_expect_tx(br.vl, L::TB);
+      hp::tma_tile<float>(sm + L::kVT + L::TB, tm_v, br.vl, kB * t, bh);
+    }
+  };
+  // the key mask byte of thread pt's key in the next tile, read a tile ahead
+  auto mask_at = [&](int j) -> int {
+    return j < T_len ? ((mask_row == nullptr || mask_row[j]) ? 1 : 0) : -1;
+  };
+  int m_next = pt < kB ? mask_at(pt) : 0;
+  auto process_k = [&](int t) {
+    const int s = t % L::kSK;
+    if (pt < kB) {   // 1 valid, 0 masked, -1 past the sequence
+      reinterpret_cast<float*>(sm + L::kFlags)[s * kB + pt] = (float)m_next;
+      if (t + 1 < n_tiles) m_next = mask_at(kB * (t + 1) + pt);
+    }
+    if (drop) {   // rows g + 8 into the high halves
       uint32_t even, odd;
       hp::keep_half(even, odd, g.drop, bh, i0, kB * t, pt);
       const uint32_t e8 = __shfl_xor_sync(0xffffffffu, even, 1);
@@ -310,60 +440,40 @@ __device__ __forceinline__ void produce_f32(const CUtensorMap* tm_qu, const CUte
       }
     }
     hp::mbar_wait(&br.kl[s], (t / L::kSK) & 1);
-    float* kh = reinterpret_cast<float*>(sm + L::kK + s * 2 * L::TB);
-    hp::split_tile<128>(kh, kh + kB * kD, pt);
+    hp::split_tile<128>(stage(s), stage(s) + kB * kD, pt);
     hp::fence_proxy_async();
     hp::named_barrier(3, 128);
     if (pt == 0) hp::mbar_arrive(&br.kr[s]);
   };
   auto process_v = [&](int t) {
-    const int v = t % L::kSV;
-    float* vth = reinterpret_cast<float*>(sm + L::kVT + v * 2 * L::TB);
-    float* vtl = vth + kB * kD;   // V landed here
-    hp::mbar_wait(&br.vl[v], (t / L::kSV) & 1);
-    const int r = pt >> 1, c0 = 32 * (pt & 1);   // key row r, channels c0 .. c0+31
+    float* vth = reinterpret_cast<float*>(sm + L::kVT);
     float x[32];
-#pragma unroll
-    for (int c4 = 0; c4 < 8; ++c4) {
-      const float4 y = *reinterpret_cast<const float4*>(vtl + hp::sw32(r, c0 + 4 * c4));
-      x[4 * c4] = y.x;
-      x[4 * c4 + 1] = y.y;
-      x[4 * c4 + 2] = y.z;
-      x[4 * c4 + 3] = y.w;
-    }
+    hp::mbar_wait(br.vl, t & 1);
+    load_v(x, vth + kB * kD, pt);
     hp::named_barrier(3, 128);   // V is read before V^T lo overwrites it
-    const int kp = 8 * (r >> 3) + ((r & 7) >> 1) + 4 * (r & 1);   // key r's place in its k8 step
-#pragma unroll
-    for (int cc = 0; cc < 32; ++cc) {
-      uint32_t hi, lo;
-      split(x[cc], hi, lo);
-      const int at = hp::sw32(c0 + cc, kp);
-      vth[at] = __uint_as_float(hi);
-      vtl[at] = __uint_as_float(lo);
-    }
+    store_vt(x, vth, vth + kB * kD, pt);
     hp::fence_proxy_async();
     hp::named_barrier(3, 128);
-    if (pt == 0) hp::mbar_arrive(&br.vr[v]);
+    if (pt == 0) hp::mbar_arrive(br.vr);
   };
 
-  for (int t = 0; t < n_tiles && t < L::kSK; ++t) issue_k(t);
-  for (int t = 0; t < n_tiles && t < L::kSV; ++t) issue_v(t);
+  issue_k(0);
+  if (n_tiles > 1) issue_k(1);
+  issue_v(0);
   hp::mbar_wait(br.q, 0);   // Q_u and Q_v split once a block
   float* qu = reinterpret_cast<float*>(sm + L::kQu);
   hp::split_tile<128>(qu, qu + kB * kD, pt);
-  if constexpr (kPos) {
-    float* qv = reinterpret_cast<float*>(sm + L::kQv);
-    hp::split_tile<128>(qv, qv + kB * kD, pt);
-  }
+  float* qv = reinterpret_cast<float*>(sm + L::kQv);
+  hp::split_tile<128>(qv, qv + kB * kD, pt);
   hp::fence_proxy_async();
   hp::named_barrier(3, 128);
   if (pt == 0) hp::mbar_arrive(br.qs);
-  for (int t = 0; t < kAhead && t < n_tiles; ++t) process_k(t);
+  process_k(0);
   for (int t = 0; t < n_tiles; ++t) {
     process_v(t);
-    if (t + kAhead < n_tiles) process_k(t + kAhead);
-    if (t + L::kSK < n_tiles) issue_k(t + L::kSK);
-    if (t + L::kSV < n_tiles) issue_v(t + L::kSV);
+    if (t + 1 < n_tiles) process_k(t + 1);
+    if (t + 2 < n_tiles) issue_k(t + 2);
+    if (t + 1 < n_tiles) issue_v(t + 1);
   }
 }
 
@@ -511,11 +621,6 @@ __device__ __forceinline__ void consume_rows(unsigned char* sm, const Bars& br, 
   store_rows(static_cast<bf16*>(g.out) + (size_t)bh * T_len * kD, o, i_g, T_len, inv, q);
 }
 
-// f32: the block's 64 query rows against alternate whole tiles for each
-// consumer warpgroup, or, with the position term (whose sheared scratch
-// both fill), warpgroup c against keys 32c .. 32c+31 of every tile; the two
-// are combined at the end.
-
 // S of the 8 NT keys key0 .. of the tile: Q_u K^T from the split tiles,
 // issued (the caller waits)
 template <int NT>
@@ -567,105 +672,28 @@ __device__ __forceinline__ void pv(float (&o)[8][4], const float (&p)[NK][4], co
   }
 }
 
-template <bool kPos>
-__device__ __forceinline__ void consume_keys(unsigned char* sm, const Bars& br, const Args& g,
-                                             int bh, int i0) {
-  using L = Layout<float, kPos>;
-  const int tid = threadIdx.x, c = hp::warp_index() >> 2, w = hp::warp_index() & 3;
-  const int lane = tid & 31, q = lane & 3, gq = lane >> 2, ct = tid & 127;
-  const int T_len = g.T_len, n_tiles = (T_len + kB - 1) / kB;
-  const float sl2 = g.scale * hp::kLog2e;
-  const float* sQu = reinterpret_cast<const float*>(sm + L::kQu);
-  const float* sQv = reinterpret_cast<const float*>(sm + L::kQv);
-  float* Gs = reinterpret_cast<float*>(sm + L::kScr);
+// f32: each consumer warpgroup runs an online softmax of its own over the
+// block's 64 query rows, without the position term on alternate whole
+// tiles, with it on keys 32c .. 32c+31 of every tile; the parts are
+// combined at the end.
 
-  float o[8][4];
-  zero<8>(o);
-  // a warpgroup's keys of a tile may all lie past the sequence (scores
-  // -inf): its running maximum starts at the masked score, so it stays finite
-  float m_run[2] = {kMasked2, kMasked2}, l_run[2] = {0.f, 0.f};
-  hp::mbar_wait(br.qs, 0);
-  for (int t = kPos ? 0 : c; t < n_tiles; t += kPos ? 1 : 2) {
-    const int s = t % L::kSK, v = t % L::kSV;
-    hp::mbar_wait(&br.kl[s], (t / L::kSK) & 1);
-    hp::mbar_wait(&br.kr[s], (t / L::kSK) & 1);
-    const float* sK = reinterpret_cast<const float*>(sm + L::kK + s * 2 * L::TB);
-    const float* flags = reinterpret_cast<const float*>(sm + L::kFlags) + s * kB;
-    const float* vt = reinterpret_cast<const float*>(sm + L::kVT + v * 2 * L::TB);
-    if constexpr (!kPos) {   // the whole tile
-      float sc[8][4];
-      zero<8>(sc);
-      scores(sc, sQu, sK, 0);
-      hp::wgmma_wait<0>();
-      hp::fence_acc(sc);
-      softmax_step<8>(sc, o, m_run, l_run, flags, sl2, g.drop, 0u, 0, q);
-      hp::mbar_arrive(&br.ke[s]);
-      hp::mbar_wait(&br.vl[v], (t / L::kSV) & 1);
-      hp::mbar_wait(&br.vr[v], (t / L::kSV) & 1);
-      pv(o, sc, vt, 0);
-      hp::mbar_arrive(&br.ve[v]);
-      continue;
-    }
-
-    float sc[4][4];
-    zero<4>(sc);
-    if constexpr (kPos) {
-      if (t > 0) hp::named_barrier(1, 256);   // the last tile's Gs is read
-      scores(sc, sQu, sK, 32 * c);
-      position_chunk(sQv, ring_chunk<float, kPos>(sm, t + c), Gs, c, w, lane);   // S done too
-      hp::fence_acc(sc);
-      hp::named_barrier(1, 256);   // both warpgroups' bands are in Gs
+// A part (O, max, sum) of thread ct's rows as 36 x 128 floats at x.
+__device__ __forceinline__ void put_part(const float (&o)[8][4], const float m_run[2],
+                                         const float l[2], float* x, int ct) {
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int a = 16 * w + gq + 8 * h;
-          const float2 x = *reinterpret_cast<const float2*>(Gs + gs_at(a, 32 * c + 8 * n + 2 * q));
-          sc[n][2 * h] += x.x;
-          sc[n][2 * h + 1] += x.y;
-        }
-    } else {
-      scores(sc, sQu, sK, 32 * c);
-      hp::wgmma_wait<0>();
-      hp::fence_acc(sc);
-    }
-    const uint32_t keep = kPos && g.drop.thresh != 0u
-        ? reinterpret_cast<const uint32_t*>(sm + L::kKeep + s * 512)[ct] : 0u;
-    softmax_step<4>(sc, o, m_run, l_run, flags + 32 * c, sl2, g.drop, keep, 4 * c, q);
-    hp::mbar_arrive(&br.ke[s]);   // K, its flags and keep bits, the window chunk t + c
-    hp::mbar_wait(&br.vl[v], (t / L::kSV) & 1);
-    hp::mbar_wait(&br.vr[v], (t / L::kSV) & 1);
-    pv(o, sc, vt, 4 * c);
-    hp::mbar_arrive(&br.ve[v]);
-  }
-
-  // combine: warpgroup 1 hands its (O, max, sum) to warpgroup 0 through the
-  // K stages, which both have consumed (last written and read by the async
-  // proxy: TMA, wgmma)
-  float l[2];
+    for (int e = 0; e < 4; ++e) x[(4 * n + e) * 128 + ct] = o[n][e];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] = l_run[r];
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    x[(32 + r) * 128 + ct] = m_run[r];
+    x[(34 + r) * 128 + ct] = l[r];
   }
-  float* x = reinterpret_cast<float*>(sm + L::kK);   // [36][128], conflict-free
-  hp::fence_proxy_async();
-  hp::named_barrier(1, 256);
-  if (c == 1) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[(4 * n + e) * 128 + ct] = o[n][e];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      x[(32 + r) * 128 + ct] = m_run[r];
-      x[(34 + r) * 128 + ct] = l[r];
-    }
-  }
-  hp::named_barrier(1, 256);
-  if (c == 1) return;
-  float a[2], b[2], inv[2];
+}
+// merges the part at x into (o, m_run, l)
+__device__ __forceinline__ void merge_part(float (&o)[8][4], float m_run[2], float l[2],
+                                           const float* x, int ct) {
+  float a[2], b[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float m1 = x[(32 + r) * 128 + ct], l1 = x[(34 + r) * 128 + ct];
@@ -675,15 +703,178 @@ __device__ __forceinline__ void consume_keys(unsigned char* sm, const Bars& br, 
     l[r] = l[r] * a[r] + l1 * b[r];
     m_run[r] = m_new;
   }
-  const int i_g = i0 + 16 * w + gq;
-  finish_rows(m_run, l, inv, g.lse == nullptr ? nullptr : g.lse + (size_t)bh * T_len, i_g, T_len,
-              q);
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       o[n][e] = o[n][e] * a[e >> 1] + x[(4 * n + e) * 128 + ct] * b[e >> 1];
-  store_rows(static_cast<float*>(g.out) + (size_t)bh * T_len * kD, o, i_g, T_len, inv, q);
+}
+
+// The rows' sums over the quad (l), then warpgroup 1 hands its part to
+// warpgroup 0 through x, which both consumers are done with and the async
+// proxy (TMA, wgmma) last wrote or read. True in warpgroup 0, which then
+// holds the block's part.
+__device__ __forceinline__ bool merge_warpgroups(float (&o)[8][4], float m_run[2], float l[2],
+                                                 const float l_run[2], float* x) {
+  const int c = hp::warp_index() >> 2, ct = threadIdx.x & 127;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l_run[r];
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  hp::fence_proxy_async();
+  hp::named_barrier(1, 256);
+  if (c == 1) put_part(o, m_run, l, x, ct);
+  hp::named_barrier(1, 256);
+  if (c == 1) return false;
+  merge_part(o, m_run, l, x, ct);
+  return true;
+}
+
+// Warpgroup 0's rows (and their log-sum-exp) to the output.
+__device__ __forceinline__ void store_part(float (&o)[8][4], const float m_run[2], float l[2],
+                                           const Args& g, int bh, int i0) {
+  const int w = hp::warp_index() & 3, lane = threadIdx.x & 31, q = lane & 3, gq = lane >> 2;
+  const int i_g = i0 + 16 * w + gq;
+  float inv[2];
+  finish_rows(m_run, l, inv, g.lse == nullptr ? nullptr : g.lse + (size_t)bh * g.T_len, i_g,
+              g.T_len, q);
+  store_rows(static_cast<float*>(g.out) + (size_t)bh * g.T_len * kD, o, i_g, g.T_len, inv, q);
+}
+
+// One tile of consume_tiles over its first 8 NT keys (NT 4: the rest lie
+// past the sequence): S = Q K^T with Q's fragments split in registers
+// (hopper.cuh wgmma_nt32; it waits), the softmax step, then P V.
+template <int NT>
+__device__ __forceinline__ void tile_step(float (&o)[8][4], float m_run[2], float l_run[2],
+                                          unsigned char* sm, const Bars& br, const Args& g,
+                                          int t) {
+  using L = Layout<float, false>;
+  const int s = t % L::kSK, v = t % L::kSV, lane = threadIdx.x & 31;
+  const float* kh = reinterpret_cast<const float*>(sm + L::kK + s * 2 * L::TB);
+  float sc[NT][4];
+  zero<NT>(sc);
+  hp::wgmma_nt32<NT>(sc, reinterpret_cast<const float*>(sm + L::kQu), kh, kh + kB * kD,
+                     hp::warp_index() & 3, lane);
+  softmax_step<NT>(sc, o, m_run, l_run, reinterpret_cast<const float*>(sm + L::kFlags) + s * kB,
+                   g.scale * hp::kLog2e, g.drop, 0u, 0, lane & 3);
+  hp::mbar_arrive(&br.ke[s]);
+  hp::mbar_wait(&br.vl[v], (t / L::kSV) & 1);
+  hp::mbar_wait(&br.vr[v], (t / L::kSV) & 1);
+  pv(o, sc, reinterpret_cast<const float*>(sm + L::kVT + v * 2 * L::TB), 0);
+  hp::mbar_arrive(&br.ve[v]);
+}
+
+// f32 without the position term: warpgroup c takes tiles c, c + 2, ..
+// whole; the two parts are merged at the end.
+__device__ __forceinline__ void consume_tiles(unsigned char* sm, const Bars& br, const Args& g,
+                                              int bh, int i0) {
+  using L = Layout<float, false>;
+  const int n_tiles = (g.T_len + kB - 1) / kB;
+  float o[8][4];
+  zero<8>(o);
+  // a warpgroup may get no tile, or only keys past the sequence (scores
+  // -inf): its running maximum starts at the masked score, so it stays finite
+  float m_run[2] = {kMasked2, kMasked2}, l_run[2] = {0.f, 0.f};
+  hp::mbar_wait(br.q, 0);
+  for (int t = hp::warp_index() >> 2; t < n_tiles; t += 2) {
+    hp::mbar_wait(&br.kl[t % L::kSK], (t / L::kSK) & 1);
+    hp::mbar_wait(&br.kr[t % L::kSK], (t / L::kSK) & 1);
+    if (g.T_len - kB * t <= kB / 2)
+      tile_step<4>(o, m_run, l_run, sm, br, g, t);
+    else
+      tile_step<8>(o, m_run, l_run, sm, br, g, t);
+  }
+  float l[2];
+  if (merge_warpgroups(o, m_run, l, l_run, reinterpret_cast<float*>(sm + L::kK)))
+    store_part(o, m_run, l, g, bh, i0);
+}
+
+// f32 with the position term: warpgroup c takes keys 32c .. 32c+31 of every
+// tile and computes G^T = Win Q_v^T of window chunk t + 1 for query rows
+// 32c .. 32c+31 (m64n32k8, the chunk split in registers as A): chunk t + 1
+// holds tile t's G where j > a and tile t + 1's where j <= a, so each chunk
+// is computed once. Both warpgroups store their parts sheared, Gs[a][j] =
+// G[a][63-a+j]: tile t's before the exchange, tile t + 1's once Gs is read
+// (the two parts are disjoint), and read back their scores' own places.
+__device__ __forceinline__ void consume_keys(unsigned char* sm, const Bars& br, const Args& g,
+                                             int bh, int i0) {
+  using L = Layout<float, true>;
+  const int tid = threadIdx.x, c = hp::warp_index() >> 2, w = hp::warp_index() & 3;
+  const int lane = tid & 31, q = lane & 3, gq = lane >> 2, ct = tid & 127;
+  const int n_tiles = (g.T_len + kB - 1) / kB;
+  const float sl2 = g.scale * hp::kLog2e;
+  const float* sQu = reinterpret_cast<const float*>(sm + L::kQu);
+  const float* qvh = reinterpret_cast<const float*>(sm + L::kQv) + 32 * 32 * c;   // rows 32c ..
+  const float* qvl = qvh + kB * kD;
+  float* Gs = reinterpret_cast<float*>(sm + L::kScr);
+  const float* vt = reinterpret_cast<const float*>(sm + L::kVT);
+
+  float o[8][4];
+  zero<8>(o);
+  // a warpgroup's keys of a tile may all lie past the sequence (scores
+  // -inf): its running maximum starts at the masked score, so it stays finite
+  float m_run[2] = {kMasked2, kMasked2}, l_run[2] = {0.f, 0.f};
+  // element (n, e) of a warpgroup's G^T: window row 16w + gq + 8(e/2) of
+  // its chunk, query row a; its key is j - 64 in the next tile if j >= 64
+  auto part = [&](const float (&gt)[4][4], bool next) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int a = 32 * c + 8 * n + 2 * q + (e & 1), j = 16 * w + gq + 8 * (e >> 1) + 1 + a;
+        if ((j >= kB) == next) Gs[gs_at(a, j & 63)] = gt[n][e];
+      }
+  };
+  hp::mbar_wait(br.qs, 0);
+  hp::mbar_wait(&br.kl[0], 0);
+  {
+    float g0[4][4];   // chunk 0, landed in the scratch: tile 0's G where j <= a
+    zero<4>(g0);
+    hp::wgmma_nt32<4>(g0, Gs, qvh, qvl, w, lane);
+    hp::named_barrier(1, 256);   // both warpgroups read chunk 0
+    part(g0, true);
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % L::kSK;
+    const uint32_t ph = (t / L::kSK) & 1;
+    hp::mbar_wait(&br.kl[s], ph);
+    hp::mbar_wait(&br.kr[s], ph);
+    const float* st = reinterpret_cast<const float*>(sm + L::kStage + s * L::kStageBytes);
+    float sc[4][4];
+    zero<4>(sc);
+    scores(sc, sQu, st, 32 * c);
+    float gt[4][4];
+    zero<4>(gt);
+    hp::wgmma_nt32<4>(gt, st + 2 * kB * kD, qvh, qvl, w, lane);   // waits for S too
+    hp::fence_acc(sc);
+    part(gt, false);   // where j > a: the last tile's reads of these are done
+    hp::named_barrier(1, 256);   // Gs holds tile t's G
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a = 16 * w + gq + 8 * h;
+        const float2 x = *reinterpret_cast<const float2*>(Gs + gs_at(a, 32 * c + 8 * n + 2 * q));
+        sc[n][2 * h] += x.x;
+        sc[n][2 * h + 1] += x.y;
+      }
+    hp::named_barrier(1, 256);   // Gs is read
+    part(gt, true);              // tile t + 1's G where j <= a
+    const uint32_t keep = g.drop.thresh != 0u
+        ? reinterpret_cast<const uint32_t*>(sm + L::kKeep + s * 512)[ct] : 0u;
+    softmax_step<4>(sc, o, m_run, l_run,
+                    reinterpret_cast<const float*>(sm + L::kFlags) + s * kB + 32 * c, sl2, g.drop,
+                    keep, 4 * c, q);
+    hp::mbar_arrive(&br.ke[s]);   // K, its flags and keep bits, window chunk t + 1
+    hp::mbar_wait(br.vr, t & 1);
+    pv(o, sc, vt, 4 * c);
+    hp::mbar_arrive(br.ve);
+  }
+  float l[2];
+  if (merge_warpgroups(o, m_run, l, l_run, reinterpret_cast<float*>(sm + L::kStage)))
+    store_part(o, m_run, l, g, bh, i0);
 }
 
 // ---------------------------------------------------------------------------
@@ -698,8 +889,10 @@ __device__ __forceinline__ void forward(const CUtensorMap* tm_qu, const CUtensor
                                         const CUtensorMap* tm_p, const Args& g) {
   using L = Layout<T, kPos>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  // the 1024-aligned base, offset from smem_raw so that the compiler keeps
+  // every access derived from it in the shared space (LDS / STS, 32-bit
+  // addresses) instead of generic loads and stores
+  unsigned char* sm = smem_raw + ((1024u - (hp::smem_addr(smem_raw) & 1023u)) & 1023u);
   const int bh = blockIdx.y, i0 = blockIdx.x * L::kRows;
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
   constexpr int kSK = L::kSK, kSV = L::kSV;
@@ -726,14 +919,18 @@ __device__ __forceinline__ void forward(const CUtensorMap* tm_qu, const CUtensor
   if (hp::warp_index() >= 8) {   // the producer warpgroup
     if constexpr (L::kBf16)
       produce_bf16<kPos>(tm_qu, tm_qv, tm_k, tm_v, tm_p, sm, br, g, bh, i0);
+    else if constexpr (kPos)
+      produce_f32(tm_qu, tm_qv, tm_k, tm_v, tm_p, sm, br, g, bh, i0);
     else
-      produce_f32<kPos>(tm_qu, tm_qv, tm_k, tm_v, tm_p, sm, br, g, bh, i0);
+      produce_keys(tm_qu, tm_k, tm_v, sm, br, g, bh, i0);
     return;
   }
   if constexpr (L::kBf16)
     consume_rows<kPos>(sm, br, g, bh, i0);
+  else if constexpr (kPos)
+    consume_keys(sm, br, g, bh, i0);
   else
-    consume_keys<kPos>(sm, br, g, bh, i0);
+    consume_tiles(sm, br, g, bh, i0);
 }
 
 // Launches `kern`, a kernel that runs forward<T, kPos> on its five tensor

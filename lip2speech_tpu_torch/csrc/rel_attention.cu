@@ -16,16 +16,17 @@
 //
 // What bounds it: three (T x T x 64) products per (batch, head) against
 // O(T) bytes: operations, on the tensor cores (bf16; f32 in 3xTF32, three
-// TF32 products for each f32 one). The position term costs one more
-// product than that: each tile's G is computed over the 128 window rows
-// its diagonals touch (two 64 x 64 x 64 products for 64 x 64 scores).
+// TF32 products for each f32 one). In bf16 the position term costs one
+// more product than that: each tile's G is computed over the 128 window
+// rows its diagonals touch (two 64 x 64 x 64 products for 64 x 64 scores);
+// f32 computes each 64-row window chunk once.
 //
 // Design. The TPU kernel's whole-row score residency and its log2 roll shear
 // were Mosaic workarounds and are gone. The loop is flash_fwd_hopper.cuh's
 // forward with the position term (its note gives the design): a producer
 // warpgroup feeds Q_u, Q_v, and per key tile of 64 K, V and one 64-row
-// chunk of the position table (the window is a ring of chunks) by TMA, and
-// draws the dropout bits; two consumer warpgroups run every product on
+// chunk of the position table by TMA, and draws the dropout bits; two
+// consumer warpgroups run every product on
 // wgmma, the position term as G over the window rows the tile's diagonals
 // touch, read back along the diagonal into the score accumulators.
 //
@@ -33,17 +34,18 @@
 // against every key; S, G (hopper.cuh `position_band`, as the backward)
 // and P V on wgmma m64n64k16, f32 accumulation, P rounded to bf16 in
 // registers. Four stages, a six-chunk window ring, the warps' G bands:
-// 194.1 KB of shared memory, 160 registers, one block (384 threads) an SM.
+// 194.1 KB of shared memory, 154 registers, one block (384 threads) an SM.
 //
 // f32 (dtype 0): 3xTF32, held to 1e-4 against the plain version, where one
 // TF32 product (~1e-3 off) would not pass. 64 query rows a block: the
-// consumer warpgroups take 32 keys of every tile each and combine at the
+// consumer warpgroups take 32 keys of every tile each and merge at the
 // end. The producer splits Q_u and Q_v once a block and K once a tile, and
-// writes V^T split; S on wgmma m64n32k8, G^T = Win Q_v^T on m64n64k8 (each
-// warpgroup one window chunk, the window split in registers as A, the band
-// exchanged sheared through shared memory), P V on m64n64k8. Two stages of
-// K, one of V, a three-chunk ring: 226.6 KB, 168 registers, one block an
-// SM.
+// writes V^T split; S on wgmma m64n32k8, G^T = Win Q_v^T on m64n32k8 (each
+// warpgroup its 32 query rows against window chunk t + 1, the window split
+// in registers as A; each chunk once, its two halves exchanged sheared
+// through shared memory), P V on m64n64k8. Two stages of K with their
+// window chunk, one of V^T: 210.6 KB, 168 registers (a 24-byte spill), one
+// block an SM.
 //
 // Bounds are checked, so T need not be a multiple of 64.
 

@@ -40,8 +40,8 @@ def reference_attention(q, k, v, mask=None) -> torch.Tensor:
 def attention_kernel(q, k, v, mask=None) -> torch.Tensor:
     """Launch csrc/attention.cu; returns out (B, H, T, dk). A block of 384
     threads (a TMA producer warpgroup, two consumer warpgroups on wgmma)
-    owns 128 query rows in bf16, 64 in f32, where the two warpgroups split
-    the keys and combine at the end. f32 runs in 3xTF32 (within 3e-5 of
+    owns 128 query rows in bf16, 64 in f32, where the two warpgroups take
+    alternate key tiles and combine at the end. f32 runs in 3xTF32 (within 3e-5 of
     reference_attention with TF32 off), bf16 with f32 accumulation and P
     rounded to bf16. Rows with no valid key stay finite (a uniform average
     of V). Not differentiable by itself: see AttentionFn."""

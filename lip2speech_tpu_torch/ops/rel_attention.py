@@ -209,8 +209,8 @@ def rel_attention_kernel(q_u, q_v, k, v, p, mask, dropout_rate: float = 0.0, see
     """Launch csrc/rel_attention.cu; returns (out (B,H,T,dk), lse (B,H,T) f32).
     Rows with no valid key stay finite (a uniform average of V). A block of
     384 threads (a TMA producer warpgroup, two consumer warpgroups on wgmma)
-    owns 128 query rows in bf16, 64 in f32, where the two warpgroups split
-    the keys and combine at the end. f32 inputs take the kernel's 3xTF32 path
+    owns 128 query rows in bf16, 64 in f32, where the two warpgroups take
+    32 keys of each tile and combine at the end. f32 inputs take the kernel's 3xTF32 path
     (three TF32 tensor-core products for each f32 one, f32 sums), bf16 ones
     its bf16 path, which rounds P to bf16 before P V. The softmax runs in
     log2 units (exp2); the returned log-sum-exp is the natural one. Every

@@ -4,17 +4,17 @@ flash_fwd_hopper.cuh), emulated in plain PyTorch on the CPU, against the f32
 plain version of lip2speech_tpu_torch/ops/attention.py.
 
 The kernel takes bf16 q, k, v and accumulates both products in f32. A block
-of 64 query rows has two consumer warpgroups; warpgroup c takes keys 32c ..
-32c+31 of every 64-key tile with its own online softmax, in log2 units (the
-scores times scale * log2(e), exp2). Where it rounds: each warpgroup's
-probabilities exp2(S - m) of its 32 keys of a tile, at its running maximum
-m, to bf16 before P V; the running sums stay f32 (from the unrounded
-probabilities); the two warpgroups' (max, sum, output) are combined in f32
-at the end; the output to bf16. Masked keys score -1e30 (times log2(e)),
-so a batch row with no valid key gets a uniform average of V, as the plain
-version's -1e9. The emulation repeats exactly that (test-local: the package
-gains no code path). The assertion uses the tolerance the kernel is held to
-on the card: 2e-2, on every row (the fully masked one included).
+of 128 query rows has two consumer warpgroups; warpgroup c takes rows 64c ..
+64c+63 against every key of each 64-key tile, with one online softmax per
+row in log2 units (the scores times scale * log2(e), exp2). Where it
+rounds: the probabilities exp2(S - m) of each 64-key tile, at the row's
+running maximum m after that tile, to bf16 before P V; the running sum
+stays f32 (from the unrounded probabilities); the output to bf16. Masked
+keys score -1e30 (times log2(e)), so a batch row with no valid key gets a
+uniform average of V, as the plain version's -1e9. The emulation repeats
+exactly that (test-local: the package gains no code path). The assertion
+uses the tolerance the kernel is held to on the card: 2e-2, on every row
+(the fully masked one included).
 """
 
 import math
@@ -30,7 +30,6 @@ from lip2speech_tpu_torch.ops import attention as tatt
 
 TOL = 2e-2
 TILE = 64                    # keys per tile of the kernel's loop
-HALF = 32                    # keys of a tile each consumer warpgroup takes
 MASKED = -1e30
 LOG2E = 1.4426950408889634
 
@@ -51,29 +50,23 @@ def _inputs(t, seed, b=2, h=16, dk=64):
 
 
 def _emulate(q, k, v, mask):
-    """attention.cu's bf16 kernel: per warpgroup an online softmax in log2
-    units over its 32 keys of each tile, then the two combined."""
+    """attention.cu's bf16 kernel: one online softmax a row in log2 units
+    over whole 64-key tiles."""
     t = k.shape[-2]
     s = (q @ k.transpose(-1, -2)) * (LOG2E / math.sqrt(q.shape[-1]))
     s = s.masked_fill(~mask[:, None, None, :], MASKED * LOG2E)
-    parts = []
-    for c in range(2):
-        m = torch.full(s.shape[:-1] + (1,), MASKED * LOG2E)    # finite: no key may be valid
-        l = torch.zeros_like(m)
-        acc = torch.zeros_like(q)
-        for j0 in range(HALF * c, t, TILE):
-            st = s[..., j0:j0 + HALF]
-            m_new = torch.maximum(m, st.amax(-1, keepdim=True))
-            alpha = torch.exp2(m - m_new)
-            pt = torch.exp2(st - m_new)
-            l = l * alpha + pt.sum(-1, keepdim=True)
-            acc = acc * alpha + _bf16(pt) @ v[..., j0:j0 + HALF, :]
-            m = m_new
-        parts.append((m, l, acc))
-    (m0, l0, acc0), (m1, l1, acc1) = parts
-    m = torch.maximum(m0, m1)
-    a, b = torch.exp2(m0 - m), torch.exp2(m1 - m)
-    return _bf16((acc0 * a + acc1 * b) / (l0 * a + l1 * b).clamp_min(1e-20))
+    m = torch.full(s.shape[:-1] + (1,), MASKED * LOG2E)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for j0 in range(0, t, TILE):
+        st = s[..., j0:j0 + TILE]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        pt = torch.exp2(st - m_new)
+        l = l * alpha + pt.sum(-1, keepdim=True)
+        acc = acc * alpha + _bf16(pt) @ v[..., j0:j0 + TILE, :]
+        m = m_new
+    return _bf16(acc / l.clamp_min(1e-20))
 
 
 @pytest.mark.parametrize("t", [50, 96, 235, 240, 600])   # one tile (a half past T), the flagship's

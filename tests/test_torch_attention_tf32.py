@@ -2,13 +2,13 @@
 products (S = Q K^T and O = P V) in 3xTF32 (each operand split into hi,
 rounded to TF32 as cvt.rna rounds, and lo = v - hi, which the tensor core
 reads truncated to TF32; lo_a hi_b + hi_a lo_b + hi_a hi_b in f32; the
-split once a tile for an operand in shared memory, Q and K, and at the
-fragment for one in registers, P, V's rows, the same values either way),
+split once a tile for an operand in shared memory, K and V, and at the
+fragment for one in registers, Q and P, the same values either way),
 with the kernel's online softmax (flash_fwd_hopper.cuh: a block's two
-consumer warpgroups take keys 32c .. 32c+31 of every 64-key tile, each with
-its own running maximum and sum in log2 units, exp2 of the scores times
-scale * log2(e), combined at the end), emulated in plain PyTorch at the
-kernel's rounding points,
+consumer warpgroups take alternate whole 64-key tiles, 0, 2, 4, .. and 1,
+3, 5, .., each with its own running maximum and sum in log2 units, exp2 of
+the scores times scale * log2(e), combined at the end), emulated in plain
+PyTorch at the kernel's rounding points,
 against the JAX package's Pallas kernel (`flash_attention` in interpret
 mode) and its `reference_attention`, in f32, within the limit that
 chip_smoke.py holds the kernel to on the card: 3e-5 absolute on valid rows
@@ -33,7 +33,6 @@ PRODUCTS = ("qk", "pv")
 LENS = (130, 97, 0)
 H, T, DK = 2, 130, 64
 TILE = 64                   # keys per step of the kernel's loop
-HALF = 32                   # keys of a tile each consumer warpgroup takes
 MASKED = -1e30              # the kernel's score of a masked key
 LOG2E = 1.4426950408889634
 
@@ -64,35 +63,39 @@ def _terms(one=None):
     return {name: 1 if one in ("all", name) else 3 for name in PRODUCTS}
 
 
-def _forward(q, k, v, mask, terms, halves=2):
+def _forward(q, k, v, mask, terms, streams=2):
     """The kernel's arithmetic: S from the split product, times scale *
-    log2(e), masked keys at -1e30 log2(e); per warpgroup and key tile the
-    running maximum m of its 32 keys, P = exp2(S - m) split as the A of P V,
-    the running sum from the unsplit P; then the warpgroups combined
-    (halves=1: one online softmax over whole 64-key tiles)."""
+    log2(e), masked keys at -1e30 log2(e); warpgroup c takes tiles c, c +
+    streams, .. with its own running maximum m, P = exp2(S - m) split as the
+    A of P V, the running sum from the unsplit P; then the warpgroups' parts
+    merged in order as the kernel merges them (streams=1: one online softmax
+    over every tile in order)."""
     s = _mm("bhqd,bhkd->bhqk", q, k, terms["qk"]) * (LOG2E / math.sqrt(DK))
     s = s.masked_fill(~mask[:, None, None, :], MASKED * LOG2E)
-    width = TILE // halves
-    m_all, l_all, acc_all = [], [], []
-    for c in range(halves):
+    merged = None
+    for c in range(streams):
         m = torch.full(s.shape[:-1] + (1,), MASKED * LOG2E)
         l = torch.zeros_like(m)
         acc = torch.zeros_like(q)
-        for j0 in range(width * c, T, TILE):
-            st = s[..., j0:j0 + width]
+        for j0 in range(TILE * c, T, TILE * streams):
+            st = s[..., j0:j0 + TILE]
             m_new = torch.maximum(m, st.amax(-1, keepdim=True))
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(st - m_new)
             l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + _mm("bhqk,bhkd->bhqd", p, v[..., j0:j0 + width, :], terms["pv"])
+            acc = acc * alpha + _mm("bhqk,bhkd->bhqd", p, v[..., j0:j0 + TILE, :], terms["pv"])
             m = m_new
-        m_all.append(m)
-        l_all.append(l)
-        acc_all.append(acc)
-    m = torch.stack(m_all).amax(0)
-    scales = [torch.exp2(x - m) for x in m_all]
-    l = sum(x * a for x, a in zip(l_all, scales))
-    return sum(x * a for x, a in zip(acc_all, scales)) / l.clamp_min(1e-20)
+        merged = (m, l, acc) if merged is None else _merge(merged, (m, l, acc))
+    m, l, acc = merged
+    return acc / l.clamp_min(1e-20)
+
+
+def _merge(x, y):
+    """The kernel's merge of two parts (max, sum, output) of the same rows."""
+    (m0, l0, acc0), (m1, l1, acc1) = x, y
+    m = torch.maximum(m0, m1)
+    a, b = torch.exp2(m0 - m), torch.exp2(m1 - m)
+    return m, l0 * a + l1 * b, acc0 * a + acc1 * b
 
 
 @pytest.fixture(scope="module")
@@ -110,10 +113,10 @@ def case():
                      "reference": to_t(jatt.reference_attention(*j))}}
 
 
-def _err(case, terms, ref, halves=2):
+def _err(case, terms, ref):
     """Max abs error over the valid rows (a fully masked row is a uniform
     average in the kernel, over the padded keys too in the JAX kernel)."""
-    got = _forward(*case["args"], case["mask"], terms, halves)
+    got = _forward(*case["args"], case["mask"], terms)
     rows = case["mask"][:, None, :, None]
     return float(((got - case["refs"][ref]) * rows).abs().max())
 
@@ -129,10 +132,11 @@ def test_one_tf32_product_fails_the_f32_limit(case, one):
 
 
 def test_warpgroup_combine_is_within_the_f32_limit(case):
-    """The two warpgroups' online softmaxes over interleaved 32-key halves,
-    combined at the end, against one online softmax over whole 64-key tiles:
-    the order of the sums only, far inside the limit."""
+    """The two warpgroups' online softmaxes over alternate whole 64-key
+    tiles, combined at the end, against one online softmax over every tile
+    in order: the order of the sums only, far inside the limit."""
     args = (*case["args"], case["mask"], _terms())
     rows = case["mask"][:, None, :, None]
-    diff = (_forward(*args) - _forward(*args, halves=1)) * rows
+    diff = (_forward(*args) - _forward(*args, streams=1)) * rows
     assert float(diff.abs().max()) <= TOL / 100
+

@@ -8,16 +8,14 @@ package's bias kernels in interpret mode).
 
 The kernels take bf16 inputs and accumulate every product in f32. Where
 they round:
-  forward   (shear) a block's two consumer warpgroups take keys 32c ..
-            32c+31 of every 64-key tile, each with its own online softmax in
-            log2 units (S times scale * log2(e), exp2); each rounds its
-            probabilities exp2(S - m) of a tile, at its running maximum m
-            and after the dropout scale, to bf16 before P V; the row sums,
-            the combine of the two warpgroups and the log-sum-exp (m ln 2 +
-            ln l) stay f32; the output to bf16. (bias) the same at the
-            natural exp over whole 64-key tiles of one running maximum; its
-            S is q_u.k * scale + bias with the f32 bias added after the
-            scale, never rounded;
+  forward   (shear) one online softmax a row over whole 64-key tiles in
+            log2 units (S times scale * log2(e), exp2): the probabilities
+            exp2(S - m) of each tile, at the row's running maximum m after
+            that tile and after the dropout scale, to bf16 before P V; the
+            row sum and the log-sum-exp (m ln 2 + ln l) stay f32; the output
+            to bf16. (bias) the same at the natural exp; its S is q_u.k *
+            scale + bias with the f32 bias added after the scale, never
+            rounded;
   backward  dS = P o (dPr o keep - D) / 8 and P~ = P o keep to bf16 before
             the gradient products, and with them (shear) the un-sheared band
             tile dG[i, T-1-i+j] = dS[i, j] that gives dq_v and dp; (bias)
@@ -47,7 +45,6 @@ from lip2speech_tpu_torch.ops import rel_attention as tra
 FWD_TOL = 2e-2
 BWD_TOL = 1e-2
 TILE = 64                    # keys per tile of the kernels' online softmax
-HALF = 32                    # keys of a tile each warpgroup of the shear forward takes
 KEY_BLOCK = 64               # keys a block of the shear backward owns
 LOG2E = 1.4426950408889634
 
@@ -71,32 +68,26 @@ def _inputs(t, seed, b=2, h=8, dk=64):
 
 
 def _emulate_forward(q_u, q_v, k, v, p, mask, keep, rate):
-    """rel_attention.cu's bf16 kernel: per warpgroup an online softmax in
-    log2 units over its 32 keys of each tile, then the two combined."""
+    """rel_attention.cu's bf16 kernel: one online softmax a row in log2
+    units over whole 64-key tiles."""
     t = k.shape[-2]
     masked2 = tra.NEG_INF * LOG2E
     s = (tra.rel_scores(q_u, q_v, k, p) * LOG2E).masked_fill(~mask[:, None, None, :], masked2)
-    parts = []
-    for c in range(2):
-        m = torch.full(s.shape[:-1] + (1,), masked2)    # finite: no key may be valid
-        l = torch.zeros_like(m)
-        acc = torch.zeros_like(q_u)
-        for j0 in range(HALF * c, t, TILE):
-            st = s[..., j0:j0 + HALF]
-            m_new = torch.maximum(m, st.amax(-1, keepdim=True))
-            alpha = torch.exp2(m - m_new)
-            pt = torch.exp2(st - m_new)
-            l = l * alpha + pt.sum(-1, keepdim=True)
-            if keep is not None:
-                pt = pt * keep[..., j0:j0 + HALF] * (1.0 / (1.0 - rate))
-            acc = acc * alpha + _bf16(pt) @ v[..., j0:j0 + HALF, :]
-            m = m_new
-        parts.append((m, l, acc))
-    (m0, l0, acc0), (m1, l1, acc1) = parts
-    m = torch.maximum(m0, m1)
-    a, b = torch.exp2(m0 - m), torch.exp2(m1 - m)
-    l = (l0 * a + l1 * b).clamp_min(1e-20)
-    return _bf16((acc0 * a + acc1 * b) / l), (m * math.log(2.0) + torch.log(l))[..., 0]
+    m = torch.full(s.shape[:-1] + (1,), masked2)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q_u)
+    for j0 in range(0, t, TILE):
+        st = s[..., j0:j0 + TILE]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        pt = torch.exp2(st - m_new)
+        l = l * alpha + pt.sum(-1, keepdim=True)
+        if keep is not None:
+            pt = pt * keep[..., j0:j0 + TILE] * (1.0 / (1.0 - rate))
+        acc = acc * alpha + _bf16(pt) @ v[..., j0:j0 + TILE, :]
+        m = m_new
+    l = l.clamp_min(1e-20)
+    return _bf16(acc / l), (m * math.log(2.0) + torch.log(l))[..., 0]
 
 
 def _key_block_sums(ds, fn):
