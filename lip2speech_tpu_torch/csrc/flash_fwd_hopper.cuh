@@ -27,10 +27,10 @@
 // log2(e) folded into one multiply; a masked key scores -1e30 log2(e), so
 // the log-sum-exp m ln 2 + ln l is the natural one), and P stays in
 // registers as the A operand of O += P V. Every shared-memory pointer
-// derives from the block's base by offsets, so the compiler emits shared
-// loads and stores (LDS / STS with 32-bit addresses): the first version
-// rounded the base through an integer, and every access became a generic
-// 64-bit one (the shear forward 10-13% slower for it).
+// derives from the dynamic shared array by offsets, so the compiler emits
+// shared loads and stores (LDS / STS, 32-bit addresses); a base rounded
+// through an integer turns every access into a generic 64-bit one, 10-13%
+// slower here.
 //   bf16: a block owns 128 query rows, consumer warpgroup c rows 64c ..
 // 64c+63 against every key of each tile; every product on wgmma with f32
 // accumulation: S = Q_u K^T m64n64k16 from shared memory, P V m64n64k16
@@ -57,7 +57,7 @@
 // TMA issues overlap. Three stages of K and two of V^T: 177.9 KB, 128
 // registers, no spill. At T 96 (32 blocks on 132 SMs) the block's time is
 // its chain: TMA, the producer's passes over K and V, S, the softmax, P V,
-// the merge; a pair of blocks sharing the keys (a cluster) was no faster.
+// the merge.
 //   With the position term warpgroup c takes keys 32c .. 32c+31 of every
 // tile (S m64n32k8 from the split Q_u) and the position term as G^T = Win
 // Q_v^T m64n32k8 of its 32 query rows against window chunk t + 1 (A split
