@@ -9,11 +9,14 @@ Phases, in order; any failure exits non-zero before the last line:
      print ptxas's registers and spills of every kernel (each f32 and bf16
      instantiation), and count the tensor-core instructions in each
      library's SASS, warp-level (HMMA, mma.sync) and warpgroup (HGMMA,
-     wgmma) apart, the TF32 ones of each apart: no HMMA or no TF32 HMMA in
-     any of rel_attention_bias, rel_attention_bias_bwd and fused_tail
-     (mma.sync; f32 in 3xTF32), or no HGMMA or no TF32 HGMMA in
-     rel_attention, attention (both forwards: every product on wgmma) and
-     rel_attention_bwd (wgmma; f32 in 3xTF32), fails;
+     wgmma) apart, the TF32 ones of each apart, and its generic loads and
+     stores (LD.E / ST.E: a shared access that lost the shared space): no
+     HMMA or no TF32 HMMA in rel_attention_bias or rel_attention_bias_bwd
+     (mma.sync; f32 in 3xTF32), no HGMMA or no TF32 HGMMA in
+     rel_attention, attention (both forwards: every product on wgmma),
+     rel_attention_bwd (wgmma; f32 in 3xTF32) and fused_tail (the trio:
+     every conv on wgmma), or any HMMA or generic access in fused_tail,
+     fails;
   3. rel-position attention kernel against its plain version, f32 and bf16;
      bf16 times at B4 H8 T480 and at the train step's B8 H8 T1200, each
      beside SDPA with the position term as a float bias mask; the f32 path
@@ -230,6 +233,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -307,20 +311,25 @@ def valid_rows_err(out, ref, lens) -> float:
 
 # libraries whose products run on mma.sync (HMMA; f32 in 3xTF32), and those
 # that run them on wgmma (HGMMA; f32 in 3xTF32): the two forwards
-# (flash_fwd_hopper.cuh) every product, the shear backward with five of its
-# f32 products still on mma.sync, so it has HMMA too, unchecked
-HMMA_KERNELS = ("rel_attention_bias", "rel_attention_bias_bwd", "fused_tail")
-HGMMA_KERNELS = ("rel_attention", "attention", "rel_attention_bwd")
+# (flash_fwd_hopper.cuh) and the trio every product, the shear backward with
+# five of its f32 products still on mma.sync, so it has HMMA too, unchecked
+HMMA_KERNELS = ("rel_attention_bias", "rel_attention_bias_bwd")
+HGMMA_KERNELS = ("rel_attention", "attention", "rel_attention_bwd", "fused_tail")
+# libraries that must have no HMMA and no generic load or store
+WGMMA_ONLY = ("fused_tail",)
 
 
 def sass_tensor_core_counts(build) -> dict:
     """Tensor-core instructions in each kernel library's SASS (cuobjdump):
     {"hmma", "hmma_tf32", "hgmma", "hgmma_tf32"} -> {library: count}, HMMA
     (warp-level, mma.sync) and HGMMA (warpgroup, wgmma) apart, each with its
-    TF32 ones apart. Fails if a library of HMMA_KERNELS has no HMMA or no
-    TF32 HMMA, or one of HGMMA_KERNELS no HGMMA or no TF32 HGMMA."""
+    TF32 ones apart, and "generic": its generic loads and stores (LD.E,
+    ST.E; a shared access compiles to one where its pointer lost the shared
+    space). Fails if a library of HMMA_KERNELS has no HMMA or no TF32 HMMA,
+    one of HGMMA_KERNELS no HGMMA or no TF32 HGMMA, or one of WGMMA_ONLY
+    any HMMA or generic access."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    counts = {"hmma": {}, "hmma_tf32": {}, "hgmma": {}, "hgmma_tf32": {}}
+    counts = {"hmma": {}, "hmma_tf32": {}, "hgmma": {}, "hgmma_tf32": {}, "generic": {}}
     for lib in sorted(build._build_dir().glob("lib*.so")):
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                               timeout=120, check=True).stdout
@@ -329,16 +338,23 @@ def sass_tensor_core_counts(build) -> dict:
             found = [line for line in sass.splitlines() if word in line]
             counts[kind][name] = len(found)
             counts[f"{kind}_tf32"][name] = sum(1 for line in found if "TF32" in line)
+        counts["generic"][name] = len(re.findall(r"\b(?:LD|ST)\.E\b", sass))
     print(f"SASS HMMA instructions per library: {counts['hmma']}; of them TF32: "
           f"{counts['hmma_tf32']}", flush=True)
     print(f"SASS HGMMA instructions per library: {counts['hgmma']}; of them TF32: "
           f"{counts['hgmma_tf32']}", flush=True)
+    print(f"SASS generic loads and stores (LD.E / ST.E) per library: {counts['generic']}",
+          flush=True)
     missing = [f"{k} ({kind})" for kind, libs in (("hmma", HMMA_KERNELS), ("hmma_tf32", HMMA_KERNELS),
                                                    ("hgmma", HGMMA_KERNELS),
                                                    ("hgmma_tf32", HGMMA_KERNELS))
                for k in libs if not counts[kind].get(k)]
     if missing:
         fail(f"no tensor-core instruction of the expected kind in {missing}")
+    stray = [f"{k} ({kind} {counts[kind][k]})" for k in WGMMA_ONLY for kind in ("hmma", "generic")
+             if counts[kind].get(k)]
+    if stray:
+        fail(f"HMMA or generic loads and stores in {stray}")
     return counts
 
 
@@ -4470,6 +4486,13 @@ def main() -> int:
             design = ("one key-major pass, TMA-fed, warp-specialised; bf16: every product on "
                       "wgmma m64n64k16, f32 accumulate; f32: 3xTF32, S, dPr and G on wgmma "
                       "m64nNk8, dK, dV, dQ_u, dQ_v and dP on mma.sync m16n8k8")
+        elif lib == "fused_tail":
+            design = ("TMA-fed, a producer and two consumer warpgroups; every conv on wgmma, "
+                      "A (the activations at each tap's row shift) in registers, B (the "
+                      "weights, packed K-major and swizzled by the wrapper) from a ring of "
+                      "16 KB slots by bulk copy; bf16: m64nNk16, f32 accumulate; f32: "
+                      "3xTF32 m64nNk8, the weights split by the wrapper (at C16 hi and lo "
+                      "stacked into one operand of width 2C)")
         elif lib in HGMMA_KERNELS:
             design = ("flash_fwd_hopper.cuh: TMA-fed, a producer and two consumer warpgroups; "
                       "bf16: 128 query rows a block, every product on wgmma m64nNk16, f32 "

@@ -1,11 +1,12 @@
-// Hopper (sm_90a) building blocks of the attention kernels on wgmma
-// (rel_attention_bwd.cu, and the forward of flash_fwd_hopper.cuh that
-// attention.cu and rel_attention.cu launch): warpgroup matrix products
-// (wgmma) with their shared-memory descriptors, TMA tile loads and bulk
-// reductions, mbarriers, named barriers and the async-proxy fence, written in
-// inline PTX, the host-side encoding of TMA tensor maps, and the tile helpers
-// the kernels share (swizzled f32 tiles, the TF32 split of a tile, the
-// dropout keep words). Not compiled on its own.
+// Hopper (sm_90a) building blocks of the kernels on wgmma (rel_attention_bwd.cu,
+// the forward of flash_fwd_hopper.cuh that attention.cu and rel_attention.cu
+// launch, and the resblock trio of fused_tail.cu): warpgroup matrix products
+// (wgmma) with their shared-memory descriptors, TMA tile loads, bulk copies
+// and bulk reductions, mbarriers, named barriers, the async-proxy fence and
+// the register reallocation of warp-specialised blocks (setmaxnreg), written
+// in inline PTX, the host-side encoding of TMA tensor maps, and the tile
+// helpers the attention kernels share (swizzled f32 tiles, the TF32 split of
+// a tile, the dropout keep words). Not compiled on its own.
 //
 // Shared-memory operand tiles are 128-byte-swizzled, as TMA writes them with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes (64 bf16, or 32 floats)
@@ -135,6 +136,34 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global memory into shared memory, one TMA bulk copy;
+// completion adds them to the barrier's transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Register reallocation between the warpgroups of a block
+// ---------------------------------------------------------------------------
+
+// The calling warpgroup's registers a thread become N (a multiple of 8, 24
+// .. 256): dec gives registers back to the block's pool, inc waits until
+// the pool holds enough.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -145,6 +174,13 @@ __device__ __forceinline__ void bulk_wait() {
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   const uint64_t a = smem_addr(p);
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for a 64-byte-swizzled K-major operand: rows of 64 bytes whose
+// 16-byte chunks are XOR-ed with (row / 2) mod 4, 8-row atoms of 512 bytes.
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -262,6 +298,72 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8][4], uint64_t da, uin
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The register-A products of the resblock trio (fused_tail.cu) at its
+// other widths: bf16 m64nNk16, N = 16, 32, 128, and TF32 m64n128k8 (the n64
+// ones and TF32 n32 above). B K-major (TB = 0) or MN-major (TB = 1, bf16
+// only).
+#define L2S_F4(d, n) "+f"(d[n][0]), "+f"(d[n][1]), "+f"(d[n][2]), "+f"(d[n][3])
+#define L2S_ACC8(d) L2S_F4(d, 0), L2S_F4(d, 1)
+#define L2S_ACC64(d)                                                                          \
+  L2S_F4(d, 0), L2S_F4(d, 1), L2S_F4(d, 2), L2S_F4(d, 3), L2S_F4(d, 4), L2S_F4(d, 5),          \
+      L2S_F4(d, 6), L2S_F4(d, 7), L2S_F4(d, 8), L2S_F4(d, 9), L2S_F4(d, 10), L2S_F4(d, 11),    \
+      L2S_F4(d, 12), L2S_F4(d, 13), L2S_F4(d, 14), L2S_F4(d, 15)
+#define L2S_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define L2S_D64                                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[2][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " L2S_D8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : L2S_ACC8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[4][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " L2S_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : L2S_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " L2S_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : L2S_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " L2S_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : L2S_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+#undef L2S_F4
+#undef L2S_ACC8
+#undef L2S_ACC64
+#undef L2S_D8
+#undef L2S_D64
 #undef L2S_ACC16
 #undef L2S_D16
 #undef L2S_ACC32

@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the bias route's attention kernels
-// (rel_attention_bias.cu, rel_attention_bias_bwd.cu); fused_tail.cu uses the
-// primitives (cp.async, ldmatrix, mma, packing, the TF32 split). Not
-// compiled on its own.
+// (rel_attention_bias.cu, rel_attention_bias_bwd.cu); fused_tail.cu, on
+// wgmma, takes ldmatrix, the bf16 packing and the accumulator helpers from
+// here. Not compiled on its own.
 //
 // bf16 products run on mma.sync.m16n8k16 (bf16 in, f32 accumulate), written
 // in inline PTX; operands come from shared memory by ldmatrix, or straight

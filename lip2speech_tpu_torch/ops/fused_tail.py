@@ -5,11 +5,13 @@ One vocoder stage runs several ResBlock1 modules (kernels 3/7/11, each with
 dilation branches 1/3/5 of lrelu -> dilated conv -> lrelu -> conv ->
 residual add) over the same input and averages them: 18 convs at the default
 config. The CUDA kernel (csrc/fused_tail.cu) runs the whole trio for one row
-tile plus its halo out of shared memory, on the tensor cores in both dtypes:
-bf16 on mma.sync m16n8k16, f32 in 3xTF32 on mma.sync m16n8k8 (each operand
-split into two TF32 parts, three products: f32 accuracy); `trio_plain` is its
-plain version. Unlike the TPU kernel the port does not fold channels into
-128 lanes: activations stay in PyTorch's (B, C, M) conv layout.
+tile plus its halo out of shared memory, every conv on wgmma in both dtypes:
+the activations as register fragments at any tap shift, the weights from a
+TMA-fed shared-memory ring (`pack_weights` lays them out as it streams
+them); f32 in 3xTF32 (each operand split into two TF32 parts, three
+products: f32 accuracy). `trio_plain` is its plain version. Unlike the TPU
+kernel the port does not fold channels into 128 lanes: activations stay in
+PyTorch's (B, C, M) conv layout.
 
 Under grad the kernel runs inside `TrioFn`, whose backward recomputes the
 plain version (the bare kernel refuses inputs that require grad).
@@ -32,11 +34,32 @@ from lip2speech_tpu_torch.ops import nn as ops
 
 LRELU_SLOPE = 0.1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# shared memory a block may take, of the 227 KB a block may use on Hopper:
-# f32 takes all of it (a C128 tile of 60 rows, one wave at batch 1 x 96)
-SMEM_BUDGET = {torch.bfloat16: 220 * 1024, torch.float32: 227 * 1024}
-RING_STAGES, RING_CHUNK = 3, 16384  # bf16 weight ring of csrc/fused_tail.cu
+SMEM_LIMIT = 232_448         # dynamic shared memory a block may take on Hopper
 MAX_RES, MAX_DIL = 4, 4      # geometry table size of csrc/fused_tail.cu
+# csrc/fused_tail.cu's weight ring (kSlotBytes, kStages), its barriers and
+# alignment slack (kBarBytes, kAlign), its consumer warpgroups (kConsumers)
+RING_SLOT, BAR_BYTES, ALIGN, WARPGROUPS = 16_384, 256, 1024, 2
+RING_STAGES = {torch.bfloat16: 4, torch.float32: 3}
+# csrc/fused_tail.cu's Cfg per dtype and C: m64 tiles a consumer warpgroup
+# holds a round, bytes of a weight panel row (128- or 64-byte swizzle)
+LAYOUTS = {
+    torch.bfloat16: {128: (2, 128), 64: (4, 128), 32: (4, 128), 16: (4, 128)},
+    torch.float32: {128: (1, 64), 64: (2, 128), 32: (2, 128), 16: (2, 128)},
+}
+
+
+def _cfg(channels: int, dtype: torch.dtype) -> dict:
+    """csrc/fused_tail.cu's Cfg<T, C>: bytes of a weight panel row (rb), its
+    k (pw) and a wgmma's (ks), 16-byte chunk elements (e), rows of a panel
+    (ns: C, or 2C where f32 stacks each output's hi and lo parts, at C =
+    16), panels a ring chunk (pps), m64 tiles a warpgroup holds (mt)."""
+    es = 4 if dtype == torch.float32 else 2
+    mt, rb = LAYOUTS[dtype][channels]
+    stack = dtype == torch.float32 and channels == 16
+    ns = 2 * channels if stack else channels
+    parts = 2 if dtype == torch.float32 and not stack else 1
+    return {"es": es, "e": 16 // es, "rb": rb, "pw": rb // es, "ks": 8 if es == 4 else 16,
+            "stack": stack, "ns": ns, "pps": RING_SLOT // (parts * ns * rb), "mt": mt}
 
 
 def resblock1_plain(x: torch.Tensor, branches, kernel: int,
@@ -83,25 +106,28 @@ def _geometry(kernel_sizes, dilation_sizes) -> tuple[list[int], int]:
     return [n_res, n_dil, halo] + ks + dil + pad1 + pad2, halo
 
 
-def smem_bytes(channels: int, dtype: torch.dtype, tile: int, halo: int) -> int:
-    """Shared memory of one block as csrc/fused_tail.cu lays it out: two
-    activation buffers of tile + 2*halo rows and a weight ring. bf16:
-    row-major [rows + 16][C], RING_STAGES chunks of RING_CHUNK bytes. f32:
-    row-major [rows][C + 4] (no slack rows: the ring behind them takes a
-    last m16 tile's overread), two slots of a chunk [C][2048 / C + 4] split
-    into hi and lo."""
-    rows = tile + 2 * halo
-    if dtype == torch.float32:
-        return 2 * rows * (channels + 4) * 4 + 2 * 2 * channels * (2048 // channels + 4) * 4
-    return RING_STAGES * RING_CHUNK + 2 * (rows + 16) * channels * 2
+def xt_trim(kernel_sizes, dilation_sizes, halo: int) -> int:
+    """Rows the conv1 output buffer leaves out on each side: the first row
+    any conv1 writes (csrc/fused_tail.cu: conv_table's xt_off)."""
+    trim = halo
+    for k, dils in zip(kernel_sizes, dilation_sizes):
+        pads = [ops.branch_paddings(k, d) for d in dils]
+        lo = halo - sum(p1 + p2 for p1, p2 in pads)
+        for p1, p2 in pads:
+            trim = min(trim, lo + p1)
+            lo += p1 + p2
+    return trim
 
 
-# csrc/fused_tail.cu's warp layout per dtype and C (Cfg): warps across the
-# rows, m16 tiles a warp holds per round, weight rows (k) per ring chunk
-LAYOUTS = {
-    torch.bfloat16: {128: (8, 2, 64), 64: (16, 2, 128), 32: (16, 4, 128), 16: (16, 8, 128)},
-    torch.float32: {128: (4, 4, 16), 64: (8, 4, 32), 32: (16, 4, 64), 16: (16, 8, 128)},
-}
+def smem_bytes(channels: int, dtype: torch.dtype, tile: int, halo: int, trim: int = 0) -> int:
+    """Shared memory of one block as csrc/fused_tail.cu lays it out: the
+    weight ring (RING_STAGES[dtype] slots of RING_SLOT bytes), the residual
+    buffer of tile + 2*halo rows and the conv1 output buffer, 2*trim rows
+    fewer, both row-major [rows][C], the ring's barriers and the slack that
+    aligns the base to 1024 bytes."""
+    es = 4 if dtype == torch.float32 else 2
+    return (ALIGN + RING_STAGES[dtype] * RING_SLOT + BAR_BYTES
+            + (2 * (tile + 2 * halo) - 2 * trim) * channels * es)
 
 
 def conv_regions(kernel_sizes, dilation_sizes, tile: int) -> list[tuple[int, int]]:
@@ -120,17 +146,18 @@ def conv_regions(kernel_sizes, dilation_sizes, tile: int) -> list[tuple[int, int
 
 
 def block_cost(channels: int, regions, dtype: torch.dtype = torch.bfloat16) -> int:
-    """A block's work in chunk steps of its busiest warp: per conv, the
-    weight chunks it streams times, per round, the m16 tiles a row warp
-    holds (a round that fills few warps costs as many chunks)."""
-    warps, per_warp, chunk_rows = LAYOUTS[dtype][channels]
+    """A block's work in wgmma k-steps of its busiest consumer warpgroup:
+    per conv, its k-steps times, per round, the m64 tiles that warpgroup
+    holds (the tiles alternate between the two; a round that fills few
+    tiles costs as many steps)."""
+    cfg = _cfg(channels, dtype)
     cost = 0
     for k, rows in regions:
-        tiles = -(-rows // 16)
-        chunks = -(-k * channels // chunk_rows)
+        tiles = -(-rows // 64)
+        steps = k * channels // cfg["ks"]
         while tiles > 0:
-            in_round = min(tiles, warps * per_warp)
-            cost += chunks * -(-in_round // warps)
+            in_round = min(tiles, WARPGROUPS * cfg["mt"])
+            cost += steps * -(-in_round // WARPGROUPS)
             tiles -= in_round
     return cost
 
@@ -139,16 +166,18 @@ def block_cost(channels: int, regions, dtype: torch.dtype = torch.bfloat16) -> i
 def tile_rows(channels: int, dtype: torch.dtype, halo: int, m: int, batch: int = 1,
               n_sm: int = 132, kernel_sizes: tuple = (3, 7, 11),
               dilation_sizes: tuple = ((1, 3, 5),) * 3) -> int:
-    """Output rows per block whose buffers fit SMEM_BUDGET[dtype], one block
-    per SM in both dtypes: an even tile from 32 (or the sequence, if
-    shorter) up to what fits or the sequence needs. For each number of
-    waves the smallest such tile does the least work a block (block_cost
-    grows with the tile), so of those the one with the least waves x
-    block_cost wins; ties go to the fewer waves. Small tiles fill the card,
-    large ones recompute less halo, and a tile whose regions fill whole
-    rounds wastes no warps."""
-    row_bytes = smem_bytes(channels, dtype, 1, halo) - smem_bytes(channels, dtype, 0, halo)
-    most = (SMEM_BUDGET[dtype] - smem_bytes(channels, dtype, 0, halo)) // row_bytes
+    """Output rows per block whose buffers fit SMEM_LIMIT, one block per SM
+    in both dtypes: an even tile from 32 (or the sequence, if shorter) up
+    to what fits or the sequence needs. For each number of waves the
+    smallest such tile does the least work a block (block_cost grows with
+    the tile), so of those the one with the least waves x block_cost wins;
+    ties go to the fewer waves. Small tiles fill the card, large ones
+    recompute less halo, and a tile whose regions fill whole rounds wastes
+    no tiles."""
+    trim = xt_trim(kernel_sizes, dilation_sizes, halo)
+    row_bytes = (smem_bytes(channels, dtype, 1, halo, trim)
+                 - smem_bytes(channels, dtype, 0, halo, trim))
+    most = (SMEM_LIMIT - smem_bytes(channels, dtype, 0, halo, trim)) // row_bytes
     need = m + m % 2
     fits = list(range(min(32, need), min(need, most - most % 2) + 1, 2))
     if not fits:
@@ -168,6 +197,70 @@ def tile_rows(channels: int, dtype: torch.dtype, halo: int, m: int, batch: int =
         if best is None or waves * cost(smallest[waves]) < best[0]:
             best = (waves * cost(smallest[waves]), smallest[waves])
     return best[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _pack_index(channels: int, dtype: torch.dtype, taps: tuple) -> torch.Tensor:
+    """Where each element of the packed weight stream comes from: an index
+    into the convs' (C_out, C_in, K) weights laid end to end, or one past
+    them (a zero) where a conv's last panel runs past K C_in. A stacked
+    panel holds every output twice (rows r and C + r)."""
+    c, cfg = channels, _cfg(channels, dtype)
+    e, pw, ns, cpr = cfg["e"], cfg["pw"], cfg["ns"], cfg["rb"] // 16
+    total = sum(c * c * k for k in taps)
+    r = torch.arange(ns).view(1, ns, 1, 1)          # panel row: output r % C
+    u = torch.arange(cpr).view(1, 1, cpr, 1)        # 16-byte chunk of the row as stored
+    el = torch.arange(e).view(1, 1, 1, e)
+    swz = r % 8 if cpr == 8 else (r // 2) % 4       # the 128- or 64-byte swizzle
+    parts, base = [], 0
+    for k in taps:
+        p = torch.arange(-(-k * c // pw)).view(-1, 1, 1, 1)
+        kk = p * pw + (u ^ swz) * e + el             # the chunk holds k-chunk u ^ swz
+        idx = base + (r % c) * (c * k) + (kk % c) * k + kk // c
+        parts.append(torch.where(kk < k * c, idx, total).reshape(-1))
+        base += c * c * k
+    return torch.cat(parts)
+
+
+_pack_index_on: dict = {}
+
+
+def pack_weights(ws, channels: int, dtype: torch.dtype) -> torch.Tensor:
+    """Every conv's (C_out, C_in, K) weights, in launch order, as the
+    kernel's weight ring streams them, in `dtype`: per conv, per panel p, ns
+    rows (outputs) of rb bytes (128, or 64 for f32 at C = 128) holding k =
+    p pw .. p pw + pw - 1 of k = tap C_in + c_in (zero past K C_in), the
+    row's 16-byte chunks XOR-ed as the 128-byte swizzle (with r % 8) or the
+    64-byte one (with r / 2 % 4) does: a swizzled K-major wgmma operand,
+    which a TMA bulk copy moves as it is. f32 splits each value for 3xTF32
+    into hi = v rounded to TF32 (as cvt.rna.tf32.f32 rounds) and lo = v -
+    hi: at C = 16 a panel's first C rows hold hi and its last C rows lo;
+    above, the stream comes twice, hi then lo. Launches: the concatenation
+    and one gather (and the cast); f32 three or four more."""
+    taps = tuple(w.shape[2] for w in ws)
+    cfg = _cfg(channels, dtype)
+    key = (channels, dtype, taps, ws[0].device)
+    cached = _pack_index_on.get(key)
+    if cached is None:
+        idx = _pack_index(channels, dtype, taps)
+        # stacked: the lo rows, the second half of every panel
+        lo_rows = (torch.arange(idx.numel()) // (cfg["pw"] * channels)) % 2 == 1
+        cached = _pack_index_on[key] = (idx.to(ws[0].device),
+                                        lo_rows.to(ws[0].device) if cfg["stack"] else None)
+    idx, lo_rows = cached
+    flat = torch.cat([w.reshape(-1) for w in ws] + [ws[0].new_zeros(1)])
+    packed = flat.to(dtype)[idx]
+    if dtype != torch.float32:
+        return packed
+    if cfg["stack"]:
+        hi = ((packed.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+        return torch.where(lo_rows, packed - hi, hi)
+    out = torch.empty(2 * packed.numel(), dtype=dtype, device=packed.device)
+    hi = out[:packed.numel()].view(torch.int32)
+    torch.add(packed.view(torch.int32), 0x1000, out=hi)
+    hi.bitwise_and_(-0x2000)
+    torch.sub(packed, out[:packed.numel()], out=out[packed.numel():])
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,11 +318,9 @@ def fused_resblock_trio_kernel(x, weights, kernel_sizes, dilation_sizes):
                                      f"{tuple(bias.shape)}, expected {(c, c, k)} / {(c,)}")
                 if w.device != x.device or bias.device != x.device:
                     raise ValueError("fused trio: weights must be on x's device")
-                # f32 (Cout, K, Cin): the 3xTF32 path's B operand; bf16 (K, Cin, Cout)
-                order = (0, 2, 1) if x.dtype == torch.float32 else (2, 1, 0)
-                w_parts.append(w.permute(*order).reshape(-1))
+                w_parts.append(w)
                 b_parts.append(bias)
-    w_all = torch.cat(w_parts).to(x.dtype)
+    w_all = pack_weights(w_parts, c, x.dtype)
     b_all = torch.stack(b_parts).to(x.dtype).contiguous()
     tile = tile_rows(c, x.dtype, halo, m, b, _sm_count(x.device), tuple(kernel_sizes),
                      tuple(tuple(d) for d in dilation_sizes))
