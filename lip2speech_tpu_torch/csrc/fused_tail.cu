@@ -19,11 +19,11 @@
 // 594 GFLOP for the four stages of a batch of 4 x 240 frames) against a few
 // bytes per row of traffic: operations, far above the card's ridge point, in
 // both dtypes (f32 as 3xTF32: three TF32 products a multiply-add). Inside a
-// block the narrow stages are bound by issue and shared memory instead: every
-// product reads its weights from shared memory and every k-step its
-// activations, and at C = 16 (N = 16 or 32) each product is a few cycles of
-// the tensor cores against the loads, the lrelu and the TF32 split that feed
-// it.
+// block the narrow stages are bound by the rate of wgmma instructions
+// instead: on the H100 an m64nNk8 TF32 product with A from registers takes
+// about as long at N = 16 or 32 as at N = 64, so at C = 16 and 32 the
+// products cost their count, not their width, and the epilogues and the
+// copies in and out of the tile are a fifth to a third of the time.
 //
 // Each conv is a GEMM, rows x C_out, reduced over taps x C_in, on wgmma with
 // f32 accumulation: m64nNk16 in bf16, m64nNk8 (TF32) for f32, N = C_out.
@@ -36,9 +36,11 @@
 //    activation buffers are row-major ([rows][C]), their 16-byte chunks
 //    XOR-ed by the row (`swz`) so that an ldmatrix's eight rows hit distinct
 //    banks at any shift. bf16 applies conv1's lrelu on the fragments
-//    (max(v, bf16(0.1 v))); f32 applies it and splits v: hi is v itself (the
-//    tensor core reads its TF32 part), lo = v - (v with the 13 low bits
-//    cleared).
+//    (max(v, bf16(0.1 v))); f32 applies it and splits v into hi (v with the
+//    13 low bits cleared, the TF32 value the tensor core reads from v) and
+//    lo = v - hi. f32 loads a step's fragments during the step before
+//    (`kPrefetch`): the split of one step and the loads of the next overlap
+//    the products in flight.
 //  * Operand B, the weights, from shared memory by descriptor: they sit at
 //    fixed, aligned places. The wrapper (fused_tail.py: pack_weights) packs
 //    each conv K-major, as panels of rows of kRB bytes of k = tap * C_in +
@@ -47,13 +49,14 @@
 //    keep a 16 KB chunk at N = 128) swizzle does: a swizzled wgmma operand,
 //    copied as it is. TF32 wgmma has no transpose, so B is K-major in both
 //    types; a k-step advances the descriptor by 32 bytes inside the row. The
-//    wrapper also splits f32 weights into hi = tf32(w) and lo = w - hi: at C
-//    = 16 a panel's rows are the hi rows, then the lo rows, so a k-step is
-//    two products of width 2C (lo_a and hi_a against both); above, lo comes
-//    as a panel of its own behind hi, and a k-step is three products (lo_a
-//    hi_b, hi_a lo_b, hi_a hi_b). Splitting the weights in shared memory
-//    instead (by the producer, once a block) left the consumers waiting on
-//    the ring.
+//    wrapper also splits f32 weights into hi = tf32(w) and lo = w - hi, and a
+//    k-step is the three products lo_a hi_b, hi_a lo_b, hi_a hi_b: at C = 16
+//    a panel's rows are the hi rows, then the lo rows, and the step is two
+//    instructions, lo_a against the hi rows (n16, an accumulator of its
+//    own) and hi_a against both (n32); above, lo comes as a panel of its own
+//    behind hi, and the step is three instructions. Splitting the weights in
+//    shared memory instead (by the producer, once a block) left the
+//    consumers waiting on the ring.
 //  * The weight ring. The convs' panels form one stream of 16 KB chunks
 //    (kPPS panels, never across a conv) through kStages slots on full /
 //    empty mbarriers. A producer thread issues each chunk as TMA bulk copies
@@ -61,38 +64,43 @@
 //    boundaries, so the next conv's weights arrive during this conv's
 //    epilogue.
 //  * Warp specialisation: 384 threads, two consumer warpgroups and a
-//    producer warpgroup, which gives up registers (setmaxnreg). A conv's
-//    output region is cut into m64 row tiles; a round is the kMT tiles each
-//    consumer warpgroup holds in its accumulators at once (the tiles
-//    alternate between the warpgroups), and a longer region takes more
-//    rounds, each streaming the conv's weights again. f32 at C = 128 holds
-//    one tile (64 accumulators a thread): with two, ptxas lacks the
-//    registers to keep a group in flight and serializes every wgmma. A k-step loads each
-//    tile's A fragments into one of two register sets, issues its products
-//    as one wgmma group and waits for the group before it, so that the next
-//    step's loads overlap this step's products. The tile count of a step is
-//    a compile-time value (`with_count`): no wgmma sits in a branch. Each
+//    producer warpgroup, which gives up registers (setmaxnreg: without it
+//    ptxas lacks the registers to keep the f32 products at C = 16 and 64 in
+//    flight and serializes them, 1.4x slower). A conv's output region is cut
+//    into m64 row tiles; a round is the kMT tiles each consumer warpgroup
+//    holds in its accumulators at once (the tiles alternate between the
+//    warpgroups), and a longer region takes more rounds, each streaming the
+//    conv's weights again. f32 at C = 128 holds one tile (64 accumulators a
+//    thread), f32 at C = 16 two: with more, ptxas lacks the registers to
+//    keep a group in flight and serializes every wgmma. A k-step issues its
+//    tiles' products as one wgmma group on one of two register sets and
+//    waits for the group before it. The tile count of a round is a
+//    compile-time value (`with_count`): no wgmma sits in a branch. Each
 //    chunk ends by waiting for all its products and releasing its slot, so
 //    no product is in flight across the next chunk's barrier wait: ptxas
 //    serializes every wgmma of a kernel that waits on an mbarrier with one
-//    in flight. ptxas still serializes the bf16 instantiations (its C7513:
-//    a later product's input registers defined inside the stage; in the
-//    SASS two tiles' fragments share registers); what triggers it is open.
-//    Between convs a named barrier among the consumers: the next conv reads
-//    rows that the other warpgroup wrote.
+//    in flight, and every wgmma of a kernel in which a register an earlier
+//    product still reads is written (C7513: so hi is not the loaded
+//    register). ptxas still serializes the bf16 instantiations (C7513); what
+//    triggers it there is open. Between convs a named barrier among the
+//    consumers: the next conv reads rows that the other warpgroup wrote.
 //  * Epilogue straight from the accumulators (their m64nN layout is per
 //    warp the m16n8 layout of mma.sync), without branches: each lane owns
 //    two adjacent columns of two rows; rows past the region are read at the
-//    region's last row and not stored, rows outside [0, M) are zeroed. bf16
-//    rounds the pair to bf16 and adds the bias in one bf16x2 add (rounding
-//    once, as the f32 add and cast do); conv1 stores lrelu(y) into the other
-//    buffer, conv2 adds y into the residual. The cross-resblock sum and the
-//    division by n_res stay in the output tile.
+//    region's last row and their stores predicated off, rows outside [0, M)
+//    are zeroed; a tile's loads of the residual come before its stores. The
+//    bias is read once a conv (the L1 the shared memory leaves is too small
+//    to keep it). bf16 rounds the pair to bf16 and adds the bias in one
+//    bf16x2 add (rounding once, as the f32 add and cast do); conv1 stores
+//    lrelu(y) into the other buffer, conv2 adds y into the residual. The
+//    cross-resblock sum and the division by n_res stay in the output tile.
 //  * Shared memory: the ring, the residual buffer xb of tile + 2H rows and
 //    the conv1 output buffer xt, which holds only the rows a conv1 writes
 //    (xt_off fewer on each side). Every pointer into it is offset from the
 //    dynamic shared array, so that the accesses compile to LDS / STS. The
 //    wrapper (fused_tail.py: tile_rows) picks the tile from these sizes.
+//    The tile comes in and goes out a 16-byte chunk of a row at a time
+//    (`Copy`), 32 global accesses in flight a lane.
 //  * A last m64 tile reads up to 63 rows past its input region: those
 //    lanes' rows are clamped to the buffer, and the products they feed are
 //    rows past the region, never stored.
@@ -114,7 +122,6 @@ constexpr int kConsumers = 2;                 // consumer warpgroups
 constexpr int kCThreads = 128 * kConsumers;
 constexpr int kThreads = kCThreads + 128;     // and the producer warpgroup
 constexpr int kAlign = 1024;                  // room to align the base to 1024 bytes
-constexpr int kBatch = 8;                     // rows a lane loads at once in the copy loops
 
 // Per activation type and width: the ring's chunks and the warpgroups' tiles.
 template <typename T, int C>
@@ -137,6 +144,8 @@ struct Cfg {
   // few registers to keep a step's products in flight
   static constexpr int kMT = kF32 && C == 128 ? 1 : kF32 || C == 128 ? 2 : 4;
   static constexpr int kStages = kF32 ? 3 : 4;         // ring slots
+  // f32: a step's A fragments are loaded during the step before
+  static constexpr bool kPrefetch = kF32;
   static constexpr int kRoundTiles = kConsumers * kMT;
 };
 
@@ -180,14 +189,41 @@ __device__ __forceinline__ uint32_t lrelu2(uint32_t r) {
   return *reinterpret_cast<const uint32_t*>(&m);
 }
 
+// The epilogue's shared-memory accesses at a shared address: the loads, and
+// stores predicated on p.
+__device__ __forceinline__ float2 lds_f2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint32_t lds_u32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts_f2_if(bool p, uint32_t a, float2 v) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %0, 0;\n@q st.shared.v2.f32 [%1], {%2, %3};\n}\n" ::"r"(
+          (int)p),
+      "r"(a), "f"(v.x), "f"(v.y)
+      : "memory");
+}
+__device__ __forceinline__ void sts_u32_if(bool p, uint32_t a, uint32_t v) {
+  asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %0, 0;\n@q st.shared.b32 [%1], %2;\n}\n" ::"r"(
+                   (int)p),
+               "r"(a), "r"(v)
+               : "memory");
+}
+
 // element offset of (row, col) in a swizzled [rows][C] activation buffer:
 // 16-byte chunk c of a row sits at c ^ f(row), f chosen so that any 8
 // consecutive rows at one chunk cover the 8 bank groups of a 128-byte line
 template <typename T, int C>
 __device__ __forceinline__ int swz(int row, int col) {
-  constexpr int E = 16 / sizeof(T), kCPR = C / E;
-  const int f = kCPR >= 8 ? (row & 7) : kCPR == 4 ? ((row >> 1) & 3) : ((row >> 2) & 1);
-  return row * C + (((col / E) ^ f) * E) + (col % E);
+  constexpr unsigned E = 16 / sizeof(T), kCPR = C / E;
+  const unsigned r = row, k = col;   // both >= 0: unsigned divisions are shifts
+  const unsigned f = kCPR >= 8 ? (r & 7) : kCPR == 4 ? ((r >> 1) & 3) : ((r >> 2) & 1);
+  return (int)(r * C + (((k / E) ^ f) * E) + (k % E));
 }
 
 // ---------------------------------------------------------------------------
@@ -284,26 +320,85 @@ size_t smem_bytes(int tile, int halo, int trim) {
 
 __device__ __forceinline__ void consumer_sync() { hp::named_barrier(1, kCThreads); }
 
+// The copies between global memory and the activation buffer. A consumer
+// lane takes rows of one or more 16-byte chunks (kE channels) of the
+// buffer: each chunk's kE channels come from, or go to, global memory as
+// kE loads or stores of 32 consecutive rows a warp, and the chunk to or from
+// shared memory as one 16-byte access. Warp w takes chunk w % kCPR (and w +
+// 8 i, ..: kCW chunks), and of each pass's rows the group w / kCPR (kRG
+// groups of 32) in kRW batches: 32 values in flight a lane.
+template <typename T, int C>
+struct Copy {
+  static constexpr int kE = 16 / sizeof(T);
+  static constexpr int kCPR = C / kE;                        // chunks a row
+  static constexpr int kWarps = kCThreads / 32;
+  static constexpr int kCW = kCPR > kWarps ? kCPR / kWarps : 1;
+  static constexpr int kRG = kCPR < kWarps ? kWarps / kCPR : 1;
+  static constexpr int kRW = kCW * kE >= 32 ? 1 : 32 / (kCW * kE);
+  static constexpr int kPass = 32 * kRG * kRW;               // rows a pass
+};
+
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const T (&v)[16 / sizeof(T)]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (sizeof(T) == 4) {
+      w[e] = __float_as_uint(to_f(v[e]));
+    } else {
+      const __nv_bfloat162 h = __halves2bfloat162(v[2 * e], v[2 * e + 1]);
+      w[e] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack16(float (&v)[16 / sizeof(T)], uint4 q) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (sizeof(T) == 4) {
+      v[e] = __uint_as_float(w[e]);
+    } else {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+  }
+}
+
 // x rows [lo, hi) of a batch item (xg: (C, M)) into the activation buffer
-// xb: a warp reads 32 consecutive rows of one channel per load, kBatch loads
-// in flight before the stores; rows outside [0, M) are zero.
+// xb; rows outside [0, M) are zero.
 template <typename T, int C>
 __device__ __forceinline__ void load_rows(const T* __restrict__ xg, T* xb, int lo, int hi,
                                           int row0, int M) {
+  using K = Copy<T, C>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int c = warp; c < C; c += kCThreads / 32) {
-    const T* src = xg + (size_t)c * M;
-    for (int l0 = lo + lane; l0 < hi; l0 += 32 * kBatch) {
-      T v[kBatch];
+  const int k0 = warp % (K::kCPR < K::kWarps ? K::kCPR : K::kWarps);
+  const int rg = K::kRG > 1 ? warp / K::kCPR : 0;
+  for (int l0 = lo + lane + 32 * rg; l0 < hi; l0 += K::kPass) {
+    T v[K::kCW][K::kRW][K::kE];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int l = l0 + 32 * u, gr = row0 + l;
-        v[u] = (l < hi && gr >= 0 && gr < M) ? src[gr] : from_f<T>(0.f);
+    for (int i = 0; i < K::kCW; ++i)
+#pragma unroll
+      for (int u = 0; u < K::kRW; ++u) {
+        const int l = l0 + 32 * K::kRG * u, gr = row0 + l;
+        const bool ok = l < hi && gr >= 0 && gr < M;
+#pragma unroll
+        for (int e = 0; e < K::kE; ++e)
+          v[i][u][e] = ok ? xg[(size_t)((k0 + K::kWarps * i) * K::kE + e) * M + gr]
+                          : from_f<T>(0.f);
       }
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (l0 + 32 * u < hi) xb[swz<T, C>(l0 + 32 * u, c)] = v[u];
-    }
+    for (int i = 0; i < K::kCW; ++i)
+#pragma unroll
+      for (int u = 0; u < K::kRW; ++u) {
+        const int l = l0 + 32 * K::kRG * u;
+        if (l < hi)
+          *reinterpret_cast<uint4*>(xb + swz<T, C>(l, (k0 + K::kWarps * i) * K::kE)) =
+              pack16<T>(v[i][u]);
+      }
   }
 }
 
@@ -314,26 +409,39 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ xg, T* xb, int l
 template <typename T, int C>
 __device__ __forceinline__ void fold_rows(const T* xb, T* __restrict__ og, int r, int n_res,
                                           int t0, int tile, int halo, int M) {
+  using K = Copy<T, C>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int c = warp; c < C; c += kCThreads / 32) {
-    T* dst = og + (size_t)c * M;
-    for (int l0 = lane; l0 < tile; l0 += 32 * kBatch) {
-      float prev[kBatch];
+  const int k0 = warp % (K::kCPR < K::kWarps ? K::kCPR : K::kWarps);
+  const int rg = K::kRG > 1 ? warp / K::kCPR : 0;
+  const int end = tile < M - t0 ? tile : M - t0;   // the tile's rows inside the sequence
+  for (int l0 = lane + 32 * rg; l0 < end; l0 += K::kPass) {
+    float prev[K::kCW][K::kRW][K::kE];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int l = l0 + 32 * u;
-        prev[u] = (r > 0 && l < tile && t0 + l < M) ? to_f(dst[t0 + l]) : 0.f;
+    for (int i = 0; i < K::kCW; ++i)
+#pragma unroll
+      for (int u = 0; u < K::kRW; ++u) {
+        const int l = l0 + 32 * K::kRG * u;
+#pragma unroll
+        for (int e = 0; e < K::kE; ++e)
+          prev[i][u][e] = (r > 0 && l < end)
+              ? to_f(og[(size_t)((k0 + K::kWarps * i) * K::kE + e) * M + t0 + l]) : 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int l = l0 + 32 * u;
-        if (l >= tile || t0 + l >= M) continue;
-        const float v = to_f(xb[swz<T, C>(halo + l, c)]);
-        float s = r == 0 ? v : round_t<T>(prev[u] + v);
-        if (r == n_res - 1) s = s / (float)n_res;
-        dst[t0 + l] = from_f<T>(s);
+    for (int i = 0; i < K::kCW; ++i)
+#pragma unroll
+      for (int u = 0; u < K::kRW; ++u) {
+        const int l = l0 + 32 * K::kRG * u;
+        if (l >= end) continue;
+        float v[K::kE];
+        unpack16<T>(v, *reinterpret_cast<const uint4*>(
+                           xb + swz<T, C>(halo + l, (k0 + K::kWarps * i) * K::kE)));
+#pragma unroll
+        for (int e = 0; e < K::kE; ++e) {
+          float s = r == 0 ? v[e] : round_t<T>(prev[i][u][e] + v[e]);
+          if (r == n_res - 1) s = s / (float)n_res;
+          og[(size_t)((k0 + K::kWarps * i) * K::kE + e) * M + t0 + l] = from_f<T>(s);
+        }
       }
-    }
   }
 }
 
@@ -371,28 +479,26 @@ __device__ __forceinline__ void produce(unsigned char* ring, const T* __restrict
 // The consumer warpgroups
 // ---------------------------------------------------------------------------
 
-// The A fragment of the warp's 16 rows at `row` (the lane's own row, clamped
-// to the buffer) and `col` (the lane's column) of a buffer. bf16: m16k16,
-// conv1's lrelu applied; f32: m16k8, lrelu applied, split into hi and lo.
-template <int C, bool FIRST>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* in, int row, int col) {
-  mma::ldsm_x4(a, hp::smem_addr(in + swz<bf16, C>(row, col)));
-  if (FIRST) {
+// conv1's input activation on an A fragment: bf16 lrelu on both halves of
+// each register; f32 lrelu, then split into hi = v with the 13 low bits
+// cleared (the TF32 value the tensor core reads from v) and lo = v - hi. hi
+// is a value of its own, not the loaded register: a register that a load
+// writes while an earlier product still reads it makes ptxas serialize
+// every wgmma.
+template <bool FIRST>
+__device__ __forceinline__ void prep_a(uint32_t (&a)[4], const uint32_t (&raw)[4]) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) a[e] = lrelu2(a[e]);
-  }
+  for (int e = 0; e < 4; ++e) a[e] = FIRST ? lrelu2(raw[e]) : raw[e];
 }
-template <int C, bool FIRST>
-__device__ __forceinline__ void load_a(uint32_t (&ah)[4], uint32_t (&al)[4], const float* in,
-                                       int row, int col) {
-  uint32_t a[4];
-  mma::ldsm_x4(a, hp::smem_addr(in + swz<float, C>(row, col)));
+template <bool FIRST>
+__device__ __forceinline__ void prep_a(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                       const uint32_t (&raw)[4]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    float v = __uint_as_float(a[e]);
+    float v = __uint_as_float(raw[e]);
     if (FIRST) v = fmaxf(v, kSlope * v);
-    ah[e] = __float_as_uint(v);
-    al[e] = __float_as_uint(v - __uint_as_float(__float_as_uint(v) & 0xffffe000u));
+    ah[e] = __float_as_uint(v) & 0xffffe000u;
+    al[e] = __float_as_uint(v - __uint_as_float(ah[e]));
   }
 }
 
@@ -419,13 +525,22 @@ __device__ __forceinline__ void conv(const T* in, int in_last, T* dst, const T* 
                                      uint64_t* full, uint64_t* empty, int& ring, int row0, int M) {
   using Q = Cfg<T, C>;
   constexpr int NT = Q::kNS / 8;
+  constexpr int kChunkSteps = Q::kPPS * Q::kSPP;
+  static_assert(kChunkSteps % 2 == 0, "a full chunk ends on register set 1");
   const int wg = hp::warp_index() >> 2, w = hp::warp_index() & 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int d = tb.d[j], shift0 = -tb.pad[j], kc = tb.k[j] * C;
+  const int d = tb.d[j], kc = tb.k[j] * C;
   const int olo = tb.olo[j], ohi = tb.ohi[j];
   const int nch = n_chunks<T, C>(tb, j);
-  const T* bj = bias + j * C;
-  const int a_row = 16 * w + (lane & 15), a_col = (lane >> 4) * Q::kE;
+  // the bias of the lane's output columns 8 n + 2 q, read once a conv (the
+  // L1 that the shared memory leaves is too small to keep it across rounds)
+  using B2 = std::conditional_t<Q::kF32, float2, __nv_bfloat162>;
+  B2 bv[C / 8];
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+    bv[n] = __ldg(reinterpret_cast<const B2*>(bias + j * C + 8 * n + 2 * (threadIdx.x & 3)));
+  const unsigned a_col = (lane >> 4) * Q::kE;
+  const uint32_t in_s = hp::smem_addr(in), dst_s = hp::smem_addr(dst);
 
   for (int rd = 0; rd < tb.rounds[j]; ++rd) {
     // the warpgroup's tiles: rd kRoundTiles + wg + kConsumers t, at row olo + 64 tile
@@ -434,156 +549,198 @@ __device__ __forceinline__ void conv(const T* in, int in_last, T* dst, const T* 
 #pragma unroll
     for (int t = 0; t < Q::kMT; ++t) nt += first + 64 * kConsumers * t < ohi ? 1 : 0;
     nt = __shfl_sync(0xffffffffu, nt, 0);
-    float acc[Q::kMT][NT][4];
-#pragma unroll
-    for (int t = 0; t < Q::kMT; ++t) mma::zero<NT>(acc[t]);
-    // A fragments, two sets: bf16 a; f32 hi, lo
-    uint32_t ah[2][Q::kMT][4], al[2][Q::kF32 ? Q::kMT : 1][4];
-
-    for (int c = 0; c < nch; ++c) {
-      const int p0 = c * Q::kPPS;
-      const int k_end = (p0 + Q::kPPS) * Q::kPW < kc ? (p0 + Q::kPPS) * Q::kPW : kc;
-      const int n_steps = (k_end - p0 * Q::kPW) / Q::kKS;
-      const int s = ring % Q::kStages;
-      hp::mbar_wait(&full[s], (ring / Q::kStages) & 1);
-      ++ring;
-      if (nt == 0) {
-        hp::mbar_arrive(&empty[s]);
-        continue;
+    if (nt == 0) {   // nothing to compute: release the round's chunks
+      for (int c = 0; c < nch; ++c, ++ring) {
+        hp::mbar_wait(&full[ring % Q::kStages], (ring / Q::kStages) & 1);
+        hp::mbar_arrive(&empty[ring % Q::kStages]);
       }
-      const unsigned char* wt = ring_s + s * kSlotBytes;
-      // k-step st of the chunk into register set B, for the warpgroup's
-      // first NTT tiles (compile-time: no wgmma sits in a branch)
-      auto step = [&](auto B_, auto NTT_, int st) {
-        constexpr int B = decltype(B_)::value, NTT = decltype(NTT_)::value;
-        const int kr = (p0 * Q::kPW) + st * Q::kKS;
-        const int tap = kr / C, ci = kr - tap * C;
-        const int row = first + a_row + shift0 + tap * d;
-        const unsigned char* bp = wt + (st / Q::kSPP) * Q::kPanel + (st % Q::kSPP) * 32;
-        const uint64_t bh = panel_desc<Q::kRB>(bp);
-        const uint64_t bl = Q::kParts == 2 ? panel_desc<Q::kRB>(bp + Q::kPPS * Q::kPanel) : 0;
-#pragma unroll
-        for (int t = 0; t < NTT; ++t) {
-          const int r = min(row + 64 * kConsumers * t, in_last);
-          if constexpr (Q::kF32)
-            load_a<C, FIRST>(ah[B][t], al[B][t], reinterpret_cast<const float*>(in), r,
-                             ci + a_col);
-          else
-            load_a<C, FIRST>(ah[B][t], reinterpret_cast<const bf16*>(in), r, ci + a_col);
-        }
-        // every A register of the step written, the accumulators settled,
-        // before the arrive: else the compiler moves a tile's lrelu or split
-        // past it and has to wait for each product before the next one
-#pragma unroll
-        for (int t = 0; t < NTT; ++t) {
-          hp::fence_regs(ah[B][t]);
-          if constexpr (Q::kF32) hp::fence_regs(al[B][t]);
-          hp::fence_acc(acc[t]);
-        }
-        hp::wgmma_fence();
-        if constexpr (Q::kStack) {
-          // lo_a and hi_a against the stacked (hi_b; lo_b)
-#pragma unroll
-          for (int t = 0; t < NTT; ++t) hp::wgmma_tf32_rs(acc[t], al[B][t], bh);
-#pragma unroll
-          for (int t = 0; t < NTT; ++t) hp::wgmma_tf32_rs(acc[t], ah[B][t], bh);
-        } else if constexpr (Q::kF32) {
-          // the small terms first, lo_a hi_b and hi_a lo_b, then hi_a hi_b
-#pragma unroll
-          for (int t = 0; t < NTT; ++t) hp::wgmma_tf32_rs(acc[t], al[B][t], bh);
-#pragma unroll
-          for (int t = 0; t < NTT; ++t) hp::wgmma_tf32_rs(acc[t], ah[B][t], bl);
-#pragma unroll
-          for (int t = 0; t < NTT; ++t) hp::wgmma_tf32_rs(acc[t], ah[B][t], bh);
-        } else {
-#pragma unroll
-          for (int t = 0; t < NTT; ++t) hp::wgmma_bf16_rs<0>(acc[t], ah[B][t], bh);
-        }
-        hp::wgmma_commit();
-        hp::wgmma_wait<1>();   // the step before this one is done: its registers are free
-#pragma unroll
-        for (int t = 0; t < NTT; ++t) {
-          hp::fence_acc(acc[t]);
-          hp::fence_regs(ah[B ^ 1][t]);
-          if constexpr (Q::kF32) hp::fence_regs(al[B ^ 1][t]);
-        }
-
-      };
-      // an odd count only in a conv's last chunk, which ends the round:
-      // each chunk starts on set 0
-      with_count<Q::kMT>(nt, [&](auto NTT_) {
-        for (int st = 0; st < n_steps; st += 2) {
-          step(std::integral_constant<int, 0>{}, NTT_, st);
-          if (st + 1 < n_steps) step(std::integral_constant<int, 1>{}, NTT_, st + 1);
-        }
-      });
-      hp::wgmma_wait<0>();
-#pragma unroll
-      for (int t = 0; t < Q::kMT; ++t) {
-        hp::fence_acc(acc[t]);
-        hp::fence_regs(ah[0][t]);
-        hp::fence_regs(ah[1][t]);
-        if constexpr (Q::kF32) {
-          hp::fence_regs(al[0][t]);
-          hp::fence_regs(al[1][t]);
-        }
-      }
-      hp::mbar_arrive(&empty[s]);   // every product of the chunk has completed
+      continue;
     }
-    if (nt == 0) continue;
-
-    // The epilogue, without branches: a lane's rows past the region are
-    // read at the region's last row and not stored.
+    // the lane's A row at tap 0 (the warp's 16 rows from 16 w)
+    const int a_row = first + 16 * w + (lane & 15) - tb.pad[j];
+    float acc[Q::kMT][NT][4];
+    float acc_l[Q::kMT][Q::kStack ? 2 : 1][4];   // stacked panels: lo_a hi_b
 #pragma unroll
     for (int t = 0; t < Q::kMT; ++t) {
-      if (t >= nt) break;
-      const int base = first + 64 * kConsumers * t + 16 * w + g;
+      mma::zero<NT>(acc[t]);
+      mma::zero<Q::kStack ? 2 : 1>(acc_l[t]);
+    }
+
+    // The round's k-steps for the warpgroup's first NTT tiles (a compile-time
+    // count: no wgmma sits in a branch).
+    with_count<Q::kMT>(nt, [&](auto NTT_) {
+      constexpr int NTT = decltype(NTT_)::value;
+      // A fragments as loaded (kPrefetch: a step ahead), and as multiplied:
+      // two sets, bf16 a; f32 hi, lo
+      uint32_t raw[2][NTT][4], ah[2][NTT][4], al[2][Q::kF32 ? NTT : 1][4];
+      // ldmatrix of the raw A fragments of conv step s (k = s kKS): tap
+      // s kKS / C at row shift tap d, channels (s kKS) % C; rows clamped to
+      // the buffer
+      auto load = [&](uint32_t (&r)[NTT][4], int s) {
+        const unsigned kr = (unsigned)s * Q::kKS, tap = kr / C, ci = kr % C;
+        const int row = a_row + (int)tap * d;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = base + 8 * hh, gr = row0 + row;
-        const bool keep = row < ohi, in_seq = gr >= 0 && gr < M;
-        const int rr = keep ? row : ohi - 1;
-#pragma unroll
-        for (int n = 0; n < C / 8; ++n) {
-          const int col = 8 * n + 2 * q;
-          float a0 = acc[t][n][2 * hh], a1 = acc[t][n][2 * hh + 1];
-          if constexpr (Q::kStack) {   // the products with hi_b, then with lo_b
-            a0 += acc[t][n + C / 8][2 * hh];
-            a1 += acc[t][n + C / 8][2 * hh + 1];
-          }
-          T* p = dst + swz<T, C>(rr, col);
-          if constexpr (Q::kF32) {
-            const float2 bv = __ldg(reinterpret_cast<const float2*>(bj + col));
-            const float y0 = in_seq ? a0 + bv.x : 0.f, y1 = in_seq ? a1 + bv.y : 0.f;
-            float2* p2 = reinterpret_cast<float2*>(p);
-            float2 v;
-            if (FIRST) {
-              v = make_float2(fmaxf(y0, kSlope * y0), fmaxf(y1, kSlope * y1));
-            } else {
-              const float2 old = *p2;
-              v = make_float2(old.x + y0, old.y + y1);
-            }
-            if (keep) *p2 = v;
+        for (int t = 0; t < NTT; ++t)
+          mma::ldsm_x4(r[t], in_s + (uint32_t)sizeof(T) * swz<T, C>(
+                                        min(row + 64 * kConsumers * t, in_last), ci + a_col));
+      };
+      if constexpr (Q::kPrefetch) load(raw[0], 0);
+
+      for (int c = 0; c < nch; ++c) {
+        const int k_end = (c + 1) * Q::kPPS * Q::kPW < kc ? (c + 1) * Q::kPPS * Q::kPW : kc;
+        const int n_steps = (k_end - c * Q::kPPS * Q::kPW) / Q::kKS;
+        const int s = ring % Q::kStages;
+        hp::mbar_wait(&full[s], (ring / Q::kStages) & 1);
+        ++ring;
+        const unsigned char* wt = ring_s + s * kSlotBytes;
+        // k-step st of the chunk (conv step c kChunkSteps + st) on register set B
+        auto step = [&](auto B_, int st) {
+          constexpr int B = decltype(B_)::value;
+          const int gs = c * kChunkSteps + st;
+          if constexpr (Q::kPrefetch) {
+            load(raw[B ^ 1], gs + 1);   // the next step's loads, in flight over this one
           } else {
-            // round(round(acc) + bias) in bf16: the pair rounded, then one
-            // bf16x2 add, which rounds once as the f32 add and cast would
-            const __nv_bfloat162 bv = __ldg(reinterpret_cast<const __nv_bfloat162*>(bj + col));
-            const uint32_t yr = mma::pack_bf16(a0, a1);
-            __nv_bfloat162 y = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&yr), bv);
-            uint32_t v = in_seq ? *reinterpret_cast<const uint32_t*>(&y) : 0u;
-            uint32_t* p2 = reinterpret_cast<uint32_t*>(p);
-            if (FIRST) {
-              v = lrelu2(v);
-            } else {
-              const __nv_bfloat162 s2 = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(p2),
-                                                *reinterpret_cast<const __nv_bfloat162*>(&v));
-              v = *reinterpret_cast<const uint32_t*>(&s2);
+            load(raw[B], gs);
+          }
+#pragma unroll
+          for (int t = 0; t < NTT; ++t) {
+            if constexpr (Q::kF32)
+              prep_a<FIRST>(ah[B][t], al[B][t], raw[B][t]);
+            else
+              prep_a<FIRST>(ah[B][t], raw[B][t]);
+          }
+          const unsigned char* bp = wt + (st / Q::kSPP) * Q::kPanel + (st % Q::kSPP) * 32;
+          const uint64_t bh = panel_desc<Q::kRB>(bp);
+          const uint64_t bl = Q::kParts == 2 ? panel_desc<Q::kRB>(bp + Q::kPPS * Q::kPanel) : 0;
+          // every A register of the step written, the accumulators settled,
+          // before the arrive: else the compiler moves a tile's lrelu or split
+          // past it and has to wait for each product before the next one
+#pragma unroll
+          for (int t = 0; t < NTT; ++t) {
+            hp::fence_regs(ah[B][t]);
+            if constexpr (Q::kF32) hp::fence_regs(al[B][t]);
+            hp::fence_acc(acc[t]);
+            if constexpr (Q::kStack) hp::fence_acc(acc_l[t]);
+          }
+          hp::wgmma_fence();
+          if constexpr (Q::kStack) {
+            // lo_a hi_b (n16: the stacked panel's first C rows), then hi_a
+            // against (hi_b; lo_b) (n32)
+#pragma unroll
+            for (int t = 0; t < NTT; ++t) hp::wgmma_tf32_rs(acc_l[t], al[B][t], bh);
+#pragma unroll
+            for (int t = 0; t < NTT; ++t) hp::wgmma_tf32_rs(acc[t], ah[B][t], bh);
+          } else if constexpr (Q::kF32) {
+            // the small terms first, lo_a hi_b and hi_a lo_b, then hi_a hi_b
+#pragma unroll
+            for (int t = 0; t < NTT; ++t) hp::wgmma_tf32_rs(acc[t], al[B][t], bh);
+#pragma unroll
+            for (int t = 0; t < NTT; ++t) hp::wgmma_tf32_rs(acc[t], ah[B][t], bl);
+#pragma unroll
+            for (int t = 0; t < NTT; ++t) hp::wgmma_tf32_rs(acc[t], ah[B][t], bh);
+          } else {
+#pragma unroll
+            for (int t = 0; t < NTT; ++t) hp::wgmma_bf16_rs<0>(acc[t], ah[B][t], bh);
+          }
+          hp::wgmma_commit();
+          hp::wgmma_wait<1>();   // the step before this one is done: its registers are free
+#pragma unroll
+          for (int t = 0; t < NTT; ++t) {
+            hp::fence_acc(acc[t]);
+            if constexpr (Q::kStack) hp::fence_acc(acc_l[t]);
+            hp::fence_regs(ah[B ^ 1][t]);
+            if constexpr (Q::kF32) hp::fence_regs(al[B ^ 1][t]);
+          }
+        };
+        // an odd count only in a conv's last chunk, which ends the round:
+        // each chunk starts on set 0
+        for (int st = 0; st < n_steps; st += 2) {
+          step(std::integral_constant<int, 0>{}, st);
+          if (st + 1 < n_steps) step(std::integral_constant<int, 1>{}, st + 1);
+        }
+        hp::wgmma_wait<0>();
+#pragma unroll
+        for (int t = 0; t < NTT; ++t) {
+          hp::fence_acc(acc[t]);
+          if constexpr (Q::kStack) hp::fence_acc(acc_l[t]);
+          hp::fence_regs(ah[0][t]);
+          hp::fence_regs(ah[1][t]);
+          if constexpr (Q::kF32) {
+            hp::fence_regs(al[0][t]);
+            hp::fence_regs(al[1][t]);
+          }
+        }
+        hp::mbar_arrive(&empty[s]);   // every product of the chunk has completed
+      }
+
+      // The epilogue, without branches: a lane's rows past the region are
+      // read at the region's last row and not stored (predicated stores). A
+      // batch of kHB of a tile's two row halves loads all its old values
+      // before it stores.
+      constexpr int kHB = C <= 32 ? 2 : 1;
+      using V = std::conditional_t<Q::kF32, float2, uint32_t>;
+#pragma unroll
+      for (int t = 0; t < NTT; ++t) {
+#pragma unroll
+        for (int h0 = 0; h0 < 2; h0 += kHB) {
+          uint32_t pa[kHB][C / 8];
+          bool keep[kHB], in_seq[kHB];
+          V old[kHB][C / 8];
+#pragma unroll
+          for (int i = 0; i < kHB; ++i) {
+            const int row = first + 64 * kConsumers * t + 16 * w + g + 8 * (h0 + i);
+            keep[i] = row < ohi;
+            in_seq[i] = row0 + row >= 0 && row0 + row < M;
+#pragma unroll
+            for (int n = 0; n < C / 8; ++n) {
+              pa[i][n] = dst_s + (uint32_t)sizeof(T) * swz<T, C>(keep[i] ? row : ohi - 1,
+                                                                  8 * n + 2 * q);
+              if (!FIRST) {
+                if constexpr (Q::kF32)
+                  old[i][n] = lds_f2(pa[i][n]);
+                else
+                  old[i][n] = lds_u32(pa[i][n]);
+              }
             }
-            if (keep) *p2 = v;
+          }
+#pragma unroll
+          for (int i = 0; i < kHB; ++i) {
+            const int hh = h0 + i;
+#pragma unroll
+            for (int n = 0; n < C / 8; ++n) {
+              float a0 = acc[t][n][2 * hh], a1 = acc[t][n][2 * hh + 1];
+              if constexpr (Q::kStack) {   // hi_a hi_b, hi_a lo_b, lo_a hi_b
+                a0 += acc[t][n + C / 8][2 * hh] + acc_l[t][n][2 * hh];
+                a1 += acc[t][n + C / 8][2 * hh + 1] + acc_l[t][n][2 * hh + 1];
+              }
+              if constexpr (Q::kF32) {
+                const float y0 = in_seq[i] ? a0 + bv[n].x : 0.f;
+                const float y1 = in_seq[i] ? a1 + bv[n].y : 0.f;
+                const float2 v = FIRST ? make_float2(fmaxf(y0, kSlope * y0), fmaxf(y1, kSlope * y1))
+                                       : make_float2(old[i][n].x + y0, old[i][n].y + y1);
+                sts_f2_if(keep[i], pa[i][n], v);
+              } else {
+                // round(round(acc) + bias) in bf16: the pair rounded, then one
+                // bf16x2 add, which rounds once as the f32 add and cast would
+                const uint32_t yr = mma::pack_bf16(a0, a1);
+                const __nv_bfloat162 y =
+                    __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&yr), bv[n]);
+                uint32_t v = in_seq[i] ? *reinterpret_cast<const uint32_t*>(&y) : 0u;
+                if (FIRST) {
+                  v = lrelu2(v);
+                } else {
+                  const __nv_bfloat162 s2 =
+                      __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&old[i][n]),
+                              *reinterpret_cast<const __nv_bfloat162*>(&v));
+                  v = *reinterpret_cast<const uint32_t*>(&s2);
+                }
+                sts_u32_if(keep[i], pa[i][n], v);
+              }
+            }
           }
         }
       }
-    }
+    });
   }
 }
 

@@ -299,9 +299,9 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8][4], uint64_t da, uin
 }
 
 // The register-A products of the resblock trio (fused_tail.cu) at its
-// other widths: bf16 m64nNk16, N = 16, 32, 128, and TF32 m64n128k8 (the n64
-// ones and TF32 n32 above). B K-major (TB = 0) or MN-major (TB = 1, bf16
-// only).
+// other widths: bf16 m64nNk16, N = 16, 32, 128, and TF32 m64nNk8, N = 16,
+// 128 (the n64 ones and TF32 n32 above). B K-major (TB = 0) or MN-major (TB
+// = 1, bf16 only).
 #define L2S_F4(d, n) "+f"(d[n][0]), "+f"(d[n][1]), "+f"(d[n][2]), "+f"(d[n][3])
 #define L2S_ACC8(d) L2S_F4(d, 0), L2S_F4(d, 1)
 #define L2S_ACC64(d)                                                                          \
@@ -346,6 +346,16 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[16][4], const uint32_t 
       ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : L2S_ACC64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[2][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " L2S_D8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : L2S_ACC8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16][4], const uint32_t (&a)[4],

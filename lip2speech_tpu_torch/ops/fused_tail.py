@@ -200,11 +200,13 @@ def tile_rows(channels: int, dtype: torch.dtype, halo: int, m: int, batch: int =
 
 
 @functools.lru_cache(maxsize=64)
-def _pack_index(channels: int, dtype: torch.dtype, taps: tuple) -> torch.Tensor:
-    """Where each element of the packed weight stream comes from: an index
-    into the convs' (C_out, C_in, K) weights laid end to end, or one past
-    them (a zero) where a conv's last panel runs past K C_in. A stacked
-    panel holds every output twice (rows r and C + r)."""
+def _pack_index(channels: int, dtype: torch.dtype, taps: tuple,
+                device: torch.device) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Where each element of the packed weight stream comes from, on
+    `device`: an index into the convs' (C_out, C_in, K) weights laid end to
+    end, or one past them (a zero) where a conv's last panel runs past K
+    C_in. A stacked panel holds every output twice (rows r and C + r); for
+    it also a mask of the lo rows (its second C rows), else None."""
     c, cfg = channels, _cfg(channels, dtype)
     e, pw, ns, cpr = cfg["e"], cfg["pw"], cfg["ns"], cfg["rb"] // 16
     total = sum(c * c * k for k in taps)
@@ -219,10 +221,9 @@ def _pack_index(channels: int, dtype: torch.dtype, taps: tuple) -> torch.Tensor:
         idx = base + (r % c) * (c * k) + (kk % c) * k + kk // c
         parts.append(torch.where(kk < k * c, idx, total).reshape(-1))
         base += c * c * k
-    return torch.cat(parts)
-
-
-_pack_index_on: dict = {}
+    index = torch.cat(parts)
+    lo_rows = (torch.arange(index.numel()) // (pw * c)) % 2 == 1 if cfg["stack"] else None
+    return index.to(device), None if lo_rows is None else lo_rows.to(device)
 
 
 def pack_weights(ws, channels: int, dtype: torch.dtype) -> torch.Tensor:
@@ -237,22 +238,12 @@ def pack_weights(ws, channels: int, dtype: torch.dtype) -> torch.Tensor:
     hi: at C = 16 a panel's first C rows hold hi and its last C rows lo;
     above, the stream comes twice, hi then lo. Launches: the concatenation
     and one gather (and the cast); f32 three or four more."""
-    taps = tuple(w.shape[2] for w in ws)
-    cfg = _cfg(channels, dtype)
-    key = (channels, dtype, taps, ws[0].device)
-    cached = _pack_index_on.get(key)
-    if cached is None:
-        idx = _pack_index(channels, dtype, taps)
-        # stacked: the lo rows, the second half of every panel
-        lo_rows = (torch.arange(idx.numel()) // (cfg["pw"] * channels)) % 2 == 1
-        cached = _pack_index_on[key] = (idx.to(ws[0].device),
-                                        lo_rows.to(ws[0].device) if cfg["stack"] else None)
-    idx, lo_rows = cached
+    idx, lo_rows = _pack_index(channels, dtype, tuple(w.shape[2] for w in ws), ws[0].device)
     flat = torch.cat([w.reshape(-1) for w in ws] + [ws[0].new_zeros(1)])
     packed = flat.to(dtype)[idx]
     if dtype != torch.float32:
         return packed
-    if cfg["stack"]:
+    if lo_rows is not None:
         hi = ((packed.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
         return torch.where(lo_rows, packed - hi, hi)
     out = torch.empty(2 * packed.numel(), dtype=dtype, device=packed.device)

@@ -350,7 +350,7 @@ def _stream_conv(x, packed, at, k, d, pad, c, dtype, lo_at=0):
             ah = _tc(a)
             al = _tc(a - ah)
             bh, bl = wh[p_][:, cols], _tc(wl[p_][:, cols])
-            pairs = [(bh, al), (bl, ah), (bh, ah)] + ([(bl, al)] if cfg["stack"] else [])
+            pairs = [(bh, al), (bl, ah), (bh, ah)]
             for wk, av in pairs:
                 y += torch.einsum("nk,bkm->bnm", wk, av)
     return y, at + n_panels * panel
