@@ -14,7 +14,9 @@ limits chip_smoke.py holds the kernel to (bf16 3e-2, f32 2e-5 of max(1,
         | tar -x -C scratch_checkout/parent
     python3 scripts/trio_wgmma_ab.py --parent scratch_checkout/parent
 
---variant NAME=DIR adds a build of DIR/fused_tail.cu (DIR holds the
+--diag nosmr,nosteps,noepi,nofold,noload adds builds of this tree's
+source with one part switched off (DIAG), timed beside: what each part
+costs. --variant NAME=DIR adds a build of DIR/fused_tail.cu (DIR holds the
 headers too; same C interface and weight layout as this tree's), timed
 after the change and checked (--nocheck NAME: timed unchecked, a
 diagnostic such as a build with a phase switched off). --prof adds a
@@ -205,6 +207,32 @@ def prof_source(src: str) -> str:
     return src
 
 
+# Diagnostic builds of this tree's source (--diag): one part switched off
+# by a text change, timed unchecked (their results are wrong on purpose),
+# except nosmr, which computes the same and is checked: without the
+# warpgroups' register reallocation (setmaxnreg).
+DIAG = {
+    "nosmr": [("    hp::setmaxnreg_dec<40>();\n", ""), ("  hp::setmaxnreg_inc<232>();\n", "")],
+    "nosteps": [("        for (int st = 0; st < n_steps; st += 2) {",
+                 "        for (int st = 0; st < (M < 0 ? n_steps : 0); st += 2) {")],
+    "noepi": [("      // The epilogue, without branches: a lane",
+               "      if (M >= 0) return;\n      // The epilogue, without branches: a lane")],
+    "nofold": [("    fold_rows<T, C>(xb, og, r, tb.n_res, t0, tile, halo, M);",
+                "    if (M < 0) fold_rows<T, C>(xb, og, r, tb.n_res, t0, tile, halo, M);")],
+    "noload": [("    load_rows<T, C>(xg, xb, tb.olo[j0] - tb.pad[j0], tb.ohi[j0] + tb.pad[j0], row0, M);",
+                "    if (M < 0) load_rows<T, C>(xg, xb, tb.olo[j0] - tb.pad[j0], "
+                "tb.ohi[j0] + tb.pad[j0], row0, M);")],
+}
+
+
+def diag_source(src: str, name: str) -> str:
+    for old, new in DIAG[name]:
+        if src.count(old) != 1:
+            raise RuntimeError(f"diag {name}: anchor not found once: {old[:60]}")
+        src = src.replace(old, new)
+    return src
+
+
 def check(run, x, ws) -> tuple[float, float]:
     cs.set_tf32(False)
     out = run()
@@ -226,6 +254,7 @@ def main() -> int:
     ap.add_argument("--nocheck", action="append", default=[],
                     help="a variant timed without holding it to the limits (a diagnostic)")
     ap.add_argument("--only", default="", help="a regex the stage labels must match")
+    ap.add_argument("--diag", default="", help=f"comma-separated diagnostic builds of {list(DIAG)}")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trio_wgmma_ab: no CUDA device", file=sys.stderr)
@@ -240,6 +269,15 @@ def main() -> int:
     for v in args.variant:
         name, d = v.split("=", 1)
         sources[name] = Path(d) / "fused_tail.cu"
+    for name in filter(None, args.diag.split(",")):
+        pd = OUT / f"{name}_src"
+        pd.mkdir(parents=True, exist_ok=True)
+        for hdr in (REPO / "lip2speech_tpu_torch" / "csrc").glob("*.cuh"):
+            shutil.copy(hdr, pd / hdr.name)
+        (pd / "fused_tail.cu").write_text(diag_source(sources["change"].read_text(), name))
+        sources[name] = pd / "fused_tail.cu"
+        if name != "nosmr":
+            args.nocheck.append(name)
     if args.prof:
         pd = OUT / "prof_src"
         pd.mkdir(parents=True, exist_ok=True)
