@@ -4488,12 +4488,12 @@ def main() -> int:
                       "m64nNk8, dK, dV, dQ_u, dQ_v and dP on mma.sync m16n8k8")
         elif lib == "fused_tail":
             design = ("TMA-fed, a producer and two consumer warpgroups; every conv on wgmma, "
-                      "A (the activations at each tap's row shift) in registers, B (the "
-                      "weights, packed K-major and swizzled by the wrapper) from a ring of "
-                      "16 KB slots by bulk copy; bf16: m64nNk16, f32 accumulate; f32: "
-                      "3xTF32 m64nNk8, the weights split by the wrapper, A loaded a step "
-                      "ahead and split in registers (at C16 hi and lo stacked into one "
-                      "operand: hi_a against both, n32, lo_a against hi, n16)")
+                      "A (the activations at each tap's row shift, loaded a step ahead) in "
+                      "registers, B (the weights, packed K-major and swizzled by the wrapper) "
+                      "from a ring of 16 KB slots by bulk copy; bf16: m64nNk16, f32 "
+                      "accumulate; f32: 3xTF32 m64nNk8, the weights split by the wrapper, A "
+                      "in registers (at C16 hi and lo stacked into one operand: hi_a against "
+                      "both, n32, lo_a against hi, n16)")
         elif lib in HGMMA_KERNELS:
             design = ("flash_fwd_hopper.cuh: TMA-fed, a producer and two consumer warpgroups; "
                       "bf16: 128 query rows a block, every product on wgmma m64nNk16, f32 "

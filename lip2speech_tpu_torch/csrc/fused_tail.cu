@@ -38,9 +38,9 @@
 //    banks at any shift. bf16 applies conv1's lrelu on the fragments
 //    (max(v, bf16(0.1 v))); f32 applies it and splits v into hi (v with the
 //    13 low bits cleared, the TF32 value the tensor core reads from v) and
-//    lo = v - hi. f32 loads a step's fragments during the step before
-//    (`kPrefetch`): the split of one step and the loads of the next overlap
-//    the products in flight.
+//    lo = v - hi. A step's fragments are loaded during the step before: the
+//    lrelu and split of one step and the loads of the next overlap the
+//    products in flight.
 //  * Operand B, the weights, from shared memory by descriptor: they sit at
 //    fixed, aligned places. The wrapper (fused_tail.py: pack_weights) packs
 //    each conv K-major, as panels of rows of kRB bytes of k = tap * C_in +
@@ -144,8 +144,6 @@ struct Cfg {
   // few registers to keep a step's products in flight
   static constexpr int kMT = kF32 && C == 128 ? 1 : kF32 || C == 128 ? 2 : 4;
   static constexpr int kStages = kF32 ? 3 : 4;         // ring slots
-  // f32: a step's A fragments are loaded during the step before
-  static constexpr bool kPrefetch = kF32;
   static constexpr int kRoundTiles = kConsumers * kMT;
 };
 
@@ -570,7 +568,7 @@ __device__ __forceinline__ void conv(const T* in, int in_last, T* dst, const T* 
     // count: no wgmma sits in a branch).
     with_count<Q::kMT>(nt, [&](auto NTT_) {
       constexpr int NTT = decltype(NTT_)::value;
-      // A fragments as loaded (kPrefetch: a step ahead), and as multiplied:
+      // A fragments as loaded (a step ahead), and as multiplied:
       // two sets, bf16 a; f32 hi, lo
       uint32_t raw[2][NTT][4], ah[2][NTT][4], al[2][Q::kF32 ? NTT : 1][4];
       // ldmatrix of the raw A fragments of conv step s (k = s kKS): tap
@@ -584,7 +582,7 @@ __device__ __forceinline__ void conv(const T* in, int in_last, T* dst, const T* 
           mma::ldsm_x4(r[t], in_s + (uint32_t)sizeof(T) * swz<T, C>(
                                         min(row + 64 * kConsumers * t, in_last), ci + a_col));
       };
-      if constexpr (Q::kPrefetch) load(raw[0], 0);
+      load(raw[0], 0);
 
       for (int c = 0; c < nch; ++c) {
         const int k_end = (c + 1) * Q::kPPS * Q::kPW < kc ? (c + 1) * Q::kPPS * Q::kPW : kc;
@@ -597,11 +595,7 @@ __device__ __forceinline__ void conv(const T* in, int in_last, T* dst, const T* 
         auto step = [&](auto B_, int st) {
           constexpr int B = decltype(B_)::value;
           const int gs = c * kChunkSteps + st;
-          if constexpr (Q::kPrefetch) {
-            load(raw[B ^ 1], gs + 1);   // the next step's loads, in flight over this one
-          } else {
-            load(raw[B], gs);
-          }
+          load(raw[B ^ 1], gs + 1);   // the next step's loads, in flight over this one
 #pragma unroll
           for (int t = 0; t < NTT; ++t) {
             if constexpr (Q::kF32)
