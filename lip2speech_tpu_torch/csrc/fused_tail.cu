@@ -477,12 +477,12 @@ __device__ __forceinline__ void produce(unsigned char* ring, const T* __restrict
 // The consumer warpgroups
 // ---------------------------------------------------------------------------
 
-// conv1's input activation on an A fragment: bf16 lrelu on both halves of
-// each register; f32 lrelu, then split into hi = v with the 13 low bits
-// cleared (the TF32 value the tensor core reads from v) and lo = v - hi. hi
-// is a value of its own, not the loaded register: a register that a load
-// writes while an earlier product still reads it makes ptxas serialize
-// every wgmma.
+// An A fragment as the products take it, from its loaded registers: conv1
+// (FIRST) applies lrelu, to both bf16 halves of each register or to the f32
+// value; f32 then splits v into hi = v with the 13 low bits cleared (the
+// TF32 value the tensor core reads from v) and lo = v - hi. hi is a value
+// of its own, not the loaded register: a register that a load writes while
+// an earlier product still reads it makes ptxas serialize every wgmma.
 template <bool FIRST>
 __device__ __forceinline__ void prep_a(uint32_t (&a)[4], const uint32_t (&raw)[4]) {
 #pragma unroll
