@@ -11,12 +11,12 @@ Phases, in order; any failure exits non-zero before the last line:
      library's SASS, warp-level (HMMA, mma.sync) and warpgroup (HGMMA,
      wgmma) apart, the TF32 ones of each apart, and its generic loads and
      stores (LD.E / ST.E: a shared access that lost the shared space): no
-     HMMA or no TF32 HMMA in rel_attention_bias or rel_attention_bias_bwd
-     (mma.sync; f32 in 3xTF32), no HGMMA or no TF32 HGMMA in
-     rel_attention, attention (both forwards: every product on wgmma),
-     rel_attention_bwd (wgmma; f32 in 3xTF32) and fused_tail (the trio:
-     every conv on wgmma), or any HMMA or generic access in fused_tail,
-     fails;
+     HGMMA or no TF32 HGMMA in rel_attention, attention, rel_attention_bias
+     (the three forwards: every product on wgmma), rel_attention_bwd,
+     rel_attention_bias_bwd (the key-major backwards: wgmma; f32 in 3xTF32)
+     and fused_tail (the trio: every conv on wgmma), any HMMA in fused_tail
+     or rel_attention_bias, or any generic access in fused_tail,
+     rel_attention_bias or rel_attention_bias_bwd, fails;
   3. rel-position attention kernel against its plain version, f32 and bf16;
      bf16 times at B4 H8 T480 and at the train step's B8 H8 T1200, each
      beside SDPA with the position term as a float bias mask; the f32 path
@@ -309,14 +309,17 @@ def valid_rows_err(out, ref, lens) -> float:
     return max(float((out.float() - ref)[i, :, :n].abs().max()) for i, n in enumerate(lens) if n)
 
 
-# libraries whose products run on mma.sync (HMMA; f32 in 3xTF32), and those
-# that run them on wgmma (HGMMA; f32 in 3xTF32): the two forwards
-# (flash_fwd_hopper.cuh) and the trio every product, the shear backward with
-# five of its f32 products still on mma.sync, so it has HMMA too, unchecked
-HMMA_KERNELS = ("rel_attention_bias", "rel_attention_bias_bwd")
-HGMMA_KERNELS = ("rel_attention", "attention", "rel_attention_bwd", "fused_tail")
-# libraries that must have no HMMA and no generic load or store
-WGMMA_ONLY = ("fused_tail",)
+# libraries that run their products on wgmma (HGMMA; f32 in 3xTF32): the
+# three forwards (flash_fwd_hopper.cuh) and the trio every product, the two
+# key-major backwards with their f32 products that reduce over queries or
+# keys still on mma.sync (HMMA, unchecked; each source note says why)
+HGMMA_KERNELS = ("rel_attention", "attention", "rel_attention_bias", "rel_attention_bwd",
+                 "rel_attention_bias_bwd", "fused_tail")
+# libraries that must have no HMMA
+WGMMA_ONLY = ("fused_tail", "rel_attention_bias")
+# libraries that must have no generic load or store (every shared pointer
+# derived from the dynamic shared array by offsets)
+NO_GENERIC = ("fused_tail", "rel_attention_bias", "rel_attention_bias_bwd")
 
 
 def sass_tensor_core_counts(build) -> dict:
@@ -325,9 +328,9 @@ def sass_tensor_core_counts(build) -> dict:
     (warp-level, mma.sync) and HGMMA (warpgroup, wgmma) apart, each with its
     TF32 ones apart, and "generic": its generic loads and stores (LD.E,
     ST.E; a shared access compiles to one where its pointer lost the shared
-    space). Fails if a library of HMMA_KERNELS has no HMMA or no TF32 HMMA,
-    one of HGMMA_KERNELS no HGMMA or no TF32 HGMMA, or one of WGMMA_ONLY
-    any HMMA or generic access."""
+    space). Fails if a library of HGMMA_KERNELS has no HGMMA or no TF32
+    HGMMA, one of WGMMA_ONLY any HMMA, or one of NO_GENERIC any generic
+    access."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     counts = {"hmma": {}, "hmma_tf32": {}, "hgmma": {}, "hgmma_tf32": {}, "generic": {}}
     for lib in sorted(build._build_dir().glob("lib*.so")):
@@ -345,14 +348,13 @@ def sass_tensor_core_counts(build) -> dict:
           f"{counts['hgmma_tf32']}", flush=True)
     print(f"SASS generic loads and stores (LD.E / ST.E) per library: {counts['generic']}",
           flush=True)
-    missing = [f"{k} ({kind})" for kind, libs in (("hmma", HMMA_KERNELS), ("hmma_tf32", HMMA_KERNELS),
-                                                   ("hgmma", HGMMA_KERNELS),
-                                                   ("hgmma_tf32", HGMMA_KERNELS))
-               for k in libs if not counts[kind].get(k)]
+    missing = [f"{k} ({kind})" for kind in ("hgmma", "hgmma_tf32") for k in HGMMA_KERNELS
+               if not counts[kind].get(k)]
     if missing:
         fail(f"no tensor-core instruction of the expected kind in {missing}")
-    stray = [f"{k} ({kind} {counts[kind][k]})" for k in WGMMA_ONLY for kind in ("hmma", "generic")
-             if counts[kind].get(k)]
+    stray = [f"{k} ({kind} {counts[kind][k]})" for kind, libs in (("hmma", WGMMA_ONLY),
+                                                                 ("generic", NO_GENERIC))
+             for k in libs if counts[kind].get(k)]
     if stray:
         fail(f"HMMA or generic loads and stores in {stray}")
     return counts
@@ -4480,12 +4482,16 @@ def main() -> int:
                                ("rel_attention_bias_bwd", "rel_attention_bias_bwd", bias_bwd),
                                ("attention", "attention", plain),
                                ("fused_resblock_trio", "fused_tail", trio)):
-        design = ("mma.sync m16n8k16 bf16, f32 accumulate; f32: 3xTF32 mma.sync m16n8k8, "
-                  "f32 accumulate")
         if lib == "rel_attention_bwd":
             design = ("one key-major pass, TMA-fed, warp-specialised; bf16: every product on "
                       "wgmma m64n64k16, f32 accumulate; f32: 3xTF32, S, dPr and G on wgmma "
                       "m64nNk8, dK, dV, dQ_u, dQ_v and dP on mma.sync m16n8k8")
+        elif lib == "rel_attention_bias_bwd":
+            design = ("one key-major pass, TMA-fed, warp-specialised, the bias and dbias in the "
+                      "accumulator layout straight from and to device memory; bf16: two score "
+                      "warpgroups on alternate query tiles and a gradient warpgroup, every "
+                      "product on wgmma m64n64k16, f32 accumulate; f32: 3xTF32, S, dPr and dQ_u "
+                      "on wgmma m64nNk8, dK and dV on mma.sync m16n8k8")
         elif lib == "fused_tail":
             design = ("TMA-fed, a producer and two consumer warpgroups; every conv on wgmma, "
                       "A (the activations at each tap's row shift, loaded a step ahead) in "
@@ -4494,12 +4500,13 @@ def main() -> int:
                       "accumulate; f32: 3xTF32 m64nNk8, the weights split by the wrapper, A "
                       "in registers (at C16 hi and lo stacked into one operand: hi_a against "
                       "both, n32, lo_a against hi, n16)")
-        elif lib in HGMMA_KERNELS:
+        else:
             design = ("flash_fwd_hopper.cuh: TMA-fed, a producer and two consumer warpgroups; "
                       "bf16: 128 query rows a block, every product on wgmma m64nNk16, f32 "
                       "accumulate; f32: 64 rows, 3xTF32 with every product on wgmma m64nNk8, "
-                      "the warpgroups on alternate key tiles (attention) or 32 keys of each "
-                      "tile (rel_attention)")
+                      "the warpgroups on alternate key tiles (attention, rel_attention_bias) or "
+                      "32 keys of each tile (rel_attention); rel_attention_bias: each thread's "
+                      "bias loaded into the accumulator layout a tile ahead")
         numbers.update(design=design,
                        hmma_in_sass=sass["hmma"][lib], hmma_tf32_in_sass=sass["hmma_tf32"][lib],
                        hgmma_in_sass=sass["hgmma"][lib],

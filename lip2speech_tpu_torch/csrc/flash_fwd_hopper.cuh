@@ -1,10 +1,11 @@
-// The flash-attention forward on Hopper (sm_90a), written once for both of
-// its callers and both input types: attention.cu launches it without the
-// position term, rel_attention.cu with it (kPos). Not compiled on its own.
+// The flash-attention forward on Hopper (sm_90a), written once for its three
+// callers and both input types: attention.cu launches it without the
+// position term, rel_attention.cu with it (kPos), rel_attention_bias.cu
+// with an additive f32 bias instead (kBias). Not compiled on its own.
 //
 // Computes, per (batch, head), with q_u, k, v (T, 64) and, with kPos, q_v
-// (T, 64) and the position table p (2T-1, 64):
-//     S[i, j] = (q_u[i].k[j] (+ q_v[i].p[T-1-i+j])) / sqrt(64)
+// (T, 64) and the position table p (2T-1, 64), with kBias the bias (T, T):
+//     S[i, j] = (q_u[i].k[j] (+ q_v[i].p[T-1-i+j])) / sqrt(64) (+ bias[i, j])
 // keys with mask 0 score -1e30, keys past the sequence -inf, then O =
 // softmax_j(S) V and, where asked, the per-row natural-log log-sum-exp.
 // Under dropout the product with V sees the probabilities times keep / (1 -
@@ -69,6 +70,20 @@
 // with their window chunk, one of V^T: 210.6 KB, 168 registers, a 24-byte
 // spill.
 //
+//   With the bias (kBias, no position term; the layouts above, f32 with a
+// stage of keep bits beside each K stage) each consumer thread loads the
+// bias of its own score elements straight from device memory into the
+// accumulator layout (mma_tile.cuh `load_frag_f32`: a quad reads one 32-byte
+// sector of a row; float2 for even T, kBias 2, single floats else, kBias
+// 1), one tile ahead: issued as soon as the tile's bias is added, they land
+// during the softmax, P V and the next S. This works at any T, where a TMA
+// box of the bias needs a row stride of 16 bytes (T % 4 == 0), and needs no
+// shared memory; the cost is 32 registers a thread, which setmaxnreg takes
+// from the producer warpgroup (64 registers) for the consumers (216). The
+// score in log2 units is acc scale log2(e) + bias log2(e), one fma on the
+// f32 bias, never rounded before it. Under dropout the producer draws the
+// keep bits (`keep_half`) for the f32 path too.
+//
 // Bounds are checked: any T.
 
 #pragma once
@@ -84,13 +99,15 @@ constexpr int kThreads = 384;   // two consumer warpgroups, then the producer wa
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMasked2 = flash::kMasked * hp::kLog2e;   // a masked key's score, log2 units
 
-// Shared memory, byte offsets from a 1024-aligned base.
-template <typename T, bool kPos>
+// Shared memory, byte offsets from a 1024-aligned base. kDrop: the f32
+// path without the position term keeps a stage of dropout words beside each
+// K stage (the bias route); bf16 always has them.
+template <typename T, bool kPos, bool kDrop = false>
 struct Layout;
 
 // bf16: 128 query rows; a stage holds a tile's K and V.
-template <bool kPos>
-struct Layout<bf16, kPos> {
+template <bool kPos, bool kDrop>
+struct Layout<bf16, kPos, kDrop> {
   static constexpr bool kBf16 = true;
   static constexpr int kQT = 2;                  // 64-row query tiles a block
   static constexpr int kRows = 64 * kQT;
@@ -115,8 +132,8 @@ struct Layout<bf16, kPos> {
 // f32 without the position term: 64 query rows (Q as it landed: the
 // consumers split its fragments in registers); rings of K (hi, lo) and V^T
 // (hi, lo; V lands in lo).
-template <>
-struct Layout<float, false> {
+template <bool kDrop>
+struct Layout<float, false, kDrop> {
   static constexpr bool kBf16 = false;
   static constexpr int kQT = 1;
   static constexpr int kRows = 64;
@@ -126,8 +143,9 @@ struct Layout<float, false> {
   static constexpr int kK = TB;                          // [kSK] x (hi, lo)
   static constexpr int kVT = kK + kSK * 2 * TB;          // [kSV] x (V^T hi, V^T lo)
   static constexpr int kFlags = kVT + kSV * 2 * TB;      // [kSK] x 64 key flags
+  static constexpr int kKeep = kFlags + kSK * kB * 4;    // kDrop: [kSK] x 128 words
   // q, (qs), K loaded, ready, empty [kSK], V loaded, ready, empty [kSV]
-  static constexpr int kBars = kFlags + kSK * kB * 4;
+  static constexpr int kBars = kKeep + (kDrop ? kSK * 512 : 0);
   static constexpr int kSmem = kBars + (2 + 3 * kSK + 3 * kSV) * 8 + 1024;
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
@@ -136,7 +154,7 @@ struct Layout<float, false> {
 // beside); a K stage holds the tile's K (hi, lo) and window chunk t + 1;
 // one stage of V^T (hi, lo); the sheared Gs, where window chunk 0 lands.
 template <>
-struct Layout<float, true> {
+struct Layout<float, true, false> {
   static constexpr bool kBf16 = false;
   static constexpr int kQT = 1;
   static constexpr int kRows = 64;
@@ -162,6 +180,7 @@ struct Bars {
 
 struct Args {
   const uint8_t* mask;   // (B, T) key mask, or null: every key valid
+  const float* bias;     // kBias: (B, H, T, T) f32
   void* out;             // (B, H, T, 64) of the input type
   float* lse;            // (B, H, T), or null
   int H, T_len;
@@ -307,13 +326,16 @@ __device__ __forceinline__ void produce_bf16(const CUtensorMap* tm_qu, const CUt
 // own, loaded by two of the producer's warps so that the issues overlap:
 // process_k(t) writes the tile's key flags and splits K once it landed;
 // process_v(t) writes V^T split. The consumer warpgroups take alternate
-// tiles, so K is readied two tiles ahead.
+// tiles, so K is readied two tiles ahead. kDrop: under dropout process_k
+// also draws the tile's keep bits into the stage.
+template <bool kDrop>
 __device__ __forceinline__ void produce_keys(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
                                              const CUtensorMap* tm_v, unsigned char* sm,
                                              const Bars& br, const Args& g, int bh, int i0) {
-  using L = Layout<float, false>;
+  using L = Layout<float, false, kDrop>;
   const int pt = threadIdx.x - 256, T_len = g.T_len, n_tiles = (T_len + kB - 1) / kB;
   const uint8_t* mask_row = g.mask == nullptr ? nullptr : g.mask + (size_t)(bh / g.H) * T_len;
+  const bool drop = kDrop && g.drop.thresh != 0u;
   if (pt == 0) {
     hp::mbar_expect_tx(br.q, L::TB);
     hp::tma_tile<float>(sm + L::kQu, tm_q, br.q, i0, bh);
@@ -344,6 +366,19 @@ __device__ __forceinline__ void produce_keys(const CUtensorMap* tm_q, const CUte
     if (pt < kB) {   // 1 valid, 0 masked, -1 past the sequence
       reinterpret_cast<float*>(sm + L::kFlags)[s * kB + pt] = (float)m_next;
       if (t + 1 < n_tiles) m_next = mask_at(kB * (t + 1) + pt);
+    }
+    if (drop) {   // rows g + 8 into the high halves
+      uint32_t even, odd;
+      hp::keep_half(even, odd, g.drop, bh, i0, kB * t, pt);
+      const uint32_t e8 = __shfl_xor_sync(0xffffffffu, even, 1);
+      const uint32_t o8 = __shfl_xor_sync(0xffffffffu, odd, 1);
+      if ((pt & 1) == 0) {
+        const int p = pt >> 1;
+        uint32_t* words = reinterpret_cast<uint32_t*>(sm + L::kKeep + s * 512) +
+                          32 * (p >> 4) + 4 * ((p >> 1) & 7) + 2 * (p & 1);
+        words[0] = even | (e8 << 16);
+        words[1] = odd | (o8 << 16);
+      }
     }
     hp::mbar_wait(&br.kl[s], (t / L::kSK) & 1);
     float* kh = reinterpret_cast<float*>(sm + L::kK + s * 2 * L::TB);
@@ -546,9 +581,28 @@ __device__ __forceinline__ void finish_rows(const float m_run[2], float l[2], fl
   }
 }
 
+// kBias: the bias of the lane's score elements (rows i_g, i_g + 8) of key
+// tile j0 .. j0+63 in the accumulator layout, float2 (2) or single floats (1)
+template <int kBias>
+__device__ __forceinline__ void load_bias(float (&bt)[8][4], const Args& g, int bh, int i_g, int j0,
+                                          int q) {
+  const int T_len = g.T_len;
+  mma::load_frag_f32<kBias == 2, 8>(bt, g.bias + (size_t)bh * T_len * T_len, T_len, i_g, j0, T_len,
+                                    T_len, q);
+}
+
+// The scores in log2 units with the bias: acc scale log2(e) + bias log2(e)
+template <int NT>
+__device__ __forceinline__ void add_bias(float (&sc)[NT][4], const float (&bt)[8][4], float sl2) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] = fmaf(sc[n][e], sl2, bt[n][e] * hp::kLog2e);
+}
+
 // bf16: warpgroup c owns query rows 64c .. 64c+63 of the block's 128 and
 // every key of each tile; every product on wgmma.
-template <bool kPos>
+template <bool kPos, int kBias>
 __device__ __forceinline__ void consume_rows(unsigned char* sm, const Bars& br, const Args& g,
                                              int bh, int i0) {
   using L = Layout<bf16, kPos>;
@@ -559,10 +613,13 @@ __device__ __forceinline__ void consume_rows(unsigned char* sm, const Bars& br, 
   const bf16* sQu = reinterpret_cast<const bf16*>(sm + L::kQu) + c * kTile;
   const bf16* sQv = reinterpret_cast<const bf16*>(sm + L::kQv) + c * kTile;
   float* sG = reinterpret_cast<float*>(sm + L::kScr) + (4 * c + w) * 16 * kGld;
+  const int i_g = i0 + 64 * c + 16 * w + gq;
 
   float o[8][4];
   zero<8>(o);
   float m_run[2] = {kMasked2, kMasked2}, l_run[2] = {0.f, 0.f};
+  [[maybe_unused]] float bt[8][4];   // kBias: the next tile's bias
+  if constexpr (kBias != 0) load_bias<kBias>(bt, g, bh, i_g, 0, q);
   hp::mbar_wait(br.q, 0);
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % L::kS;
@@ -591,10 +648,16 @@ __device__ __forceinline__ void consume_rows(unsigned char* sm, const Bars& br, 
       hp::wgmma_wait<0>();
       hp::fence_acc(sc);
     }
+    float scl = sl2;   // the scores' scale into log2 units
+    if constexpr (kBias != 0) {
+      add_bias<8>(sc, bt, sl2);
+      scl = 1.f;
+      if (t + 1 < n_tiles) load_bias<kBias>(bt, g, bh, i_g, kB * (t + 1), q);
+    }
     const uint32_t keep = g.drop.thresh != 0u
         ? reinterpret_cast<const uint32_t*>(sm + L::kKeep + s * L::kKeepBytes)[128 * c + ct] : 0u;
     softmax_step<8>(sc, o, m_run, l_run, reinterpret_cast<const float*>(sm + L::kFlags) + s * kB,
-                    sl2, g.drop, keep, 0, q);
+                    scl, g.drop, keep, 0, q);
     uint32_t a[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) to_a(a[kk], sc, kk);
@@ -615,7 +678,6 @@ __device__ __forceinline__ void consume_rows(unsigned char* sm, const Bars& br, 
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const int i_g = i0 + 64 * c + 16 * w + gq;
   finish_rows(m_run, l, inv, g.lse == nullptr ? nullptr : g.lse + (size_t)bh * T_len, i_g, T_len,
               q);
   store_rows(static_cast<bf16*>(g.out) + (size_t)bh * T_len * kD, o, i_g, T_len, inv, q);
@@ -745,20 +807,30 @@ __device__ __forceinline__ void store_part(float (&o)[8][4], const float m_run[2
 
 // One tile of consume_tiles over its first 8 NT keys (NT 4: the rest lie
 // past the sequence): S = Q K^T with Q's fragments split in registers
-// (hopper.cuh wgmma_nt32; it waits), the softmax step, then P V.
-template <int NT>
+// (hopper.cuh wgmma_nt32; it waits), kBias: the bias added and the
+// warpgroup's next tile's (t + 2) loaded into bt, the softmax step, then P V.
+template <int NT, int kBias>
 __device__ __forceinline__ void tile_step(float (&o)[8][4], float m_run[2], float l_run[2],
-                                          unsigned char* sm, const Bars& br, const Args& g,
-                                          int t) {
-  using L = Layout<float, false>;
+                                          float (&bt)[8][4], unsigned char* sm, const Bars& br,
+                                          const Args& g, int bh, int i_g, int t) {
+  using L = Layout<float, false, kBias != 0>;
   const int s = t % L::kSK, v = t % L::kSV, lane = threadIdx.x & 31;
   const float* kh = reinterpret_cast<const float*>(sm + L::kK + s * 2 * L::TB);
   float sc[NT][4];
   zero<NT>(sc);
   hp::wgmma_nt32<NT>(sc, reinterpret_cast<const float*>(sm + L::kQu), kh, kh + kB * kD,
                      hp::warp_index() & 3, lane);
+  float scl = g.scale * hp::kLog2e;   // the scores' scale into log2 units
+  uint32_t keep = 0u;
+  if constexpr (kBias != 0) {
+    add_bias<NT>(sc, bt, scl);
+    scl = 1.f;
+    if (kB * (t + 2) < g.T_len) load_bias<kBias>(bt, g, bh, i_g, kB * (t + 2), lane & 3);
+    if (g.drop.thresh != 0u)
+      keep = reinterpret_cast<const uint32_t*>(sm + L::kKeep + s * 512)[threadIdx.x & 127];
+  }
   softmax_step<NT>(sc, o, m_run, l_run, reinterpret_cast<const float*>(sm + L::kFlags) + s * kB,
-                   g.scale * hp::kLog2e, g.drop, 0u, 0, lane & 3);
+                   scl, g.drop, keep, 0, lane & 3);
   hp::mbar_arrive(&br.ke[s]);
   hp::mbar_wait(&br.vl[v], (t / L::kSV) & 1);
   hp::mbar_wait(&br.vr[v], (t / L::kSV) & 1);
@@ -768,23 +840,28 @@ __device__ __forceinline__ void tile_step(float (&o)[8][4], float m_run[2], floa
 
 // f32 without the position term: warpgroup c takes tiles c, c + 2, ..
 // whole; the two parts are merged at the end.
+template <int kBias>
 __device__ __forceinline__ void consume_tiles(unsigned char* sm, const Bars& br, const Args& g,
                                               int bh, int i0) {
-  using L = Layout<float, false>;
-  const int n_tiles = (g.T_len + kB - 1) / kB;
+  using L = Layout<float, false, kBias != 0>;
+  const int n_tiles = (g.T_len + kB - 1) / kB, c = hp::warp_index() >> 2;
+  const int i_g = i0 + 16 * (hp::warp_index() & 3) + ((threadIdx.x & 31) >> 2);
   float o[8][4];
   zero<8>(o);
   // a warpgroup may get no tile, or only keys past the sequence (scores
   // -inf): its running maximum starts at the masked score, so it stays finite
   float m_run[2] = {kMasked2, kMasked2}, l_run[2] = {0.f, 0.f};
+  [[maybe_unused]] float bt[8][4];   // kBias: the bias of the warpgroup's next tile
+  if constexpr (kBias != 0)
+    if (c < n_tiles) load_bias<kBias>(bt, g, bh, i_g, kB * c, threadIdx.x & 3);
   hp::mbar_wait(br.q, 0);
-  for (int t = hp::warp_index() >> 2; t < n_tiles; t += 2) {
+  for (int t = c; t < n_tiles; t += 2) {
     hp::mbar_wait(&br.kl[t % L::kSK], (t / L::kSK) & 1);
     hp::mbar_wait(&br.kr[t % L::kSK], (t / L::kSK) & 1);
     if (g.T_len - kB * t <= kB / 2)
-      tile_step<4>(o, m_run, l_run, sm, br, g, t);
+      tile_step<4, kBias>(o, m_run, l_run, bt, sm, br, g, bh, i_g, t);
     else
-      tile_step<8>(o, m_run, l_run, sm, br, g, t);
+      tile_step<8, kBias>(o, m_run, l_run, bt, sm, br, g, bh, i_g, t);
   }
   float l[2];
   if (merge_warpgroups(o, m_run, l, l_run, reinterpret_cast<float*>(sm + L::kK)))
@@ -881,13 +958,16 @@ __device__ __forceinline__ void consume_keys(unsigned char* sm, const Bars& br, 
 // the kernel
 // ---------------------------------------------------------------------------
 
-// The body of a forward kernel: attention.cu and rel_attention.cu wrap it
-// in kernels of their own names, so that profiles tell the two apart.
-template <typename T, bool kPos>
+// The body of a forward kernel: attention.cu, rel_attention.cu and
+// rel_attention_bias.cu wrap it in kernels of their own names, so that
+// profiles tell the three apart. kBias (no position term): 0 none, 1 the
+// bias read by single floats, 2 by float2 (even T).
+template <typename T, bool kPos, int kBias = 0>
 __device__ __forceinline__ void forward(const CUtensorMap* tm_qu, const CUtensorMap* tm_qv,
                                         const CUtensorMap* tm_k, const CUtensorMap* tm_v,
                                         const CUtensorMap* tm_p, const Args& g) {
-  using L = Layout<T, kPos>;
+  static_assert(!(kPos && kBias), "the bias replaces the position term");
+  using L = Layout<T, kPos, kBias != 0>;
   extern __shared__ unsigned char smem_raw[];
   // the 1024-aligned base, offset from smem_raw so that the compiler keeps
   // every access derived from it in the shared space (LDS / STS, 32-bit
@@ -917,30 +997,32 @@ __device__ __forceinline__ void forward(const CUtensorMap* tm_qu, const CUtensor
   }
   __syncthreads();
   if (hp::warp_index() >= 8) {   // the producer warpgroup
+    if constexpr (kBias != 0) hp::setmaxnreg_dec<64>();
     if constexpr (L::kBf16)
       produce_bf16<kPos>(tm_qu, tm_qv, tm_k, tm_v, tm_p, sm, br, g, bh, i0);
     else if constexpr (kPos)
       produce_f32(tm_qu, tm_qv, tm_k, tm_v, tm_p, sm, br, g, bh, i0);
     else
-      produce_keys(tm_qu, tm_k, tm_v, sm, br, g, bh, i0);
+      produce_keys<kBias != 0>(tm_qu, tm_k, tm_v, sm, br, g, bh, i0);
     return;
   }
+  if constexpr (kBias != 0) hp::setmaxnreg_inc<216>();   // the bias tile's 32 registers
   if constexpr (L::kBf16)
-    consume_rows<kPos>(sm, br, g, bh, i0);
+    consume_rows<kPos, kBias>(sm, br, g, bh, i0);
   else if constexpr (kPos)
     consume_keys(sm, br, g, bh, i0);
   else
-    consume_tiles(sm, br, g, bh, i0);
+    consume_tiles<kBias>(sm, br, g, bh, i0);
 }
 
-// Launches `kern`, a kernel that runs forward<T, kPos> on its five tensor
-// maps (q_u, q_v, k, v, p) and g. q_u, k, v, out (B, H, T, 64) and, with
-// kPos, q_v (B, H, T, 64) and p (H, 2T-1, 64), all of type T, contiguous,
-// 16-byte aligned; g.H, g.T_len set.
-template <typename T, bool kPos, class Kernel>
+// Launches `kern`, a kernel that runs forward<T, kPos, kBias> on its five
+// tensor maps (q_u, q_v, k, v, p) and g. q_u, k, v, out (B, H, T, 64) and,
+// with kPos, q_v (B, H, T, 64) and p (H, 2T-1, 64), all of type T,
+// contiguous, 16-byte aligned; g.H, g.T_len (and with kBias g.bias) set.
+template <typename T, bool kPos, int kBias = 0, class Kernel>
 cudaError_t launch(Kernel kern, const void* qu, const void* qv, const void* k, const void* v,
                    const void* p, const Args& g, int B, cudaStream_t stream) {
-  using L = Layout<T, kPos>;
+  using L = Layout<T, kPos, kBias != 0>;
   if (!aligned16({qu, k, v, g.out}) || (kPos && !aligned16({qv, p})))
     return cudaErrorMisalignedAddress;
   const int es = (int)sizeof(T), bhn = B * g.H, T_len = g.T_len;

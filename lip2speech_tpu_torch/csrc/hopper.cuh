@@ -1,12 +1,14 @@
-// Hopper (sm_90a) building blocks of the kernels on wgmma (rel_attention_bwd.cu,
-// the forward of flash_fwd_hopper.cuh that attention.cu and rel_attention.cu
-// launch, and the resblock trio of fused_tail.cu): warpgroup matrix products
-// (wgmma) with their shared-memory descriptors, TMA tile loads, bulk copies
-// and bulk reductions, mbarriers, named barriers, the async-proxy fence and
-// the register reallocation of warp-specialised blocks (setmaxnreg), written
-// in inline PTX, the host-side encoding of TMA tensor maps, and the tile
-// helpers the attention kernels share (swizzled f32 tiles, the TF32 split of
-// a tile, the dropout keep words). Not compiled on its own.
+// Hopper (sm_90a) building blocks of the kernels on wgmma (the two
+// key-major backwards rel_attention_bwd.cu and rel_attention_bias_bwd.cu,
+// the forward of flash_fwd_hopper.cuh that attention.cu, rel_attention.cu
+// and rel_attention_bias.cu launch, and the resblock trio of
+// fused_tail.cu): warpgroup matrix products (wgmma) with their
+// shared-memory descriptors, TMA tile loads, bulk copies and bulk
+// reductions, mbarriers, named barriers, the async-proxy fence and the
+// register reallocation of warp-specialised blocks (setmaxnreg), written in
+// inline PTX, the host-side encoding of TMA tensor maps, and the tile
+// helpers the attention kernels share (swizzled f32 tiles, the TF32 split
+// of a tile, the dropout keep words). Not compiled on its own.
 //
 // Shared-memory operand tiles are 128-byte-swizzled, as TMA writes them with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes (64 bf16, or 32 floats)
@@ -416,9 +418,8 @@ __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint
 // accumulator layout: word 32w + 4g + q holds, for rows 16w + g (bits
 // 0..15) and 16w + g + 8 (bits 16..31), keys 8n + 2q + e at bit 2n + e.
 // philox.cuh's counter (i, j / 4, b*h) gives the four keys of a group of
-// four: keys 0, 1 belong to an even q, 2, 3 to the odd one. These are the
-// bits mma_tile.cuh's keep_frag draws in a consumer's place; here a
-// producer warpgroup draws them, thread pt taking one row (pt % 2 selects
+// four: keys 0, 1 belong to an even q, 2, 3 to the odd one. A producer
+// warpgroup draws them, thread pt taking one row (pt % 2 selects
 // g or g + 8) of the words of q = 2 qp, 2 qp + 1 for pair pt / 2 = (w, g,
 // qp): eight Philox calls a tile.
 __device__ __forceinline__ void keep_half(uint32_t& even, uint32_t& odd, const philox::Dropout& d,

@@ -6,8 +6,8 @@
 // rely on the order in which they draw, which ties the mask to the tiling.
 // Here the bits of element (i, j) of slice b*h are a pure function of
 // (seed, b*h, i, j): Philox4x32-10 with key = the 64-bit seed and counter
-// (i, j / 4, b*h, 0); word j % 4 of the result belongs to key j (mma_tile.cuh's
-// `keep_frag` maps one call onto the accumulator fragments). Forward and
+// (i, j / 4, b*h, 0); word j % 4 of the result belongs to key j (hopper.cuh's
+// `keep_half` maps the calls onto the accumulator fragments). Forward and
 // backward agree whatever their tiles, and ops/dropout_mask.py recomputes the
 // same mask with integer tensor ops.
 //

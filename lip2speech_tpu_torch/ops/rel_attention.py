@@ -16,9 +16,11 @@ the LIP2SPEECH_FLASH_IMPL environment variable, "shear" when unset):
            `rel_attention_bwd_plain`; autograd through `RelAttentionFn`.
   "bias"   (JAX: entry `_rel_flash_bias`) the position term is built outside
            as an additive f32 (B, H, T, T) bias, `rel_position_bias`;
-           csrc/rel_attention_bias.cu is a flash loop with one additive tile
-           and csrc/rel_attention_bias_bwd.cu returns dq_u, dk, dv and dbias
-           (in bf16 one key-major pass; dq_u by f32 reductions);
+           csrc/rel_attention_bias.cu (the bias variant of
+           csrc/flash_fwd_hopper.cuh's wgmma forward: each thread loads the
+           bias of its scores a tile ahead) and csrc/rel_attention_bias_bwd.cu
+           (one TMA-fed key-major pass) returns dq_u, dk, dv and dbias (dq_u
+           by f32 reductions);
            the gradients of q_v and p flow through `rel_position_bias` by
            PyTorch's autograd. Plain versions `dense_bias_attention` and
            `bias_attention_bwd_plain`; autograd through `BiasAttentionFn`.
@@ -267,9 +269,12 @@ def rel_attention_bias_kernel(q_u, k, v, bias, mask, dropout_rate: float = 0.0, 
     """Launch csrc/rel_attention_bias.cu; returns (out (B,H,T,dk), lse (B,H,T)
     f32). bias is (B, H, T, T) float32 whatever the type of q_u, k, v, and
     is added to the f32 scores unrounded. Rows with no valid key stay
-    finite. One tensor-core kernel for both types: f32 inputs run both
-    products in 3xTF32 (each operand split into a TF32 hi and an f32 lo),
-    bf16 ones in bf16 with P rounded to bf16 before P V. Deterministic."""
+    finite. flash_fwd_hopper.cuh's forward (a TMA producer warpgroup, two
+    consumer warpgroups on wgmma) with the bias tile added to each score
+    tile in log2 units: f32 inputs run both products in 3xTF32 (each operand
+    split into a TF32 hi and an f32 lo), 64 query rows a block, bf16 ones in
+    bf16 with P rounded to bf16 before P V, 128 rows a block. The returned
+    log-sum-exp is the natural one. Deterministic."""
     b, h, t, dk = q_u.shape
     _check_dropout(dropout_rate, seed)
     _check_inputs("rel_attention_bias",
@@ -291,9 +296,10 @@ rel_attention_bias_kernel.launches = 0   # kernel launches since the last reset
 def rel_attention_bias_bwd_kernel(q_u, k, v, bias, mask, lse, out, g,
                                   dropout_rate: float = 0.0, seed: int = 0):
     """Launch csrc/rel_attention_bias_bwd.cu; returns (dq_u, dk, dv, dbias)
-    with dbias (B, H, T, T) f32, the unscaled dS. One key-major tensor-core
-    kernel for both types (f32 inputs: every product in 3xTF32; bf16: dS and
-    P rounded to bf16 as operands). It sums dq_u over key blocks by f32
+    with dbias (B, H, T, T) f32, the unscaled dS. One TMA-fed key-major
+    kernel for both types, a block of 64 keys (f32 inputs: every product in
+    3xTF32; bf16: every product on wgmma, dS and P rounded to bf16 as
+    operands). It sums dq_u over key blocks by f32
     reductions into a zeroed f32 buffer allocated here (rounded to bf16
     after the launch for bf16 inputs), so the last bits of dq_u may differ
     between runs in either type; dk, dv and dbias are deterministic."""

@@ -8,14 +8,14 @@ package's bias kernels in interpret mode).
 
 The kernels take bf16 inputs and accumulate every product in f32. Where
 they round:
-  forward   (shear) one online softmax a row over whole 64-key tiles in
-            log2 units (S times scale * log2(e), exp2): the probabilities
+  forward   one online softmax a row over whole 64-key tiles in log2
+            units (S times scale * log2(e), exp2): the probabilities
             exp2(S - m) of each tile, at the row's running maximum m after
             that tile and after the dropout scale, to bf16 before P V; the
             row sum and the log-sum-exp (m ln 2 + ln l) stay f32; the output
-            to bf16. (bias) the same at the natural exp; its S is q_u.k *
-            scale + bias with the f32 bias added after the scale, never
-            rounded;
+            to bf16. (bias) its S in log2 units is q_u.k * scale * log2(e) +
+            bias * log2(e), the f32 bias added after the scale, never
+            rounded (flash_fwd_hopper.cuh's bias variant);
   backward  dS = P o (dPr o keep - D) / 8 and P~ = P o keep to bf16 before
             the gradient products, and with them (shear) the un-sheared band
             tile dG[i, T-1-i+j] = dS[i, j] that gives dq_v and dp; (bias)
@@ -24,7 +24,9 @@ they round:
             backward is key-major, a block of 64 keys: it takes P as exp2(S *
             scale log2(e) - lse log2(e)) from the unscaled f32 S, and dq_u,
             dq_v and dp are f32 sums of the blocks' partials, rounded to
-            bf16 once summed.
+            bf16 once summed. The bias backward is key-major too: P =
+            exp2(S - lse log2(e)) from the forward's log2 score, and dq_u the
+            f32 sum of the 64-key blocks' partials, rounded once summed.
 The emulation repeats exactly that (test-local: the package gains no code
 path). The assertions use the tolerances the kernels are held to on the
 card: 2e-2 forward, 1e-2 of max(1, |ref|) backward.
@@ -155,38 +157,50 @@ def test_bf16_rounding_points_fit_the_kernel_tolerances(t, rate):
 
 
 
+def _bias_scores2(q_u, k, bias):
+    """The bias kernels' scores in log2 units: acc * scale log2(e) + bias *
+    log2(e), the f32 bias never rounded before it."""
+    sl2 = LOG2E / math.sqrt(q_u.shape[-1])
+    return torch.einsum("bhqd,bhkd->bhqk", q_u, k) * sl2 + bias * LOG2E
+
+
 def _emulate_bias_forward(q_u, k, v, bias, mask, keep, rate):
-    """rel_attention_bias.cu's bf16 kernel: the f32 bias added after the
-    scale, then an online softmax over 64-key tiles of one running maximum."""
-    s = tra.bias_scores(q_u, k, bias).masked_fill(~mask[:, None, None, :], tra.NEG_INF)
-    m = torch.full(s.shape[:-1] + (1,), -math.inf)
+    """rel_attention_bias.cu's bf16 kernel (flash_fwd_hopper.cuh's bias
+    variant): the score in log2 units, then one online softmax a row over
+    whole 64-key tiles, masked keys at -1e30 log2(e)."""
+    masked2 = tra.NEG_INF * LOG2E
+    s = _bias_scores2(q_u, k, bias).masked_fill(~mask[:, None, None, :], masked2)
+    m = torch.full(s.shape[:-1] + (1,), masked2)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(q_u)
     for j0 in range(0, s.shape[-1], TILE):
         st = s[..., j0:j0 + TILE]
         m_new = torch.maximum(m, st.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        pt = torch.exp(st - m_new)
+        alpha = torch.exp2(m - m_new)
+        pt = torch.exp2(st - m_new)
         l = l * alpha + pt.sum(-1, keepdim=True)
         if keep is not None:
             pt = pt * keep[..., j0:j0 + TILE] * (1.0 / (1.0 - rate))
         acc = acc * alpha + _bf16(pt) @ v[..., j0:j0 + TILE, :]
         m = m_new
     l = l.clamp_min(1e-20)
-    return _bf16(acc / l), (m + torch.log(l))[..., 0]
+    return _bf16(acc / l), (m * math.log(2.0) + torch.log(l))[..., 0]
 
 
 def _emulate_bias_backward(q_u, k, v, bias, mask, lse, out, g, keep, rate):
-    """rel_attention_bias_bwd.cu's bf16 kernel: (dq_u, dk, dv, dbias)."""
-    s = tra.bias_scores(q_u, k, bias)
+    """rel_attention_bias_bwd.cu's bf16 kernel: (dq_u, dk, dv, dbias); P from
+    the forward's log2 score and lse log2(e), dq_u the f32 sum of the 64-key
+    blocks' partials."""
     valid = mask[:, None, None, :] & (lse > tra.NEG_INF / 2)[..., None]
-    prob = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    prob = torch.where(valid, torch.exp2(_bias_scores2(q_u, k, bias) - lse[..., None] * LOG2E),
+                       0.0)
     kf = 1.0 if keep is None else keep * (1.0 / (1.0 - rate))
     delta = (g * out).sum(-1, keepdim=True)
     dbias = prob * (g @ v.transpose(-1, -2) * kf - delta)        # f32, unscaled
     ds = _bf16(dbias * (1.0 / math.sqrt(q_u.shape[-1])))
     pd = _bf16(prob * kf)
-    grads = (ds @ k, ds.transpose(-1, -2) @ q_u, pd.transpose(-1, -2) @ g)
+    grads = (_key_block_sums(ds, lambda d: d @ k), ds.transpose(-1, -2) @ q_u,
+             pd.transpose(-1, -2) @ g)
     return (*(_bf16(x) for x in grads), dbias)
 
 
@@ -217,7 +231,8 @@ def _jax_bias_route(q_u, k, v, bias, mask, g, blk=TILE):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("t", [127, 130])   # odd T: the kernels' single-float bias path
+@pytest.mark.parametrize("t", [50, 127, 130, 235])   # odd T: the kernels' single-float bias
+# path; 50: one key tile, shorter than it; 235: phase 11's T, four tiles
 def test_bias_route_bf16_rounding_points_fit_the_kernel_tolerances(t, rate):
     """B2 H2, batch row 0 ragged, row 1 fully masked (zero gradient)."""
     xs, mask, g, lens = _inputs(t, seed=2 * t + int(rate * 10), h=2)
