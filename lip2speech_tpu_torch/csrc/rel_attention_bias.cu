@@ -44,14 +44,23 @@
 //
 // bf16 (dtype 1): 128 query rows a block, 64 for each consumer warpgroup
 // against every key of a tile; S = Q_u K^T and P V on wgmma m64n64k16, f32
-// accumulation, P rounded to bf16 in registers. Four stages of K and V.
+// accumulation, P rounded to bf16 in registers. Four stages of K and V:
+// 86.1 KB of shared memory, 168 registers, no spill.
 //
 // f32 (dtype 0): 3xTF32, held to 1e-4 against the plain version, where one
 // TF32 product (~1e-3 off) would not pass. 64 query rows a block; the two
 // consumer warpgroups take alternate whole key tiles with their own online
 // softmax and merge at the end. The producer splits K once a tile, writes
 // V^T split, and under dropout draws the keep bits beside K. S on wgmma
-// m64n64k8 with Q's fragments split in registers, P V on m64n64k8.
+// m64n64k8 with Q's fragments split in registers, P V on m64n64k8. Three
+// stages of K, two of V^T: 179.4 KB, 168 registers, no spill.
+//   ptxas reports no wgmma serialization (C7510-C7515) in any
+// instantiation. Read against the mma.sync kernel it replaces, in one
+// process (NVIDIA H100 80GB HBM3, 700 W): bf16 0.0193 / 0.177 ms at B4 H8
+// T480 ragged / B8 H8 T1200 against 0.0235 / 0.220, f32 0.0379 / 0.395
+// against 0.0500 / 0.520. SDPA with the same bias in bf16 stays faster
+// (0.0159 / 0.158): it reads the bias in bf16, half the bytes that bind
+// this kernel.
 //
 // Bounds are checked, so T need not be a multiple of 64 or of 4.
 

@@ -75,7 +75,9 @@
 // five products (dK and dV in both, added at the end) spilled 368-676
 // bytes under the 168-register cap of 384 threads and read 0.81 ms; the
 // bias loaded two tiles ahead by one score warpgroup 0.66 (NVIDIA H100
-// 80GB HBM3, 700 W). Four stages.
+// 80GB HBM3, 700 W). Four stages: 131.4 KB of shared memory. ptxas
+// injects a warpgroup.arrive (C7519) at four points of the bf16
+// instantiations, and no wait and no serialization (C7510-C7515).
 //   f32 (dtype 0): 3xTF32 (mma_tile.cuh: hi = v rounded to TF32, lo = v -
 // hi, lo hi + hi lo + hi hi, f32 sums; held to 1e-4 of the plain version
 // and DBIAS_TOL, where one TF32 product, ~1e-3 off, fails). Both
@@ -96,7 +98,8 @@
 // ([key][query], row stride 72) and read as A by float2 in the k8 order.
 // dQ_u on mma.sync read 1.49 / 1.50 ms at B8 H8 T1200 against 1.28 / 1.29 on
 // wgmma (0.141 against 0.125 at B4 H8 T480; NVIDIA H100 80GB HBM3, 700 W).
-// Two stages.
+// Two stages: 214.3 KB, 168 registers, a 28-168 byte spill (the dQ_u
+// accumulators), no serialization.
 //   Every shared pointer derives from the dynamic shared array by offsets
 // (LDS / STS, no generic accesses). The producer warpgroup gives up
 // registers (setmaxnreg 40; the consumers 152 in bf16, 232 in f32).
