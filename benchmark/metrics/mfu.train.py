@@ -1,0 +1,9 @@
+"""Model FLOPs of the updates in the profiled window (3x the forward of their
+unpadded frames, benchmark/work.py) over its wall time and the card's peak
+for the configuration's type."""
+
+from benchmark import readers
+
+
+def read(view):
+    return readers.mfu(view)
